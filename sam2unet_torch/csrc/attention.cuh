@@ -1,26 +1,37 @@
-// Window attention over a projected qkv buffer, one block per
-// (window, head, query tile of 16 per warp, up to 4 warps).
+// Attention over projected q / k / v rows, one block per (window, head,
+// query tile of 16 per warp, up to 4 warps).
 //
-// qkv holds one row of 3*c channels per token, ordered [q | k | v] and
-// within each [heads, d] (hiera.py:102-104). The kernel finds a window's
-// tokens itself, so no partitioned copy exists in device memory:
-//   mode 0 (rows): window w is rows [w*S, (w+1)*S) (pre-partitioned groups,
-//                  or a whole image for global attention);
-//   mode 1 (grid): (B, H, W) token grid cut into win x win windows.
-// qpool=1 (transition blocks): each query is the 2x2 max of the window's
-// projected q (in-window q-pool); the output lands on the (B, H/2, W/2)
-// grid. Optional synthetic pad key (n_pad identical zero-padded tokens of
-// the reference collapse to one key): logit q.b_k*scale + ln(n_pad), value
-// b_v, both read from the qkv bias in the working type, as the reference's
-// plain form reads them (the Pallas kernel reads them in fp32).
+// q, k and v are d-wide head rows at element strides. For the fused blocks
+// they are the channel blocks [q | k | v] of one qkv buffer (3c channels
+// per token, within each [heads, d], hiera.py:102-104; `attn_on_qkv`); K10
+// passes any (B, S, heads, d) views. The kernel finds a window's tokens
+// itself, so no partitioned copy exists in device memory:
+//   mode 0 (rows): window w is batch entry w, token t of head h at
+//                  base + w*sb + t*ss + h*sh (pre-partitioned window groups,
+//                  a whole image for global attention, K10's sequences);
+//   mode 1 (grid): (B, H, W) token grid cut into ceil(H/win) x ceil(W/win)
+//                  windows. A window on the bottom or right edge holds only
+//                  its vh x vw tokens inside the grid (enumerated row-major);
+//                  the reference's win^2 - vh*vw zero pads become the pad
+//                  key below, and no query outside the grid exists.
+// qpool=1 (transition blocks, divisible grids): each query is the 2x2 max of
+// the window's projected q (in-window q-pool); the output lands on the
+// (B, H/2, W/2) grid. Optional synthetic pad key (n_pad identical
+// zero-padded tokens of the reference collapse to one key): logit
+// q.b_k*scale + ln(n_pad), value b_v, both read from the qkv bias in the
+// working type, as the reference's plain form reads them (the Pallas kernel
+// reads them in fp32); n_pad is the call's in mode 0 and each window's own
+// in mode 1. Optional lse output (K10): m + ln(l) of each query's scaled
+// scores, fp32.
 //
 // Streaming (flash) form: the block's Q tile is loaded once (head dim
 // zero-padded to NDF*16 for the 16-deep MMA step; pad lanes are zero and
 // add nothing); keys and values stream through a double-buffered cp.async
-// ring of 64-token tiles; each warp keeps its 16 rows' scores, running max,
-// running sum and output in registers (online softmax, fp32), so no S x S
-// or even BQ x S score matrix exists. The pad key seeds the running max,
-// sum and output before the first tile.
+// ring of 64-token tiles, the ragged last tile zero-filled and its keys
+// masked; each warp keeps its 16 rows' scores, running max, running sum and
+// output in registers (online softmax, fp32), so no S x S or even BQ x S
+// score matrix exists. The pad key seeds the running max, sum and output
+// before the first tile.
 //   bf16: Q.K^T and P.V on mma.sync.m16n8k16 (fp32 accumulate); the score
 //         accumulators become the P operand in registers, rounded to bf16.
 //   fp32: the same loop with CUDA-core dot products in the same register
@@ -32,18 +43,35 @@
 #include "common.cuh"
 
 struct AttnParams {
-  const void* qkv;         // tokens x 3c
-  void* out;               // output tokens x c
+  const void *q, *k, *v;   // head 0 of token 0 (of window 0 in mode 0)
+  long long q_sb, q_ss, q_sh;      // q strides: window (mode 0), token, head
+  long long kv_sb, kv_ss, kv_sh;   // the same for k and v
+  void* out;               // output rows of c channels, head h at h*d
+  float* lse;              // (windows * heads, Sq) or null
   const void* pad_bias;    // 3c qkv bias (pad key / value) or null
-  float pad_logn;          // ln(n_pad)
+  float pad_logn;          // mode 0: ln(n_pad)
   int c, d;
   int mode;                // 0 rows, 1 grid
-  int S;                   // keys per window
-  int Sq;                  // queries per window
+  int S;                   // keys per window (mode 1: win^2, the most)
+  int Sq;                  // queries per window (mode 1: the most)
   int H, W, win;           // grid mode geometry
   int qpool;
   float scale;
 };
+
+// q / k / v of a qkv buffer (rows of 3c, [q | k | v]); mode-0 windows of S
+// consecutive rows.
+static void attn_on_qkv(AttnParams& ap, int is_bf16, const void* qkv, int c,
+                        int nh, long long S) {
+  const char* base = static_cast<const char*>(qkv);
+  const size_t es = is_bf16 ? sizeof(bf16) : sizeof(float);
+  ap.q = base; ap.k = base + c * es; ap.v = base + 2 * c * es;
+  ap.q_ss = ap.kv_ss = 3LL * c;
+  ap.q_sb = ap.kv_sb = S * 3LL * c;
+  ap.q_sh = ap.kv_sh = c / nh;
+  ap.c = c; ap.d = c / nh;
+  ap.scale = 1.0f / sqrtf((float)(c / nh));
+}
 
 constexpr int A_BKV = 64;   // keys per streamed tile
 
@@ -55,25 +83,12 @@ inline size_t attn_smem_bytes(int bq, int dp, size_t tsize) {
   return b;
 }
 
-__device__ __forceinline__ long long attn_key_row(const AttnParams& p, int wi,
-                                                  int t) {
-  if (p.mode == 0) return (long long)wi * p.S + t;
-  const int nwx = p.W / p.win, nwin = (p.H / p.win) * nwx;
-  const int b = wi / nwin, r = wi - b * nwin;
-  const int wy = r / nwx, wx = r - (r / nwx) * nwx;
-  const int ty = t / p.win, tx = t - (t / p.win) * p.win;
-  return ((long long)b * p.H + wy * p.win + ty) * p.W + wx * p.win + tx;
-}
-
-__device__ __forceinline__ long long attn_out_row(const AttnParams& p, int wi,
-                                                  int t) {
-  if (!p.qpool) return attn_key_row(p, wi, t);
-  const int hw = p.win / 2, h2 = p.H / 2, w2 = p.W / 2;
-  const int nwx = p.W / p.win, nwin = (p.H / p.win) * nwx;
-  const int b = wi / nwin, r = wi - b * nwin;
-  const int wy = r / nwx, wx = r - (r / nwx) * nwx;
-  const int ty = t / hw, tx = t - (t / hw) * hw;
-  return ((long long)b * h2 + wy * hw + ty) * w2 + wx * hw + tx;
+// Row offset of a window's token t from its first token: rows of vw tokens
+// W apart (grid mode), or consecutive (vw == 0).
+__device__ __forceinline__ long long attn_rel(int t, int vw, int W) {
+  if (vw == 0) return t;
+  const int ty = t / vw;
+  return (long long)ty * W + (t - ty * vw);
 }
 
 template <typename T, int NDF>
@@ -92,18 +107,50 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
   const int wi = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * BQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q2 = (lane & 3) * 2;   // fragment row, column pair
-  const T* qkv = reinterpret_cast<const T*>(p.qkv);
   const T* pb = reinterpret_cast<const T*>(p.pad_bias);
-  const long long ld = 3LL * p.c;
-  const int qoff = h * p.d, koff = p.c + h * p.d, voff = 2 * p.c + h * p.d;
+  const int koff = p.c + h * p.d, voff = 2 * p.c + h * p.d;   // in pad_bias
+
+  // ---- this window: its keys S, queries Sq, where its tokens lie
+  int S = p.S, Sq = p.Sq;
+  int vw = 0, ovw = 0, oW = 0;        // token rows (grid mode), output rows
+  long long qw = (long long)wi * p.q_sb, kw = (long long)wi * p.kv_sb;
+  long long orow0 = (long long)wi * p.Sq;
+  float pad_logn = p.pad_logn;
+  bool pad = pb != nullptr;
+  if (p.mode == 1) {
+    const int nwx = (p.W + p.win - 1) / p.win;
+    const int nwin = ((p.H + p.win - 1) / p.win) * nwx;
+    const int b = wi / nwin, r = wi - b * nwin;
+    const int wy = r / nwx, wx = r - wy * nwx;
+    const int vh = min(p.win, p.H - wy * p.win);
+    vw = min(p.win, p.W - wx * p.win);
+    const long long row0 = ((long long)b * p.H + wy * p.win) * p.W + wx * p.win;
+    qw = row0 * p.q_ss;
+    kw = row0 * p.kv_ss;
+    if (!p.qpool) {
+      S = Sq = vh * vw;
+      orow0 = row0; ovw = vw; oW = p.W;
+      const int n_pad = p.win * p.win - S;
+      pad = pad && n_pad > 0;
+      pad_logn = n_pad > 0 ? logf((float)n_pad) : 0.f;
+    } else {
+      const int hw = p.win / 2;
+      orow0 = ((long long)b * (p.H / 2) + wy * hw) * (p.W / 2) + wx * hw;
+      ovw = hw; oW = p.W / 2;
+    }
+  }
+  if (q0 >= Sq) return;   // an edge window's spare query tiles
+  const T* qb = reinterpret_cast<const T*>(p.q) + qw + h * p.q_sh;
+  const T* kb = reinterpret_cast<const T*>(p.k) + kw + h * p.kv_sh;
+  const T* vb = reinterpret_cast<const T*>(p.v) + kw + h * p.kv_sh;
 
   // ---- Q tile (d % 8 == 0: an 8-vector is all real or all pad lanes)
   for (int idx = tid; idx < BQ * (DP / 8); idx += blockDim.x) {
     const int r = idx / (DP / 8), ch = (idx - r * (DP / 8)) * 8, t = q0 + r;
     V8<T> val = v8_zero<T>();
-    if (t < p.Sq && ch < p.d) {
+    if (t < Sq && ch < p.d) {
       if (!p.qpool) {
-        val = v8_load(qkv + attn_key_row(p, wi, t) * ld + qoff + ch);
+        val = v8_load(qb + attn_rel(t, vw, p.W) * p.q_ss + ch);
       } else {
         const int hw = p.win / 2, ty = t / hw, tx = t - (t / hw) * hw;
         float mx[8], f[8];
@@ -114,7 +161,7 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
 #pragma unroll
           for (int dx = 0; dx < 2; ++dx) {
             const int tok = (2 * ty + dy) * p.win + 2 * tx + dx;
-            v8_to_floats(v8_load(qkv + attn_key_row(p, wi, tok) * ld + qoff + ch), f);
+            v8_to_floats(v8_load(qb + attn_rel(tok, vw, p.W) * p.q_ss + ch), f);
 #pragma unroll
             for (int e = 0; e < 8; ++e) mx[e] = fmaxf(mx[e], f[e]);
           }
@@ -128,26 +175,26 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
     constexpr int NCH = DP / CH;
     for (int idx = tid; idx < A_BKV * NCH; idx += blockDim.x) {
       const int r = idx / NCH, ch = (idx - r * NCH) * CH, t = kt * A_BKV + r;
-      const bool valid = t < p.S && ch < p.d;
-      const long long row = valid ? attn_key_row(p, wi, t) * ld : 0;
-      cp_async16(Ks + (buf * A_BKV + r) * LDS + ch, qkv + row + koff + ch, valid);
-      cp_async16(Vs + (buf * A_BKV + r) * LDS + ch, qkv + row + voff + ch, valid);
+      const bool valid = t < S && ch < p.d;
+      const long long off = valid ? attn_rel(t, vw, p.W) * p.kv_ss + ch : 0;
+      cp_async16(Ks + (buf * A_BKV + r) * LDS + ch, kb + off, valid);
+      cp_async16(Vs + (buf * A_BKV + r) * LDS + ch, vb + off, valid);
     }
   };
-  const int nkt = (p.S + A_BKV - 1) / A_BKV;
+  const int nkt = (S + A_BKV - 1) / A_BKV;
   load_kv(0, 0);
   cp_async_commit();
   __syncthreads();   // Q tile stored
 
   // ---- pad-key logits of the warp's 16 rows
-  if (pb) {
+  if (pad) {
     for (int i = 0; i < 16; ++i) {
       const int r = warp * 16 + i;
       float dot = 0.f;
       for (int ch = lane; ch < p.d; ch += 32)
         dot = fmaf(to_f(Qs[r * LDS + ch]), to_f(pb[koff + ch]), dot);
       dot = warp_sum(dot);
-      if (lane == 0) spad[r] = dot * p.scale + p.pad_logn;
+      if (lane == 0) spad[r] = dot * p.scale + pad_logn;
     }
     __syncwarp();
   }
@@ -165,15 +212,15 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
   float m[2], l[2], o[NDT][4];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    m[hh] = pb ? spad[warp * 16 + g + 8 * hh] : -INFINITY;
-    l[hh] = (pb && (lane & 3) == 0) ? 1.f : 0.f;
+    m[hh] = pad ? spad[warp * 16 + g + 8 * hh] : -INFINITY;
+    l[hh] = (pad && (lane & 3) == 0) ? 1.f : 0.f;
   }
 #pragma unroll
   for (int f = 0; f < NDT; ++f)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = f * 8 + q2 + (e & 1);
-      o[f][e] = (pb && col < p.d) ? to_f(pb[voff + col]) : 0.f;
+      o[f][e] = (pad && col < p.d) ? to_f(pb[voff + col]) : 0.f;
     }
 
   for (int kt = 0; kt < nkt; ++kt) {
@@ -225,7 +272,7 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
 #pragma unroll
         for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
           const int key = kt * A_BKV + j * 8 + q2 + (e & 1);
-          const float v = key < p.S ? s[j][e] * p.scale : -INFINITY;
+          const float v = key < S ? s[j][e] * p.scale : -INFINITY;
           s[j][e] = v;
           mx = fmaxf(mx, v);
         }
@@ -291,7 +338,7 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
     __syncthreads();   // buffer kt consumed before iteration kt+1 refills it
   }
 
-  // ---- normalize, round once, scatter to the activations' own layout
+  // ---- normalize, round once, scatter to the output's own layout
   T* out = reinterpret_cast<T*>(p.out);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -299,14 +346,16 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
     den += __shfl_xor_sync(0xffffffffu, den, 1);
     den += __shfl_xor_sync(0xffffffffu, den, 2);
     const int t = q0 + warp * 16 + g + 8 * hh;
-    if (t >= p.Sq) continue;
-    T* orow = out + attn_out_row(p, wi, t) * p.c + h * p.d;
+    if (t >= Sq) continue;
+    T* orow = out + (orow0 + attn_rel(t, ovw, oW)) * p.c + h * p.d;
     const float inv = 1.f / den;
 #pragma unroll
     for (int f = 0; f < NDT; ++f) {
       const int col = f * 8 + q2;
       if (col < p.d) store2(orow + col, o[f][2 * hh] * inv, o[f][2 * hh + 1] * inv);
     }
+    if (p.lse && (lane & 3) == 0)
+      p.lse[((long long)wi * gridDim.y + h) * Sq + t] = m[hh] + logf(den);
   }
 }
 
@@ -329,7 +378,9 @@ template <typename T>
 static cudaError_t launch_attn(const AttnParams& p, int n_windows, int n_heads,
                                cudaStream_t stream) {
   // head dims of the SAM2 trunks: 56 (b+), 72 (l), 96 (t, s)
-  if (p.d % 8 || p.d > 96 || n_heads > 65535) return cudaErrorInvalidValue;
+  if (p.d % 8 || p.d > 96 || n_heads > 65535 || p.Sq < 1 || p.S < 1
+      || (p.Sq + 63) / 64 > 65535)
+    return cudaErrorInvalidValue;
   if (p.d <= 64) return launch_attn_t<T, 4>(p, n_windows, n_heads, stream);
   if (p.d <= 80) return launch_attn_t<T, 5>(p, n_windows, n_heads, stream);
   return launch_attn_t<T, 6>(p, n_windows, n_heads, stream);

@@ -47,10 +47,10 @@ extern "C" int k8_transition(
   if (e != cudaSuccess) return (int)e;
 
   AttnParams ap = {};
-  ap.qkv = qkv; ap.out = o; ap.pad_bias = nullptr; ap.pad_logn = 0.f;
-  ap.c = cout; ap.d = cout / nh; ap.mode = 1; ap.S = window * window;
+  attn_on_qkv(ap, is_bf16, qkv, cout, nh, 0);
+  ap.out = o; ap.mode = 1; ap.S = window * window;
   ap.Sq = (window / 2) * (window / 2); ap.H = H; ap.W = W; ap.win = window;
-  ap.qpool = 1; ap.scale = 1.0f / sqrtf((float)(cout / nh));
+  ap.qpool = 1;
   e = launch_attn_dt(is_bf16, ap, B * (H / window) * (W / window), nh, s);
   if (e != cudaSuccess) return (int)e;
 

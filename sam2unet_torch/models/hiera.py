@@ -1,14 +1,20 @@
 """Hiera trunk (sam2/modeling/backbones/hieradet.py:170-292) with the
 SAM2-UNet PEFT adapters, NHWC between blocks.
 
-Each block picks its path from the static grid geometry, as the JAX
-package does (sam2unet_tpu/models/hiera.py:120-413):
+Each block picks its path from the static grid geometry, in the JAX
+package's order (sam2unet_tpu/models/hiera.py:210-310):
+  - dim-preserving, remainder or 16-unaligned grid with n_w >= 4 columns of
+    windows (`strips_rem_supported`; hiera_s@960 stages 3-4) -> K12;
+  - dim-preserving, other remainder grids (hiera_l@352 stages 3-4) -> K6
+    per valid window group, with the synthetic pad key for the reference's
+    zero pads;
   - dim-preserving, window-divisible 16-aligned grid -> K4 (strip kernel);
-  - dim-preserving, remainder grid -> K6 per valid window group, with the
-    synthetic pad key for the reference's zero pads;
-  - dim-preserving, divisible but unaligned window, or global -> K6;
+  - dim-preserving, divisible but unaligned window -> K6 on the partition;
+  - global -> `fused_window_block`: K6 (S = 484 at 352), or LN -> QKV ->
+    K10 -> proj where one window's scores pass the JAX package's live-VMEM
+    gate (S = 3600 at 960);
   - q-pool transition on a divisible even grid -> K8;
-  - any other transition (hiera_l stage 3->4 at 352) -> plain tensor code;
+  - any other transition (stage 3->4 at 352 and 960) -> plain tensor code;
   - every block's LN2 -> MLP -> residual tail and every adapter -> K1.
 Inference only: drop path is the identity at eval.
 """
@@ -25,16 +31,14 @@ from sam2unet_torch.ops.attention import sdpa
 from sam2unet_torch.ops.fused_attention_block import (
     fused_window_block,
     fused_window_block_strips,
+    fused_window_block_strips_rem,
+    strips_rem_supported,
+    valid_group_blocks,
 )
 from sam2unet_torch.ops.fused_mlp import fused_mlp
 from sam2unet_torch.ops.fused_transition import fused_transition_block
 from sam2unet_torch.ops.pooling import max_pool2d
-from sam2unet_torch.ops.windowing import (
-    window_merge_valid,
-    window_partition,
-    window_partition_valid,
-    window_unpartition,
-)
+from sam2unet_torch.ops.windowing import window_partition, window_unpartition
 
 
 class MultiScaleAttention(nn.Module):
@@ -90,14 +94,12 @@ class MultiScaleBlock(nn.Module):
         if self.dim == self.dim_out:
             args = self._attn_args()
             nh = self.num_heads
-            if window > 0 and (h % window or w % window):
-                outs = []
-                for g, n_pad in window_partition_valid(x, window):
-                    nw_, gh, gw, _ = g.shape
-                    o = fused_window_block(g.reshape(nw_, gh * gw, c), *args,
-                                           num_heads=nh, n_pad=n_pad)
-                    outs.append(o.reshape(nw_, gh, gw, c))
-                x = window_merge_valid(outs, b, h, w, window)
+            if strips_rem_supported(h, w, window):
+                x = fused_window_block_strips_rem(x, *args, num_heads=nh,
+                                                  window=window)
+            elif window > 0 and (h % window or w % window):
+                x = valid_group_blocks(fused_window_block, x, *args,
+                                       num_heads=nh, window=window)
             elif window > 0 and (window * window) % 16 == 0:
                 x = fused_window_block_strips(x, *args, num_heads=nh,
                                               window=window)

@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("fused_mlp", "fused_attention_block", "fused_transition")
+SOURCES = ("fused_mlp", "fused_attention_block", "fused_transition",
+           "flash_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,10 +37,17 @@ SIGNATURES = {
                                    _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "k6_window_block": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P],
+        "k12_window_block_strips_rem": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                        _I, _P],
     },
     "fused_transition": {
         "k8_transition": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "flash_attention": {
+        "k10_flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _L, _L, _L, _L, _L, _L, ctypes.c_float, _P],
     },
 }
 

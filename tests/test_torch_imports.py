@@ -40,9 +40,10 @@ def test_port_package_has_the_expected_modules():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for mod in ("configs.py", "ops/dispatch.py", "ops/fused_mlp.py",
                 "ops/fused_attention_block.py", "ops/fused_transition.py",
+                "ops/flash_attention.py",
                 "ops/build.py", "models/hiera.py", "models/sam2unet.py",
                 "interop/from_jax.py", "data/dataset.py", "cli/test_cli.py"):
         assert f"sam2unet_torch/{mod}" in names
     for src in ("fused_mlp.cu", "fused_attention_block.cu",
-                "fused_transition.cu"):
+                "fused_transition.cu", "flash_attention.cu"):
         assert (ROOT / "sam2unet_torch" / "csrc" / src).is_file()

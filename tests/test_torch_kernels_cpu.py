@@ -4,8 +4,9 @@ Each port wrapper is given CPU tensors, so it takes its plain PyTorch
 version (the CUDA kernel itself runs only on the card: chip_smoke.py and
 tests/test_torch_kernels_cuda.py). The same seeded numpy inputs go through
 the JAX reference form (`_xla_mlp`, `_xla_strips`, `_xla_window_block`,
-`_xla_transition`) and, for K4, K6 and K8, through the Pallas kernel in
-interpret mode at the geometries of tests/test_fused_ops.py. Weights are
+`_xla_transition`, `_xla_strips_rem`) and, for K4, K6, K8, K10 and K12,
+through the Pallas kernel in interpret mode at the geometries of
+tests/test_fused_ops.py. Weights are
 JAX-layout (in, out) on the JAX side and transposed for the port.
 
 Tolerance: rtol = atol = 2e-5 in fp32, the bound tests/test_fused_ops.py
@@ -14,17 +15,24 @@ holds the Pallas kernels to (sums in another order, no other difference).
 
 from __future__ import annotations
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import sam2unet_tpu.ops.pallas.flash_attention as fa
 import sam2unet_tpu.ops.pallas.fused_attention_block as fab
 import sam2unet_tpu.ops.pallas.fused_transition as ft
 from sam2unet_torch.ops import dispatch
+from sam2unet_torch.ops.flash_attention import flash_attention
 from sam2unet_torch.ops.fused_attention_block import (
     fused_window_block,
     fused_window_block_strips,
+    fused_window_block_strips_rem,
+    long_sequence,
+    strips_rem_supported,
 )
 from sam2unet_torch.ops.fused_mlp import fused_mlp
 from sam2unet_torch.ops.fused_transition import fused_transition_block
@@ -121,10 +129,11 @@ def test_k4_strips_matches_pallas_interpret(geom):
 
 
 # (windows, S, c, heads, n_pad) — test_fused_ops.py:321-324 plus the
-# hiera_l@352 group shapes in miniature and a global block (S = 484)
+# hiera_l@352 group shapes in miniature, a global block (S = 484) and a
+# long one past 1024 tokens (the JAX form's streaming branch)
 WINDOW_GEOMS = [(4, 16, 24, 2, 0), (4, 16, 24, 2, 5), (2, 16, 64, 8, 0),
                 (2, 96, 32, 2, 160), (2, 36, 32, 2, 220), (2, 9, 16, 1, 55),
-                (2, 484, 32, 2, 0)]
+                (2, 484, 32, 2, 0), (1, 1089, 32, 2, 0)]
 
 
 @pytest.mark.parametrize("geom", WINDOW_GEOMS)
@@ -189,6 +198,97 @@ def test_k8_transition_matches_pallas_interpret(geom):
                                          interpret=True)
     got = fused_transition_block(_t(x), *pa, num_heads=nh, window=win)
     _close(got, want)
+
+
+# ----------------------------------------------------------------- K10
+
+# (batch, Sq, Sk, heads, d) — test_fused_ops.py:816-818
+FLASH_GEOMS = [(1, 960, 960, 1, 32), (2, 160, 320, 2, 16), (1, 48, 1280, 1, 8)]
+
+
+@pytest.mark.parametrize("geom", FLASH_GEOMS)
+def test_k10_flash_attention_matches_pallas_interpret(geom):
+    b, sq, sk, nh, d = geom
+    rng = np.random.default_rng(21)
+    q, k, v = (rng.standard_normal(sh).astype(np.float32) * 0.5
+               for sh in ((b, sq, nh, d), (b, sk, nh, d), (b, sk, nh, d)))
+    want, want_lse = fa._stream_fwd_impl(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), 1.0 / math.sqrt(d),
+                                         interpret=True)
+    got, lse = flash_attention(_t(q), _t(k), _t(v), return_lse=True)
+    assert lse.shape == (b * nh, sq)
+    _close(got, want)
+    _close(lse, np.asarray(want_lse).reshape(b * nh, sq))
+
+
+def test_k10_takes_strided_views_of_the_qkv_output():
+    """q/k/v as the long-form blocks pass them: channel slices of one QKV
+    buffer (rows of 3c), against the same values made contiguous."""
+    rng = np.random.default_rng(3)
+    qkv = _t(rng.standard_normal((2, 200, 3, 2, 16)).astype(np.float32))
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert q.stride() == (200 * 96, 96, 16, 1)
+    got, lse = flash_attention(q, k, v, return_lse=True)
+    want, want_lse = flash_attention(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), return_lse=True)
+    assert torch.equal(got, want) and torch.equal(lse, want_lse)
+
+
+@pytest.mark.parametrize("s,c,long", [(3600, 384, True), (4096, 256, True),
+                                      (484, 576, False), (196, 384, False),
+                                      (1024, 384, True), (1024, 256, False)])
+def test_long_sequence_gate_matches_jax(s, c, long):
+    """The port's copy of the live-VMEM gate of `_fused_window_block_vjp`
+    (fused_attention_block.py:303-305) at the shipped global blocks and
+    around its edge."""
+    s16 = s + (-s) % 16
+    assert (8 * s16 * s16 + 14 * s16 * c > 12 * 1024 * 1024) is long
+    assert long_sequence(s, c) is long
+
+
+# ----------------------------------------------------------------- K12
+
+# (batch, H, W, c, heads, window, residual) — test_fused_ops.py:586-591
+REM_GEOMS = [(1, 22, 22, 24, 2, 16, True), (1, 30, 30, 32, 4, 7, True),
+             (2, 32, 32, 24, 2, 14, True), (1, 28, 28, 24, 2, 14, True),
+             (2, 12, 12, 24, 2, 5, False), (2, 12, 18, 24, 2, 5, True)]
+
+
+@pytest.mark.parametrize("geom", REM_GEOMS)
+def test_k12_strips_rem_matches_xla_strips_rem(geom):
+    b, hh, wd, c, nh, win, res = geom
+    mk = _mk(np.random.default_rng(23))
+    x = mk(b, hh, wd, c)
+    ja, pa = _block_weights(mk, c)
+    want = fab._xla_strips_rem(jnp.asarray(x), *ja, nh, win, res)
+    got = fused_window_block_strips_rem(_t(x), *pa, num_heads=nh, window=win,
+                                        residual=res)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("geom", REM_GEOMS)
+def test_k12_strips_rem_matches_pallas_interpret(geom):
+    b, hh, wd, c, nh, win, res = geom
+    mk = _mk(np.random.default_rng(24))
+    x = mk(b, hh, wd, c)
+    ja, pa = _block_weights(mk, c)
+    want = fab._fused_strips_rem_fwd_impl(jnp.asarray(x), *ja, nh, win, res,
+                                          interpret=True)
+    got = fused_window_block_strips_rem(_t(x), *pa, num_heads=nh, window=win,
+                                        residual=res)
+    _close(got, want)
+
+
+# (H, W, window, c, heads): hiera_s@960 stages 3 and 4 take the remainder
+# strips; hiera_l@352 stages 3 and 4 (n_w = 2) take the valid groups
+@pytest.mark.parametrize("geom,want", [((60, 60, 14, 384, 4), True),
+                                       ((30, 30, 7, 768, 8), True),
+                                       ((22, 22, 16, 576, 8), False),
+                                       ((11, 11, 8, 1152, 16), False)])
+def test_rem_strip_gate_matches_jax(geom, want):
+    hh, wd, win, c, nh = geom
+    assert fab.strips_rem_supported(hh, wd, win, c, nh) is want
+    assert strips_rem_supported(hh, wd, win) is want
 
 
 # ------------------------------------------------------------ dispatch

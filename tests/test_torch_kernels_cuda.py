@@ -5,7 +5,8 @@ made inside the fixture, never at import). Run on a machine with the card:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 
-Shapes are small hiera_l-like geometries (head dim 72). Tolerances:
+Shapes are small hiera_l-like geometries (head dim 72) and the hiera_s@960
+geometries of K10 and K12 (head dim 96) at a small batch. Tolerances:
 max|kernel - plain| <= 2e-2 * max|plain| in bf16, 1e-4 in fp32 (TF32 off).
 """
 
@@ -17,9 +18,11 @@ import pytest
 import torch
 
 from sam2unet_torch.ops import dispatch
+from sam2unet_torch.ops.flash_attention import flash_attention
 from sam2unet_torch.ops.fused_attention_block import (
     fused_window_block,
     fused_window_block_strips,
+    fused_window_block_strips_rem,
 )
 from sam2unet_torch.ops.fused_mlp import fused_mlp
 from sam2unet_torch.ops.fused_transition import fused_transition_block
@@ -50,13 +53,16 @@ def _lin(gen, dtype, o, i):
 
 def _compare(call, dtype):
     dispatch.reset_launches()
-    got = call().float()
+    got = call()
     assert sum(dispatch.launches.values()) == 1
     with dispatch.force_plain():
-        want = call().float()
+        want = call()
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    assert err <= REL_TOL[dtype] * want.abs().max().item(), err
+    for g, w in zip(*((got, want) if isinstance(got, tuple)
+                      else ((got,), (want,)))):
+        g, w = g.float(), w.float()
+        err = (g - w).abs().max().item()
+        assert err <= REL_TOL[dtype] * w.abs().max().item(), err
 
 
 DTYPES = [torch.bfloat16, torch.float32]
@@ -119,3 +125,44 @@ def test_k8_kernel_matches_plain(gen, dtype, grid, window):
     ws, bs = _lin(gen, dtype, 144, 72)
     _compare(lambda: fused_transition_block(x, *w, ws, bs, num_heads=2,
                                             window=window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [72, 96])
+@pytest.mark.parametrize("s", [3600, 1089])  # hiera_s@960 global; ragged
+def test_k10_kernel_matches_plain(gen, dtype, d, s):
+    """o and lse, with q/k/v as channel slices of one QKV buffer."""
+    qkv = _rnd(gen, dtype, 1, s, 3, 2, d)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    _compare(lambda: flash_attention(q, k, v, return_lse=True), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k10_kernel_cross_lengths(gen, dtype):
+    q = _rnd(gen, dtype, 2, 160, 2, 96)
+    k, v = _rnd(gen, dtype, 2, 330, 2, 96), _rnd(gen, dtype, 2, 330, 2, 96)
+    _compare(lambda: flash_attention(q, k, v, return_lse=True), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_long_window_block_matches_plain(gen, dtype):
+    """A global block past the live-VMEM gate: LN -> QKV -> K10 -> proj."""
+    x = _rnd(gen, dtype, 1, 3600, 192)
+    w = _attn_weights(gen, dtype, 192, 192)
+    _compare(lambda: fused_window_block(x, *w, num_heads=2), dtype)
+    assert dispatch.launches == {"flash_attention": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,w,c,heads,window", [
+    (60, 60, 384, 4, 14), (30, 30, 768, 8, 7),   # hiera_s@960 stages 3, 4
+    (28, 28, 192, 2, 14), (12, 18, 144, 2, 5)])  # unaligned; ragged both ways
+def test_k12_kernel_matches_plain(gen, dtype, h, w, c, heads, window):
+    x = _rnd(gen, dtype, 1, h, w, c)
+    wts = _attn_weights(gen, dtype, c, c)
+    _compare(lambda: fused_window_block_strips_rem(x, *wts, num_heads=heads,
+                                                   window=window), dtype)
