@@ -1,5 +1,5 @@
-"""Shared CLI plumbing: device, model construction, strict weight loading,
-the reference postprocess."""
+"""Shared CLI plumbing: device, model construction, strict weight loading
+(a SAM2 trunk .pt, a SAM2-UNet .pth), the reference postprocess."""
 
 from __future__ import annotations
 
@@ -34,6 +34,50 @@ def load_checkpoint(model: SAM2UNet, path: str) -> None:
     if isinstance(state, dict) and isinstance(state.get("model"), dict):
         state = state["model"]
     model.load_state_dict(state, strict=True)
+
+
+def sam2_trunk_state(path: str) -> dict[str, torch.Tensor]:
+    """An official sam2_hiera_*.pt's `image_encoder.trunk.*` tensors under
+    this package's keys: `encoder.` in front, and each block's own keys
+    inside the adapter wrapper (`blocks.N.` -> `blocks.N.block.`), the JAX
+    package's `load_sam2_trunk` rules (interop/torch_convert.py:243-257)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, dict) and isinstance(state.get("model"), dict):
+        state = state["model"]
+    prefix = "image_encoder.trunk."
+    out = {}
+    for k, v in state.items():
+        if not k.startswith(prefix):
+            continue
+        parts = k[len(prefix):].split(".")
+        if parts[0] == "blocks":
+            parts = parts[:2] + ["block"] + parts[2:]
+        out["encoder." + ".".join(parts)] = v
+    if not out:
+        raise ValueError(f"no image_encoder.trunk.* keys found in {path}")
+    return out
+
+
+def load_weights(model: SAM2UNet, hiera_path: str = "",
+                 checkpoint: str = "") -> None:
+    """The reference loading contract (train.py:42-46): an optional SAM2
+    trunk, strict over the trunk's keys and shapes (every encoder key but
+    the adapters'), then an optional strict SAM2-UNet checkpoint."""
+    if hiera_path:
+        trunk = sam2_trunk_state(hiera_path)
+        want = {k: v for k, v in model.state_dict().items()
+                if k.startswith("encoder.") and "prompt_learn" not in k.split(".")}
+        missing, extra = sorted(set(want) - set(trunk)), sorted(set(trunk) - set(want))
+        shapes = sorted(k for k in set(want) & set(trunk)
+                        if tuple(want[k].shape) != tuple(trunk[k].shape))
+        if missing or extra or shapes:
+            raise KeyError(f"sam2 trunk {hiera_path} does not match "
+                           f"{type(model.encoder).__name__}: missing "
+                           f"{missing[:5]}, unexpected {extra[:5]}, shape "
+                           f"mismatch {shapes[:5]}")
+        model.load_state_dict(trunk, strict=False)
+    if checkpoint:
+        load_checkpoint(model, checkpoint)
 
 
 def postprocess_prediction(logits_nhwc: np.ndarray,

@@ -1,15 +1,32 @@
-"""EvalDataset (reference TestDataset, dataset.py:405-447): sorted images
-and masks, deterministic letterbox with padding metadata, PIL decode."""
+"""Datasets (host side): the port's own copies of the JAX package's
+TrainDataset and EvalDataset (sam2unet_tpu/data/dataset.py; reference
+FullDataset dataset.py:288-333 and TestDataset dataset.py:405-447).
+
+Sorted .jpg/.png images and .png masks, PIL decode. Train samples are
+augmented with a per-sample seed derived from (dataset seed, epoch, index)
+and collated into fixed-shape NHWC batches by a thread pool feeding a
+bounded queue; a ragged last batch is wrap-filled with real samples and
+`valid` counts them. The eval batches are letterboxed with their padding
+metadata.
+"""
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
 from collections.abc import Iterator
+from dataclasses import dataclass
 
 import numpy as np
 from PIL import Image
 
-from sam2unet_torch.data.transforms import letterbox, normalize
+from sam2unet_torch.data.transforms import (
+    TrainAugment,
+    letterbox,
+    letterbox_nearest,
+    normalize,
+)
 
 
 def _list_pairs(image_root: str, gt_root: str) -> tuple[list[str], list[str]]:
@@ -25,6 +42,52 @@ def load_rgb(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         img = Image.open(f).convert("RGB")
     return np.asarray(img, np.float32).transpose(2, 0, 1) / 255.0
+
+
+def load_gray(path: str) -> np.ndarray:
+    """(1, H, W) float32 in [0, 1]."""
+    with open(path, "rb") as f:
+        img = Image.open(f).convert("L")
+    return np.asarray(img, np.float32)[None] / 255.0
+
+
+@dataclass
+class Batch:
+    image: np.ndarray  # (B, H, W, 3) normalized
+    label: np.ndarray  # (B, H, W, 1) in {0, 1}
+    valid: int         # number of real samples (the rest repeat them)
+
+
+class TrainDataset:
+    def __init__(self, image_root: str, gt_root: str, size: int, seed: int = 0):
+        self.images, self.gts = _list_pairs(image_root, gt_root)
+        if len(self.images) != len(self.gts):
+            raise ValueError(f"image/mask count mismatch: {len(self.images)} "
+                             f"vs {len(self.gts)}")
+        self.size = size
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def sample(self, idx: int, rng_seed: int) -> tuple[np.ndarray, np.ndarray]:
+        aug = TrainAugment(self.size, seed=rng_seed)
+        return aug(load_rgb(self.images[idx]), load_gray(self.gts[idx]))
+
+    def epoch(self, batch_size: int, epoch: int = 0, shuffle: bool = True,
+              num_workers: int = 8, drop_last: bool = False) -> Iterator[Batch]:
+        order = np.arange(len(self))
+        if shuffle:
+            np.random.default_rng(self.seed + epoch).shuffle(order)
+        if drop_last:
+            order = order[: (len(order) // batch_size) * batch_size]
+
+        def produce(idx: int):
+            seed = self.seed * 1_000_003 + epoch * 65_537 + int(idx)
+            return self.sample(int(idx), rng_seed=seed)
+
+        yield from _batched_prefetch(order, produce, batch_size, self.size,
+                                     num_workers)
 
 
 class EvalDataset:
@@ -47,12 +110,14 @@ class EvalDataset:
         padded = normalize(padded)
         return padded.transpose(1, 2, 0)[None], gt, os.path.basename(path), padding
 
-    def batches(self, batch_size: int) -> Iterator[dict]:
+    def batches(self, batch_size: int, letterbox_gt: bool = False) -> Iterator[dict]:
         """Fixed-shape batches; the tail batch is zero-padded, `valid`
-        counts its real samples."""
+        counts its real samples. letterbox_gt adds "gt_letterboxed", the GT
+        letterboxed to model resolution (nearest), for device metrics."""
         for start in range(0, self.count, batch_size):
             idxs = list(range(start, min(start + batch_size, self.count)))
             images = np.zeros((batch_size, self.size, self.size, 3), np.float32)
+            gt_lb = np.zeros((batch_size, self.size, self.size), np.float32)
             paddings, gts, names = [], [], []
             for j, i in enumerate(idxs):
                 img, gt, name, padding = self.item(i)
@@ -60,5 +125,67 @@ class EvalDataset:
                 paddings.append(padding)
                 gts.append(gt)
                 names.append(name)
-            yield {"image": images, "padding": paddings, "gt": gts,
+                if letterbox_gt:
+                    gt_lb[j] = letterbox_nearest(gt[None], self.size)[0]
+            out = {"image": images, "padding": paddings, "gt": gts,
                    "name": names, "valid": len(idxs)}
+            if letterbox_gt:
+                out["gt_letterboxed"] = gt_lb
+            yield out
+
+
+def _batched_prefetch(order, produce, batch_size, size, num_workers):
+    """Thread-pool sample production feeding a bounded batch queue. A
+    failure in a worker reaches the consumer; an abandoned generator stops
+    the producer."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n = len(order)
+    out_q: queue.Queue = queue.Queue(maxsize=4)
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                out_q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            with ThreadPoolExecutor(max_workers=max(1, num_workers)) as pool:
+                for start in range(0, n, batch_size):
+                    if stop.is_set():
+                        return
+                    results = list(pool.map(produce,
+                                            order[start: start + batch_size]))
+                    b = len(results)
+                    images = np.zeros((batch_size, size, size, 3), np.float32)
+                    labels = np.zeros((batch_size, size, size, 1), np.float32)
+                    for j, (img, lbl) in enumerate(results):
+                        images[j] = img.transpose(1, 2, 0)
+                        labels[j] = lbl.transpose(1, 2, 0)
+                    for j in range(b, batch_size):  # wrap-fill the tail
+                        images[j] = images[j % b]
+                        labels[j] = labels[j % b]
+                    if not put(Batch(images, labels, valid=b)):
+                        return
+            put(None)
+        except BaseException as e:  # noqa: BLE001 - forwarded to the consumer
+            put(e)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = out_q.get()
+            if item is None:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join()

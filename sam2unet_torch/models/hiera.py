@@ -13,10 +13,23 @@ package's order (sam2unet_tpu/models/hiera.py:210-310):
   - global -> `fused_window_block`: K6 (S = 484 at 352), or LN -> QKV ->
     K10 -> proj where one window's scores pass the JAX package's live-VMEM
     gate (S = 3600 at 960);
-  - q-pool transition on a divisible even grid -> K8;
+  - q-pool transition on a divisible even grid -> K8 (in training only
+    where the copied `transition_bwd_supported` holds and the block is
+    frozen, hiera.py:318-327 there);
   - any other transition (stage 3->4 at 352 and 960) -> plain tensor code;
   - every block's LN2 -> MLP -> residual tail and every adapter -> K1.
-Inference only: drop path is the identity at eval.
+In training (`module.training`) the remainder strips (K12) are left for the
+valid groups, as the JAX package keeps them eval-only. The kernel wrappers
+are differentiable: the frozen blocks' backward is K5 (strips), K7 (valid
+groups with n_pad = 0, global blocks), K9 (transitions) and K2 (tails), the
+adapters' is K3, and the remainder groups' pad-key blocks and the plain
+transition go through autograd of the plain versions; where the JAX package
+runs a backward kernel not ported yet (K11 for the 3600-token global blocks
+of hiera_s@960, `unported_train_backward`) the backward raises on the card.
+The trunk is frozen
+as in the reference (SAM2UNet.py:146-147): every parameter but the
+adapters' has requires_grad False. The drop-path rate is 0 in every SAM2
+config, so drop path is the identity.
 """
 
 from __future__ import annotations
@@ -34,9 +47,13 @@ from sam2unet_torch.ops.fused_attention_block import (
     fused_window_block_strips_rem,
     strips_rem_supported,
     valid_group_blocks,
+    window_block_bwd_route,
 )
 from sam2unet_torch.ops.fused_mlp import fused_mlp
-from sam2unet_torch.ops.fused_transition import fused_transition_block
+from sam2unet_torch.ops.fused_transition import (
+    fused_transition_block,
+    transition_bwd_supported,
+)
 from sam2unet_torch.ops.pooling import max_pool2d
 from sam2unet_torch.ops.windowing import window_partition, window_unpartition
 
@@ -88,13 +105,17 @@ class MultiScaleBlock(nn.Module):
         return (a.qkv.weight, a.qkv.bias, self.norm1.weight, self.norm1.bias,
                 a.proj.weight, a.proj.bias)
 
+    def frozen(self) -> bool:
+        return not any(p.requires_grad for p in self.parameters())
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         window = self.window_size
+        train = self.training
         if self.dim == self.dim_out:
             args = self._attn_args()
             nh = self.num_heads
-            if strips_rem_supported(h, w, window):
+            if strips_rem_supported(h, w, window, train):
                 x = fused_window_block_strips_rem(x, *args, num_heads=nh,
                                                   window=window)
             elif window > 0 and (h % window or w % window):
@@ -115,7 +136,9 @@ class MultiScaleBlock(nn.Module):
                                        num_heads=nh).reshape(b, h, w, c)
         elif (self.q_stride == (2, 2) and window > 0 and window % 2 == 0
               and (window * window) % 16 == 0
-              and h % window == 0 and w % window == 0):
+              and h % window == 0 and w % window == 0
+              and (not train or (self.frozen() and transition_bwd_supported(
+                  window, self.dim_out, w, self.dim)))):
             x = fused_transition_block(
                 x, *self._attn_args(), self.proj.weight, self.proj.bias,
                 num_heads=self.num_heads, window=window)
@@ -193,6 +216,24 @@ def _block_plan(cfg: HieraConfig) -> list[dict]:
     return plan
 
 
+def unported_train_backward(cfg: HieraConfig, size: int) -> list[str]:
+    """The global blocks whose backward, with the trunk frozen and input
+    `size`, the JAX package runs through a kernel the port has not ported
+    yet (K11 past 1024 tokens: hiera_s@960's three 3600-token blocks), one
+    line each; empty where training runs on the port's kernels (hiera_l@352)."""
+    h = w = -(-size // 4)
+    out = []
+    for i, bk in enumerate(_block_plan(cfg)):
+        if bk["window_size"] == 0 and bk["dim"] == bk["dim_out"]:
+            route = window_block_bwd_route(h * w, bk["dim"], 0, False)
+            if route not in ("K7", "plain"):
+                out.append(f"block {i}: global attention over {h * w} "
+                           f"tokens at width {bk['dim']} needs {route}")
+        if bk["q_stride"] is not None:
+            h, w = h // bk["q_stride"][0], w // bk["q_stride"][1]
+    return out
+
+
 class PatchEmbed(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
@@ -215,6 +256,10 @@ class Hiera(nn.Module):
         self.blocks = nn.ModuleList(
             AdapterBlock(MultiScaleBlock(**bk), adapter_dim)
             for bk in _block_plan(cfg))
+        # adapters imply the reference's hard trunk freeze
+        for name, p in self.named_parameters():
+            if "prompt_learn" not in name.split("."):
+                p.requires_grad_(False)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         x = self.patch_embed.proj(x.permute(0, 3, 1, 2))

@@ -5,6 +5,13 @@ Public layout is NHWC: `forward` takes (B, S, S, 3) and returns
 (out, out1, out2), each (B, S, S, 1) logits. The neck and decoder run
 NCHW, as the reference does. `up4` is constructed and never called, as in
 the reference, so its keys are in the state dict.
+
+The trunk is frozen at construction (`Hiera`), as in the reference
+(SAM2UNet.py:146-147). The input is cast to the trunk's
+dtype and every layer computes in its input's dtype; the neck's and
+decoder's convolutions cast their (fp32 master) weights to it, and
+BatchNorm keeps fp32 parameters and statistics (`cast_frozen` makes the
+bf16 training model: frozen weights bf16, trainable ones fp32).
 """
 
 from __future__ import annotations
@@ -15,7 +22,7 @@ from torch import nn
 
 from sam2unet_torch.configs import SAM2UNetConfig
 from sam2unet_torch.models.hiera import Hiera
-from sam2unet_torch.nn.layers import BN_EPS, ConvBN
+from sam2unet_torch.nn.layers import BN_EPS, Conv2d, ConvBN
 from sam2unet_torch.ops.resize import resize_nchw
 
 
@@ -53,9 +60,9 @@ class DoubleConv(nn.Module):
     def __init__(self, cin: int, cout: int, mid: int):
         super().__init__()
         self.double_conv = nn.Sequential(
-            nn.Conv2d(cin, mid, 3, padding=1, bias=False),
+            Conv2d(cin, mid, 3, padding=1, bias=False),
             nn.BatchNorm2d(mid, eps=BN_EPS), nn.ReLU(inplace=True),
-            nn.Conv2d(mid, cout, 3, padding=1, bias=False),
+            Conv2d(mid, cout, 3, padding=1, bias=False),
             nn.BatchNorm2d(cout, eps=BN_EPS), nn.ReLU(inplace=True))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -94,9 +101,9 @@ class SAM2UNet(nn.Module):
         self.up2 = Up(2 * r, r)
         self.up3 = Up(2 * r, r)
         self.up4 = Up(2 * r, r)  # never called (reference parity)
-        self.side1 = nn.Conv2d(r, 1, 1)
-        self.side2 = nn.Conv2d(r, 1, 1)
-        self.head = nn.Conv2d(r, 1, 1)
+        self.side1 = Conv2d(r, 1, 1)
+        self.side2 = Conv2d(r, 1, 1)
+        self.head = Conv2d(r, 1, 1)
 
     def forward(self, x: torch.Tensor):
         x = x.to(self.encoder.pos_embed.dtype)
@@ -117,3 +124,12 @@ class SAM2UNet(nn.Module):
         d = self.up3(d, x1)
         out = up_head(self.head, d, 4)
         return out, out1, out2
+
+
+def cast_frozen(model: nn.Module, dtype: torch.dtype) -> None:
+    """Cast every parameter that needs no gradient (the frozen trunk) to
+    `dtype` in place, once: the bf16 training model keeps its trainable
+    parameters, buffers and BatchNorm in fp32."""
+    for p in model.parameters():
+        if not p.requires_grad:
+            p.data = p.data.to(dtype)

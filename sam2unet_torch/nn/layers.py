@@ -4,6 +4,9 @@
     BatchNorm eps 1e-5 in the neck and decoder.
   - `ConvBN` is the reference's BasicConv2d, whose forward skips its
     defined ReLU (SAM2UNet.py:83-86): conv (no bias) + BN, no activation.
+  - `Conv2d` computes in its input's dtype: the fp32 master weights of the
+    neck and decoder are cast to bf16 inside the graph under bf16 compute.
+    BatchNorm takes bf16 activations with fp32 parameters and statistics.
 """
 
 from __future__ import annotations
@@ -39,13 +42,21 @@ def linear_f32(x: torch.Tensor, weight: torch.Tensor,
     return y if bias is None else y + bias.float()
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d in the input's dtype (same parameters and keys)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 class ConvBN(nn.Module):
     """Conv (no bias) + BatchNorm, NO activation (BasicConv2d quirk)."""
 
     def __init__(self, cin: int, cout: int, kernel, padding=0, dilation=1):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, padding=padding,
-                              dilation=dilation, bias=False)
+        self.conv = Conv2d(cin, cout, kernel, padding=padding,
+                           dilation=dilation, bias=False)
         self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("fused_mlp", "fused_attention_block", "fused_transition",
-           "flash_attention")
+           "flash_attention", "fused_mlp_bwd", "fused_attention_block_bwd",
+           "fused_transition_bwd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,6 +49,19 @@ SIGNATURES = {
     "flash_attention": {
         "k10_flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, ctypes.c_float, _P],
+    },
+    # the backward kernels, in libraries of their own (the forward's stay as
+    # they are built without them)
+    "fused_mlp_bwd": {
+        "k2_mlp_bwd_dx": [_I, *[_P] * 12, _L, _I, _I, _P],
+        "k3_adapter_bwd": [_I, *[_P] * 16, _L, _I, _I, _I, _P],
+    },
+    "fused_attention_block_bwd": {
+        "k5_window_block_strips_bwd": [_I, *[_P] * 16, *[_I] * 7, _P],
+        "k7_window_block_bwd": [_I, *[_P] * 16, *[_I] * 5, _P],
+    },
+    "fused_transition_bwd": {
+        "k9_transition_bwd": [_I, *[_P] * 19, *[_I] * 7, _P],
     },
 }
 

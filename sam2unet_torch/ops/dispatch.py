@@ -9,6 +9,13 @@ wrapper raises.
 `launches` counts, per kernel wrapper, the calls that launched the kernel
 (one per wrapper call, however many CUDA launches the kernel takes);
 `variants` splits the same calls by (wrapper, shape variant).
+
+`with_backward` makes a kernel launch one autograd node that saves only its
+inputs and recomputes in its backward, as the JAX package's custom VJPs
+do; `plain_vjp` is the backward through the plain version, for the cases
+the JAX package also sends to its reference recompute. Where the JAX
+package's backward runs a kernel the port has not ported yet, the backward
+raises (`not_ported`).
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import contextvars
+from collections.abc import Callable, Sequence
 
 import torch
 
@@ -81,3 +89,59 @@ def ptr(t: torch.Tensor | None) -> int | None:
 
 def stream_of(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def cast(dtype: torch.dtype, *tensors: torch.Tensor | None) -> tuple:
+    """Each tensor in `dtype` (itself where it already is; None stays)."""
+    return tuple(t if t is None or t.dtype == dtype else t.to(dtype)
+                 for t in tensors)
+
+
+def needs_grad(*tensors: torch.Tensor | None) -> bool:
+    """True when autograd records and one of `tensors` requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def not_ported(kernel: str, item: str):
+    """Raise where the JAX package's backward runs a kernel the port does
+    not have yet: the plain version is not a stand-in for it on the card."""
+    raise NotImplementedError(
+        f"the JAX package runs {kernel} for this backward, and "
+        f"sam2unet_torch has not ported it yet (ROADMAP.md open item {item})")
+
+
+class _KernelFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fwd, bwd, *tensors):
+        ctx.bwd = bwd
+        ctx.save_for_backward(*tensors)
+        return fwd(*tensors)
+
+    @staticmethod
+    def backward(ctx, gy):
+        grads = ctx.bwd(ctx.saved_tensors, gy.contiguous(),
+                        ctx.needs_input_grad[2:])
+        return (None, None, *grads)
+
+
+def with_backward(fwd: Callable, bwd: Callable,
+                  *tensors: torch.Tensor | None) -> torch.Tensor:
+    """`fwd(*tensors)` as one autograd node. Its backward calls
+    `bwd(tensors, gy, needs)`, which returns one gradient per tensor (None
+    where `needs` is False). Only the inputs are saved."""
+    return _KernelFunction.apply(fwd, bwd, *tensors)
+
+
+def plain_vjp(fn: Callable, args: Sequence[torch.Tensor | None],
+              gy: torch.Tensor, needs: Sequence[bool]) -> tuple:
+    """Gradients of `fn(*args)` for the cotangent `gy`, by autograd through
+    `fn` recomputed (the plain version's backward), for the args whose
+    `needs` is True; None for the others."""
+    with torch.enable_grad():
+        leaves = [None if a is None else a.detach().requires_grad_(bool(n))
+                  for a, n in zip(args, needs)]
+        want = [a for a in leaves if a is not None and a.requires_grad]
+        got = iter(torch.autograd.grad(fn(*leaves), want, gy) if want else ())
+    return tuple(next(got) if a is not None and a.requires_grad else None
+                 for a in leaves)

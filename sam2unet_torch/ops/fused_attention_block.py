@@ -1,15 +1,26 @@
 """K4, K6 and K12: the Hiera attention block LN1 -> QKV -> window attention
--> proj -> +x, and its long-sequence form over K10. Counterpart of
+-> proj -> +x, and its long-sequence form over K10; K5 and K7, the dx-only
+backward of K4 and K6. Counterpart of
 sam2unet_tpu/ops/pallas/fused_attention_block.py (`fused_window_block` /
 `_xla_window_block`, `fused_window_block_strips` / `_xla_strips`,
-`_fused_strips_rem_fwd_impl` / `_xla_strips_rem`); the kernels are
-csrc/fused_attention_block.cu and csrc/flash_attention.cu.
+`_fused_strips_rem_fwd_impl` / `_xla_strips_rem`, `_strips_bwd`, `_bwd`);
+the kernels are csrc/fused_attention_block.cu, csrc/flash_attention.cu and
+csrc/fused_attention_block_bwd.cu (K5, K7).
 
 Weights are in torch layout: w_qkv (3c, c) with output channels ordered
-[3, heads, d], w_proj (c, c).
+[3, heads, d], w_proj (c, c). The wrappers are differentiable. The backward
+follows the JAX package's dispatch: the dx-only kernel where the block's
+weights are frozen and the window fits its live budget (K5 for the strips,
+K7 for n_pad = 0 window rows), autograd through the plain version,
+recomputed, where the JAX package runs its XLA recompute (the pad key,
+windows over the budget, weights that need gradients outside K7's
+weight-gradient mode), and an error where it runs a kernel not ported yet
+(K11 for the long form past 1024 tokens, K7's weight-gradient mode, K13).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +41,12 @@ from sam2unet_torch.ops.windowing import (
 # kernel for LN -> QKV -> streaming flash attention -> proj
 # (fused_attention_block.py:298-309)
 LONG_SEQUENCE_BYTES = 12 * 1024 * 1024
+# its backward's live budget for one window, dx only; half of it with the
+# weight gradients (fused_attention_block.py:1956-1958, :1901-1905)
+BWD_LIVE_BYTES = 8 * 1024 * 1024
+# past this many keys the XLA recompute's attention is the streaming flash
+# attention, whose backward is K11 (flash_attention.py:44, :245-251)
+MAX_FULL_SEQ = 1024
 
 
 def plain_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
@@ -96,23 +113,55 @@ def long_sequence(s: int, c: int) -> bool:
     return 8 * s16 * s16 + 14 * s16 * c > LONG_SEQUENCE_BYTES
 
 
-def strips_rem_supported(h: int, w: int, window: int) -> bool:
+def strips_rem_supported(h: int, w: int, window: int,
+                         train: bool = False) -> bool:
     """Whether a block on an (h, w) grid takes K12 (the JAX package's
     `strips_rem_supported`, fused_attention_block.py:1485-1519, with the
-    caller's remainder test, hiera.py:250-259): a window, a grid it does not
-    divide or whose window**2 is not 16-aligned, and n_w = ceil(w/window) >=
-    4 (at n_w < 4, hiera_l@352 stages 3-4, the valid groups won on the TPU).
+    caller's remainder test, hiera.py:250-259): not training (K12 is eval
+    only there), a window, a grid it does not divide or whose window**2 is
+    not 16-aligned, and n_w = ceil(w/window) >= 4 (at n_w < 4, hiera_l@352
+    stages 3-4, the valid groups won on the TPU).
 
     The JAX gate also needs the strip's live set under a VMEM cap, a TPU
-    limit the Hopper kernel does not have, so that estimate is left out. The
-    JAX package takes K12 at eval only; the port has no training path yet,
-    and when it gets one `MultiScaleBlock.forward` passes its training flag
-    here and a training block takes the valid groups."""
-    if window <= 0:
+    limit the Hopper kernel does not have, so that estimate is left out."""
+    if window <= 0 or train:
         return False
     if h % window == 0 and w % window == 0 and (window * window) % 16 == 0:
         return False
     return -(-w // window) >= 4
+
+
+def window_block_bwd_route(s: int, c: int, n_pad: int,
+                           weight_grads: bool) -> str:
+    """The backward the JAX package runs for `fused_window_block` on
+    windows of S tokens at width c (fused_attention_block.py:1945-1991,
+    flash_attention.py:439-464): "K7" (dx only, the weights frozen), "K7
+    weight-grad" (its weight-gradient mode), "K11" (the XLA recompute of a
+    window past 1024 tokens, whose attention backward is the streaming
+    one), or "plain" (the XLA recompute: the pad key, windows over the live
+    budget). At hiera_l@352 the 484-token global blocks take K7; at
+    hiera_s@960 the 3600-token ones take K11."""
+    s16 = s + (-s) % 16
+    live = 12 * s16 * s16 + 14 * s16 * c
+    if n_pad:
+        return "plain"
+    if not weight_grads and live <= BWD_LIVE_BYTES:
+        return "K7"
+    if (weight_grads and 16 * c * c <= BWD_LIVE_BYTES
+            and live <= BWD_LIVE_BYTES // 2):
+        return "K7 weight-grad"
+    if s > MAX_FULL_SEQ and s % 16 == 0:
+        return "K11"
+    return "plain"
+
+
+def strips_bwd_kernel(window: int, c: int) -> bool:
+    """Whether the JAX package's backward of a frozen strip block on a
+    divisible grid is K5 (fused_attention_block.py:1896-1911): a 16-aligned
+    window whose live set fits the budget; else its XLA recompute."""
+    s = window * window
+    s16 = s + (-s) % 16
+    return s % 16 == 0 and 12 * s16 * s16 + 18 * s16 * c <= BWD_LIVE_BYTES
 
 
 def _check_block(x, c, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj, num_heads):
@@ -144,17 +193,56 @@ def _long_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
     return x + out if residual else out
 
 
+def _differentiable(fwd, bwd, x, weights, **kw):
+    """`fwd(x, *weights, **kw)` on the card; as one autograd node whose
+    backward is `bwd(saved, gy, needs, **kw)` when autograd records and
+    something requires a gradient."""
+    if not dispatch.needs_grad(x, *weights):
+        return fwd(x, *weights, **kw)
+    return dispatch.with_backward(functools.partial(fwd, **kw),
+                                  functools.partial(bwd, **kw), x, *weights)
+
+
+def _plain_backward(plain, saved, gy, needs, **kw):
+    return dispatch.plain_vjp(functools.partial(plain, **kw), saved, gy, needs)
+
+
 def fused_window_block(x: torch.Tensor, w_qkv, b_qkv, ln_w, ln_b, w_proj,
                        b_proj, num_heads: int, n_pad: int = 0,
                        residual: bool = True) -> torch.Tensor:
     """x: (nW, S, c) window rows -> (nW, S, c). n_pad > 0 adds the
     synthetic pad key standing for the reference's zero-padded tokens.
     K6, or past `long_sequence` the long form over K10 (the JAX package
-    runs plain attention there for S <= 1024; the port runs K10 at any S)."""
+    runs plain attention there for S <= 1024; the port runs K10 at any S).
+    Backward: `window_block_bwd_route`."""
+    weights = (w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj)
     if not dispatch.use_kernel(x):
-        return plain_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
-                                  num_heads, n_pad, residual)
+        return plain_window_block(x, *weights, num_heads, n_pad, residual)
+    return _differentiable(_window_block_kernel, _window_block_backward, x,
+                           weights, num_heads=num_heads, n_pad=n_pad,
+                           residual=residual)
+
+
+def _window_block_backward(saved, gy, needs, num_heads, n_pad, residual):
+    x = saved[0]
+    route = window_block_bwd_route(x.shape[1], x.shape[2], n_pad,
+                                   any(needs[1:]))
+    if route == "K7":
+        return (window_block_bwd(x, gy, *saved[1:], num_heads=num_heads,
+                                 residual=residual),) + (None,) * 6
+    if route == "K11":
+        dispatch.not_ported("K11 (the streaming attention backward)", "1")
+    if route != "plain":
+        dispatch.not_ported(route, "2")
+    return _plain_backward(plain_window_block, saved, gy, needs,
+                           num_heads=num_heads, n_pad=n_pad, residual=residual)
+
+
+def _window_block_kernel(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
+                         num_heads: int, n_pad: int, residual: bool):
     nw, s, c = x.shape
+    w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj = dispatch.cast(
+        x.dtype, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj)
     is_bf16 = _check_block(x, c, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
                            num_heads)
     if long_sequence(s, c):
@@ -181,6 +269,8 @@ def _grid_block(entry: str, x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
     """K4 or K12 on (B, H, W, c): the window partition happens inside the
     kernel's addressing."""
     b, hh, wd, c = x.shape
+    w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj = dispatch.cast(
+        x.dtype, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj)
     is_bf16 = _check_block(x, c, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
                            num_heads)
     m = b * hh * wd
@@ -200,17 +290,35 @@ def _grid_block(entry: str, x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
 def fused_window_block_strips(x: torch.Tensor, w_qkv, b_qkv, ln_w, ln_b,
                               w_proj, b_proj, num_heads: int, window: int,
                               residual: bool = True) -> torch.Tensor:
-    """K4. x: (B, H, W, c) on a window-divisible grid -> same shape."""
+    """K4. x: (B, H, W, c) on a window-divisible grid -> same shape.
+    Backward: K5 where the weights are frozen and `strips_bwd_kernel`
+    holds, else the plain recompute."""
+    weights = (w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj)
     if not dispatch.use_kernel(x):
-        return plain_strips(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
-                            num_heads, window, residual)
+        return plain_strips(x, *weights, num_heads, window, residual)
     if x.shape[1] % window or x.shape[2] % window:
         raise ValueError(f"strip kernel needs a divisible grid, got "
                          f"{x.shape[1]}x{x.shape[2]} with window {window}")
-    out = _grid_block("k4_window_block_strips", x, w_qkv, b_qkv, ln_w, ln_b,
-                      w_proj, b_proj, num_heads, window, residual)
+    return _differentiable(_strips_kernel, _strips_backward, x, weights,
+                           num_heads=num_heads, window=window,
+                           residual=residual)
+
+
+def _strips_kernel(x, *weights, num_heads: int, window: int, residual: bool):
+    out = _grid_block("k4_window_block_strips", x, *weights, num_heads,
+                      window, residual)
     dispatch.count_launch("fused_window_block_strips", f"window={window}")
     return out
+
+
+def _strips_backward(saved, gy, needs, num_heads, window, residual):
+    x = saved[0]
+    if not any(needs[1:]) and strips_bwd_kernel(window, x.shape[-1]):
+        return (window_block_strips_bwd(x, gy, *saved[1:], num_heads=num_heads,
+                                        window=window, residual=residual),
+                ) + (None,) * 6
+    return _plain_backward(plain_strips, saved, gy, needs, num_heads=num_heads,
+                           window=window, residual=residual)
 
 
 def fused_window_block_strips_rem(x: torch.Tensor, w_qkv, b_qkv, ln_w, ln_b,
@@ -219,13 +327,117 @@ def fused_window_block_strips_rem(x: torch.Tensor, w_qkv, b_qkv, ln_w, ln_b,
     """K12. x: (B, H, W, c) on any grid -> same shape; each edge window
     attends over its tokens inside the grid plus the synthetic pad key of
     the reference's post-LN zero pads, so the result equals the
-    valid-group form."""
+    valid-group form. Eval only in the model. Backward: the plain recompute
+    where the weights need gradients (the JAX package's XLA recompute); for
+    frozen weights the JAX package runs K13, not ported yet, so it
+    raises."""
+    weights = (w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj)
     if not dispatch.use_kernel(x):
-        return plain_strips_rem(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
-                                num_heads, window, residual)
+        return plain_strips_rem(x, *weights, num_heads, window, residual)
     if window <= 0:
         raise ValueError(f"remainder strip kernel needs a window, got {window}")
-    out = _grid_block("k12_window_block_strips_rem", x, w_qkv, b_qkv, ln_w,
-                      ln_b, w_proj, b_proj, num_heads, window, residual)
+    return _differentiable(_strips_rem_kernel, _strips_rem_backward, x,
+                           weights, num_heads=num_heads, window=window,
+                           residual=residual)
+
+
+def _strips_rem_kernel(x, *weights, num_heads: int, window: int,
+                       residual: bool):
+    out = _grid_block("k12_window_block_strips_rem", x, *weights, num_heads,
+                      window, residual)
     dispatch.count_launch("fused_window_block_strips_rem", f"window={window}")
     return out
+
+
+def _strips_rem_backward(saved, gy, needs, **kw):
+    if not any(needs[1:]):
+        dispatch.not_ported("K13 (the remainder strips' backward)", "3")
+    return _plain_backward(plain_strips_rem, saved, gy, needs, **kw)
+
+
+# ------------------------------------------------------------- backward
+
+
+def _bwd_buffers(x, c, nh, m, mq, windows, sq):
+    """Scratch of the dx-only backward kernels: LN(x), qkv, o, lse, dO, D,
+    dqkv, dLN(x), dx."""
+    dev, dt = x.device, x.dtype
+    rows = lambda n, w: torch.empty((n, w), dtype=dt, device=dev)  # noqa: E731
+    return dict(
+        xn=torch.empty_like(x), qkv=rows(m, 3 * c), o=rows(mq, c),
+        lse=torch.empty((windows * nh, sq), dtype=torch.float32, device=dev),
+        dout=rows(mq, c),
+        D=torch.empty(mq * nh, dtype=torch.float32, device=dev),
+        dqkv=rows(m, 3 * c), dxn=torch.empty_like(x), dx=torch.empty_like(x))
+
+
+def _block_bwd_args(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
+                    num_heads):
+    c = x.shape[-1]
+    w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj = dispatch.cast(
+        x.dtype, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj)
+    gy = gy.contiguous()
+    if gy.shape != x.shape:
+        raise ValueError("attention block backward: gy must be shaped as x")
+    is_bf16 = _check_block(x, c, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
+                           num_heads)
+    dispatch.check_kernel_args(x, gy)
+    return is_bf16, gy, (w_qkv, b_qkv, ln_w, ln_b, w_proj)
+
+
+def _launch_bwd(entry, is_bf16, x, gy, weights, buf, *geometry):
+    p = dispatch.ptr
+    err = getattr(build.library("fused_attention_block_bwd"), entry)(
+        is_bf16, p(x), p(gy), *(p(w) for w in weights),
+        *(p(buf[k]) for k in ("xn", "qkv", "o", "lse", "dout", "D", "dqkv",
+                              "dxn", "dx")),
+        *geometry, dispatch.stream_of(x))
+    build.check(err, entry)
+    return buf["dx"]
+
+
+def window_block_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
+                     num_heads: int, residual: bool = True) -> torch.Tensor:
+    """K7: dx of `fused_window_block` on (nW, S, c) without a pad key, for
+    a cotangent gy, the weights frozen; recomputed from x. Plain version:
+    autograd through `plain_window_block`."""
+    if not dispatch.use_kernel(x):
+        fn = functools.partial(plain_window_block, w_qkv=w_qkv, b_qkv=b_qkv,
+                               ln_w=ln_w, ln_b=ln_b, w_proj=w_proj,
+                               b_proj=b_proj, num_heads=num_heads,
+                               residual=residual)
+        return dispatch.plain_vjp(fn, (x,), gy, (True,))[0]
+    nw, s, c = x.shape
+    is_bf16, gy, weights = _block_bwd_args(x, gy, w_qkv, b_qkv, ln_w, ln_b,
+                                           w_proj, b_proj, num_heads)
+    buf = _bwd_buffers(x, c, num_heads, nw * s, nw * s, nw, s)
+    dx = _launch_bwd("k7_window_block_bwd", is_bf16, x, gy, weights, buf, nw,
+                     s, c, num_heads, int(residual))
+    dispatch.count_launch("window_block_bwd", f"S={s}")
+    return dx
+
+
+def window_block_strips_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
+                            num_heads: int, window: int,
+                            residual: bool = True) -> torch.Tensor:
+    """K5: dx of `fused_window_block_strips` on (B, H, W, c), a
+    window-divisible grid, for a cotangent gy, the weights frozen;
+    recomputed from x. Plain version: autograd through `plain_strips`."""
+    if not dispatch.use_kernel(x):
+        fn = functools.partial(plain_strips, w_qkv=w_qkv, b_qkv=b_qkv,
+                               ln_w=ln_w, ln_b=ln_b, w_proj=w_proj,
+                               b_proj=b_proj, num_heads=num_heads,
+                               window=window, residual=residual)
+        return dispatch.plain_vjp(fn, (x,), gy, (True,))[0]
+    b, hh, wd, c = x.shape
+    if window <= 0 or hh % window or wd % window:
+        raise ValueError(f"strip backward needs a divisible grid, got "
+                         f"{hh}x{wd} with window {window}")
+    is_bf16, gy, weights = _block_bwd_args(x, gy, w_qkv, b_qkv, ln_w, ln_b,
+                                           w_proj, b_proj, num_heads)
+    m, windows = b * hh * wd, b * (hh // window) * (wd // window)
+    buf = _bwd_buffers(x, c, num_heads, m, m, windows, window * window)
+    dx = _launch_bwd("k5_window_block_strips_bwd", is_bf16, x, gy, weights,
+                     buf, b, hh, wd, c, num_heads, window, int(residual))
+    dispatch.count_launch("window_block_strips_bwd", f"window={window}")
+    return dx

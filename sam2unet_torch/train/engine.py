@@ -1,0 +1,100 @@
+"""The train and eval steps, after sam2unet_tpu/train/engine.py (reference
+train.py:66-123): forward through the three heads, the summed structure
+loss, backward into the trainable set (the trunk is frozen: its blocks'
+backward computes dx only), one AdamW step; train-mode BatchNorm updates
+its running statistics (torch's convention: the running variance is the
+unbiased one, as in the reference; the JAX package stores the biased one).
+Evaluation runs the model in eval mode and reduces IoU and Dice on the
+device."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from sam2unet_torch.eval.metrics import MIOU
+from sam2unet_torch.eval.metrics_device import batched_semantic_metrics
+from sam2unet_torch.train.loss import multi_head_loss
+
+
+def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+               images: torch.Tensor, labels: torch.Tensor,
+               weighted_bce: bool = False) -> torch.Tensor:
+    """One step on (B, H, W, 3) normalized images and (B, H, W, 1) {0, 1}
+    labels. Returns the loss (a device scalar, not synchronised)."""
+    model.train()
+    loss = multi_head_loss(model(images), labels, weighted_bce)
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def eval_logits(model: nn.Module, images: torch.Tensor) -> torch.Tensor:
+    """The main head's logits in eval mode, (B, H, W, 1)."""
+    model.eval()
+    with torch.inference_mode():
+        return model(images)[0]
+
+
+def letterbox_valid_mask(paddings: torch.Tensor, size: int, h: int,
+                         w: int) -> torch.Tensor:
+    """(B, h, w, 1) bool, True inside the un-padded letterbox content;
+    paddings (B, 4) [left, top, right, bottom]."""
+    dev = paddings.device
+    rows = torch.arange(h, device=dev)[None, :, None, None]
+    cols = torch.arange(w, device=dev)[None, None, :, None]
+    left, top, right, bottom = (paddings[:, i][:, None, None, None]
+                                for i in range(4))
+    return ((rows >= top) & (rows < size - bottom)
+            & (cols >= left) & (cols < size - right))
+
+
+def postprocess_logits(logits: torch.Tensor, paddings: torch.Tensor,
+                       size: int) -> torch.Tensor:
+    """The reference eval postprocess on the device (train.py:103-112):
+    sigmoid inside the letterbox content, 0 outside."""
+    _, h, w, _ = logits.shape
+    valid = letterbox_valid_mask(paddings, size, h, w)
+    probs = torch.sigmoid(logits.float())
+    return torch.where(valid, probs, torch.zeros_like(probs))
+
+
+def evaluate(model: nn.Module, test_data, batch_size: int, size: int,
+             device: torch.device) -> tuple[dict, int]:
+    """Device evaluation over `test_data` (an EvalDataset): mean IoU and
+    Dice at model resolution against the letterboxed GT, with the
+    reference's binarization. Returns (report dict, forwards run)."""
+    ious, dices, count, forwards = [], [], 0, 0
+    for eb in test_data.batches(batch_size, letterbox_gt=True):
+        logits = eval_logits(model, torch.from_numpy(eb["image"]).to(device))
+        forwards += 1
+        pad = np.zeros((batch_size, 4), np.int64)
+        pad[: eb["valid"]] = np.asarray(eb["padding"], np.int64)
+        paddings = torch.from_numpy(pad).to(device)
+        probs = postprocess_logits(logits, paddings, size)[..., 0]
+        valid = torch.arange(batch_size, device=device) < eb["valid"]
+        pix = letterbox_valid_mask(paddings, size, probs.shape[1],
+                                   probs.shape[2])[..., 0]
+        gt = torch.from_numpy(eb["gt_letterboxed"]).to(device)
+        iou, dice = batched_semantic_metrics(probs, gt, valid, pix)
+        ious.append(iou.cpu())
+        dices.append(dice.cpu())
+        count += eb["valid"]
+        print(".", end="", flush=True)
+    return ({MIOU: float(torch.cat(ious).sum()) / count,
+             "mDice": float(torch.cat(dices).sum()) / count,
+             "images_count": count}, forwards)
+
+
+def fp32_state_dict(model: nn.Module,
+                    masters: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The model's state dict on the CPU in fp32; parameters named in
+    `masters` (the frozen fp32 weights kept before the bf16 cast) are taken
+    from there, so a saved checkpoint carries them unchanged."""
+    out = {}
+    for k, v in model.state_dict().items():
+        v = masters.get(k, v).detach().cpu()
+        out[k] = v.float() if v.is_floating_point() else v
+    return out

@@ -40,10 +40,15 @@ def test_port_package_has_the_expected_modules():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for mod in ("configs.py", "ops/dispatch.py", "ops/fused_mlp.py",
                 "ops/fused_attention_block.py", "ops/fused_transition.py",
-                "ops/flash_attention.py",
+                "ops/flash_attention.py", "ops/pooling.py",
                 "ops/build.py", "models/hiera.py", "models/sam2unet.py",
-                "interop/from_jax.py", "data/dataset.py", "cli/test_cli.py"):
+                "interop/from_jax.py", "data/dataset.py", "data/transforms.py",
+                "train/loss.py", "train/optim.py", "train/engine.py",
+                "train/checkpoints.py", "eval/metrics.py",
+                "eval/metrics_device.py", "cli/test_cli.py",
+                "cli/train_cli.py"):
         assert f"sam2unet_torch/{mod}" in names
     for src in ("fused_mlp.cu", "fused_attention_block.cu",
-                "fused_transition.cu", "flash_attention.cu"):
+                "fused_transition.cu", "flash_attention.cu",
+                "attention_bwd.cuh"):
         assert (ROOT / "sam2unet_torch" / "csrc" / src).is_file()

@@ -6,8 +6,12 @@ tests/test_torch_kernels_cuda.py). The same seeded numpy inputs go through
 the JAX reference form (`_xla_mlp`, `_xla_strips`, `_xla_window_block`,
 `_xla_transition`, `_xla_strips_rem`) and, for K4, K6, K8, K10 and K12,
 through the Pallas kernel in interpret mode at the geometries of
-tests/test_fused_ops.py. Weights are
-JAX-layout (in, out) on the JAX side and transposed for the port.
+tests/test_fused_ops.py. The backward wrappers (K2, K3, K5, K7, K9) are
+held against `jax.vjp` of the same `_xla_*` forms, and K5, K7 and K9 also
+against the Pallas backward kernels in interpret mode (K2 and K3 only
+against `jax.vjp(_xla_mlp)`: the Pallas kernels differentiate tanh-GELU,
+the port exact erf). Weights are JAX-layout (in, out) on the JAX side and
+transposed for the port, weight gradients likewise.
 
 Tolerance: rtol = atol = 2e-5 in fp32, the bound tests/test_fused_ops.py
 holds the Pallas kernels to (sums in another order, no other difference).
@@ -17,11 +21,14 @@ from __future__ import annotations
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import sam2unet_torch.ops.fused_attention_block as port_fab
+import sam2unet_torch.ops.fused_mlp as port_mlp
 import sam2unet_tpu.ops.pallas.flash_attention as fa
 import sam2unet_tpu.ops.pallas.fused_attention_block as fab
 import sam2unet_tpu.ops.pallas.fused_transition as ft
@@ -33,9 +40,15 @@ from sam2unet_torch.ops.fused_attention_block import (
     fused_window_block_strips_rem,
     long_sequence,
     strips_rem_supported,
+    window_block_bwd,
+    window_block_strips_bwd,
 )
-from sam2unet_torch.ops.fused_mlp import fused_mlp
-from sam2unet_torch.ops.fused_transition import fused_transition_block
+from sam2unet_torch.ops.fused_mlp import adapter_bwd, fused_mlp, mlp_bwd_dx
+from sam2unet_torch.ops.fused_transition import (
+    fused_transition_block,
+    transition_bwd,
+    transition_bwd_supported,
+)
 from sam2unet_tpu.ops.pallas.fused_mlp import _xla_mlp
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -289,6 +302,259 @@ def test_rem_strip_gate_matches_jax(geom, want):
     hh, wd, win, c, nh = geom
     assert fab.strips_rem_supported(hh, wd, win, c, nh) is want
     assert strips_rem_supported(hh, wd, win) is want
+
+
+# ------------------------------------------------------- backward: K2, K3
+
+
+@pytest.mark.parametrize("shape,hidden", [((2, 7, 9, 32), 128), ((5, 48), 192),
+                                          ((3, 4, 4, 144), 576)])
+def test_k2_mlp_bwd_dx_matches_jax_vjp(shape, hidden):
+    mk = _mk(np.random.default_rng(30))
+    c = shape[-1]
+    x, gy = mk(*shape), mk(*shape)
+    w1, b1, w2, b2 = mk(c, hidden), mk(hidden), mk(hidden, c), mk(c)
+    lns, lnb = mk(c) + 1, mk(c)
+    _, vjp = jax.vjp(lambda xx: _xla_mlp(xx, w1, b1, w2, b2, lns, lnb,
+                                         residual=True), jnp.asarray(x))
+    got = mlp_bwd_dx(_t(x), _t(gy), _t(w1, True), _t(b1), _t(w2, True),
+                     _t(b2), _t(lns), _t(lnb))
+    _close(got, vjp(jnp.asarray(gy))[0])
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 24), (6, 144), (2, 11, 11, 48)])
+def test_k3_adapter_bwd_matches_jax_vjp(shape):
+    """dx and the four weight gradients."""
+    mk = _mk(np.random.default_rng(31))
+    c, hidden = shape[-1], 32
+    x, gy = mk(*shape), mk(*shape)
+    w1, b1, w2, b2 = mk(c, hidden), mk(hidden), mk(hidden, c), mk(c)
+    _, vjp = jax.vjp(lambda *a: _xla_mlp(*a, residual=True, gelu_out=True),
+                     jnp.asarray(x), w1, b1, w2, b2)
+    want = vjp(jnp.asarray(gy))
+    got = adapter_bwd(_t(x), _t(gy), _t(w1, True), _t(b1), _t(w2, True),
+                      _t(b2))
+    for g, w, transpose in zip(got, want, (False, True, False, True, False)):
+        _close(g.t() if transpose else g, w)
+
+
+# --------------------------------------------------- backward: K5, K7, K9
+
+
+@pytest.mark.parametrize("geom", STRIP_GEOMS)
+def test_k5_strips_bwd_matches_jax_vjp(geom):
+    b, hh, wd, c, nh, win, res = geom
+    mk = _mk(np.random.default_rng(32))
+    x, gy = mk(b, hh, wd, c), mk(b, hh, wd, c)
+    ja, pa = _block_weights(mk, c)
+    _, vjp = jax.vjp(lambda xx: fab._xla_strips(xx, *ja, nh, win, res),
+                     jnp.asarray(x))
+    got = window_block_strips_bwd(_t(x), _t(gy), *pa, num_heads=nh,
+                                  window=win, residual=res)
+    _close(got, vjp(jnp.asarray(gy))[0])
+
+
+@pytest.mark.parametrize("geom", STRIP_GEOMS[:3])
+def test_k5_strips_bwd_matches_pallas_interpret(geom):
+    b, hh, wd, c, nh, win, res = geom
+    mk = _mk(np.random.default_rng(33))
+    x, gy = mk(b, hh, wd, c), mk(b, hh, wd, c)
+    ja, pa = _block_weights(mk, c)
+    want = fab._fused_strips_bwd_impl(jnp.asarray(x), jnp.asarray(gy),
+                                      *ja[:5], nh, win, res, interpret=True)
+    got = window_block_strips_bwd(_t(x), _t(gy), *pa, num_heads=nh,
+                                  window=win, residual=res)
+    _close(got, want)
+
+
+# K7's geometries: n_pad = 0 only (the pad-key groups' backward is the
+# reference recompute), with hiera_l@352's full groups and global block in
+# miniature and a ragged S
+K7_GEOMS = [g for g in WINDOW_GEOMS if g[4] == 0 and g[1] < 1024] + [
+    (2, 100, 24, 2, 0)]
+
+
+@pytest.mark.parametrize("geom", K7_GEOMS)
+def test_k7_window_block_bwd_matches_jax_vjp(geom):
+    nw, s, c, nh, _ = geom
+    mk = _mk(np.random.default_rng(34))
+    x, gy = mk(nw, s, c), mk(nw, s, c)
+    ja, pa = _block_weights(mk, c)
+    _, vjp = jax.vjp(lambda xx: fab._xla_window_block(xx, *ja, nh, 0, True),
+                     jnp.asarray(x))
+    got = window_block_bwd(_t(x), _t(gy), *pa, num_heads=nh)
+    _close(got, vjp(jnp.asarray(gy))[0])
+
+
+@pytest.mark.parametrize("geom", K7_GEOMS[:2])
+def test_k7_window_block_bwd_matches_pallas_interpret(geom):
+    """test_fused_ops.py:334's frozen dx-only variant."""
+    nw, s, c, nh, _ = geom
+    mk = _mk(np.random.default_rng(35))
+    x, gy = mk(nw, s, c), mk(nw, s, c)
+    ja, pa = _block_weights(mk, c)
+    want = fab._fused_window_block_bwd_impl(
+        jnp.asarray(x), jnp.asarray(gy), *ja[:5], nh, True,
+        weight_grads=False, interpret=True)[0]
+    got = window_block_bwd(_t(x), _t(gy), *pa, num_heads=nh)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("geom", TRANSITION_GEOMS)
+def test_k9_transition_bwd_matches_jax_vjp(geom):
+    x, ja, pa = _transition_inputs(36, geom)
+    b, hh, wd, _, cout, nh, win = geom
+    gy = _mk(np.random.default_rng(37))(b, hh // 2, wd // 2, cout)
+    _, vjp = jax.vjp(lambda xx: ft._xla_transition(xx, *ja, nh, win),
+                     jnp.asarray(x))
+    got = transition_bwd(_t(x), _t(gy), *pa, num_heads=nh, window=win)
+    _close(got, vjp(jnp.asarray(gy))[0])
+
+
+@pytest.mark.parametrize("geom", TRANSITION_GEOMS)
+def test_k9_transition_bwd_matches_pallas_interpret(geom):
+    """test_fused_ops.py:859's geometries."""
+    x, ja, pa = _transition_inputs(38, geom)
+    b, hh, wd, _, cout, nh, win = geom
+    gy = _mk(np.random.default_rng(39))(b, hh // 2, wd // 2, cout)
+    w, bq, lns, lnb, wp, _, wsh, bsh = ja
+    want = ft._transition_bwd_impl(jnp.asarray(x), jnp.asarray(gy), w, bq,
+                                   lns, lnb, wp, wsh, bsh, nh, win,
+                                   interpret=True)
+    got = transition_bwd(_t(x), _t(gy), *pa, num_heads=nh, window=win)
+    _close(got, want)
+
+
+def test_k9_routes_anti_diagonal_ties_like_xla():
+    """Cells [[u, v], [v, u]] tie on the diagonal or the anti-diagonal in
+    every channel. XLA's select_and_scatter (and torch's max_pool2d) send
+    the gradient to the first maximum in row-major order; so does the port.
+    (The Pallas backward pools rows first, then columns, and picks (1, 0)
+    on an anti-diagonal tie: it is not the oracle here.)"""
+    geom = (1, 8, 8, 24, 48, 2, 4)
+    x, ja, pa = _transition_inputs(41, geom)
+    u, v = x[:, :4, :4], x[:, 4:, 4:]
+    x = np.stack([np.stack([u, v], 3), np.stack([v, u], 3)], 2).reshape(x.shape)
+    gy = _mk(np.random.default_rng(42))(1, 4, 4, 48)
+    _, vjp = jax.vjp(lambda xx: ft._xla_transition(xx, *ja, 2, 4),
+                     jnp.asarray(x))
+    got = transition_bwd(_t(x), _t(gy), *pa, num_heads=2, window=4)
+    _close(got, vjp(jnp.asarray(gy))[0])
+
+
+# (window, cout, W, cin, want): hiera_l@352's two divisible transitions
+# pass; hiera_s@960's 240x240 window-8 one does not
+@pytest.mark.parametrize("geom", [(8, 288, 88, 144, True), (4, 576, 44, 288, True),
+                                  (8, 192, 240, 96, False), (4, 384, 120, 192, True),
+                                  (14, 768, 60, 384, False)])
+def test_transition_bwd_gate_matches_jax(geom):
+    *args, want = geom
+    assert ft.transition_bwd_supported(*args) is want
+    assert transition_bwd_supported(*args) is want
+
+
+# (S, c, n_pad, weight_grads, route) of `fused_window_block`'s backward:
+# hiera_l@352's full groups, pad-key groups and 484-token global blocks;
+# hiera_s@960's 3600-token global blocks (K11); trainable weights
+@pytest.mark.parametrize("geom", [
+    (256, 576, 0, False, "K7"), (64, 1152, 0, False, "K7"),
+    (484, 576, 0, False, "K7"), (96, 576, 160, False, "plain"),
+    (3600, 384, 0, False, "K11"), (1089, 384, 0, False, "plain"),
+    (1024, 256, 0, False, "plain"), (256, 576, 0, True, "K7 weight-grad"),
+    (64, 1152, 0, True, "plain"), (484, 576, 0, True, "plain"),
+    (36, 576, 220, True, "plain")])
+def test_window_block_bwd_route_follows_the_jax_dispatch(geom):
+    """The JAX package's `_bwd` (fused_attention_block.py:1956-1968) takes
+    its kernel for n_pad = 0 when the weight-gradient scratch and one
+    window's live set fit; otherwise its XLA recompute, whose attention
+    past 1024 tokens with a 16-aligned block is `flash_attention`'s
+    streaming backward (flash_attention.py:439-464, K11)."""
+    s, c, n_pad, weight_grads, want = geom
+    s_pad = s + (-s) % 16
+    live = 12 * s_pad * s_pad + 14 * s_pad * c
+    budget = (4 if weight_grads else 8) * 1024 * 1024
+    kernel = (n_pad == 0 and (16 * c * c if weight_grads else 0) <= 8 * 1024 * 1024
+              and live <= budget)
+    stream = (not kernel and n_pad == 0 and s > fa._MAX_FULL_SEQ
+              and fa._pick_stream_blocks(s, s) is not None)
+    assert {"K7": kernel and not weight_grads,
+            "K7 weight-grad": kernel and weight_grads,
+            "K11": stream, "plain": not kernel and not stream}[want]
+    assert port_fab.window_block_bwd_route(s, c, n_pad, weight_grads) == want
+
+
+@pytest.mark.parametrize("window,c,want", [(8, 144, True), (4, 288, True),
+                                           (8, 96, True), (7, 384, False),
+                                           (16, 1152, True), (32, 768, False)])
+def test_strips_bwd_gate_matches_jax(window, c, want):
+    """`_strips_bwd`'s K5 gate (fused_attention_block.py:1899-1905) on
+    divisible grids."""
+    s = window * window
+    s16 = s + (-s) % 16
+    assert (s % 16 == 0 and 12 * s16 * s16 + 18 * s16 * c <= 8 * 1024 * 1024) is want
+    assert port_fab.strips_bwd_kernel(window, c) is want
+
+
+def _zeros_block(nw, s, c):
+    x = torch.zeros(nw, s, c)
+    return (x, torch.zeros(3 * c, c), torch.zeros(3 * c), torch.ones(c),
+            torch.zeros(c), torch.zeros(c, c), torch.zeros(c))
+
+
+@pytest.mark.parametrize("case", ["K11", "K7 weight-grad", "K13", "K2"])
+def test_backward_raises_where_the_jax_package_runs_an_unported_kernel(case):
+    """The backward nodes the card's wrappers record: where the JAX package
+    runs a kernel the port has not ported, they raise naming the ROADMAP.md
+    item, and never recompute through the plain version instead."""
+    if case in ("K11", "K7 weight-grad"):
+        s, c, needs = ((1040, 8, (True,) + (False,) * 6) if case == "K11"
+                       else (16, 24, (True,) * 7))
+        saved = _zeros_block(1, s, c)
+        call = lambda: port_fab._window_block_backward(  # noqa: E731
+            saved, torch.zeros(1, s, c), needs, num_heads=1, n_pad=0,
+            residual=True)
+        match = "K11.*open item 1" if case == "K11" else "weight-grad.*open item 2"
+    elif case == "K13":
+        x, *w = _zeros_block(1, 12, 8)
+        saved = (x.reshape(1, 3, 4, 8), *w)
+        call = lambda: port_fab._strips_rem_backward(  # noqa: E731
+            saved, saved[0], (True,) + (False,) * 6, num_heads=1, window=3,
+            residual=True)
+        match = "K13.*open item 3"
+    else:
+        x = torch.zeros(4, 16)
+        saved = (x, torch.zeros(32, 16), torch.zeros(32), torch.zeros(16, 32),
+                 torch.zeros(16), None, None)
+        call = lambda: port_mlp._mlp_backward(  # noqa: E731
+            saved, x, (True,) + (False,) * 6, residual=True, gelu_out=False)
+        match = "K2 without LayerNorm.*open item 2"
+    with pytest.raises(NotImplementedError, match=match):
+        call()
+
+
+def test_backward_takes_the_plain_recompute_where_the_jax_package_does():
+    """A pad-key group's backward (the JAX package's XLA recompute) and a
+    trainable block's: autograd through the plain version, on every input
+    that needs a gradient."""
+    saved = _zeros_block(2, 9, 8)
+    gy = torch.ones(2, 9, 8)
+    got = port_fab._window_block_backward(saved, gy, (True,) + (False,) * 6,
+                                          num_heads=1, n_pad=55, residual=True)
+    assert got[0].shape == (2, 9, 8) and all(g is None for g in got[1:])
+    got = port_fab._window_block_backward(saved, gy, (True,) * 7, num_heads=1,
+                                          n_pad=55, residual=True)
+    assert all(g is not None for g in got)
+
+
+def test_wrappers_record_the_plain_graph_on_the_cpu():
+    """A CPU tensor that requires grad goes through the plain version, so
+    autograd reaches the inputs and the weights."""
+    mk = _mk(np.random.default_rng(40))
+    x = _t(mk(2, 8, 8, 24)).requires_grad_(True)
+    _, pa = _block_weights(mk, 24)
+    pa = [w.requires_grad_(True) for w in pa]
+    fused_window_block_strips(x, *pa, num_heads=2, window=4).sum().backward()
+    assert x.grad is not None and all(w.grad is not None for w in pa)
 
 
 # ------------------------------------------------------------ dispatch

@@ -6,8 +6,13 @@ made inside the fixture, never at import). Run on a machine with the card:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 
 Shapes are small hiera_l-like geometries (head dim 72) and the hiera_s@960
-geometries of K10 and K12 (head dim 96) at a small batch. Tolerances:
-max|kernel - plain| <= 2e-2 * max|plain| in bf16, 1e-4 in fp32 (TF32 off).
+geometries of K10 and K12 (head dim 96) at a small batch. The backward
+kernels (K2, K3, K5, K7, K9) are held against autograd through their plain
+versions, at hiera_l@352's widths and head dim 96, with a ragged S for K7
+and a tie case for K9's max-pool routing. Tolerances: max|kernel - plain|
+<= 2e-2 * max|plain| in bf16, 1e-4 in fp32 (TF32 off), for each output
+(K9 in bf16: see K9_NEAR_TIE_SHARE). The backward of a block whose JAX
+backward is a kernel not ported yet (K11) raises on the card.
 """
 
 from __future__ import annotations
@@ -23,9 +28,14 @@ from sam2unet_torch.ops.fused_attention_block import (
     fused_window_block,
     fused_window_block_strips,
     fused_window_block_strips_rem,
+    window_block_bwd,
+    window_block_strips_bwd,
 )
-from sam2unet_torch.ops.fused_mlp import fused_mlp
-from sam2unet_torch.ops.fused_transition import fused_transition_block
+from sam2unet_torch.ops.fused_mlp import adapter_bwd, fused_mlp, mlp_bwd_dx
+from sam2unet_torch.ops.fused_transition import (
+    fused_transition_block,
+    transition_bwd,
+)
 
 REL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
@@ -51,7 +61,11 @@ def _lin(gen, dtype, o, i):
             _rnd(gen, dtype, o, scale=0.1))
 
 
-def _compare(call, dtype):
+def _compare(call, dtype, near_ties=False):
+    """Every output within REL_TOL of max|plain|. With `near_ties` (K9 in
+    bf16), up to max(2, K9_NEAR_TIE_SHARE * n) of the n tokens (rows of the
+    last axis) may lie outside it, each within K9_NEAR_TIE_REL of
+    max|plain|."""
     dispatch.reset_launches()
     got = call()
     assert sum(dispatch.launches.values()) == 1
@@ -61,8 +75,16 @@ def _compare(call, dtype):
     for g, w in zip(*((got, want) if isinstance(got, tuple)
                       else ((got,), (want,)))):
         g, w = g.float(), w.float()
-        err = (g - w).abs().max().item()
-        assert err <= REL_TOL[dtype] * w.abs().max().item(), err
+        scale = w.abs().max().item()
+        err = (g - w).abs().reshape(-1, g.shape[-1]).amax(-1)
+        off = err > REL_TOL[dtype] * scale
+        assert torch.isfinite(g).all()
+        allowed = max(2, int(K9_NEAR_TIE_SHARE * off.numel())) if near_ties else 0
+        assert off.sum().item() <= allowed, (off.sum().item(), err.max().item(),
+                                             scale)
+        if near_ties:
+            assert err.max().item() <= K9_NEAR_TIE_REL * scale, (
+                err.max().item(), scale)
 
 
 DTYPES = [torch.bfloat16, torch.float32]
@@ -166,3 +188,136 @@ def test_k12_kernel_matches_plain(gen, dtype, h, w, c, heads, window):
     wts = _attn_weights(gen, dtype, c, c)
     _compare(lambda: fused_window_block_strips_rem(x, *wts, num_heads=heads,
                                                    window=window), dtype)
+
+
+# ------------------------------------------------------------- backward
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [144, 576])
+def test_k2_kernel_matches_plain(gen, dtype, c):
+    x, gy = _rnd(gen, dtype, 3, 50, c), _rnd(gen, dtype, 3, 50, c)
+    w1, b1 = _lin(gen, dtype, 4 * c, c)
+    w2, b2 = _lin(gen, dtype, c, 4 * c)
+    lw, lb = _rnd(gen, dtype, c, scale=0.1, shift=1.0), _rnd(gen, dtype, c, scale=0.1)
+    _compare(lambda: mlp_bwd_dx(x, gy, w1, b1, w2, b2, lw, lb), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tokens,c", [(150, 144), (1200, 1152), (777, 576)])
+def test_k3_kernel_matches_plain(gen, dtype, tokens, c):
+    """dx and the four fp32 weight gradients; 1200 tokens span 5 chunks of
+    the two-stage reduction."""
+    x, gy = _rnd(gen, dtype, tokens, c), _rnd(gen, dtype, tokens, c)
+    w1, b1 = _lin(gen, dtype, 32, c)
+    w2, b2 = _lin(gen, dtype, c, 32)
+    _compare(lambda: adapter_bwd(x, gy, w1, b1, w2, b2), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k3_weight_gradients_are_deterministic(gen, dtype):
+    x, gy = _rnd(gen, dtype, 4000, 144), _rnd(gen, dtype, 4000, 144)
+    w1, b1 = _lin(gen, dtype, 32, 144)
+    w2, b2 = _lin(gen, dtype, 144, 32)
+    a = adapter_bwd(x, gy, w1, b1, w2, b2)
+    b = adapter_bwd(x, gy, w1, b1, w2, b2)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid,window,c,heads", [(16, 8, 144, 2), (8, 4, 288, 4),
+                                                 (16, 8, 192, 2)])
+def test_k5_kernel_matches_plain(gen, dtype, grid, window, c, heads):
+    x, gy = _rnd(gen, dtype, 2, grid, grid, c), _rnd(gen, dtype, 2, grid, grid, c)
+    w = _attn_weights(gen, dtype, c, c)
+    _compare(lambda: window_block_strips_bwd(x, gy, *w, num_heads=heads,
+                                             window=window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,c,heads", [(256, 144, 2), (64, 288, 4), (484, 144, 2),
+                                       (100, 192, 2)])  # ragged; head dim 96
+def test_k7_kernel_matches_plain(gen, dtype, s, c, heads):
+    x, gy = _rnd(gen, dtype, 2, s, c), _rnd(gen, dtype, 2, s, c)
+    w = _attn_weights(gen, dtype, c, c)
+    _compare(lambda: window_block_bwd(x, gy, *w, num_heads=heads), dtype)
+
+
+# K9's two 2x2 max-pools send each pooled gradient to one position: where
+# the two recomputed forwards (the kernel's, the plain version's) round a
+# near-tie of a cell differently, that channel's gradient goes to another
+# of the cell's tokens, and the dx of those two tokens differ. In bf16 that
+# happened to 1.6e-5 and 6.5e-5 of the tokens at hiera_l@352's two
+# transitions (batch 16), off by at most 0.044 of max|plain|; here one such
+# cell (two tokens) or 1e-3 of the tokens may, each within 0.1 of
+# max|plain|. fp32 holds every token.
+K9_NEAR_TIE_SHARE = 1e-3
+K9_NEAR_TIE_REL = 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid,window,cin,cout,heads", [
+    (16, 8, 72, 144, 2), (8, 4, 144, 288, 4), (16, 8, 96, 192, 2)])
+def test_k9_kernel_matches_plain(gen, dtype, grid, window, cin, cout, heads):
+    x = _rnd(gen, dtype, 2, grid, grid, cin)
+    gy = _rnd(gen, dtype, 2, grid // 2, grid // 2, cout)
+    w = _attn_weights(gen, dtype, cin, cout)
+    ws, bs = _lin(gen, dtype, cout, cin)
+    _compare(lambda: transition_bwd(x, gy, *w, ws, bs, num_heads=heads,
+                                    window=window), dtype,
+             near_ties=dtype == torch.bfloat16)
+
+
+def _cells(u, v):
+    """x with each 2x2 cell [[u, v], [v, u]] from two (B, h, w, c) maps."""
+    x = torch.stack([torch.stack([u, v], 3), torch.stack([v, u], 3)], 2)
+    b, h, _, w, _, c = x.shape
+    return x.reshape(b, 2 * h, 2 * w, c).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k9_routes_exact_ties_to_the_first_position(gen, dtype):
+    """The four tokens of every 2x2 cell are equal, so the projected q and
+    the shortcut tie exactly in every channel in both versions, and every
+    pooled gradient goes to the cell's first token."""
+    u = _rnd(gen, dtype, 2, 8, 8, 72)
+    x = _cells(u, u)
+    gy = _rnd(gen, dtype, 2, 8, 8, 144)
+    w = _attn_weights(gen, dtype, 72, 144)
+    ws, bs = _lin(gen, dtype, 144, 72)
+    _compare(lambda: transition_bwd(x, gy, *w, ws, bs, num_heads=2, window=8),
+             dtype)
+
+
+@pytest.mark.cuda
+def test_k9_routes_anti_diagonal_ties_in_row_major_order(gen):
+    """Cells [[u, v], [v, u]]: each channel ties on the diagonal or the
+    anti-diagonal, and the first maximum in row-major order is (0, 0) or
+    (0, 1), never (1, 0) (fp32, so no rounding near-ties)."""
+    dtype = torch.float32
+    x = _cells(_rnd(gen, dtype, 2, 8, 8, 72), _rnd(gen, dtype, 2, 8, 8, 72))
+    gy = _rnd(gen, dtype, 2, 8, 8, 144)
+    w = _attn_weights(gen, dtype, 72, 144)
+    ws, bs = _lin(gen, dtype, 144, 72)
+    _compare(lambda: transition_bwd(x, gy, *w, ws, bs, num_heads=2, window=8),
+             dtype)
+
+
+@pytest.mark.cuda
+def test_backward_raises_where_the_jax_package_runs_k11(gen):
+    """A hiera_s@960 global block (3600 tokens at width 384, the long form)
+    trains through K11 in the JAX package; the port has not ported it, so
+    the backward fails loudly instead of recomputing through the plain
+    version."""
+    x = _rnd(gen, torch.bfloat16, 1, 3600, 384).requires_grad_()
+    w = _attn_weights(gen, torch.bfloat16, 384, 384)
+    y = fused_window_block(x, *w, num_heads=4)
+    with pytest.raises(NotImplementedError, match="K11.*ROADMAP.md open item 1"):
+        y.sum().backward()

@@ -1,5 +1,6 @@
 """The port at the fork's default operating point (hiera_s @ 960) on the
-CPU in fp32: which kernel wrapper each block calls, and the whole
+CPU in fp32: which kernel wrapper each block calls, in eval and (at
+hiera_s@960 and hiera_l@352, full widths) in training, and the whole
 SAM2-UNet forward against the JAX package's.
 
 At 960 the stage grids are 240/120/60/30 with hiera_s's windows 8/4/14/7:
@@ -23,6 +24,7 @@ import torch
 from test_torch_model_cpu import _perturb
 
 import sam2unet_torch.models.hiera as port_hiera
+from sam2unet_torch.configs import HIERA_L as PORT_HIERA_L
 from sam2unet_torch.configs import HIERA_S as PORT_HIERA_S
 from sam2unet_torch.configs import HieraConfig as PortHieraConfig
 from sam2unet_torch.configs import SAM2UNetConfig as PortConfig
@@ -45,16 +47,29 @@ TRUNK = dict(embed_dim=16, num_heads=1, stages=(1, 2, 3, 2),
 REL_TOL = 2e-5
 
 
-def _route_of_each_block(trunk: PortHieraConfig, x: torch.Tensor):
+def _route_of_each_block(trunk: PortHieraConfig, x: torch.Tensor,
+                         train: bool = False, stub: bool = False):
     """Run the port's trunk on x with spies on the kernel wrappers that
     hiera.py calls; returns the route each block took (in order) and the
-    number of fused_mlp calls."""
+    number of fused_mlp calls. `train` runs the trunk in training mode;
+    `stub` makes each spied wrapper return a tensor of its output's shape
+    instead of computing it, so a full-width trunk routes in a moment."""
     routes, mlp = [], collections.Counter()
+
+    def shape_of(name, a):
+        if name == "K8":
+            b, h, w, _ = a[0].shape
+            return a[0].new_zeros(b, h // 2, w // 2, a[5].shape[0])
+        if name == "plain":
+            blk, xx = a
+            b, h, w, _ = xx.shape
+            return xx.new_zeros(b, -(-h // 2), -(-w // 2), blk.dim_out)
+        return a[1] if name == "groups" else a[0]
 
     def spy(name, fn):
         def call(*a, **k):
             routes.append(name(a[0]) if callable(name) else name)
-            return fn(*a, **k)
+            return shape_of(name, a) if stub else fn(*a, **k)
         return call
 
     def global_route(xw):
@@ -63,10 +78,10 @@ def _route_of_each_block(trunk: PortHieraConfig, x: torch.Tensor):
 
     def mlp_spy(*a, **k):
         mlp[k.get("ln_w") is not None] += 1
-        return fused_mlp(*a, **k)
+        return a[0] if stub else fused_mlp(*a, **k)
 
     fused_mlp = port_hiera.fused_mlp
-    model = port_hiera.Hiera(trunk).eval()
+    model = port_hiera.Hiera(trunk).train(train)
     with pytest.MonkeyPatch.context() as mp:
         for attr, name in (("fused_window_block_strips", "K4"),
                            ("fused_window_block_strips_rem", "K12"),
@@ -77,7 +92,7 @@ def _route_of_each_block(trunk: PortHieraConfig, x: torch.Tensor):
         mp.setattr(port_hiera.MultiScaleBlock, "_unfused",
                    spy("plain", port_hiera.MultiScaleBlock._unfused))
         mp.setattr(port_hiera, "fused_mlp", mlp_spy)
-        with torch.inference_mode():
+        with torch.no_grad():
             outs = model(x)
     return routes, mlp, outs
 
@@ -95,6 +110,67 @@ def test_hiera_s_960_routes_every_block_like_the_jax_package():
                       + ["plain", "K12"])
     assert mlp == {True: 16, False: 16}
     assert [o.shape[1] for o in outs] == [240, 120, 60, 30]
+
+
+def test_hiera_s_960_routes_every_block_in_training():
+    """In training, as in the JAX package (hiera.py:250-259, :311-327
+    there): no remainder strips (K12 is eval only), the valid groups instead
+    (K6 forward, K7 / the pad-key recompute backward), and the 240x240
+    window-8 transition fails the copied `transition_bwd_supported` at
+    full width and takes the plain path."""
+    x = torch.zeros(1, SIZE, SIZE, 3)
+    routes, mlp, outs = _route_of_each_block(PORT_HIERA_S, x, train=True,
+                                             stub=True)
+    assert routes == (["K4", "plain", "K4", "K8"] + ["groups"] * 3 + ["long"]
+                      + ["groups"] * 2 + ["long"] + ["groups"] * 2 + ["long"]
+                      + ["plain", "groups"])
+    assert mlp == {True: 16, False: 16}
+    assert [o.shape[1] for o in outs] == [240, 120, 60, 30]
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_hiera_l_352_routes_every_block(train):
+    """hiera_l at full width and depth (48 blocks) at 352, in eval and in
+    training (the same routes: n_w = 2 keeps K12 out, both divisible
+    transitions pass the train gate): per forward K1 96, K4 7, K8 2, and
+    35 valid-group blocks plus 3 global blocks (K6 S = 484)."""
+    x = torch.zeros(1, 352, 352, 3)
+    routes, mlp, outs = _route_of_each_block(PORT_HIERA_L, x, train=train,
+                                             stub=True)
+    stage3 = ["K6" if i in (23, 33, 43) else "groups" for i in range(9, 44)]
+    assert routes == (["K4"] * 2 + ["K8"] + ["K4"] * 5 + ["K8"] + stage3
+                      + ["plain"] + ["groups"] * 3)
+    assert mlp == {True: 48, False: 48}
+    assert [o.shape[1] for o in outs] == [88, 44, 22, 11]
+
+
+def test_hiera_s_960_training_backward_needs_k11():
+    """The three 3600-token global blocks of hiera_s@960 take the long form
+    forward, and in training the JAX package differentiates them through
+    K11, which the port has not ported: `unported_train_backward` names
+    them (the train CLI refuses the configuration on the card, and their
+    backward raises there). hiera_l@352 has none."""
+    gaps = port_hiera.unported_train_backward(PORT_HIERA_S, SIZE)
+    assert [g.split(":")[0] for g in gaps] == ["block 7", "block 10", "block 13"]
+    assert all("3600 tokens" in g and g.endswith("needs K11") for g in gaps)
+    assert port_hiera.unported_train_backward(PORT_HIERA_L, 352) == []
+
+
+def test_training_routes_need_the_frozen_trunk():
+    """A trainable transition block leaves the fused transition in
+    training (hiera.py:325 there: `self.frozen and ...`)."""
+    x = torch.zeros(1, 352, 352, 3)
+    trunk = dataclasses.replace(PORT_HIERA_L, stages=(1, 1, 1, 1),
+                                global_att_blocks=())
+    model_routes = []
+    for frozen in (True, False):
+        with pytest.MonkeyPatch.context() as mp:
+            if not frozen:
+                mp.setattr(port_hiera.MultiScaleBlock, "frozen",
+                           lambda self: False)
+            model_routes.append(_route_of_each_block(trunk, x, train=True,
+                                                     stub=True)[0])
+    assert model_routes[0][1] == "K8" and model_routes[1][1] == "plain"
 
 
 @pytest.fixture(scope="module")
