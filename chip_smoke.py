@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (sam2unet_torch): inference at
 hiera_l @ 352 and hiera_s @ 960 (the test CLI's defaults), and training at
-hiera_l @ 352.
+hiera_l @ 352 and at hiera_s @ 960 (the train CLI's defaults).
 
     python3 chip_smoke.py            # every phase, as the acceptance run does
-    python3 chip_smoke.py --phases build,kernels --batch 2 --batch960 2 --batch_train 2
+    python3 chip_smoke.py --phases build,kernels --batch 2 --batch960 2 \
+        --batch_train 2 --batch_train960 2
     python3 chip_smoke.py --phases build,profile   # device time by kernel
-    python3 chip_smoke.py --paths l352train        # one path
+    python3 chip_smoke.py --paths s960train        # one path
 
-Phases, one line each, for each path of --paths (l352, s960, then
-l352train; the training path's are listed after these):
+Phases, one line each, for each path of --paths (l352, s960, then the
+training paths l352train and s960train, listed after these):
   1. the card (nvidia-smi name and power limit); build the CUDA kernels
      from csrc/ with nvcc (one process per source, all at once) and print
      the build time.
@@ -29,11 +30,17 @@ l352train; the training path's are listed after these):
      the card.
   4. forward throughput, bf16, CUDA events after warm-up: hiera_l@352 at
      --batch (32), hiera_s@960 at --batch960 (16, the fork's batch at 960).
-The training path, l352train (hiera_l@352, bf16 over fp32 master
-parameters, the trunk frozen):
-  2. every backward kernel (K2, K3, K5, K7, K9) against autograd through
-     its plain version on the card at the training step's shapes at
-     --batch_train (16), bf16 (K9 also on a case of exact ties; K9's
+The training paths, l352train (hiera_l@352) and s960train (hiera_s@960),
+bf16 over fp32 master parameters, the trunk frozen:
+  2. every backward kernel (K2, K3, K5, K7, K9, and at 960 the forward of
+     the valid groups, K6 at head dim 96 with and without the pad key, and
+     K11: the delta pass, the dq pass, the dk/dv pass and the three
+     together, on strided views of one (rows, 3c) buffer at (16, 3600, 4,
+     96) and on a pair of ragged lengths, against
+     `plain_flash_attention_bwd`, with the backward of SDPA as the
+     library's time) against autograd through its plain
+     version on the card at the training step's shapes at --batch_train /
+     --batch_train960 (16), bf16 (K9 also on a case of exact ties; K9's
      max-pool routing may send a near-tie elsewhere than the plain
      version's recomputed forward does, so up to 1e-3 of its tokens may
      differ in bf16, each within 0.1 of max |plain|) and fp32 once (K9's
@@ -42,18 +49,26 @@ parameters, the trunk frozen):
   3. the main path: the train CLI (sam2unet_torch.cli.train_cli.main) on a
      synthetic set of 16 train and 4 test images from the seeded random
      checkpoint, --size 352 --model_cfg sam2_hiera_l --bf16 --batch_size 8
-     --epoch 2: finite losses, every trainable parameter moved, every frozen
+     --epoch 2, or for s960train the CLI's defaults (hiera_s, 960, batch
+     16) with --bf16 --epoch 2 --save_train_state and then --resume from
+     the saved state for a third epoch: finite losses that fall, every trainable parameter moved, every frozen
      one bit-identical, the epoch reports in log.txt, a checkpoint that the
      test CLI loads strictly and runs; launches per train step of every
      wrapper (counters set to 0 just before, read just after); then one
      step's loss and trainable gradients, kernels against plain versions
-     on the same parameters and batch (batch 4, --step_seeds): in fp32
+     on the same parameters and batch (batch 4, at 960 batch 2;
+     --step_seeds): in fp32
      every leaf to correlation 0.9999 and 1e-2 of max |plain|; in bf16 the
      loss to 1e-2 and each leaf's gradient about as close to the fp32 one
      as the plain bf16 version's of the same leaf (rounding alone
-     decorrelates the deepest leaves, plain and kernels alike).
-  4. train-step throughput, bf16, batch --batch_train, CUDA events over 5
-     steps after 2 warm-up steps, and peak memory.
+     decorrelates the deepest leaves, plain and kernels alike). At 960 also
+     --remat's block checkpointing against the model without it: the same
+     loss and the same trainable gradients (under deterministic algorithms,
+     where two identical steps agree), and its launch counts.
+  4. train-step throughput, bf16, batch --batch_train / --batch_train960,
+     CUDA events over 5 steps after 2 warm-up steps, and peak memory; at
+     960 also with --remat. A batch that does not fit the card's memory is
+     reported with its size and halved.
 Then a JSON line of per-kernel numbers, the card line, and last the result
 line. Any failed phase exits non-zero before the result line. Without a
 CUDA device, or without the sam2unet_torch package beside this script, it
@@ -119,14 +134,41 @@ PATHS = {
                               "flash_attention": 3}),
     # per train step: the forward's launches and the backward kernels'
     "l352train": dict(label="hiera_l@352 train", cfg="sam2_hiera_l", size=352,
-                      train=True,
+                      train=True, eval_path="l352", cli_batch=8, step_batch=4,
                       per_step={"fused_mlp": 96, "fused_window_block_strips": 7,
                                 "fused_window_block": 143,
                                 "fused_transition_block": 2,
                                 "adapter_bwd": 48, "mlp_bwd_dx": 48,
                                 "window_block_strips_bwd": 7,
                                 "window_block_bwd": 38, "transition_bwd": 2}),
+    # the train CLI's defaults. Per step, from the routes under train
+    # (tests/test_torch_model_960_cpu.py): K4 at blocks 0 and 2, the 240x240
+    # transition unfused, K8 at block 3, eight valid-group blocks of four
+    # groups each (K6: 32, one n_pad = 0 group per block for K7: 8), three
+    # long blocks (K10 in the forward and again in the backward's recompute:
+    # 6; K11: 3, counted as its delta, dq and dk/dv passes), 16 tails and 16
+    # adapters. With --remat every trunk block's forward runs twice.
+    "s960train": dict(label="hiera_s@960 train", cfg="sam2_hiera_s", size=960,
+                      train=True, eval_path="s960", cli_batch=16, step_batch=2,
+                      remat=True, resume=True,
+                      per_step={"fused_mlp": 32, "fused_window_block_strips": 2,
+                                "fused_window_block": 32,
+                                "fused_transition_block": 1,
+                                "flash_attention": 6,
+                                "adapter_bwd": 16, "mlp_bwd_dx": 16,
+                                "window_block_strips_bwd": 2,
+                                "window_block_bwd": 8, "transition_bwd": 1,
+                                "flash_attention_bwd_delta": 3,
+                                "flash_attention_bwd_dq": 3,
+                                "flash_attention_bwd_dkv": 3},
+                      per_step_remat={"fused_mlp": 64,
+                                      "fused_window_block_strips": 4,
+                                      "fused_window_block": 64,
+                                      "fused_transition_block": 2,
+                                      "flash_attention": 9}),
 }
+BATCH_FLAG = {"l352": "batch", "s960": "batch960", "l352train": "batch_train",
+              "s960train": "batch_train960"}
 
 
 def fail(msg: str) -> None:
@@ -173,7 +215,13 @@ def make_case(kind: str, dtype, gen, **g):
     import torch
     import torch.nn.functional as F
 
-    from sam2unet_torch.ops.flash_attention import flash_attention
+    from sam2unet_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_delta,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
     from sam2unet_torch.ops.fused_attention_block import (
         fused_window_block,
         fused_window_block_strips,
@@ -221,6 +269,55 @@ def make_case(kind: str, dtype, gen, **g):
         library = lambda: F.scaled_dot_product_attention(qt, kt, vt)
         flops = 4 * b * nh * s * s * d
         nbytes = 4 * b * s * nh * d * qkv.element_size() + 4 * b * nh * s
+        return call, flops, nbytes, library
+
+    if kind.startswith("flash_bwd"):
+        # K11 over K10's interface. With one length, q/k/v are the channel
+        # blocks of a (B*S, 3c) QKV buffer and dq/dk/dv land in those of a
+        # dqkv buffer, as the long block's backward passes them; with Sk
+        # given, separate tensors of two lengths. o and lse come from K10.
+        b, sq, nh, d = g["batch"], g["S"], g["heads"], g["d"]
+        sk = g.get("Sk", sq)
+        if sk == sq:
+            qkv = rnd(b, sq, 3, nh, d)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            dqkv = torch.empty_like(qkv)
+            outs = (dqkv[:, :, 0], dqkv[:, :, 1], dqkv[:, :, 2])
+        else:
+            q, k, v = rnd(b, sq, nh, d), rnd(b, sk, nh, d), rnd(b, sk, nh, d)
+            outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        dout = rnd(b, sq, nh, d)
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        delta = flash_attention_bwd_delta(o, dout)
+        scale = 1.0 / math.sqrt(d)
+        es, pairs = q.element_size(), b * nh * sq * sk
+        nq, nk, rows = b * sq * nh * d, b * sk * nh * d, 4 * b * nh * sq
+        if kind == "flash_bwd_delta":
+            call = lambda: flash_attention_bwd_delta(o, dout)
+            library = lambda: torch.einsum("bqhd,bqhd->bhq", dout, o)
+            return call, 2 * nq, 2 * nq * es + rows, library
+        if kind == "flash_bwd_dq":      # scores, dP, dQ
+            call = lambda: flash_attention_bwd_dq(q, k, v, dout, lse, delta,
+                                                  scale, out=outs[0])
+            flops, nbytes = 6 * pairs * d, (3 * nq + 2 * nk) * es + 2 * rows
+        elif kind == "flash_bwd_dkv":   # scores, dV, dP, dK
+            call = lambda: flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                                   scale, out=outs[1:])
+            flops, nbytes = 8 * pairs * d, (2 * nq + 4 * nk) * es + 2 * rows
+        else:                           # the delta pass and both passes
+            call = lambda: flash_attention_bwd(q, k, v, o, lse, dout, out=outs)
+            flops, nbytes = 14 * pairs * d, (4 * nq + 4 * nk) * es + rows
+        graph = []
+
+        def library():
+            # the backward of SDPA (dq, dk and dv together) at this shape
+            if not graph:
+                leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+                          for t in (q, k, v)]
+                graph.append((F.scaled_dot_product_attention(*leaves), leaves))
+            out, leaves = graph[0]
+            return torch.autograd.grad(out, leaves, dout.transpose(1, 2),
+                                       retain_graph=True)
         return call, flops, nbytes, library
 
     if kind in ("strips", "strips_rem", "window", "transition"):
@@ -374,15 +471,53 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
     tra = ("sam2unet_tpu/ops/pallas/fused_transition.py:256",
            "sam2unet_torch/csrc/fused_transition.cu")
 
-    def npad(v: str) -> int:
-        return int(v.split("n_pad=")[1])
+    def k6_held(shapes):
+        """(select, shapes) of a K6 entry: the launches of exactly these
+        shapes' variants, so that a shape the main path gives K6 and no
+        entry holds against the plain version is found (`main`)."""
+        held = {f"S={g['S']},n_pad={g.get('n_pad', 0)}" for g in shapes}
+        return lambda w, v: w == "fused_window_block" and v in held, shapes
 
-    if path == "l352train":
-        grids, cs = (88, 44, 22, 11), (144, 288, 576, 1152)
+    def k7_held(shapes):
+        held = {f"S={g['S']}" for g in shapes}
+        return lambda w, v: w == "window_block_bwd" and v in held, shapes
+
+    if PATHS[path].get("train"):
+        fa = "sam2unet_tpu/ops/pallas/flash_attention.py"
+        src_k11 = "sam2unet_torch/csrc/flash_attention_bwd.cu"
+        if path == "l352train":
+            grids, cs = (88, 44, 22, 11), (144, 288, 576, 1152)
+            k5 = [dict(batch=b, grid=88, c=144, heads=2, window=8),
+                  dict(batch=b, grid=44, c=288, heads=4, window=4)]
+            # the 16-window groups of stages 3 and 4; the 484-token global
+            # blocks are timed as an entry of their own
+            k7 = [dict(windows=b, S=256, c=576, heads=8),
+                  dict(windows=b, S=64, c=1152, heads=16)]
+            k7_global = [dict(windows=b, S=484, c=576, heads=8)]
+            tra_shapes = [dict(batch=b, grid=88, cin=144, c=288, heads=4, window=8),
+                          dict(batch=b, grid=44, cin=288, c=576, heads=8, window=4)]
+        else:
+            grids, cs = (240, 120, 60, 30), (96, 192, 384, 768)
+            k5 = [dict(batch=b, grid=240, c=96, heads=1, window=8),
+                  dict(batch=b, grid=120, c=192, heads=2, window=4)]
+            # the n_pad = 0 groups: 4x4 windows of 14x14 on 60x60, of 7x7 on
+            # 30x30, head dim 96
+            k7 = [dict(windows=16 * b, S=196, c=384, heads=4),
+                  dict(windows=16 * b, S=49, c=768, heads=8)]
+            k7_global = []   # the 3600-token global blocks take K11
+            # the forward of the valid groups under train (K12 is eval only):
+            # on 60x60 16 windows of 14x14, 4 + 4 of 14x4 / 4x14 and one of
+            # 4x4 per image, on 30x30 the same of 7x7, 7x2 / 2x7 and 2x2
+            k6_full = [dict(windows=16 * b, S=196, c=384, heads=4),
+                       dict(windows=16 * b, S=49, c=768, heads=8)]
+            k6_pad = [dict(windows=4 * b, S=56, c=384, heads=4, n_pad=140),
+                      dict(windows=b, S=16, c=384, heads=4, n_pad=180),
+                      dict(windows=4 * b, S=14, c=768, heads=8, n_pad=35),
+                      dict(windows=b, S=4, c=768, heads=8, n_pad=45)]
+            tra_shapes = [dict(batch=b, grid=120, cin=192, c=384, heads=4,
+                               window=4)]
         tokens = [dict(tokens=b * hh * hh, c=c) for hh, c in zip(grids, cs)]
-        tra_shapes = [dict(batch=b, grid=88, cin=144, c=288, heads=4, window=8),
-                      dict(batch=b, grid=44, cin=288, c=576, heads=8, window=4)]
-        return [
+        specs = [
             ("K2 mlp_bwd_dx", "mlp_tail_bwd",
              "sam2unet_tpu/ops/pallas/fused_mlp.py:432", src_mlp_bwd,
              lambda w, v: w == "mlp_bwd_dx", tokens, 2),
@@ -391,20 +526,46 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
              lambda w, v: w == "adapter_bwd", tokens, 2),
             ("K5 window_block_strips_bwd", "strips_bwd", f"{fab}:1082",
              src_ab_bwd,
-             lambda w, v: w == "window_block_strips_bwd",
-             [dict(batch=b, grid=88, c=144, heads=2, window=8),
-              dict(batch=b, grid=44, c=288, heads=4, window=4)], 0),
+             lambda w, v: w == "window_block_strips_bwd", k5, 0),
+        ]
+        specs.append(
             ("K7 window_block_bwd", "window_bwd", f"{fab}:669", src_ab_bwd,
-             lambda w, v: w == "window_block_bwd",
-             [dict(windows=b, S=256, c=576, heads=8),
-              dict(windows=b, S=64, c=1152, heads=16),
-              dict(windows=b, S=484, c=576, heads=8)], 0),
+             *k7_held(k7), 0))
+        if k7_global:
+            specs.append(
+                ("K7 window_block_bwd (global S=484)", "window_bwd",
+                 f"{fab}:669", src_ab_bwd, *k7_held(k7_global), 0))
+        specs.append(
             ("K9 transition_bwd", "transition_bwd",
              "sam2unet_tpu/ops/pallas/fused_transition.py:483",
              "sam2unet_torch/csrc/fused_transition_bwd.cu",
              lambda w, v: w == "transition_bwd",
-             tra_shapes + [dict(tra_shapes[1], ties=True)], 0),
-        ]
+             tra_shapes + [dict(tra_shapes[-1], ties=True)], 0))
+        if path == "s960train":
+            specs += [
+                ("K6 fused_window_block (n_pad=0)", "window", f"{fab}:354",
+                 src_ab, *k6_held(k6_full), 0),
+                ("K6 fused_window_block (n_pad>0)", "window", f"{fab}:354",
+                 src_ab, *k6_held(k6_pad), 0)]
+            # ragged lengths first, so that the fp32 comparison takes the
+            # 3600-token shape
+            k11 = [dict(batch=2, S=1000, Sk=1337, heads=4, d=96),
+                   dict(batch=b, S=3600, heads=4, d=96)]
+            specs += [
+                ("K11 flash_attention_bwd (delta pass)", "flash_bwd_delta",
+                 f"{fa}:306", src_k11,
+                 lambda w, v: w == "flash_attention_bwd_delta", k11, 1),
+                ("K11a flash_attention_bwd_dq", "flash_bwd_dq", f"{fa}:314",
+                 src_k11, lambda w, v: w == "flash_attention_bwd_dq", k11, 1),
+                ("K11b flash_attention_bwd_dkv", "flash_bwd_dkv", f"{fa}:336",
+                 src_k11, lambda w, v: w == "flash_attention_bwd_dkv", k11, 1),
+                # the three passes through `flash_attention_bwd`, which
+                # launches nothing itself: one dq pass per call
+                ("K11 flash_attention_bwd (delta, dq, dk/dv)", "flash_bwd",
+                 f"{fa}:297", src_k11,
+                 lambda w, v: w == "flash_attention_bwd_dq", k11, 1),
+            ]
+        return specs
     if path == "l352":
         grids, cs = (88, 44, 22, 11), (144, 288, 576, 1152)
         return [
@@ -419,20 +580,15 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
              [dict(batch=b, grid=88, c=144, heads=2, window=8),
               dict(batch=b, grid=44, c=288, heads=4, window=4)], 0),
             ("K6 fused_window_block (n_pad=0)", "window", f"{fab}:354", src_ab,
-             lambda w, v: (w == "fused_window_block" and npad(v) == 0
-                           and not v.startswith("S=484,")),
-             [dict(windows=b, S=256, c=576, heads=8),
-              dict(windows=b, S=64, c=1152, heads=16)], 0),
+             *k6_held([dict(windows=b, S=256, c=576, heads=8),
+                  dict(windows=b, S=64, c=1152, heads=16)]), 0),
             ("K6 fused_window_block (n_pad>0)", "window", f"{fab}:354", src_ab,
-             lambda w, v: w == "fused_window_block" and npad(v) > 0,
-             [dict(windows=b, S=96, c=576, heads=8, n_pad=160),
-              dict(windows=b, S=36, c=576, heads=8, n_pad=220),
-              dict(windows=b, S=24, c=1152, heads=16, n_pad=40),
-              dict(windows=b, S=9, c=1152, heads=16, n_pad=55)], 0),
+             *k6_held([dict(windows=b, S=96, c=576, heads=8, n_pad=160),
+                  dict(windows=b, S=36, c=576, heads=8, n_pad=220),
+                  dict(windows=b, S=24, c=1152, heads=16, n_pad=40),
+                  dict(windows=b, S=9, c=1152, heads=16, n_pad=55)]), 0),
             ("K6 fused_window_block (global S=484)", "window", f"{fab}:354",
-             src_ab,
-             lambda w, v: w == "fused_window_block" and v.startswith("S=484,"),
-             [dict(windows=b, S=484, c=576, heads=8)], 0),
+             src_ab, *k6_held([dict(windows=b, S=484, c=576, heads=8)]), 0),
             ("K8 fused_transition_block", "transition", *tra,
              lambda w, v: w == "fused_transition_block",
              [dict(batch=b, grid=88, cin=144, c=288, heads=4, window=8),
@@ -679,8 +835,9 @@ def main_path_phase(path: str, tmp: Path) -> dict:
 
 def train_main_phase(path: str, tmp: Path, step_seeds: list[int],
                      step_report: str = "") -> dict:
-    """The train CLI end to end, its checkpoint through the test CLI, and
-    one train step's loss and gradients, kernels against plain versions."""
+    """The train CLI end to end (with `resume`, once more from its saved
+    train state), its checkpoint through the test CLI, and one train step's
+    loss and gradients, kernels against plain versions."""
     import torch
 
     from sam2unet_torch.cli import test_cli, train_cli
@@ -691,20 +848,28 @@ def train_main_phase(path: str, tmp: Path, step_seeds: list[int],
     spec = PATHS[path]
     label, cfg, size = spec["label"], spec["cfg"], spec["size"]
     data, train_data = tmp / "data", tmp / "train"
-    ckpt, out = tmp / f"{cfg}.pth", tmp / "train_run"
+    ckpt, out = tmp / f"{cfg}.pth", tmp / f"train_run_{path}"
     if not data.exists():
         write_dataset(data)
-    write_dataset(train_data, n=16, seed=1)
+    if not train_data.exists():
+        write_dataset(train_data, n=16, seed=1)
     if not ckpt.exists():
         random_checkpoint(ckpt, cfg, seed=0)
-    argv = ["--save_path", str(out), "--checkpoint", str(ckpt),
-            "--train_image_path", str(train_data / "images"),
-            "--train_mask_path", str(train_data / "masks"),
-            "--test_image_path", str(data / "images"),
-            "--test_gt_path", str(data / "masks"), "--size", str(size),
-            "--model_cfg", cfg, "--bf16", "--batch_size", "8", "--epoch", "2",
-            "--num_workers", "4", "--device", DEV]
-    args = train_cli.build_parser().parse_args(argv)
+    common = ["--save_path", str(out), "--checkpoint", str(ckpt),
+              "--train_image_path", str(train_data / "images"),
+              "--train_mask_path", str(train_data / "masks"),
+              "--test_image_path", str(data / "images"),
+              "--test_gt_path", str(data / "masks"), "--bf16",
+              "--num_workers", "4", "--device", DEV]
+    defaults = train_cli.build_parser().parse_args(common)
+    at_defaults = ((defaults.size, defaults.model_cfg, defaults.batch_size)
+                   == (size, cfg, spec["cli_batch"]))
+    point = [] if at_defaults else ["--size", str(size), "--model_cfg", cfg,
+                                    "--batch_size", str(spec["cli_batch"])]
+    extra = ["--save_train_state"] if spec.get("resume") else []
+    shown = " ".join(point + extra) or "no other flag"
+    args = train_cli.build_parser().parse_args(
+        common + point + extra + ["--epoch", "2"])
     dispatch.reset_launches()
     t0 = time.perf_counter()
     stats = train_cli.main(args)
@@ -712,16 +877,18 @@ def train_main_phase(path: str, tmp: Path, step_seeds: list[int],
     seconds = time.perf_counter() - t0
     counts, variants = dict(dispatch.launches), dict(dispatch.variants)
     steps, evals = stats["steps"], stats["eval_forwards"]
-    print(f"[main] {label} train_cli --size {size} --model_cfg {cfg} --bf16 "
-          f"--batch_size 8 --epoch 2: {steps} steps, {evals} eval forwards in "
+    print(f"[main] {label} train_cli --bf16 --epoch 2 {shown} "
+          f"({'the CLI defaults' if at_defaults else 'passed'}: --size "
+          f"{args.size} --model_cfg {args.model_cfg} --batch_size "
+          f"{args.batch_size}): {steps} steps, {evals} eval forwards in "
           f"{seconds:.1f} s (host clock, kernel build excluded); losses "
           f"{[round(v, 4) for v in stats['losses']]}; launches {counts}",
           flush=True)
     if not stats["losses"] or not all(math.isfinite(v) for v in stats["losses"]):
         fail(f"{label}: a logged loss is not finite: {stats['losses']}")
-    per_forward = PATHS["l352"]["per_forward"]
+    per_forward = PATHS[spec["eval_path"]]["per_forward"]
     per_step = spec["per_step"]
-    for name in set(per_step) | set(counts):
+    for name in sorted(set(per_step) | set(counts)):
         want = per_step.get(name, 0) * steps + per_forward.get(name, 0) * evals
         got = counts.get(name, 0)
         print(f"[main] {label} {name}: {got} launches = "
@@ -730,6 +897,11 @@ def train_main_phase(path: str, tmp: Path, step_seeds: list[int],
               f"+ {per_forward.get(name, 0)} per eval forward", flush=True)
         if got != want:
             fail(f"{label}: {name} launched {got} times, expected {want}")
+    if "flash_attention_bwd_dq" in per_step:
+        print(f"[main] {label} flash_attention_bwd (K11, counted by its "
+              f"delta, dq and dk/dv passes): "
+              f"{counts['flash_attention_bwd_dq'] / max(steps, 1):g} per train "
+              f"step", flush=True)
 
     log = Path(stats["log"]).read_text()
     if log.count("epoch-") < 2 or log.count("mIoU") != 2:
@@ -739,31 +911,62 @@ def train_main_phase(path: str, tmp: Path, step_seeds: list[int],
     start = torch.load(ckpt, map_location="cpu", weights_only=True)
     saved = torch.load(stats["saved"][-1], map_location="cpu", weights_only=True)
     names = [n for n, _ in build_model(cfg, torch.device("cpu")).named_parameters()]
-    moved = [n for n in names if not torch.equal(saved[n], start[n])]
     trainable = [n for n in names if is_trainable(n)]
-    frozen_moved = sorted(set(moved) - set(trainable))
-    still = sorted(set(trainable) - set(moved))
-    print(f"[main] {label} checkpoint {Path(stats['saved'][-1]).name}: "
-          f"{len(trainable)} trainable parameters, {len(moved)} moved; frozen "
-          f"moved {len(frozen_moved)}; log.txt holds the 2 epoch reports",
-          flush=True)
-    if frozen_moved or still:
-        fail(f"{label}: frozen parameters moved {frozen_moved[:5]}, trainable "
-             f"ones did not {still[:5]}")
-    preds = tmp / "train_preds"
+
+    def check_moved(new, old, what):
+        moved = [n for n in names if not torch.equal(new[n], old[n])]
+        frozen_moved = sorted(set(moved) - set(trainable))
+        still = sorted(set(trainable) - set(moved))
+        print(f"[main] {label} {what}: {len(trainable)} trainable parameters, "
+              f"{len(moved)} moved; frozen moved {len(frozen_moved)}", flush=True)
+        if frozen_moved or still:
+            fail(f"{label} {what}: frozen parameters moved {frozen_moved[:5]}, "
+                 f"trainable ones did not {still[:5]}")
+
+    check_moved(saved, start, f"checkpoint {Path(stats['saved'][-1]).name} "
+                              "(log.txt holds the 2 epoch reports)")
+    preds = tmp / f"train_preds_{path}"
     targs = test_cli.build_parser().parse_args([
         "--checkpoint", stats["saved"][-1], "--test_image_path",
         str(data / "images"), "--test_gt_path", str(data / "masks"),
-        "--save_path", str(preds), "--size", str(size), "--model_cfg", cfg,
-        "--bf16", "--batch_size", "4", "--device", DEV])
+        "--save_path", str(preds), "--bf16", "--batch_size", "4",
+        "--device", DEV] + point[:4])
     tstats = test_cli.main(targs)
     if len(list(preds.glob("*.png"))) != 4:
         fail(f"{label}: the test CLI did not write 4 PNGs from the checkpoint")
     print(f"[main] {label} test_cli loaded the checkpoint strictly: "
           f"{tstats['forwards']} forward(s), mean_test_time "
           f"{tstats['mean_test_time']:.4f} s/image", flush=True)
+
+    losses = list(stats["losses"])
+    if spec.get("resume"):
+        state = stats["saved"][-1] + "_train_state"
+        if not Path(state).is_file():
+            fail(f"{label}: --save_train_state wrote no {state}")
+        again = train_cli.main(train_cli.build_parser().parse_args(
+            common + point + ["--epoch", "3", "--resume", state]))
+        torch.cuda.synchronize()
+        print(f"[main] {label} train_cli --resume {Path(state).name} --epoch 3: "
+              f"resumed at epoch {again['start_epoch']}, {again['steps']} "
+              f"step(s), global step {again['global_step']}, losses "
+              f"{[round(v, 4) for v in again['losses']]}", flush=True)
+        if ((again["start_epoch"], again["steps"], again["global_step"])
+                != (2, steps // 2, steps + steps // 2) or not again["saved"]
+                or not all(math.isfinite(v) for v in again["losses"])):
+            fail(f"{label}: the resumed run did not continue from epoch 2: "
+                 f"{again}")
+        check_moved(torch.load(again["saved"][-1], map_location="cpu",
+                               weights_only=True), saved,
+                    "resumed run's checkpoint against the 2-epoch one")
+        losses += again["losses"]
+        if min(losses[1:]) >= losses[0]:
+            fail(f"{label}: the loss did not fall: {losses}")
+        print(f"[main] {label} loss fell from {losses[0]:.4f} to "
+              f"{min(losses[1:]):.4f} over {len(losses)} steps", flush=True)
     del start, saved
     step_compare(path, ckpt, step_seeds, step_report)
+    if spec.get("remat"):
+        remat_compare(path, ckpt)
     return variants
 
 
@@ -817,8 +1020,8 @@ def _leaf_agreement(got: dict, want: dict) -> dict:
 def step_compare(path: str, ckpt: Path, seeds: list[int],
                  report: str = "") -> None:
     """One train step's loss and trainable gradients, the kernels against
-    the plain versions, same parameters and batch (batch 4, one batch per
-    seed), in fp32 and in bf16. fp32 holds every leaf to MAIN_CORR_MIN and
+    the plain versions, same parameters and batch (the path's `step_batch`,
+    one batch per seed), in fp32 and in bf16. fp32 holds every leaf to MAIN_CORR_MIN and
     MAIN_REL_TOL and tighter (correlation >= 0.9999, max error <= 1e-2 of
     max |plain|). In bf16 the deep gradients decorrelate from the fp32 ones
     by rounding alone, in the plain version as in the kernels; each leaf's
@@ -833,13 +1036,13 @@ def step_compare(path: str, ckpt: Path, seeds: list[int],
     from sam2unet_torch.train.optim import trainable_parameters
 
     spec = PATHS[path]
-    label = spec["label"]
+    label, batch = spec["label"], spec["step_batch"]
     runs = {}
     for bf16 in (True, False):
         model = _train_model(spec["cfg"], ckpt, bf16)
         model.train()
         for seed in seeds:
-            x, y = _train_batch(4, spec["size"], seed=seed)
+            x, y = _train_batch(batch, spec["size"], seed=seed)
             for plain in (False, True):
                 model.zero_grad(set_to_none=True)
                 with dispatch.force_plain() if plain else contextlib.nullcontext():
@@ -862,7 +1065,7 @@ def step_compare(path: str, ckpt: Path, seeds: list[int],
             corr_n, (corr, _) = min(agree.items(), key=lambda kv: kv[1][0])
             rel_n, (_, rel) = max(agree.items(), key=lambda kv: kv[1][1])
             line = (f"[main] {label} one step, seed {seed}, kernels vs plain "
-                    f"({'bf16' if bf16 else 'fp32'}, batch 4): loss {lk:.6f} vs "
+                    f"({'bf16' if bf16 else 'fp32'}, batch {batch}): loss {lk:.6f} vs "
                     f"{lp:.6f} (rel {loss_rel:.3g}); {len(gp)} trainable "
                     f"gradients: worst correlation {corr:.6f} ({corr_n}), worst "
                     f"max_rel_err {rel:.4g} ({rel_n})")
@@ -905,6 +1108,78 @@ def step_compare(path: str, ckpt: Path, seeds: list[int],
     torch.cuda.empty_cache()
 
 
+def remat_compare(path: str, ckpt: Path) -> None:
+    """Each trunk block under `torch.utils.checkpoint` (the train CLI's
+    --remat) against the same bf16 model without it: the same kernels on the
+    same inputs, so one train step's loss and every trainable gradient are
+    held to 1e-6 of the leaf's max (in practice bitwise). PyTorch's
+    convolution, BatchNorm and interpolation backwards in the neck and
+    decoder use atomics, so two identical steps already differ there: the
+    comparison runs under `torch.use_deterministic_algorithms`, where a
+    repeat of the step without remat must come out equal too, and the gaps
+    without that mode are printed beside it. Also checks the launches of the
+    step with remat, which runs every trunk block's forward twice."""
+    import torch
+
+    from sam2unet_torch.ops import dispatch
+    from sam2unet_torch.train.loss import multi_head_loss
+    from sam2unet_torch.train.optim import trainable_parameters
+
+    spec = PATHS[path]
+    label, batch = spec["label"], spec["step_batch"]
+    model = _train_model(spec["cfg"], ckpt, bf16=True)
+    model.train()
+    x, y = _train_batch(batch, spec["size"], seed=2)
+
+    def step(remat: bool):
+        model.encoder.remat = remat
+        model.zero_grad(set_to_none=True)
+        dispatch.reset_launches()
+        loss = multi_head_loss(model(x), y)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.float().clone()
+                 for n, p in trainable_parameters(model) if p.grad is not None}
+        return loss.item(), grads, dict(dispatch.launches)
+
+    def worst(got, want):
+        if got.keys() != want.keys() or not want:
+            fail(f"{label}: remat gives gradients to other parameters")
+        return max(((got[n] - want[n]).abs().max().item()
+                    / max(want[n].abs().max().item(), 1e-30), n) for n in want)
+
+    def three():
+        (l0, g0, c0), (l0b, g0b, _), (l1, g1, c1) = (step(False), step(False),
+                                                     step(True))
+        return (l0, l0b, l1), worst(g0b, g0), worst(g1, g0), len(g0), c0, c1
+
+    _, loose_noise, loose_diff, _, _, _ = three()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (l0, l0b, l1), noise, diff, leaves, c0, c1 = three()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ok = (l0 == l0b and abs(l1 - l0) <= 1e-6 * abs(l0) and noise[0] <= 1e-6
+          and diff[0] <= 1e-6)
+    print(f"[main] {label} with remat vs without (bf16, batch {batch}, "
+          f"deterministic algorithms): one step's loss {l1:.6f} vs {l0:.6f}; "
+          f"all {leaves} trainable gradients: worst max_rel_err {diff[0]:.3g} "
+          f"({diff[1]}), between two steps without remat {noise[0]:.3g} (tol "
+          f"1e-6 each); without deterministic algorithms {loose_diff[0]:.3g} "
+          f"({loose_diff[1]}) against {loose_noise[0]:.3g} ({loose_noise[1]}) "
+          f"between two steps without remat; launches with remat {c1}"
+          + ("" if ok else "  <-- FAIL"), flush=True)
+    want0 = spec["per_step"]
+    want1 = {**want0, **spec["per_step_remat"]}
+    if c0 != want0 or c1 != want1:
+        fail(f"{label}: launches of one step {c0} (expected {want0}), with "
+             f"remat {c1} (expected {want1})")
+    if not ok:
+        fail(f"{label}: remat changes one train step's loss or gradients")
+    del model
+    torch.cuda.empty_cache()
+
+
 def _model_and_input(path: str, batch: int):
     import torch
 
@@ -917,8 +1192,9 @@ def _model_and_input(path: str, batch: int):
     return model, x
 
 
-def _runner(path: str, batch: int):
-    """(one step of the path: a forward, or a train step, its output)."""
+def _runner(path: str, batch: int, remat: bool = False):
+    """(one step of the path: a forward, or a train step, its output);
+    `remat` puts each trunk block of a training path under checkpointing."""
     import torch
 
     spec = PATHS[path]
@@ -933,33 +1209,52 @@ def _runner(path: str, batch: int):
     from sam2unet_torch.train.optim import make_optimizer
 
     model = _train_model(spec["cfg"])
-    optimizer, _ = make_optimizer(model)
+    model.encoder.remat = remat
+    optimizer = make_optimizer(model)
     x, y = _train_batch(batch, spec["size"], seed=3)
     return (lambda: train_step(model, optimizer, x, y)), "train step"
 
 
-def throughput_phase(path: str, batch: int, card: str) -> float:
+def throughput_phase(path: str, batch: int, card: str,
+                     remat: bool = False) -> float:
+    """img/s of the path's step at `batch`; a batch that does not fit the
+    card's memory is reported with its size and halved."""
     import torch
 
-    run, what = _runner(path, batch)
+    label = PATHS[path]["label"] + (" with remat" if remat else "")
     reps = 5
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        run()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = run()
-    end.record()
-    end.synchronize()
+    while True:
+        run, what = _runner(path, batch, remat)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            for _ in range(2):
+                run()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                out = run()
+            end.record()
+            end.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            total = torch.cuda.get_device_properties(0).total_memory / 2**30
+            print(f"[throughput] {label} bf16 batch {batch} does NOT fit the "
+                  f"card's memory ({peak:.2f} GiB allocated of {total:.2f} "
+                  f"GiB when it ran out): running batch {batch // 2}",
+                  flush=True)
+            del run
+            torch.cuda.empty_cache()
+            batch //= 2
+            if batch < 1:
+                fail(f"{label}: no batch fits the card's memory")
     if not torch.isfinite(out).all():
-        fail(f"{PATHS[path]['label']} throughput {what} produced non-finite "
-             "values")
+        fail(f"{label} throughput {what} produced non-finite values")
     ms = start.elapsed_time(end) / reps
     ips = batch / (ms / 1e3)
-    print(f"[throughput] {PATHS[path]['label']} bf16 batch {batch}: {ms:.2f} "
+    print(f"[throughput] {label} bf16 batch {batch}: {ms:.2f} "
           f"ms/{what}, {ips:.1f} img/s on {card}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     del run, out
@@ -1018,13 +1313,16 @@ def profile_phase(path: str, batch: int, card: str) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="build,kernels,main,throughput")
-    ap.add_argument("--paths", default="l352,s960,l352train")
+    ap.add_argument("--paths", default="l352,s960,l352train,s960train")
     ap.add_argument("--batch", type=int, default=32,
                     help="kernel, throughput and profile batch at hiera_l@352")
     ap.add_argument("--batch960", type=int, default=16,
                     help="the same at hiera_s@960")
     ap.add_argument("--batch_train", type=int, default=16,
                     help="the same for the hiera_l@352 training path")
+    ap.add_argument("--batch_train960", type=int, default=16,
+                    help="the same for the hiera_s@960 training path (the "
+                         "train CLI's default batch)")
     ap.add_argument("--step_seeds", default="2",
                     help="batches (by seed) of the one-step kernels-vs-plain "
                          "comparison")
@@ -1059,7 +1357,9 @@ def main() -> None:
     t0 = time.perf_counter()
     out_dir = build.build_all()
     print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s into "
-          f"{out_dir.relative_to(REPO)}", flush=True)
+          f"{out_dir.relative_to(REPO)}; nvcc seconds by source "
+          f"{ {k: round(v, 1) for k, v in build.build_seconds.items()} }",
+          flush=True)
     for line in build.ptxas_summary(out_dir):
         print(f"[ptxas] {line}", flush=True)
 
@@ -1068,8 +1368,7 @@ def main() -> None:
     entries, variants = [], {}
     with tempfile.TemporaryDirectory() as tmp:
         for path in paths:
-            batch = {"l352": args.batch, "s960": args.batch960,
-                     "l352train": args.batch_train}[path]
+            batch = getattr(args, BATCH_FLAG[path])
             if "kernels" in phases:
                 entries += kernel_phase(path, batch, gen)
             if "main" in phases:
@@ -1081,9 +1380,21 @@ def main() -> None:
                     variants[path] = main_path_phase(path, Path(tmp))
             if "throughput" in phases:
                 throughput_phase(path, batch, card)
+                if PATHS[path].get("remat"):
+                    throughput_phase(path, batch, card, remat=True)
             if "profile" in phases:
                 profile_phase(path, batch, card)
 
+    # a wrapper that a path's entries hold against the plain version is held
+    # at every shape (variant) that path's run gave it
+    for path, seen in variants.items():
+        selects = [e["select"] for e in entries if e["path"] == path]
+        held = {w for w, v in seen if any(sel(w, v) for sel in selects)}
+        loose = sorted(f"{w}[{v}]" for w, v in seen
+                       if w in held and not any(sel(w, v) for sel in selects))
+        if loose:
+            fail(f"{PATHS[path]['label']}: launched on the main path at shapes "
+                 f"no kernel check holds against the plain version: {loose}")
     for e in entries:
         select, path = e.pop("select"), e.pop("path")
         e["launches"] = sum(n for (w, v), n in variants.get(path, {}).items()

@@ -22,8 +22,10 @@ def resolve_device(name: str) -> torch.device:
 
 
 def build_model(model_cfg: str, device: torch.device,
-                dtype: torch.dtype = torch.float32) -> SAM2UNet:
-    model = SAM2UNet(SAM2UNetConfig(trunk=hiera_config(model_cfg)))
+                dtype: torch.dtype = torch.float32,
+                remat: bool = False) -> SAM2UNet:
+    model = SAM2UNet(SAM2UNetConfig(trunk=hiera_config(model_cfg)),
+                     remat=remat)
     return model.to(device=device, dtype=dtype).eval()
 
 

@@ -14,14 +14,15 @@
 //                dV += P^T dO, dP^T = v dO^T, dS^T = P^T (dP^T - D),
 //                dK += dS^T q.
 // The warp keeps its 16 rows' scores, dP and accumulators in registers;
-// the products are mma.sync (bf16 operands, fp32 accumulate; P and dS
-// rounded to bf16 as the operands of the next product, as the Pallas
-// backward rounds them) or, for fp32, CUDA-core dot products in the same
-// register layout. dq, dk and dv are written rounded to T into a gradient
-// buffer laid out like qkv ([dq | dk | dv] channel blocks, `ld` elements a
-// row). With qpool each pooled query's gradient goes to the first maximum
-// (row-major) of its 2x2 cell of projected q, channel by channel, and the
-// other three positions get zero, as max_pool2d's backward routes it.
+// the products (attention_bwd_tiles.cuh, shared with K11) are mma.sync
+// (bf16 operands, fp32 accumulate; P and dS rounded to bf16 as the operands
+// of the next product, as the Pallas backward rounds them) or, for fp32,
+// CUDA-core dot products in the same register layout. dq, dk and dv are
+// written rounded to T into a gradient buffer laid out like qkv ([dq | dk |
+// dv] channel blocks, `ld` elements a row). With qpool each pooled query's
+// gradient goes to the first maximum (row-major) of its 2x2 cell of
+// projected q, channel by channel, and the other three positions get zero,
+// as max_pool2d's backward routes it.
 //
 // Geometries: rows mode (windows of S consecutive rows of the qkv buffer)
 // and grid mode on window-divisible grids; no pad key (the remainder groups'
@@ -29,6 +30,9 @@
 #pragma once
 
 #include "attention.cuh"
+#include "attention_bwd_tiles.cuh"
+
+static_assert(BWD_TILE == A_BKV, "the backward tiles are the forward's key tiles");
 
 struct AttnBwdParams {
   AttnParams a;          // q / k / v in the qkv buffer and the geometry
@@ -132,94 +136,6 @@ __device__ __forceinline__ void bwd_load_out(T* dst, float* lse_s, float* D_s,
     const bool ok = t < p.Sq;
     lse_s[r] = ok ? bp.lse[((long long)wi * nh + h) * p.Sq + t] : 0.f;
     D_s[r] = ok ? bp.D[(w.orow0 + attn_rel(t, w.ovw, w.oW)) * nh + h] : 0.f;
-  }
-}
-
-// s (16 x 64, accumulator layout: s[j][e] is row g + 8(e/2), column
-// 8j + q2 + e%2) = A (the warp's 16 rows) . B (64 rows), both rows of DP
-// elements at stride LDS in shared memory.
-template <typename T, int NDF>
-__device__ __forceinline__ void tile_rows_dot(float s[8][4], const T* A,
-                                              const T* B, int d, int lane) {
-  constexpr int LDS = 16 * NDF + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  if constexpr (std::is_same<T, bf16>::value) {
-#pragma unroll
-    for (int kd = 0; kd < NDF; ++kd) {
-      unsigned af[4];
-      ldmatrix_x4(af, A + (lane & 15) * LDS + kd * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        unsigned r[4];
-        ldmatrix_x4(r, B + (jj * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS
-                           + kd * 16 + ((lane >> 3) & 1) * 8);
-        const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        mma_16816(s[2 * jj], af, b0);
-        mma_16816(s[2 * jj + 1], af, b1);
-      }
-    }
-  } else {
-    const int g = lane >> 2, q2 = (lane & 3) * 2;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const T* ar = A + (g + 8 * (e >> 1)) * LDS;
-        const T* br = B + (j * 8 + q2 + (e & 1)) * LDS;
-        float acc = 0.f;
-        for (int ch = 0; ch < d; ++ch) acc = fmaf(to_f(ar[ch]), to_f(br[ch]), acc);
-        s[j][e] = acc;
-      }
-  }
-}
-
-// acc (16 x DP) += p (16 x 64, accumulator layout; rounded to T as the
-// product's operand) @ B (64 rows of DP at stride LDS). fp32 stages p
-// through the warp's 16 x 64 scratch Pw.
-template <typename T, int NDF>
-__device__ __forceinline__ void tile_p_rows(float acc[2 * NDF][4],
-                                            const float p[8][4], const T* B,
-                                            float* Pw, int lane) {
-  constexpr int LDS = 16 * NDF + 8;
-  if constexpr (std::is_same<T, bf16>::value) {
-#pragma unroll
-    for (int kc = 0; kc < A_BKV / 16; ++kc) {
-      const unsigned a[4] = {pack_bf16(p[2 * kc][0], p[2 * kc][1]),
-                             pack_bf16(p[2 * kc][2], p[2 * kc][3]),
-                             pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
-                             pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
-#pragma unroll
-      for (int fp = 0; fp < NDF; ++fp) {
-        unsigned r[4];
-        ldmatrix_x4_trans(r, B + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS
-                                 + fp * 16 + (lane >> 4) * 8);
-        const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        mma_16816(acc[2 * fp], a, b0);
-        mma_16816(acc[2 * fp + 1], a, b1);
-      }
-    }
-  } else {
-    const int g = lane >> 2, q2 = (lane & 3) * 2;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        Pw[(g + 8 * (e >> 1)) * A_BKV + j * 8 + q2 + (e & 1)] = p[j][e];
-    __syncwarp();
-#pragma unroll
-    for (int f = 0; f < 2 * NDF; ++f)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float* pr = Pw + (g + 8 * (e >> 1)) * A_BKV;
-        const int col = f * 8 + q2 + (e & 1);
-        float s = 0.f;
-        for (int k = 0; k < A_BKV; ++k) s = fmaf(pr[k], to_f(B[k * LDS + col]), s);
-        acc[f][e] += s;
-      }
-    __syncwarp();
   }
 }
 
@@ -435,14 +351,6 @@ __global__ void __launch_bounds__(128) attn_bwd_dkv_kernel(AttnBwdParams bp) {
       store2(dvb + row + col, dv[f][2 * hh], dv[f][2 * hh + 1]);
     }
   }
-}
-
-inline size_t attn_bwd_smem_bytes(int rows, int other_rows, int warps, int dp,
-                                  size_t tsize) {
-  size_t b = tsize * (dp + 8) * (size_t)(2 * rows + other_rows)
-             + sizeof(float) * 2 * (size_t)(rows > A_BKV ? rows : A_BKV);
-  if (tsize == sizeof(float)) b += sizeof(float) * warps * 16 * A_BKV;
-  return b;
 }
 
 template <typename T, int NDF>

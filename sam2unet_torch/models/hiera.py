@@ -21,15 +21,18 @@ package's order (sam2unet_tpu/models/hiera.py:210-310):
 In training (`module.training`) the remainder strips (K12) are left for the
 valid groups, as the JAX package keeps them eval-only. The kernel wrappers
 are differentiable: the frozen blocks' backward is K5 (strips), K7 (valid
-groups with n_pad = 0, global blocks), K9 (transitions) and K2 (tails), the
-adapters' is K3, and the remainder groups' pad-key blocks and the plain
-transition go through autograd of the plain versions; where the JAX package
-runs a backward kernel not ported yet (K11 for the 3600-token global blocks
-of hiera_s@960, `unported_train_backward`) the backward raises on the card.
-The trunk is frozen
-as in the reference (SAM2UNet.py:146-147): every parameter but the
-adapters' has requires_grad False. The drop-path rate is 0 in every SAM2
-config, so drop path is the identity.
+groups with n_pad = 0, global blocks up to 1024 tokens), the long form's
+backward over K11 (the 3600-token global blocks of hiera_s@960), K9
+(transitions) and K2 (tails), the adapters' is K3, and the remainder
+groups' pad-key blocks and the plain transition go through autograd of the
+plain versions; where the JAX package runs a backward kernel not ported yet
+(K7's weight-gradient mode, `unported_train_backward`) the backward raises
+on the card. The trunk is frozen as in the reference (SAM2UNet.py:146-147):
+every parameter but the adapters' has requires_grad False. The drop-path
+rate is 0 in every SAM2 config, so drop path is the identity. `remat=True`
+runs each adapter-wrapped block under `torch.utils.checkpoint`, the
+counterpart of the JAX package's `nn.remat` per block: the block's
+activations are recomputed in the backward instead of kept.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sam2unet_torch.configs import HieraConfig
 from sam2unet_torch.nn.layers import LN_EPS, MLP
@@ -216,17 +220,19 @@ def _block_plan(cfg: HieraConfig) -> list[dict]:
     return plan
 
 
-def unported_train_backward(cfg: HieraConfig, size: int) -> list[str]:
-    """The global blocks whose backward, with the trunk frozen and input
-    `size`, the JAX package runs through a kernel the port has not ported
-    yet (K11 past 1024 tokens: hiera_s@960's three 3600-token blocks), one
-    line each; empty where training runs on the port's kernels (hiera_l@352)."""
+def unported_train_backward(cfg: HieraConfig, size: int,
+                            frozen: bool = True) -> list[str]:
+    """The global blocks whose backward, at input `size`, the JAX package
+    runs through a kernel the port has not ported yet (K7's weight-gradient
+    mode, for a trunk that is not frozen), one line each; empty where
+    training runs on the port's kernels (hiera_l@352 and, through K11,
+    hiera_s@960, with the trunk frozen)."""
     h = w = -(-size // 4)
     out = []
     for i, bk in enumerate(_block_plan(cfg)):
         if bk["window_size"] == 0 and bk["dim"] == bk["dim_out"]:
-            route = window_block_bwd_route(h * w, bk["dim"], 0, False)
-            if route not in ("K7", "plain"):
+            route = window_block_bwd_route(h * w, bk["dim"], 0, not frozen)
+            if route not in ("K7", "K11", "plain"):
                 out.append(f"block {i}: global attention over {h * w} "
                            f"tokens at width {bk['dim']} needs {route}")
         if bk["q_stride"] is not None:
@@ -244,9 +250,11 @@ class Hiera(nn.Module):
     """The trunk: NHWC image -> the 4 stage-end maps (strides 4/8/16/32),
     NHWC, fine to coarse."""
 
-    def __init__(self, cfg: HieraConfig, adapter_dim: int = 32):
+    def __init__(self, cfg: HieraConfig, adapter_dim: int = 32,
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         self.patch_embed = PatchEmbed(cfg.embed_dim)
         bh, bw = cfg.window_pos_embed_bkg_spatial_size
         win0 = cfg.window_spec[0]
@@ -271,8 +279,9 @@ class Hiera(nn.Module):
         x = (x + pe).permute(0, 2, 3, 1).contiguous()
         outputs = []
         ends = self.cfg.stage_ends
+        remat = self.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
             if i in ends:
                 outputs.append(x)
         return outputs

@@ -88,10 +88,13 @@ class Up(nn.Module):
 
 
 class SAM2UNet(nn.Module):
-    def __init__(self, cfg: SAM2UNetConfig = SAM2UNetConfig()):
+    def __init__(self, cfg: SAM2UNetConfig = SAM2UNetConfig(),
+                 remat: bool = False):
+        """`remat`: recompute each trunk block's activations in the
+        backward (`Hiera`), for bigger batches."""
         super().__init__()
         self.cfg = cfg
-        self.encoder = Hiera(cfg.trunk, cfg.adapter_dim)
+        self.encoder = Hiera(cfg.trunk, cfg.adapter_dim, remat=remat)
         ch, r = cfg.trunk.channel_list, cfg.rfb_out
         self.rfb1 = RFBModified(ch[0], r)
         self.rfb2 = RFBModified(ch[1], r)

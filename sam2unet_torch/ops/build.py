@@ -17,13 +17,14 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("fused_mlp", "fused_attention_block", "fused_transition",
            "flash_attention", "fused_mlp_bwd", "fused_attention_block_bwd",
-           "fused_transition_bwd")
+           "fused_transition_bwd", "flash_attention_bwd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -63,10 +64,21 @@ SIGNATURES = {
     "fused_transition_bwd": {
         "k9_transition_bwd": [_I, *[_P] * 19, *[_I] * 7, _P],
     },
+    "flash_attention_bwd": {
+        "k11_flash_attention_bwd_delta": [_I, *[_P] * 3, *[_I] * 4, *[_L] * 6,
+                                          _P],
+        "k11_flash_attention_bwd_dq": [_I, *[_P] * 7, *[_I] * 5, *[_L] * 12,
+                                       ctypes.c_float, _P],
+        "k11_flash_attention_bwd_dkv": [_I, *[_P] * 8, *[_I] * 5, *[_L] * 12,
+                                        ctypes.c_float, _P],
+    },
 }
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# seconds nvcc took for each source built by this process (they run at once,
+# so the slowest is the build's time)
+build_seconds: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -92,7 +104,7 @@ def build_all() -> Path:
     """Compile every missing library, all nvcc processes at once."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    procs = []
+    procs, start = [], time.perf_counter()
     for name in SOURCES:
         lib = out / f"lib{name}.so"
         if lib.exists():
@@ -102,14 +114,21 @@ def build_all() -> Path:
         cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, lib, tmp, log,
                       subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
-    failed = []
-    for name, lib, tmp, log, proc in procs:
-        rc = proc.wait()
-        log.close()
-        if rc == 0:
-            os.replace(tmp, lib)
-        else:
-            failed.append(name)
+    failed, running = [], list(procs)
+    while running:
+        time.sleep(0.2)
+        for entry in list(running):
+            name, lib, tmp, log, proc = entry
+            rc = proc.poll()
+            if rc is None:
+                continue
+            running.remove(entry)
+            build_seconds[name] = time.perf_counter() - start
+            log.close()
+            if rc == 0:
+                os.replace(tmp, lib)
+            else:
+                failed.append(name)
     if failed:
         logs = "\n".join((out / f"{n}.log").read_text()[-4000:] for n in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")

@@ -1,11 +1,16 @@
-"""K10: streaming flash attention over (B, S, heads, d) with the lse.
-Counterpart of sam2unet_tpu/ops/pallas/flash_attention.py
-(`_stream_fwd_impl`, oracle `_xla_attention`); the kernel is
-csrc/flash_attention.cu.
+"""K10 and K11: streaming flash attention over (B, S, heads, d) with the
+lse, and its backward. Counterpart of
+sam2unet_tpu/ops/pallas/flash_attention.py (`_stream_fwd_impl`,
+`_stream_bwd_impl`, oracle `_xla_attention`); the kernels are
+csrc/flash_attention.cu (K10) and csrc/flash_attention_bwd.cu (K11: the
+delta pass, the dq pass and the dk/dv pass).
 
 q, k and v may be strided views, as the long global-attention blocks pass
-them (channel slices of the QKV output, rows of 3c): the kernel reads them
-where they lie, so no copy is made.
+them (channel slices of the QKV output, rows of 3c): the kernels read them
+where they lie, so no copy is made, and the backward writes dq, dk and dv
+through strided views too (the channel blocks of one dqkv buffer).
+`flash_attention` is differentiable: on the card it is one autograd node
+that keeps q, k, v, o and lse, and its backward is `flash_attention_bwd`.
 """
 
 from __future__ import annotations
@@ -35,6 +40,54 @@ def plain_flash_attention(q, k, v, scale: float | None = None,
     return o, torch.logsumexp(s, dim=-1).reshape(b * h, sq)
 
 
+def plain_flash_attention_delta(o, dout):
+    """Plain delta pass: D = rowsum(dO * o) in fp32 as (B*heads, Sq), from
+    the forward's rounded o (flash_attention.py:306 of the JAX package)."""
+    b, sq, nh, _ = o.shape
+    return torch.einsum("bqhd,bqhd->bhq", dout.float(),
+                        o.float()).reshape(b * nh, sq)
+
+
+def _plain_p_ds(q, k, v, lse, dout, delta, scale):
+    """P = exp(q k^T * scale - lse) and dS = P (dO v^T - D), fp32,
+    (B, heads, Sq, Sk): what both backward kernels re-form tile by tile."""
+    b, sq, nh, _ = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(s - lse.reshape(b, nh, sq, 1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    return p, p * (dp - delta.reshape(b, nh, sq, 1))
+
+
+def plain_flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale: float):
+    """Plain dq pass (`_stream_bwd_dq_kernel`): dq = dS k * scale, dS
+    rounded to the working type before the product."""
+    _, ds = _plain_p_ds(q, k, v, lse, dout, delta, scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(q.dtype).float(), k.float())
+    return (dq * scale).to(q.dtype)
+
+
+def plain_flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
+    """Plain dk/dv pass (`_stream_bwd_dkv_kernel`): dv = P^T dO and
+    dk = dS^T q * scale, P and dS rounded to the working type first."""
+    p, ds = _plain_p_ds(q, k, v, lse, dout, delta, scale)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).float(),
+                      dout.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    return (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
+def plain_flash_attention_bwd(q, k, v, o, lse, dout,
+                              scale: float | None = None):
+    """Plain version of K11, the arithmetic of `_stream_bwd_impl`: (dq, dk,
+    dv) from q, k, v, the forward's o and lse, and dO (no autograd)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = plain_flash_attention_delta(o, dout)
+    dq = plain_flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale)
+    dk, dv = plain_flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale)
+    return dq, dk, dv
+
+
 def _check_view(t: torch.Tensor, what: str) -> None:
     if t.dim() != 4 or t.stride(-1) != 1:
         raise ValueError(f"flash_attention: {what} must be (B, S, heads, d) "
@@ -44,32 +97,49 @@ def _check_view(t: torch.Tensor, what: str) -> None:
                          "base and strides that are multiples of 8 elements")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float | None = None, return_lse: bool = False):
-    """softmax(q k^T * scale) v over (B, S, heads, d) -> o (B, Sq, heads, d)
-    in the working type, and with `return_lse` the (B*heads, Sq) fp32
-    log-sum-exp of the scaled scores."""
-    if not dispatch.use_kernel(q):
-        return plain_flash_attention(q, k, v, scale, return_lse)
+def _check_args(q, k, v, **more) -> tuple[int, int, int, int, int]:
+    """What K10 and K11 take: q (B, Sq, heads, d), k and v (B, Sk, heads, d)
+    with the same strides, `more` tensors shaped like q or like k (by
+    name: dk, dv like k), bf16 or fp32, one device, d % 8 == 0 and
+    d <= MAX_HEAD_DIM, every view addressable (`_check_view`). Returns
+    (B, Sq, Sk, heads, d)."""
     b, sq, nh, d = q.shape
     sk = k.shape[1]
     if k.shape != (b, sk, nh, d) or v.shape != k.shape:
         raise ValueError("flash_attention: q, k, v shapes do not agree")
     if k.stride() != v.stride():
         raise ValueError("flash_attention: k and v need the same strides")
-    for t, what in ((q, "q"), (k, "k"), (v, "v")):
-        _check_view(t, what)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"kernels take bf16 or fp32, got {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_attention: q, k, v dtypes differ")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention: q, k, v on different devices")
+    for what, t in (("q", q), ("k", k), ("v", v), *more.items()):
+        if t.shape != (k.shape if what in ("k", "v", "dk", "dv") else q.shape):
+            raise ValueError(f"flash_attention: {what} has shape "
+                             f"{tuple(t.shape)}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {what} is {t.dtype}, q is "
+                            f"{q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {what} is on {t.device}, q on "
+                             f"{q.device}")
+        _check_view(t, what)
     if d % 8 or d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel needs head dim % 8 == 0 and "
                          f"<= {MAX_HEAD_DIM}, got {d}")
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
+    return b, sq, sk, nh, d
+
+
+def _check_rows(t: torch.Tensor, what: str, q: torch.Tensor) -> None:
+    """lse and D: contiguous fp32 (B*heads, Sq) on q's device."""
+    b, sq, nh, _ = q.shape
+    if (t.shape != (b * nh, sq) or t.dtype != torch.float32
+            or not t.is_contiguous() or t.device != q.device):
+        raise ValueError(f"flash_attention: {what} must be contiguous fp32 "
+                         f"({b * nh}, {sq}) on {q.device}")
+
+
+def _flash_attention_kernel(q, k, v, scale: float):
+    """K10 on the card: (o, lse)."""
+    b, sq, sk, nh, d = _check_args(q, k, v)
     o = torch.empty((b, sq, nh, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * nh, sq), dtype=torch.float32, device=q.device)
     p = dispatch.ptr
@@ -79,4 +149,128 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dispatch.stream_of(q))
     build.check(err, "flash_attention")
     dispatch.count_launch("flash_attention", f"S={sk}")
+    return o, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K10 as one autograd node that keeps q, k, v, o and lse; its
+    backward is K11."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = _flash_attention_kernel(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, go, _glse):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, o, lse, go.contiguous(),
+                                     ctx.scale), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float | None = None, return_lse: bool = False):
+    """softmax(q k^T * scale) v over (B, S, heads, d) -> o (B, Sq, heads, d)
+    in the working type, and with `return_lse` the (B*heads, Sq) fp32
+    log-sum-exp of the scaled scores. Differentiable in q, k and v (the lse
+    is not)."""
+    if not dispatch.use_kernel(q):
+        return plain_flash_attention(q, k, v, scale, return_lse)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if dispatch.needs_grad(q, k, v):
+        o, lse = _FlashAttention.apply(q, k, v, scale)
+    else:
+        o, lse = _flash_attention_kernel(q, k, v, scale)
     return (o, lse) if return_lse else o
+
+
+# ------------------------------------------------------------- backward
+
+
+def flash_attention_bwd_delta(o: torch.Tensor, dout: torch.Tensor):
+    """D = rowsum(dO * o) per (batch, head, query), fp32 (B*heads, Sq)."""
+    if not dispatch.use_kernel(o):
+        return plain_flash_attention_delta(o, dout)
+    b, sq, _, nh, d = _check_args(o, o, o, dout=dout)
+    delta = torch.empty((b * nh, sq), dtype=torch.float32, device=o.device)
+    p = dispatch.ptr
+    err = build.library("flash_attention_bwd").k11_flash_attention_bwd_delta(
+        int(o.dtype == torch.bfloat16), p(o), p(dout), p(delta), b, sq, nh, d,
+        *o.stride()[:3], *dout.stride()[:3], dispatch.stream_of(o))
+    build.check(err, "flash_attention_bwd_delta")
+    dispatch.count_launch("flash_attention_bwd_delta", f"S={sq}")
+    return delta
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale: float,
+                           out: torch.Tensor | None = None) -> torch.Tensor:
+    """K11's dq pass: dq (B, Sq, heads, d), written into `out` (any view
+    `_check_view` passes) when given."""
+    if not dispatch.use_kernel(q):
+        dq = plain_flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale)
+        return dq if out is None else out.copy_(dq)
+    if out is None:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    b, sq, sk, nh, d = _check_args(q, k, v, dout=dout, dq=out)
+    _check_rows(lse, "lse", q)
+    _check_rows(delta, "D", q)
+    p = dispatch.ptr
+    err = build.library("flash_attention_bwd").k11_flash_attention_bwd_dq(
+        int(q.dtype == torch.bfloat16), p(q), p(k), p(v), p(dout), p(lse),
+        p(delta), p(out), b, sq, sk, nh, d, *q.stride()[:3], *k.stride()[:3],
+        *dout.stride()[:3], *out.stride()[:3], scale, dispatch.stream_of(q))
+    build.check(err, "flash_attention_bwd_dq")
+    dispatch.count_launch("flash_attention_bwd_dq", f"S={sk}")
+    return out
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale: float,
+                            out: tuple[torch.Tensor, ...] | None = None):
+    """K11's dk/dv pass: (dk, dv), each (B, Sk, heads, d), written into the
+    two views of `out` (of equal strides) when given."""
+    if not dispatch.use_kernel(q):
+        dk, dv = plain_flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                               scale)
+        if out is None:
+            return dk, dv
+        return out[0].copy_(dk), out[1].copy_(dv)
+    if out is None:
+        out = (torch.empty(k.shape, dtype=k.dtype, device=k.device),
+               torch.empty(k.shape, dtype=k.dtype, device=k.device))
+    dk, dv = out
+    b, sq, sk, nh, d = _check_args(q, k, v, dout=dout, dk=dk, dv=dv)
+    if dk.stride() != dv.stride():
+        raise ValueError("flash_attention: dk and dv need the same strides")
+    _check_rows(lse, "lse", q)
+    _check_rows(delta, "D", q)
+    p = dispatch.ptr
+    err = build.library("flash_attention_bwd").k11_flash_attention_bwd_dkv(
+        int(q.dtype == torch.bfloat16), p(q), p(k), p(v), p(dout), p(lse),
+        p(delta), p(dk), p(dv), b, sq, sk, nh, d, *q.stride()[:3],
+        *k.stride()[:3], *dout.stride()[:3], *dk.stride()[:3], scale,
+        dispatch.stream_of(q))
+    build.check(err, "flash_attention_bwd_dkv")
+    dispatch.count_launch("flash_attention_bwd_dkv", f"S={sk}")
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, dout, scale: float | None = None,
+                        out: tuple[torch.Tensor, ...] | None = None):
+    """K11: (dq, dk, dv) of `flash_attention` for the cotangent dO, from
+    the forward's o and lse: the delta pass, the dq pass and the dk/dv pass,
+    each counted where it launches (`flash_attention_bwd_delta`, `_dq`,
+    `_dkv`); this function launches nothing itself.
+    `out` names three views to write them into (the channel blocks of one
+    dqkv buffer in the long attention block). Plain version:
+    `plain_flash_attention_bwd`."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    dq_out, dkv_out = (None, None) if out is None else (out[0], tuple(out[1:]))
+    delta = flash_attention_bwd_delta(o, dout)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, dq_out)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, dkv_out)
+    return dq, dk, dv

@@ -1,21 +1,23 @@
 """K4, K6 and K12: the Hiera attention block LN1 -> QKV -> window attention
--> proj -> +x, and its long-sequence form over K10; K5 and K7, the dx-only
-backward of K4 and K6. Counterpart of
+-> proj -> +x, and its long-sequence form over K10 (backward over K11); K5
+and K7, the dx-only backward of K4 and K6. Counterpart of
 sam2unet_tpu/ops/pallas/fused_attention_block.py (`fused_window_block` /
 `_xla_window_block`, `fused_window_block_strips` / `_xla_strips`,
 `_fused_strips_rem_fwd_impl` / `_xla_strips_rem`, `_strips_bwd`, `_bwd`);
-the kernels are csrc/fused_attention_block.cu, csrc/flash_attention.cu and
-csrc/fused_attention_block_bwd.cu (K5, K7).
+the kernels are csrc/fused_attention_block.cu, csrc/flash_attention.cu,
+csrc/flash_attention_bwd.cu (K11) and csrc/fused_attention_block_bwd.cu
+(K5, K7).
 
 Weights are in torch layout: w_qkv (3c, c) with output channels ordered
 [3, heads, d], w_proj (c, c). The wrappers are differentiable. The backward
 follows the JAX package's dispatch: the dx-only kernel where the block's
 weights are frozen and the window fits its live budget (K5 for the strips,
-K7 for n_pad = 0 window rows), autograd through the plain version,
-recomputed, where the JAX package runs its XLA recompute (the pad key,
-windows over the budget, weights that need gradients outside K7's
-weight-gradient mode), and an error where it runs a kernel not ported yet
-(K11 for the long form past 1024 tokens, K7's weight-gradient mode, K13).
+K7 for n_pad = 0 window rows), the long form's backward over K11 for
+windows past 1024 tokens, autograd through the plain version, recomputed,
+where the JAX package runs its XLA recompute (the pad key, windows over the
+budget, weights that need gradients outside K7's weight-gradient mode), and
+an error where it runs a kernel not ported yet (K7's weight-gradient mode,
+K13).
 """
 
 from __future__ import annotations
@@ -28,7 +30,11 @@ import torch.nn.functional as F
 from sam2unet_torch.nn.layers import layer_norm_plain, linear_f32
 from sam2unet_torch.ops import build, dispatch
 from sam2unet_torch.ops.attention import attention_with_padkey, sdpa
-from sam2unet_torch.ops.flash_attention import MAX_HEAD_DIM, flash_attention
+from sam2unet_torch.ops.flash_attention import (
+    MAX_HEAD_DIM,
+    flash_attention,
+    flash_attention_bwd,
+)
 from sam2unet_torch.ops.fused_mlp import MAX_LN_WIDTH
 from sam2unet_torch.ops.windowing import (
     window_merge_valid,
@@ -138,9 +144,10 @@ def window_block_bwd_route(s: int, c: int, n_pad: int,
     flash_attention.py:439-464): "K7" (dx only, the weights frozen), "K7
     weight-grad" (its weight-gradient mode), "K11" (the XLA recompute of a
     window past 1024 tokens, whose attention backward is the streaming
-    one), or "plain" (the XLA recompute: the pad key, windows over the live
-    budget). At hiera_l@352 the 484-token global blocks take K7; at
-    hiera_s@960 the 3600-token ones take K11."""
+    one: `_long_window_block_backward` here), or "plain" (the XLA
+    recompute: the pad key, windows over the live budget). At hiera_l@352
+    the 484-token global blocks take K7; at hiera_s@960 the 3600-token ones
+    take K11."""
     s16 = s + (-s) % 16
     live = 12 * s16 * s16 + 14 * s16 * c
     if n_pad:
@@ -185,12 +192,53 @@ def _long_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
     The JAX package leaves LN and the two products to XLA; here they are
     plain PyTorch, and q/k/v reach K10 as strided views of the QKV output."""
     nw, s, c = x.shape
+    w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj = dispatch.cast(
+        x.dtype, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj)
     y = layer_norm_plain(x, ln_w, ln_b)
     qkv = F.linear(y, w_qkv, b_qkv).reshape(nw, s, 3, num_heads,
                                             c // num_heads)
     o = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
     out = F.linear(o.reshape(nw, s, c), w_proj, b_proj)
     return x + out if residual else out
+
+
+def _long_window_block_backward(saved, gy, needs, num_heads: int,
+                                residual: bool):
+    """Backward of the long form for windows past 1024 tokens, where the
+    JAX package differentiates its XLA recompute through the streaming
+    attention backward. Nothing of the forward is kept but the inputs: LN,
+    the QKV product and K10 (o and lse) run again from x, as `jax.vjp` of
+    `_xla_window_block` runs them, so a train step launches K10 twice and
+    K11 once per long block. Then dO = gy W_proj, K11 writes dq, dk and dv
+    into the three channel blocks of one dqkv buffer, dLN(x) = dqkv W_qkv,
+    and the LN backward adds gy for the residual. LN and the products are
+    plain PyTorch, as the JAX package leaves them to XLA.
+
+    With frozen weights only dx is computed. Weights that need gradients
+    take autograd through `_long_window_block` recomputed, whose
+    `flash_attention` node is K11 too."""
+    if any(needs[1:]):
+        fn = functools.partial(_long_window_block, num_heads=num_heads,
+                               residual=residual)
+        return dispatch.plain_vjp(fn, saved, gy, needs)
+    x = saved[0]
+    nw, s, c = x.shape
+    w_qkv, b_qkv, ln_w, ln_b, w_proj = dispatch.cast(x.dtype, *saved[1:6])
+    with torch.enable_grad():
+        x_in = x.detach().requires_grad_(True)
+        y = layer_norm_plain(x_in, ln_w, ln_b)
+    with torch.no_grad():
+        qkv = F.linear(y, w_qkv, b_qkv).reshape(nw, s, 3, num_heads,
+                                                c // num_heads)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        dout = (gy.reshape(nw * s, c) @ w_proj).reshape(o.shape)
+        dqkv = torch.empty_like(qkv)
+        flash_attention_bwd(q, k, v, o, lse, dout,
+                            out=(dqkv[:, :, 0], dqkv[:, :, 1], dqkv[:, :, 2]))
+        dy = (dqkv.reshape(nw * s, 3 * c) @ w_qkv).reshape(x.shape)
+    dx, = torch.autograd.grad(y, x_in, dy)
+    return (dx + gy if residual else dx,) + (None,) * 6
 
 
 def _differentiable(fwd, bwd, x, weights, **kw):
@@ -214,7 +262,8 @@ def fused_window_block(x: torch.Tensor, w_qkv, b_qkv, ln_w, ln_b, w_proj,
     synthetic pad key standing for the reference's zero-padded tokens.
     K6, or past `long_sequence` the long form over K10 (the JAX package
     runs plain attention there for S <= 1024; the port runs K10 at any S).
-    Backward: `window_block_bwd_route`."""
+    Backward: `window_block_bwd_route` (K7, the long form's backward over
+    K11, or the plain recompute)."""
     weights = (w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj)
     if not dispatch.use_kernel(x):
         return plain_window_block(x, *weights, num_heads, n_pad, residual)
@@ -231,9 +280,10 @@ def _window_block_backward(saved, gy, needs, num_heads, n_pad, residual):
         return (window_block_bwd(x, gy, *saved[1:], num_heads=num_heads,
                                  residual=residual),) + (None,) * 6
     if route == "K11":
-        dispatch.not_ported("K11 (the streaming attention backward)", "1")
+        return _long_window_block_backward(saved, gy, needs, num_heads,
+                                           residual)
     if route != "plain":
-        dispatch.not_ported(route, "2")
+        dispatch.not_ported(route, "1")
     return _plain_backward(plain_window_block, saved, gy, needs,
                            num_heads=num_heads, n_pad=n_pad, residual=residual)
 
@@ -351,7 +401,7 @@ def _strips_rem_kernel(x, *weights, num_heads: int, window: int,
 
 def _strips_rem_backward(saved, gy, needs, **kw):
     if not any(needs[1:]):
-        dispatch.not_ported("K13 (the remainder strips' backward)", "3")
+        dispatch.not_ported("K13 (the remainder strips' backward)", "2")
     return _plain_backward(plain_strips_rem, saved, gy, needs, **kw)
 
 

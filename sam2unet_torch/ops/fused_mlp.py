@@ -88,7 +88,7 @@ def _mlp_backward(saved, gy, needs, residual, gelu_out):
         return (*adapter_bwd(x, gy, w1, b1, w2, b2, residual), None, None)
     if not weight_grads and not gelu_out:
         if ln_w is None or not residual:
-            dispatch.not_ported("K2 without LayerNorm or the residual", "2")
+            dispatch.not_ported("K2 without LayerNorm or the residual", "1")
         return (mlp_bwd_dx(x, gy, w1, b1, w2, b2, ln_w, ln_b),) + (None,) * 6
     fn = functools.partial(plain_mlp, residual=residual, gelu_out=gelu_out)
     return dispatch.plain_vjp(fn, saved, gy, needs)

@@ -3,7 +3,9 @@ sam2unet_tpu/train/checkpoints.py:39-75): a snapshot named by epoch, loss
 and IoU whenever the mean IoU beats the best so far, else a rolling
 `SAM2-UNet_epoch-latest.pth` every `save_interval` epochs and at the last
 epoch. Files are state dicts written with torch.save, which the port's
-test CLI loads with strict=True."""
+test CLI loads with strict=True. `save_train_state` / `restore_train_state`
+(the JAX package's, checkpoints.py:77-95 there) keep the whole training
+state for a true resume: the reference restarts the optimizer."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import os
 from collections.abc import Callable
 
 import torch
+from torch import nn
 
 LATEST_NAME = "SAM2-UNet_epoch-latest.pth"
 
@@ -47,3 +50,37 @@ class CheckpointPolicy:
             print("Saving Snapshot:", out)
             return out
         return None
+
+
+TRAIN_STATE_KEYS = ("model", "optimizer", "epoch", "step")
+
+
+def save_train_state(path: str, model_state: dict[str, torch.Tensor],
+                     optimizer: torch.optim.Optimizer, epoch: int,
+                     step: int) -> None:
+    """One torch.save file with the fp32 model state (`fp32_state_dict`:
+    frozen weights from their fp32 masters, BatchNorm statistics), the
+    AdamW moments, and the epochs and steps done. The schedule is a
+    function of the epoch and the resuming run's flags (`optim.cosine_lr`)
+    and has no state to keep."""
+    torch.save({"model": model_state, "optimizer": optimizer.state_dict(),
+                "epoch": int(epoch), "step": int(step)}, path)
+
+
+def restore_train_state(path: str, model: nn.Module,
+                        optimizer: torch.optim.Optimizer,
+                        masters: dict[str, torch.Tensor] | None = None
+                        ) -> tuple[int, int]:
+    """Load a `save_train_state` file into the model (strict; a bf16 frozen
+    weight takes the rounded fp32 value, and `masters`, the fp32 copies the
+    checkpoints are written from, take the exact one) and the optimizer.
+    Returns (epochs done, steps done)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(state, dict) or set(state) != set(TRAIN_STATE_KEYS):
+        raise KeyError(f"{path} is not a train state: expected the entries "
+                       f"{TRAIN_STATE_KEYS}")
+    model.load_state_dict(state["model"], strict=True)
+    for name in masters or {}:
+        masters[name] = state["model"][name]
+    optimizer.load_state_dict(state["optimizer"])
+    return state["epoch"], state["step"]

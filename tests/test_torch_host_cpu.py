@@ -144,3 +144,28 @@ def test_cuda_device_is_required_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_every_entry_point_defaults_to_the_card():
+    """Both CLIs take the card unless --device cpu is passed, and
+    chip_smoke.py has no other device: without one it exits non-zero and
+    prints no result line."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from sam2unet_torch.cli import train_cli
+
+    assert test_cli.build_parser().parse_args(
+        ["--checkpoint", "a", "--test_image_path", "b", "--test_gt_path", "c",
+         "--save_path", "d"]).device == "cuda"
+    assert train_cli.build_parser().parse_args(
+        ["--save_path", "a", "--train_image_path", "b", "--train_mask_path", "c",
+         "--test_image_path", "d", "--test_gt_path", "e"]).device == "cuda"
+    if torch.cuda.is_available():
+        return
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, str(root / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode != 0
+    assert '"ok"' not in run.stdout and "no CUDA device" in run.stdout

@@ -50,5 +50,6 @@ def test_port_package_has_the_expected_modules():
         assert f"sam2unet_torch/{mod}" in names
     for src in ("fused_mlp.cu", "fused_attention_block.cu",
                 "fused_transition.cu", "flash_attention.cu",
-                "attention_bwd.cuh"):
+                "attention_bwd.cuh", "attention_bwd_tiles.cuh",
+                "flash_attention_bwd.cu"):
         assert (ROOT / "sam2unet_torch" / "csrc" / src).is_file()

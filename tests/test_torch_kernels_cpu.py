@@ -6,9 +6,9 @@ tests/test_torch_kernels_cuda.py). The same seeded numpy inputs go through
 the JAX reference form (`_xla_mlp`, `_xla_strips`, `_xla_window_block`,
 `_xla_transition`, `_xla_strips_rem`) and, for K4, K6, K8, K10 and K12,
 through the Pallas kernel in interpret mode at the geometries of
-tests/test_fused_ops.py. The backward wrappers (K2, K3, K5, K7, K9) are
-held against `jax.vjp` of the same `_xla_*` forms, and K5, K7 and K9 also
-against the Pallas backward kernels in interpret mode (K2 and K3 only
+tests/test_fused_ops.py. The backward wrappers (K2, K3, K5, K7, K9, K11)
+are held against `jax.vjp` of the same `_xla_*` forms, and K5, K7, K9 and
+K11 also against the Pallas backward kernels in interpret mode (K2 and K3 only
 against `jax.vjp(_xla_mlp)`: the Pallas kernels differentiate tanh-GELU,
 the port exact erf). Weights are JAX-layout (in, out) on the JAX side and
 transposed for the port, weight gradients likewise.
@@ -33,7 +33,13 @@ import sam2unet_tpu.ops.pallas.flash_attention as fa
 import sam2unet_tpu.ops.pallas.fused_attention_block as fab
 import sam2unet_tpu.ops.pallas.fused_transition as ft
 from sam2unet_torch.ops import dispatch
-from sam2unet_torch.ops.flash_attention import flash_attention
+from sam2unet_torch.ops.flash_attention import (
+    _check_args,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_delta,
+    plain_flash_attention_bwd,
+)
 from sam2unet_torch.ops.fused_attention_block import (
     fused_window_block,
     fused_window_block_strips,
@@ -245,6 +251,175 @@ def test_k10_takes_strided_views_of_the_qkv_output():
     want, want_lse = flash_attention(q.contiguous(), k.contiguous(),
                                      v.contiguous(), return_lse=True)
     assert torch.equal(got, want) and torch.equal(lse, want_lse)
+
+
+# ----------------------------------------------------------------- K11
+
+# fp32, the bound tests/test_fused_ops.py:821-847 holds the Pallas streaming
+# backward to: sums over up to 960 keys in another order
+K11_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _flash_inputs(geom, seed):
+    b, sq, sk, nh, d = geom
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(sh).astype(np.float32) * 0.5
+                 for sh in ((b, sq, nh, d), (b, sk, nh, d), (b, sk, nh, d),
+                            (b, sq, nh, d)))
+
+
+@pytest.mark.parametrize("geom", FLASH_GEOMS[:2])
+def test_k11_flash_attention_bwd_matches_pallas_interpret(geom):
+    """The port's backward fed the Pallas forward's o and lse, against the
+    Pallas dq and dk/dv kernels in interpret mode. The second geometry has
+    B = 2 and 2 heads, so it pins the (B*heads, Sq) order of lse and D
+    (index b*heads + h, `_to_flat`'s)."""
+    b, sq, sk, nh, d = geom
+    q, k, v, g = _flash_inputs(geom, 51)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa._stream_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 scale, interpret=True)
+    want = fa._stream_bwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               o, lse, jnp.asarray(g), scale, interpret=True)
+    lse_t = _t(np.array(lse).reshape(b * nh, sq))
+    got = flash_attention_bwd(_t(q), _t(k), _t(v), _t(np.array(o)), lse_t,
+                              _t(g), scale)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **K11_TOL)
+
+
+# the two above and a ragged pair of lengths (no multiple of 16, Sq != Sk),
+# which the Pallas kernels do not take
+@pytest.mark.parametrize("geom", FLASH_GEOMS[:2] + [(2, 75, 133, 2, 16)])
+def test_k11_flash_attention_bwd_matches_jax_vjp(geom):
+    q, k, v, g = _flash_inputs(geom, 52)
+    _, vjp = jax.vjp(fa._xla_attention, jnp.asarray(q), jnp.asarray(k),
+                     jnp.asarray(v))
+    o, lse = flash_attention(_t(q), _t(k), _t(v), return_lse=True)
+    got = flash_attention_bwd(_t(q), _t(k), _t(v), o, lse, _t(g))
+    plain = plain_flash_attention_bwd(_t(q), _t(k), _t(v), o, lse, _t(g))
+    for a, b, w in zip(got, plain, vjp(jnp.asarray(g))):
+        assert torch.equal(a, b)   # a CPU tensor takes the plain version
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **K11_TOL)
+
+
+def test_k11_delta_is_indexed_by_batch_then_head():
+    """D[b*heads + h, t] = dO[b, t, h] . o[b, t, h], the order of K10's lse
+    (`_stream_bwd_impl`'s delta, flash_attention.py:306)."""
+    rng = np.random.default_rng(53)
+    o, g = (rng.standard_normal((3, 20, 2, 8)).astype(np.float32)
+            for _ in range(2))
+    want = jnp.einsum("bqhd,bqhd->bhq", g, o).reshape(6, 20)
+    got = flash_attention_bwd_delta(_t(o), _t(g))
+    _close(got, want)
+    assert abs(float(got[1 * 2 + 1, 7]) - float((g[1, 7, 1] * o[1, 7, 1]).sum())) < 1e-5
+
+
+def test_k11_takes_and_writes_strided_views():
+    """q/k/v as channel slices of one QKV buffer and dq/dk/dv written into
+    the channel slices of one dqkv buffer, as the long block's backward
+    does, against the same values made contiguous."""
+    rng = np.random.default_rng(54)
+    qkv = _t(rng.standard_normal((2, 200, 3, 2, 16)).astype(np.float32))
+    g = _t(rng.standard_normal((2, 200, 2, 16)).astype(np.float32))
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    want = flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                               o, lse, g)
+    dqkv = torch.full_like(qkv, float("nan"))
+    got = flash_attention_bwd(q, k, v, o, lse, g,
+                              out=(dqkv[:, :, 0], dqkv[:, :, 1], dqkv[:, :, 2]))
+    assert got[0].data_ptr() == dqkv.data_ptr()
+    assert got[0].stride() == (200 * 96, 96, 16, 1)
+    for i, w in enumerate(want):
+        assert torch.equal(dqkv[:, :, i], w)
+
+
+def test_flash_attention_is_differentiable_on_the_cpu():
+    """On a CPU tensor autograd goes through the plain version; its
+    gradients are those `flash_attention_bwd` computes from o and lse."""
+    q, k, v, g = (_t(a) for a in _flash_inputs((2, 40, 56, 2, 8), 55))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o, lse = flash_attention(*leaves, return_lse=True)
+    want = torch.autograd.grad(o, leaves, g)
+    got = flash_attention_bwd(q, k, v, o.detach(), lse.detach(), g)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("case", ["head dim 12", "odd token stride",
+                                  "strided channels", "k and v differ",
+                                  "dk shaped like q", "fp64"])
+def test_flash_argument_checks_refuse_what_the_kernels_cannot_address(case):
+    """The checks the card's K10 and K11 wrappers run before a launch
+    (16-byte vector loads: aligned bases, strides in multiples of 8
+    elements, unit stride over d, d % 8 == 0 and <= 96)."""
+    z = torch.zeros
+    q, k, v, more, err = z(1, 32, 2, 16), z(1, 48, 2, 16), z(1, 48, 2, 16), {}, ValueError
+    if case == "head dim 12":
+        q, k, v = z(1, 32, 2, 12), z(1, 48, 2, 12), z(1, 48, 2, 12)
+    elif case == "odd token stride":
+        q = z(1, 32, 36)[:, :, :32].reshape(1, 32, 2, 16)
+        assert q.stride(1) == 36
+    elif case == "strided channels":
+        q = z(1, 32, 2, 32)[..., ::2]
+    elif case == "k and v differ":
+        v = z(1, 48, 3, 2, 16)[:, :, 0]
+    elif case == "dk shaped like q":
+        more = dict(dk=z(1, 32, 2, 16))
+    else:
+        q, k, v, err = q.double(), k.double(), v.double(), TypeError
+    with pytest.raises(err):
+        _check_args(q, k, v, **more)
+    assert _check_args(z(1, 32, 2, 16), z(1, 48, 2, 16), z(1, 48, 2, 16),
+                       dk=z(1, 48, 2, 16)) == (1, 32, 48, 2, 16)
+
+
+def test_long_window_block_backward_matches_jax_vjp():
+    """A 1296-token block: past `long_sequence` and past 1024 tokens with a
+    16-aligned length, so its backward route is K11 and the card's node is
+    `_long_window_block_backward` (LN, QKV, K10 again, K11, the products
+    and LN backward). Run here on CPU tensors, where each wrapper inside it
+    takes its plain version, against `jax.vjp` of `_xla_window_block`: dx to
+    2e-5 of its max."""
+    nw, s, c, nh = 1, 1296, 32, 2
+    assert long_sequence(s, c)
+    assert port_fab.window_block_bwd_route(s, c, 0, False) == "K11"
+    mk = _mk(np.random.default_rng(56))
+    x, gy = mk(nw, s, c), mk(nw, s, c)
+    ja, pa = _block_weights(mk, c)
+    _, vjp = jax.vjp(lambda xx: fab._xla_window_block(xx, *ja, nh, 0, True),
+                     jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(gy))[0])
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_fab, "flash_attention_bwd",
+                   lambda *a, **k: calls.append(1) or flash_attention_bwd(*a, **k))
+        got = port_fab._window_block_backward(
+            (_t(x), *pa), _t(gy), (True,) + (False,) * 6, num_heads=nh,
+            n_pad=0, residual=True)
+    assert calls == [1] and all(g is None for g in got[1:])
+    err = float(np.abs(got[0].numpy() - want).max())
+    assert err <= 2e-5 * float(np.abs(want).max()), err
+
+
+def test_long_window_block_backward_with_trainable_weights():
+    """Weights that need gradients: autograd through the long form
+    recomputed, against `jax.vjp` of `_xla_window_block` on every input."""
+    nw, s, c, nh = 1, 1040, 16, 1
+    mk = _mk(np.random.default_rng(57))
+    x, gy = mk(nw, s, c), mk(nw, s, c)
+    ja, pa = _block_weights(mk, c)
+    _, vjp = jax.vjp(lambda *a: fab._xla_window_block(*a, nh, 0, False),
+                     jnp.asarray(x), *ja)
+    want = vjp(jnp.asarray(gy))
+    got = port_fab._window_block_backward(
+        (_t(x), *pa), _t(gy), (True,) * 7, num_heads=nh, n_pad=0,
+        residual=False)
+    for i, (a, w) in enumerate(zip(got, want)):
+        w = np.asarray(w).T if i in (1, 5) else np.asarray(w)
+        scale = float(np.abs(w).max())
+        assert float(np.abs(a.numpy() - w).max()) <= 2e-5 * scale, i
 
 
 @pytest.mark.parametrize("s,c,long", [(3600, 384, True), (4096, 256, True),
@@ -501,33 +676,31 @@ def _zeros_block(nw, s, c):
             torch.zeros(c), torch.zeros(c, c), torch.zeros(c))
 
 
-@pytest.mark.parametrize("case", ["K11", "K7 weight-grad", "K13", "K2"])
+@pytest.mark.parametrize("case", ["K7 weight-grad", "K13", "K2"])
 def test_backward_raises_where_the_jax_package_runs_an_unported_kernel(case):
     """The backward nodes the card's wrappers record: where the JAX package
     runs a kernel the port has not ported, they raise naming the ROADMAP.md
     item, and never recompute through the plain version instead."""
-    if case in ("K11", "K7 weight-grad"):
-        s, c, needs = ((1040, 8, (True,) + (False,) * 6) if case == "K11"
-                       else (16, 24, (True,) * 7))
-        saved = _zeros_block(1, s, c)
+    if case == "K7 weight-grad":
+        saved = _zeros_block(1, 16, 24)
         call = lambda: port_fab._window_block_backward(  # noqa: E731
-            saved, torch.zeros(1, s, c), needs, num_heads=1, n_pad=0,
+            saved, torch.zeros(1, 16, 24), (True,) * 7, num_heads=1, n_pad=0,
             residual=True)
-        match = "K11.*open item 1" if case == "K11" else "weight-grad.*open item 2"
+        match = "weight-grad.*open item 1"
     elif case == "K13":
         x, *w = _zeros_block(1, 12, 8)
         saved = (x.reshape(1, 3, 4, 8), *w)
         call = lambda: port_fab._strips_rem_backward(  # noqa: E731
             saved, saved[0], (True,) + (False,) * 6, num_heads=1, window=3,
             residual=True)
-        match = "K13.*open item 3"
+        match = "K13.*open item 2"
     else:
         x = torch.zeros(4, 16)
         saved = (x, torch.zeros(32, 16), torch.zeros(32), torch.zeros(16, 32),
                  torch.zeros(16), None, None)
         call = lambda: port_mlp._mlp_backward(  # noqa: E731
             saved, x, (True,) + (False,) * 6, residual=True, gelu_out=False)
-        match = "K2 without LayerNorm.*open item 2"
+        match = "K2 without LayerNorm.*open item 1"
     with pytest.raises(NotImplementedError, match=match):
         call()
 

@@ -6,13 +6,16 @@ made inside the fixture, never at import). Run on a machine with the card:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 
 Shapes are small hiera_l-like geometries (head dim 72) and the hiera_s@960
-geometries of K10 and K12 (head dim 96) at a small batch. The backward
+geometries of K10, K11 and K12 (head dim 96) at a small batch. The backward
 kernels (K2, K3, K5, K7, K9) are held against autograd through their plain
 versions, at hiera_l@352's widths and head dim 96, with a ragged S for K7
-and a tie case for K9's max-pool routing. Tolerances: max|kernel - plain|
-<= 2e-2 * max|plain| in bf16, 1e-4 in fp32 (TF32 off), for each output
-(K9 in bf16: see K9_NEAR_TIE_SHARE). The backward of a block whose JAX
-backward is a kernel not ported yet (K11) raises on the card.
+and a tie case for K9's max-pool routing; K11 against
+`plain_flash_attention_bwd` at S 3600 and 1089, head dims 72 and 96, cross
+lengths, strided views, and through autograd and the long block's
+backward. Tolerances: max|kernel - plain| <= 2e-2 * max|plain| in bf16,
+1e-4 in fp32 (TF32 off), for each output (K9 in bf16: see
+K9_NEAR_TIE_SHARE). The backward of a block whose JAX backward is a kernel
+not ported yet (K7's weight-gradient mode, K13) raises on the card.
 """
 
 from __future__ import annotations
@@ -23,7 +26,13 @@ import pytest
 import torch
 
 from sam2unet_torch.ops import dispatch
-from sam2unet_torch.ops.flash_attention import flash_attention
+from sam2unet_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_delta,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+)
 from sam2unet_torch.ops.fused_attention_block import (
     fused_window_block,
     fused_window_block_strips,
@@ -61,14 +70,15 @@ def _lin(gen, dtype, o, i):
             _rnd(gen, dtype, o, scale=0.1))
 
 
-def _compare(call, dtype, near_ties=False):
-    """Every output within REL_TOL of max|plain|. With `near_ties` (K9 in
+def _compare(call, dtype, near_ties=False, launches=1):
+    """Every output within REL_TOL of max|plain|, after `launches` counted
+    wrapper launches. With `near_ties` (K9 in
     bf16), up to max(2, K9_NEAR_TIE_SHARE * n) of the n tokens (rows of the
     last axis) may lie outside it, each within K9_NEAR_TIE_REL of
     max|plain|."""
     dispatch.reset_launches()
     got = call()
-    assert sum(dispatch.launches.values()) == 1
+    assert sum(dispatch.launches.values()) == launches
     with dispatch.force_plain():
         want = call()
     torch.cuda.synchronize()
@@ -166,6 +176,87 @@ def test_k10_kernel_cross_lengths(gen, dtype):
     q = _rnd(gen, dtype, 2, 160, 2, 96)
     k, v = _rnd(gen, dtype, 2, 330, 2, 96), _rnd(gen, dtype, 2, 330, 2, 96)
     _compare(lambda: flash_attention(q, k, v, return_lse=True), dtype)
+
+
+def _k11_inputs(gen, dtype, b, sq, sk, nh, d):
+    """q/k/v (channel slices of one QKV buffer when sq == sk), dO, K10's o
+    and lse, and three views of one dqkv buffer to write into."""
+    if sq == sk:
+        qkv = _rnd(gen, dtype, b, sq, 3, nh, d)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q = _rnd(gen, dtype, b, sq, nh, d)
+        k, v = _rnd(gen, dtype, b, sk, nh, d), _rnd(gen, dtype, b, sk, nh, d)
+    dqkv = torch.empty(b, max(sq, sk), 3, nh, d, dtype=dtype, device="cuda")
+    outs = (dqkv[:, :sq, 0], dqkv[:, :sk, 1], dqkv[:, :sk, 2])
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    return q, k, v, o, lse, _rnd(gen, dtype, b, sq, nh, d), outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [72, 96])
+@pytest.mark.parametrize("s", [3600, 1089])  # hiera_s@960 global; ragged
+def test_k11_kernel_matches_plain(gen, dtype, d, s):
+    """dq, dk and dv written into the channel blocks of one dqkv buffer."""
+    q, k, v, o, lse, g, outs = _k11_inputs(gen, dtype, 1, s, s, 2, d)
+    _compare(lambda: flash_attention_bwd(q, k, v, o, lse, g, out=outs), dtype,
+             launches=3)
+    assert dispatch.launches == {
+        "flash_attention_bwd_delta": 1, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkv": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k11_kernel_cross_lengths(gen, dtype):
+    q, k, v, o, lse, g, _ = _k11_inputs(gen, dtype, 2, 160, 330, 2, 96)
+    _compare(lambda: flash_attention_bwd(q, k, v, o, lse, g), dtype, launches=3)
+    q, k, v, o, lse, g, _ = _k11_inputs(gen, dtype, 3, 333, 77, 3, 72)
+    _compare(lambda: flash_attention_bwd(q, k, v, o, lse, g), dtype, launches=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k11_passes_match_plain_one_by_one(gen, dtype):
+    """The delta pass (index b*heads + h with B, heads > 1), the dq pass and
+    the dk/dv pass, each against its own plain version."""
+    q, k, v, o, lse, g, outs = _k11_inputs(gen, dtype, 2, 200, 200, 3, 96)
+    _compare(lambda: flash_attention_bwd_delta(o, g), torch.float32)
+    delta = flash_attention_bwd_delta(o, g)
+    scale = 1 / math.sqrt(96)
+    _compare(lambda: flash_attention_bwd_dq(q, k, v, g, lse, delta, scale,
+                                            out=outs[0]), dtype)
+    _compare(lambda: flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale,
+                                             out=outs[1:]), dtype)
+
+
+@pytest.mark.cuda
+def test_k11_refuses_views_it_cannot_address(gen):
+    q, k, v, o, lse, g, _ = _k11_inputs(gen, torch.bfloat16, 1, 64, 64, 2, 96)
+    odd = torch.empty(1, 64, 2, 100, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="strides that are multiples of 8"):
+        flash_attention_bwd(q, k, v, o, lse, g,
+                            out=(odd[..., :96], odd[..., :96], odd[..., :96]))
+    with pytest.raises(ValueError, match="lse must be contiguous fp32"):
+        flash_attention_bwd(q, k, v, o, lse.t().contiguous().t(), g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_backward_is_k11(gen, dtype):
+    """Autograd through `flash_attention` on the card: one node that keeps
+    o and lse, whose backward launches K11 (no second K10)."""
+    qkv = _rnd(gen, dtype, 2, 1089, 3, 2, 96).requires_grad_()
+    g = _rnd(gen, dtype, 2, 1089, 2, 96)
+
+    def call():
+        o = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        return torch.autograd.grad(o, qkv, g)[0]
+
+    _compare(call, dtype, launches=4)
+    assert dispatch.launches["flash_attention"] == 1
+    assert dispatch.launches["flash_attention_bwd_dq"] == 1
 
 
 @pytest.mark.cuda
@@ -311,13 +402,40 @@ def test_k9_routes_anti_diagonal_ties_in_row_major_order(gen):
 
 
 @pytest.mark.cuda
-def test_backward_raises_where_the_jax_package_runs_k11(gen):
-    """A hiera_s@960 global block (3600 tokens at width 384, the long form)
-    trains through K11 in the JAX package; the port has not ported it, so
-    the backward fails loudly instead of recomputing through the plain
-    version."""
-    x = _rnd(gen, torch.bfloat16, 1, 3600, 384).requires_grad_()
-    w = _attn_weights(gen, torch.bfloat16, 384, 384)
-    y = fused_window_block(x, *w, num_heads=4)
-    with pytest.raises(NotImplementedError, match="K11.*ROADMAP.md open item 1"):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_long_window_block_backward_matches_plain(gen, dtype):
+    """A hiera_s@960 global block in miniature width (3600 tokens, head dim
+    96): the forward is the long form over K10, the backward runs LN, QKV
+    and K10 again and then K11, as the JAX package's recompute does."""
+    x = _rnd(gen, dtype, 1, 3600, 192).requires_grad_()
+    gy = _rnd(gen, dtype, 1, 3600, 192)
+    w = _attn_weights(gen, dtype, 192, 192)
+
+    def call():
+        return torch.autograd.grad(fused_window_block(x, *w, num_heads=2), x,
+                                   gy)[0]
+
+    _compare(call, dtype, launches=5)
+    assert dispatch.launches["flash_attention"] == 2
+    assert dispatch.launches["flash_attention_bwd_dq"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["K7 weight-grad", "K13"])
+def test_backward_raises_where_the_jax_package_runs_an_unported_kernel(gen, case):
+    """A trainable 64-token window block trains through K7's weight-gradient
+    mode in the JAX package, a frozen remainder-strip block through K13; the
+    port has ported neither, so the backward fails loudly instead of
+    recomputing through the plain version."""
+    dtype = torch.bfloat16
+    w = _attn_weights(gen, dtype, 144, 144)
+    if case == "K7 weight-grad":
+        x = _rnd(gen, dtype, 2, 64, 144).requires_grad_()
+        y = fused_window_block(x, *[t.requires_grad_() for t in w], num_heads=2)
+        match = "weight-grad.*ROADMAP.md open item 1"
+    else:
+        x = _rnd(gen, dtype, 1, 12, 18, 144).requires_grad_()
+        y = fused_window_block_strips_rem(x, *w, num_heads=2, window=5)
+        match = "K13.*ROADMAP.md open item 2"
+    with pytest.raises(NotImplementedError, match=match):
         y.sum().backward()

@@ -30,7 +30,10 @@ from sam2unet_torch.configs import HieraConfig as PortHieraConfig
 from sam2unet_torch.configs import SAM2UNetConfig as PortConfig
 from sam2unet_torch.interop.from_jax import jax_to_state_dict
 from sam2unet_torch.models.sam2unet import SAM2UNet as PortSAM2UNet
-from sam2unet_torch.ops.fused_attention_block import long_sequence
+from sam2unet_torch.ops.fused_attention_block import (
+    long_sequence,
+    window_block_bwd_route,
+)
 from sam2unet_tpu.configs import HieraConfig, SAM2UNetConfig
 from sam2unet_tpu.models.sam2unet import SAM2UNet
 
@@ -144,16 +147,31 @@ def test_hiera_l_352_routes_every_block(train):
     assert [o.shape[1] for o in outs] == [88, 44, 22, 11]
 
 
-def test_hiera_s_960_training_backward_needs_k11():
+def test_hiera_s_960_trains_on_the_ported_kernels():
     """The three 3600-token global blocks of hiera_s@960 take the long form
-    forward, and in training the JAX package differentiates them through
-    K11, which the port has not ported: `unported_train_backward` names
-    them (the train CLI refuses the configuration on the card, and their
-    backward raises there). hiera_l@352 has none."""
-    gaps = port_hiera.unported_train_backward(PORT_HIERA_S, SIZE)
-    assert [g.split(":")[0] for g in gaps] == ["block 7", "block 10", "block 13"]
-    assert all("3600 tokens" in g and g.endswith("needs K11") for g in gaps)
+    forward and, in training, its backward over K11, so with the trunk
+    frozen no block of hiera_s@960 or hiera_l@352 waits for a kernel:
+    `unported_train_backward` is empty (and the train CLI runs its defaults
+    on the card)."""
+    assert port_hiera.unported_train_backward(PORT_HIERA_S, SIZE) == []
     assert port_hiera.unported_train_backward(PORT_HIERA_L, 352) == []
+    blocks = port_hiera._block_plan(PORT_HIERA_S)
+    assert [i for i, bk in enumerate(blocks) if bk["window_size"] == 0] == [7, 10, 13]
+    assert window_block_bwd_route(3600, 384, 0, False) == "K11"
+
+
+def test_a_trainable_global_block_still_needs_k7_weight_gradients():
+    """A trunk that is not frozen: hiera_s at 256 has 256-token global
+    blocks at width 384, which the JAX package differentiates through K7's
+    weight-gradient mode. The port has not ported it, and the guard names
+    each block; at 960 the same blocks take the long form (K11) either way."""
+    gaps = port_hiera.unported_train_backward(PORT_HIERA_S, 256, frozen=False)
+    assert [g.split(":")[0] for g in gaps] == ["block 7", "block 10", "block 13"]
+    assert all("256 tokens" in g and g.endswith("needs K7 weight-grad")
+               for g in gaps)
+    assert port_hiera.unported_train_backward(PORT_HIERA_S, 256) == []
+    assert port_hiera.unported_train_backward(PORT_HIERA_S, SIZE,
+                                              frozen=False) == []
 
 
 def test_training_routes_need_the_frozen_trunk():

@@ -8,8 +8,14 @@ global block, the plain stage 3->4 transition, tails (K2's) and adapters
 (K3's). The JAX side is `jax.value_and_grad` of the engine's loss with
 `batch_stats` mutable, then optax's AdamW; the port's is `train_step`.
 Compared: the loss, every trainable gradient, the BatchNorm statistics and
-the parameters after the AdamW step. Also the data pipeline, the loss, the
-device metrics and the eval postprocess against the JAX package's.
+the parameters after the AdamW step. A second step at hiera_s's geometry
+(windows 8/4/14/7) at 576 px, where the global block has 1296 tokens: past
+`long_sequence` and past 1024, so its backward route is K11, and the
+port's global block runs as the card's autograd node (the long form and
+`_long_window_block_backward`, each kernel wrapper inside it taking its
+plain version on CPU tensors). There also: `remat=True` gives the same loss
+and gradients. Also the data pipeline, the loss, the device metrics and the
+eval postprocess against the JAX package's.
 
 BatchNorm running variance: the port keeps torch's convention (the
 reference's), the unbiased batch variance n/(n-1) var; the JAX package
@@ -25,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
+from test_torch_model_960_cpu import TRUNK as TRUNK_960
 from test_torch_model_cpu import TRUNK, _perturb
 
 from sam2unet_torch.configs import HieraConfig as PortHieraConfig
@@ -35,6 +42,8 @@ from sam2unet_torch.eval.metrics_device import (
     batched_semantic_metrics as port_metrics,
 )
 from sam2unet_torch.interop.from_jax import jax_to_state_dict
+import sam2unet_torch.models.hiera as port_hiera
+import sam2unet_torch.ops.fused_attention_block as port_fab
 from sam2unet_torch.models.sam2unet import SAM2UNet as PortSAM2UNet
 from sam2unet_torch.ops.pooling import avg_pool2d_same as port_avg_pool
 from sam2unet_torch.train import engine as port_engine
@@ -82,16 +91,16 @@ def _unflatten(flat: dict) -> dict:
     return out
 
 
-@pytest.fixture(scope="module")
-def step():
-    """(JAX results, port model after one step, port results)."""
-    model = SAM2UNet(SAM2UNetConfig(trunk=HieraConfig(**TRUNK)))
-    x0 = np.zeros((1, SIZE, SIZE, 3), np.float32)
+def _one_step(trunk: dict, x: np.ndarray, y: np.ndarray) -> dict:
+    """One train step on both sides from shared parameters: (JAX results,
+    port model after the step, port results)."""
+    size = x.shape[1]
+    model = SAM2UNet(SAM2UNetConfig(trunk=HieraConfig(**trunk)))
+    x0 = np.zeros((1, size, size, 3), np.float32)
     variables = jax.jit(model.init, static_argnames=("train",))(
         jax.random.PRNGKey(0), x0, train=False)
     variables = _perturb(dict(jax.tree_util.tree_map(np.asarray, variables)),
                          np.random.default_rng(0))
-    x, y = _batch(np.random.default_rng(5))
 
     trainable, frozen = partition_params(variables["params"])
 
@@ -109,7 +118,7 @@ def step():
     updates, _ = opt.update(grads, opt.init(trainable), trainable)
     new_params = jax.tree_util.tree_map(lambda p, u: p + u, trainable, updates)
 
-    port = PortSAM2UNet(PortConfig(trunk=PortHieraConfig(**TRUNK)))
+    port = PortSAM2UNet(PortConfig(trunk=PortHieraConfig(**trunk)))
     state = jax_to_state_dict(variables, port.state_dict().keys())
     port.load_state_dict(state, strict=True)
     names = [n for n, p in port.named_parameters() if is_trainable(n)]
@@ -125,7 +134,7 @@ def step():
             mod.register_forward_hook(
                 lambda m, a, o, name=name: bn_n.__setitem__(
                     name, a[0].numel() // a[0].shape[1]))
-    optimizer, _ = make_optimizer(port, lr=LR, weight_decay=WD, epochs=EPOCHS)
+    optimizer = make_optimizer(port, lr=LR, weight_decay=WD)
     got_loss = port_engine.train_step(port, optimizer, torch.from_numpy(x),
                                       torch.from_numpy(y))
     return dict(loss=float(loss), jax_grads=jax_grads, jax_new=jax_new,
@@ -133,11 +142,16 @@ def step():
                 names=names, bn_n=bn_n)
 
 
+@pytest.fixture(scope="module")
+def step():
+    return _one_step(TRUNK, *_batch(np.random.default_rng(5)))
+
+
 def test_train_step_loss_matches_jax(step):
     assert abs(step["got_loss"] - step["loss"]) <= LOSS_RTOL * abs(step["loss"])
 
 
-def test_train_step_grads_match_jax(step):
+def _assert_grads_match(step):
     params = dict(step["port"].named_parameters())
     assert len(step["names"]) == len(step["jax_grads"]) > 0
     for name in step["names"]:
@@ -149,6 +163,10 @@ def test_train_step_grads_match_jax(step):
         if g.numel() > 1:
             pair = torch.stack([g.flatten(), want.flatten()]).double()
             assert float(torch.corrcoef(pair)[0, 1]) >= GRAD_CORR, name
+
+
+def test_train_step_grads_match_jax(step):
+    _assert_grads_match(step)
 
 
 def test_only_the_trainable_set_gets_gradients(step):
@@ -192,6 +210,91 @@ def test_adamw_step_matches_jax(step):
                               torch.full_like(g, 1e-2 * LR))
         err = (params[name].detach() - step["jax_new"][name]).abs()
         assert bool((err <= allowed).all()), (name, float(err.max()))
+
+
+# ---------------------------------------- hiera_s's geometry, the K11 route
+
+SIZE_960 = 576   # grids 144/72/36/18: the global block sees 36 * 36 tokens
+
+
+def _batch_960(rng):
+    x = rng.standard_normal((1, SIZE_960, SIZE_960, 3)).astype(np.float32)
+    yy, xx = np.mgrid[:SIZE_960, :SIZE_960]
+    y = ((yy - 250) ** 2 + (xx - 300) ** 2 < 150 ** 2)
+    return x, y[None, ..., None].astype(np.float32)
+
+
+def _card_node_for_long_blocks(mp, seen):
+    """Make hiera.py's `fused_window_block` record, for a window past 1024
+    tokens, the autograd node it records on the card (forward
+    `_window_block_kernel`, which takes the long form there, backward
+    `_window_block_backward`), on the CPU tensors of the test: the kernel
+    wrappers inside take their plain versions."""
+    real, real_bwd = port_hiera.fused_window_block, port_fab.flash_attention_bwd
+
+    def block(x, *weights, num_heads, n_pad=0, residual=True):
+        if x.shape[1] <= 1024:
+            return real(x, *weights, num_heads=num_heads, n_pad=n_pad,
+                        residual=residual)
+        seen.append(("long", x.shape[1]))
+        assert port_fab.long_sequence(x.shape[1], x.shape[2])
+        assert port_fab.window_block_bwd_route(x.shape[1], x.shape[2], 0,
+                                               False) == "K11"
+        return port_fab._differentiable(
+            port_fab._window_block_kernel, port_fab._window_block_backward, x,
+            weights, num_heads=num_heads, n_pad=n_pad, residual=residual)
+
+    def bwd(*a, **k):
+        seen.append(("K11", a[0].shape[1]))
+        return real_bwd(*a, **k)
+
+    mp.setattr(port_hiera, "fused_window_block", block)
+    mp.setattr(port_fab, "flash_attention_bwd", bwd)
+
+
+@pytest.fixture(scope="module")
+def step_960():
+    seen = []
+    with pytest.MonkeyPatch.context() as mp:
+        _card_node_for_long_blocks(mp, seen)
+        out = _one_step(TRUNK_960, *_batch_960(np.random.default_rng(6)))
+    return dict(out, seen=seen)
+
+
+def test_train_step_through_the_k11_route_matches_jax(step_960):
+    """Loss and every trainable gradient, with the 1296-token global block
+    differentiated through the long form's backward (K10 again, then K11's
+    plain version) where the JAX package differentiates its XLA recompute."""
+    assert step_960["seen"] == [("long", 1296), ("K11", 1296)]
+    assert (abs(step_960["got_loss"] - step_960["loss"])
+            <= LOSS_RTOL * abs(step_960["loss"]))
+    _assert_grads_match(step_960)
+
+
+def test_remat_gives_the_same_loss_and_gradients(step_960):
+    """`remat=True` (each trunk block under torch.utils.checkpoint) changes
+    what is kept, not what is computed: the same loss and gradients, on the
+    card's node for the long block too."""
+    x, y = (torch.from_numpy(a) for a in _batch_960(np.random.default_rng(6)))
+    runs = []
+    for remat in (False, True):
+        port = PortSAM2UNet(PortConfig(trunk=PortHieraConfig(**TRUNK_960)),
+                            remat=remat).train()
+        port.load_state_dict(step_960["old"], strict=True)
+        seen = []
+        with pytest.MonkeyPatch.context() as mp:
+            _card_node_for_long_blocks(mp, seen)
+            loss = port_loss(port(x), y)
+            loss.backward()
+        # with remat the block's forward runs again in the backward
+        assert [k for k, _ in seen] == ["long"] * (1 + remat) + ["K11"]
+        runs.append((float(loss.detach()), {n: p.grad for n, p in port.named_parameters()
+                                   if p.grad is not None}))
+    (l0, g0), (l1, g1) = runs
+    assert l0 == l1 and g0.keys() == g1.keys() and len(g0) == len(step_960["names"])
+    for n in g0:
+        scale = float(g0[n].abs().max())
+        assert float((g1[n] - g0[n]).abs().max()) <= 1e-6 * scale, n
 
 
 # ------------------------------------------------------------ the rest
