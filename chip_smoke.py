@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (sam2unet_torch): inference at
-hiera_l @ 352 and hiera_s @ 960 (the test CLI's defaults), and training at
-hiera_l @ 352 and at hiera_s @ 960 (the train CLI's defaults).
+hiera_l @ 352 and hiera_s @ 960 (the test CLI's defaults), training at
+hiera_l @ 352 and at hiera_s @ 960 (the train CLI's defaults), and the SAM2
+image predictor at sam2_hiera_s @ 1024 (build_sam2's defaults).
 
     python3 chip_smoke.py            # every phase, as the acceptance run does
     python3 chip_smoke.py --phases build,kernels --batch 2 --batch960 2 \
         --batch_train 2 --batch_train960 2
     python3 chip_smoke.py --phases build,profile   # device time by kernel
     python3 chip_smoke.py --paths s960train        # one path
+    python3 chip_smoke.py --paths s1024sam2        # the SAM2 predictor
 
 Phases, one line each, for each path of --paths (l352, s960, then the
 training paths l352train and s960train, listed after these):
@@ -69,6 +71,26 @@ bf16 over fp32 master parameters, the trunk frozen:
      CUDA events over 5 steps after 2 warm-up steps, and peak memory; at
      960 also with --remat. A batch that does not fit the card's memory is
      reported with its size and halved.
+The SAM2 predictor path, s1024sam2 (sam2_hiera_s @ 1024 through
+build_sam2_image_predictor, bf16, seeded random weights):
+  2. its kernels at the predictor's shapes (one image a set_image): K1 on
+     the block tails, K4, K8, K10 on the 4096-token global blocks and on the
+     mask decoder's 16 tokens x 4096 keys at head dim 16, K12 on 64x64 w14
+     and 32x32 w7; and K14 at every shape its paths give it under the
+     "pallas" attention backend (this trunk's and SAM2-UNet's stage 3->4
+     transitions, the decoder's 8-token attentions), timed at SAM2-UNet's
+     960 transition beside SDPA.
+  3. set_image on a seeded 720x960 image, predict with one point, a box,
+     points and a box, 9 points (16 tokens: the decoder's K10), multimask
+     on and off, a mask input, set_image_batch + predict_batch over 2
+     images: shapes, ious in [0, 1], masks not empty, the launches of each
+     call against the table in PATHS; the embedding and low-res logits
+     against force_plain(); then under set_attention_impl("pallas"): K14's
+     launches per set_image and per predict, the same outputs against the
+     default backend, and SAM2-UNet's hiera_s@960 forward (batch 16) with
+     K14 at its stage 3->4 transition against the default backend.
+  4. set_image ms (host clock) and its forward alone, steady-state
+     one-point predict ms (device and host postprocess), peak memory.
 Then a JSON line of per-kernel numbers, the card line, and last the result
 line. Any failed phase exits non-zero before the result line. Without a
 CUDA device, or without the sam2unet_torch package beside this script, it
@@ -166,6 +188,27 @@ PATHS = {
                                       "fused_window_block": 64,
                                       "fused_transition_block": 2,
                                       "flash_attention": 9}),
+    # the SAM2 image predictor at build_sam2's default config. Per
+    # set_image, from the routes (tests/test_torch_sam2_cpu.py): K1 on the 16
+    # block tails (no adapters), K4 at blocks 0 and 2, K8 at blocks 1 and 3,
+    # K12 on the 8 remainder-grid blocks of stages 3-4, K10 in the three
+    # 4096-token global blocks; the stage 3->4 transition is plain. A
+    # prompt of up to 10 tokens' predict launches nothing (the decoder's
+    # attentions take the einsum form); one of 16 (9 points) runs its three
+    # token->image attentions on K10. Under the "pallas" backend K14 adds 1
+    # per set_image (the transition) and 4 per 8-token predict (2 token
+    # self-attentions, 2 image->token attentions). set_image embeds one
+    # image, so its kernels are held and profiled at batch 1.
+    "s1024sam2": dict(label="sam2_hiera_s@1024 predictor", cfg="sam2_hiera_s",
+                      size=1024, sam2=True, batch=1,
+                      per_set_image={"fused_mlp": 16,
+                                     "fused_window_block_strips": 2,
+                                     "fused_transition_block": 2,
+                                     "fused_window_block_strips_rem": 8,
+                                     "flash_attention": 3},
+                      per_predict_16={"flash_attention": 3},
+                      pallas_set_image={"full_attention": 1},
+                      pallas_predict_8={"full_attention": 4}),
 }
 BATCH_FLAG = {"l352": "batch", "s960": "batch960", "l352train": "batch_train",
               "s960train": "batch_train960"}
@@ -221,6 +264,7 @@ def make_case(kind: str, dtype, gen, **g):
         flash_attention_bwd_delta,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
+        full_attention,
     )
     from sam2unet_torch.ops.fused_attention_block import (
         fused_window_block,
@@ -259,16 +303,29 @@ def make_case(kind: str, dtype, gen, **g):
         nbytes = 2 * m * c + 2 * c * hd + hd + 3 * c
         return call, flops, nbytes * x.element_size(), None
 
-    if kind == "flash":
-        # q/k/v as the long-form blocks pass them: slices of the QKV output
-        b, s, nh, d = g["batch"], g["S"], g["heads"], g["d"]
-        qkv = rnd(b, s, 3, nh, d)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        call = lambda: flash_attention(q, k, v, return_lse=True)
+    if kind in ("flash", "full"):
+        # q/k/v as the long-form blocks pass them: slices of the QKV output;
+        # with Sk, as the mask decoder passes them: q of one length, k and v
+        # slices of one buffer of another. K10 also returns the lse; K14
+        # (`full`) takes at most 1024 keys.
+        b, sq, nh, d = g["batch"], g["S"], g["heads"], g["d"]
+        sk = g.get("Sk", sq)
+        if sk == sq:
+            qkv = rnd(b, sq, 3, nh, d)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        else:
+            q, kv = rnd(b, sq, nh, d), rnd(b, sk, 2, nh, d)
+            k, v = kv[:, :, 0], kv[:, :, 1]
+        if kind == "flash":
+            call = lambda: flash_attention(q, k, v, return_lse=True)
+        else:
+            call = lambda: full_attention(q, k, v)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         library = lambda: F.scaled_dot_product_attention(qt, kt, vt)
-        flops = 4 * b * nh * s * s * d
-        nbytes = 4 * b * s * nh * d * qkv.element_size() + 4 * b * nh * s
+        flops = 4 * b * nh * sq * sk * d
+        nbytes = (2 * sq + 2 * sk) * b * nh * d * q.element_size()
+        if kind == "flash":
+            nbytes += 4 * b * nh * sq
         return call, flops, nbytes, library
 
     if kind.startswith("flash_bwd"):
@@ -566,6 +623,48 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
                  lambda w, v: w == "flash_attention_bwd_dq", k11, 1),
             ]
         return specs
+    if path == "s1024sam2":
+        # SAM2's trunk at 1024 (no adapters): grids 256/128/64/32; the mask
+        # decoder's token->image attention with 16 tokens (9 points) on K10
+        # at head dim 16; K14 at every shape its paths give it (the
+        # "pallas" backend): this trunk's stage 3->4 transition, the
+        # decoder's token self-attention and image->token attention with 8
+        # tokens, SAM2-UNet's transitions at 960 (batch 16, timed) and 352
+        # (batch 32)
+        grids, cs = (256, 128, 64, 32), (96, 192, 384, 768)
+        k14 = [dict(batch=25 * b, S=49, Sk=196, heads=8, d=96),
+               dict(batch=b, S=8, Sk=8, heads=8, d=32),
+               dict(batch=b, S=4096, Sk=8, heads=8, d=16),
+               dict(batch=400, S=49, Sk=196, heads=8, d=96),
+               dict(batch=128, S=64, Sk=256, heads=16, d=72)]
+        k14_held = {f"Sq={g['S']},Sk={g['Sk']},d={g['d']}" for g in k14}
+        return [
+            ("K1 fused_mlp (tail)", "mlp_tail", *mlp,
+             lambda w, v: w == "fused_mlp" and v == "ln",
+             [dict(tokens=b * hh * hh, c=c) for hh, c in zip(grids, cs)], 2),
+            ("K4 fused_window_block_strips", "strips", f"{fab}:1021", src_ab,
+             lambda w, v: w == "fused_window_block_strips",
+             [dict(batch=b, grid=256, c=96, heads=1, window=8),
+              dict(batch=b, grid=128, c=192, heads=2, window=4)], 0),
+            ("K8 fused_transition_block", "transition", *tra,
+             lambda w, v: w == "fused_transition_block",
+             [dict(batch=b, grid=256, cin=96, c=192, heads=2, window=8),
+              dict(batch=b, grid=128, cin=192, c=384, heads=4, window=4)], 0),
+            ("K10 flash_attention", "flash",
+             "sam2unet_tpu/ops/pallas/flash_attention.py:190",
+             "sam2unet_torch/csrc/flash_attention.cu",
+             lambda w, v: w == "flash_attention",
+             [dict(batch=b, S=4096, heads=4, d=96),
+              dict(batch=b, S=16, Sk=4096, heads=8, d=16)], 0),
+            ("K12 fused_window_block_strips_rem", "strips_rem", f"{fab}:1566",
+             src_ab, lambda w, v: w == "fused_window_block_strips_rem",
+             [dict(batch=b, grid=64, c=384, heads=4, window=14),
+              dict(batch=b, grid=32, c=768, heads=8, window=7)], 0),
+            ("K14 full_attention", "full",
+             "sam2unet_tpu/ops/pallas/flash_attention.py:93",
+             "sam2unet_torch/csrc/full_attention.cu",
+             lambda w, v: w == "full_attention" and v in k14_held, k14, 3),
+        ]
     if path == "l352":
         grids, cs = (88, 44, 22, 11), (144, 288, 576, 1152)
         return [
@@ -758,6 +857,17 @@ def random_checkpoint(path: Path, cfg: str, seed: int) -> None:
     torch.save(model.state_dict(), path)
 
 
+def _agree(got, want) -> tuple[float, float, bool]:
+    """(max |got - want| / max |want|, correlation, within MAIN_* limits)."""
+    import torch
+
+    got, want = got.flatten().double(), want.flatten().double()
+    rel = ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+    corr = torch.corrcoef(torch.stack([got, want]))[0, 1].item()
+    ok = math.isfinite(rel) and corr >= MAIN_CORR_MIN and rel <= MAIN_REL_TOL
+    return rel, corr, ok
+
+
 def main_path_phase(path: str, tmp: Path) -> dict:
     import numpy as np
     import torch
@@ -818,19 +928,252 @@ def main_path_phase(path: str, tmp: Path) -> dict:
         got = model(x)[0].float()
         with dispatch.force_plain():
             want = model(x)[0].float()
-    err = (got - want).abs().max().item()
-    rel = err / max(want.abs().max().item(), 1e-30)
-    corr = torch.corrcoef(torch.stack([got.flatten(), want.flatten()]))[0, 1].item()
-    ok = math.isfinite(err) and corr >= MAIN_CORR_MIN and rel <= MAIN_REL_TOL
+    rel, corr, ok = _agree(got, want)
     print(f"[main] {label} logits kernels vs plain (bf16, batch 4): "
-          f"max_abs_err {err:.4g} max_rel_err {rel:.4g} (tol {MAIN_REL_TOL}) "
-          f"corr {corr:.6f} (min {MAIN_CORR_MIN})" + ("" if ok else "  <-- FAIL"),
-          flush=True)
+          f"max_rel_err {rel:.4g} (tol {MAIN_REL_TOL}) corr {corr:.6f} (min "
+          f"{MAIN_CORR_MIN})" + ("" if ok else "  <-- FAIL"), flush=True)
     if not ok:
         fail(f"{label} main path logits disagree with the plain versions")
     del model, got, want
     torch.cuda.empty_cache()
     return variants
+
+
+def sam2_predictor():
+    """The SAM2 image predictor through `build_sam2_image_predictor` at its
+    defaults (sam2_hiera_s, 1024 px) on the card in bf16, seeded random
+    weights (the zero-initialised pos-embeds get noise)."""
+    import torch
+
+    from sam2unet_torch.build_sam import build_sam2_image_predictor
+
+    torch.manual_seed(0)
+    pred = build_sam2_image_predictor(device=DEV, dtype=torch.bfloat16)
+    trunk = pred.model.image_encoder.trunk
+    with torch.no_grad():
+        trunk.pos_embed.normal_(0.0, 0.02)
+        trunk.pos_embed_window.normal_(0.0, 0.02)
+    return pred
+
+
+def sam2_image(seed: int = 0, hw: tuple[int, int] = (720, 960)):
+    import numpy as np
+
+    return (np.random.default_rng(seed).random((*hw, 3)) * 255).astype(
+        np.uint8)
+
+
+SAM2_PROMPTS = {
+    "one point": dict(point_coords=[[480.0, 360.0]], point_labels=[1]),
+    "a box": dict(box=[300.0, 200.0, 700.0, 560.0]),
+    "points and a box": dict(point_coords=[[480.0, 360.0], [350.0, 250.0]],
+                             point_labels=[1, 0],
+                             box=[300.0, 200.0, 700.0, 560.0]),
+    "9 points (16 tokens)": dict(
+        point_coords=[[100.0 + 90 * i, 80.0 + 60 * i] for i in range(9)],
+        point_labels=[1, 0, 1, 1, 0, 1, 0, 1, 1]),
+}
+
+
+def sam2_main_phase(path: str) -> dict:
+    """The SAM2 image predictor end to end: set_image on a seeded 720x960
+    image and predict with each prompt type, multimask on and off, a mask
+    input, set_image_batch + predict_batch over 2 images; the outputs'
+    shapes and ranges; launches per set_image and per predict (counters set
+    to 0 just before each call, read just after); the embedding and the
+    low-res logits against force_plain(); then the same under the "pallas"
+    attention backend (K14), with the SAM2-UNet hiera_s@960 forward at
+    batch 16 besides, each against the default backend."""
+    import numpy as np
+    import torch
+
+    from sam2unet_torch.ops import dispatch
+    from sam2unet_torch.ops.attention import set_attention_impl
+
+    spec = PATHS[path]
+    label = spec["label"]
+    pred = sam2_predictor()
+    image = sam2_image()
+    variants: collections.Counter = collections.Counter()
+
+    def counted(fn, want: dict, what: str):
+        dispatch.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(dispatch.launches)
+        variants.update(dispatch.variants)
+        print(f"[main] {label} {what}: launches {counts}", flush=True)
+        if counts != want:
+            fail(f"{label} {what}: launches {counts}, expected {want}")
+        return out
+
+    def check(masks, ious, low, n_out: int, hw, what: str):
+        ok = (masks.shape == (n_out, *hw) and masks.dtype == np.bool_
+              and ious.shape == (n_out,) and low.shape == (n_out, 256, 256)
+              and np.isfinite(ious).all() and (ious >= 0).all()
+              and (ious <= 1).all() and np.isfinite(low).all()
+              and all(m.any() for m in masks))
+        print(f"[main] {label} {what}: masks {masks.shape} {masks.dtype}, "
+              f"foreground share {[round(float(m.mean()), 3) for m in masks]}, "
+              f"ious {np.round(ious, 4).tolist()}, low-res {low.shape}"
+              + ("" if ok else "  <-- FAIL"), flush=True)
+        if not ok:
+            fail(f"{label} {what}: bad outputs")
+
+    hw = image.shape[:2]
+    counted(lambda: pred.set_image(image), spec["per_set_image"],
+            f"set_image {hw[0]}x{hw[1]}")
+    first = None
+    for name, prompt in SAM2_PROMPTS.items():
+        for multimask in (True, False):
+            want = spec["per_predict_16"] if "16 tokens" in name else {}
+            masks, ious, low = counted(
+                lambda: pred.predict(**{k: np.asarray(v) for k, v in
+                                        prompt.items()},
+                                     multimask_output=multimask),
+                want, f"predict {name}, multimask {multimask}")
+            check(masks, ious, low, 3 if multimask else 1, hw,
+                  f"predict {name}, multimask {multimask}")
+            if first is None:
+                first = (masks, ious, low)
+    pt = SAM2_PROMPTS["one point"]
+    best = first[2][int(np.argmax(first[1]))][None]
+    masks, ious, low = counted(
+        lambda: pred.predict(np.asarray(pt["point_coords"]),
+                             np.asarray(pt["point_labels"]), mask_input=best,
+                             multimask_output=False),
+        {}, "predict one point with a mask input")
+    check(masks, ious, low, 1, hw, "predict one point with a mask input")
+
+    images = [image, sam2_image(1, (600, 800))]
+    counted(lambda: pred.set_image_batch(images), spec["per_set_image"],
+            "set_image_batch of 2 images (one forward)")
+    ms, ious_b, lows = counted(
+        lambda: pred.predict_batch(
+            [np.asarray(pt["point_coords"])] * 2,
+            [np.asarray(pt["point_labels"])] * 2), {}, "predict_batch")
+    for m, i, lo, im in zip(ms, ious_b, lows, images):
+        check(m, i, lo, 3, im.shape[:2], "predict_batch")
+
+    def run(plain: bool = False):
+        with dispatch.force_plain() if plain else contextlib.nullcontext():
+            pred.set_image(image)
+            low = pred.predict(np.asarray(pt["point_coords"]),
+                               np.asarray(pt["point_labels"]))[2]
+            emb = pred.get_image_embedding().float().clone()
+        return emb, torch.from_numpy(low)
+
+    def compare_runs(got, want, what):
+        for name, g, w in zip(("image embedding", "low-res logits"), got, want):
+            rel, corr, ok = _agree(g, w)
+            print(f"[main] {label} {name}, {what} (bf16): max_rel_err "
+                  f"{rel:.4g} (tol {MAIN_REL_TOL}) corr {corr:.6f} (min "
+                  f"{MAIN_CORR_MIN})" + ("" if ok else "  <-- FAIL"), flush=True)
+            if not ok:
+                fail(f"{label}: {name} {what} disagree")
+
+    auto = run()
+    compare_runs(auto, run(plain=True), "kernels vs plain")
+
+    # the "pallas" attention backend: K14 on every attention over at most
+    # 1024 keys, as the JAX package's switch
+    set_attention_impl("pallas")
+    try:
+        counted(lambda: pred.set_image(image),
+                {**spec["per_set_image"], **spec["pallas_set_image"]},
+                'set_image under set_attention_impl("pallas")')
+        counted(lambda: pred.predict(np.asarray(pt["point_coords"]),
+                                     np.asarray(pt["point_labels"])),
+                spec["pallas_predict_8"],
+                'predict one point (8 tokens) under "pallas"')
+        compare_runs(run(), auto, '"pallas" backend vs the default')
+        model, x = _model_and_input("s960", 16)
+        dispatch.reset_launches()
+        with torch.inference_mode():
+            got = model(x)[0].float()
+        torch.cuda.synchronize()
+        counts = dict(dispatch.launches)
+        # only K14's launches are this path's; the forward's others are the
+        # s960 path's, held there
+        variants.update({wv: n for wv, n in dispatch.variants.items()
+                         if wv[0] == "full_attention"})
+    finally:
+        set_attention_impl(None)
+    want = {**PATHS["s960"]["per_forward"], "full_attention": 1}
+    print(f"[main] {label} SAM2-UNet hiera_s@960 forward, batch 16, under "
+          f'"pallas": launches {counts}', flush=True)
+    if counts != want:
+        fail(f"{label}: SAM2-UNet@960 under pallas launched {counts}, "
+             f"expected {want}")
+    with torch.inference_mode():
+        base = model(x)[0].float()
+    rel, corr, ok = _agree(got, base)
+    print(f"[main] {label} SAM2-UNet hiera_s@960 logits, \"pallas\" vs the "
+          f"default backend (bf16, batch 16): max_rel_err {rel:.4g} corr "
+          f"{corr:.6f}" + ("" if ok else "  <-- FAIL"), flush=True)
+    if not ok:
+        fail(f"{label}: SAM2-UNet@960 under pallas disagrees")
+    del model, x, pred
+    torch.cuda.empty_cache()
+    return dict(variants)
+
+
+def sam2_throughput_phase(path: str, card: str, n: int = 20) -> None:
+    """As scripts/bench_sam2.py measures it: set_image (host clock: the
+    numpy transform, the copy, the forward) and its device forward alone
+    (CUDA events), then steady-state one-point predict ms (CUDA events
+    around n calls after a warm-up; the device postprocess, and the host
+    one), with peak memory."""
+    import numpy as np
+    import torch
+
+    label = PATHS[path]["label"]
+    pred = sam2_predictor()
+    image = sam2_image()
+    for _ in range(2):
+        pred.set_image(image)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        pred.set_image(image)
+    torch.cuda.synchronize()
+    set_ms = (time.perf_counter() - t0) * 1e3 / reps
+    x = torch.from_numpy(pred._transforms(image)[None]).to(DEV)
+
+    def forward():
+        with torch.inference_mode():
+            return pred.model.forward_image(x)["backbone_fpn"][-1]
+    fwd_ms = time_ms(forward, reps=10)
+    pred.set_image(image)
+    pt = np.array([[480.0, 360.0]])
+
+    def predict_ms():
+        pred.predict(pt, np.array([1]))
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(n):
+            pred.predict(pt + i, np.array([1]))
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    dev_ms = predict_ms()
+    pred._transforms.max_hole_area = -1.0   # the host postprocess
+    host_ms = predict_ms()
+    pred._transforms.max_hole_area = 0.0
+    print(f"[throughput] {label} bf16 720x960 image on {card}: set_image "
+          f"{set_ms:.2f} ms (host clock; forward_image alone {fwd_ms:.2f} ms, "
+          f"CUDA events), predict one point {dev_ms:.2f} ms "
+          f"({1e3 / dev_ms:.1f} prompts/s steady state; device "
+          f"postprocess), {host_ms:.2f} ms with the host postprocess; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    del pred, x
+    torch.cuda.empty_cache()
 
 
 def train_main_phase(path: str, tmp: Path, step_seeds: list[int],
@@ -1192,12 +1535,27 @@ def _model_and_input(path: str, batch: int):
     return model, x
 
 
-def _runner(path: str, batch: int, remat: bool = False):
-    """(one step of the path: a forward, or a train step, its output);
-    `remat` puts each trunk block of a training path under checkpointing."""
+def _runner(path: str, batch: int, remat: bool = False,
+            predict: bool = False):
+    """(one step of the path: a forward, a train step, or for the SAM2
+    predictor a set_image or, with `predict`, a one-point predict on the
+    set image; its output); `remat` puts each trunk block of a training path
+    under checkpointing."""
+    import numpy as np
     import torch
 
     spec = PATHS[path]
+    if spec.get("sam2"):
+        pred, image = sam2_predictor(), sam2_image()
+        pred.set_image(image)
+        if predict:
+            pt, lab = np.array([[480.0, 360.0]]), np.array([1])
+            return (lambda: torch.from_numpy(pred.predict(pt, lab)[2])), "predict"
+
+        def set_image():
+            pred.set_image(image)
+            return pred.get_image_embedding()
+        return set_image, "set_image"
     if not spec.get("train"):
         model, x = _model_and_input(path, batch)
 
@@ -1262,14 +1620,16 @@ def throughput_phase(path: str, batch: int, card: str,
     return ips
 
 
-def profile_phase(path: str, batch: int, card: str) -> None:
-    """Optional: device time by kernel over one forward or train step
-    (torch.profiler), and the device's idle share of its wall time."""
+def profile_phase(path: str, batch: int, card: str,
+                  predict: bool = False) -> None:
+    """Optional: device time by kernel over one forward, train step,
+    set_image or predict (torch.profiler), and the device's idle share of
+    its wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run, what = _runner(path, batch)
+    run, what = _runner(path, batch, predict=predict)
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -1313,7 +1673,8 @@ def profile_phase(path: str, batch: int, card: str) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="build,kernels,main,throughput")
-    ap.add_argument("--paths", default="l352,s960,l352train,s960train")
+    ap.add_argument("--paths",
+                    default="l352,s960,l352train,s960train,s1024sam2")
     ap.add_argument("--batch", type=int, default=32,
                     help="kernel, throughput and profile batch at hiera_l@352")
     ap.add_argument("--batch960", type=int, default=16,
@@ -1368,22 +1729,28 @@ def main() -> None:
     entries, variants = [], {}
     with tempfile.TemporaryDirectory() as tmp:
         for path in paths:
-            batch = getattr(args, BATCH_FLAG[path])
+            batch = PATHS[path].get("batch") or getattr(args, BATCH_FLAG[path])
             if "kernels" in phases:
                 entries += kernel_phase(path, batch, gen)
             if "main" in phases:
-                if PATHS[path].get("train"):
+                if PATHS[path].get("sam2"):
+                    variants[path] = sam2_main_phase(path)
+                elif PATHS[path].get("train"):
                     variants[path] = train_main_phase(
                         path, Path(tmp), [int(s) for s in args.step_seeds.split(",")],
                         args.step_report)
                 else:
                     variants[path] = main_path_phase(path, Path(tmp))
-            if "throughput" in phases:
+            if "throughput" in phases and PATHS[path].get("sam2"):
+                sam2_throughput_phase(path, card)
+            elif "throughput" in phases:
                 throughput_phase(path, batch, card)
                 if PATHS[path].get("remat"):
                     throughput_phase(path, batch, card, remat=True)
             if "profile" in phases:
                 profile_phase(path, batch, card)
+                if PATHS[path].get("sam2"):
+                    profile_phase(path, batch, card, predict=True)
 
     # a wrapper that a path's entries hold against the plain version is held
     # at every shape (variant) that path's run gave it

@@ -11,7 +11,7 @@ from sam2unet_torch.models.sam2unet import SAM2UNet
 from sam2unet_torch.ops.resize_np import resize_np
 
 
-def resolve_device(name: str) -> torch.device:
+def resolve_device(name: str | torch.device) -> torch.device:
     """`cuda` (the default of every entry point) must have a card; the CPU
     is used only when asked for."""
     dev = torch.device(name)

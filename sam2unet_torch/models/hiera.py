@@ -27,12 +27,14 @@ backward over K11 (the 3600-token global blocks of hiera_s@960), K9
 groups' pad-key blocks and the plain transition go through autograd of the
 plain versions; where the JAX package runs a backward kernel not ported yet
 (K7's weight-gradient mode, `unported_train_backward`) the backward raises
-on the card. The trunk is frozen as in the reference (SAM2UNet.py:146-147):
-every parameter but the adapters' has requires_grad False. The drop-path
-rate is 0 in every SAM2 config, so drop path is the identity. `remat=True`
-runs each adapter-wrapped block under `torch.utils.checkpoint`, the
+on the card. With adapters the trunk is frozen as in the reference
+(SAM2UNet.py:146-147): every parameter but the adapters' has requires_grad
+False. The drop-path rate is 0 in every SAM2 config, so drop path is the
+identity. `remat=True` runs each block under `torch.utils.checkpoint`, the
 counterpart of the JAX package's `nn.remat` per block: the block's
-activations are recomputed in the backward instead of kept.
+activations are recomputed in the backward instead of kept. SAM2's own
+trunk (`use_adapters=False`) has the same blocks without the adapters and
+is not frozen.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from sam2unet_torch.configs import HieraConfig
-from sam2unet_torch.nn.layers import LN_EPS, MLP
+from sam2unet_torch.nn.layers import LN_EPS, MLP, gelu
 from sam2unet_torch.ops.attention import sdpa
 from sam2unet_torch.ops.fused_attention_block import (
     fused_window_block,
@@ -102,7 +104,8 @@ class MultiScaleBlock(nn.Module):
         if dim != dim_out:
             self.proj = nn.Linear(dim, dim_out)
         self.norm2 = nn.LayerNorm(dim_out, eps=LN_EPS)
-        self.mlp = MLP(dim_out, int(dim_out * mlp_ratio), dim_out)
+        self.mlp = MLP(dim_out, int(dim_out * mlp_ratio), dim_out,
+                       activation=gelu)
 
     def _attn_args(self):
         a = self.attn
@@ -248,10 +251,17 @@ class PatchEmbed(nn.Module):
 
 class Hiera(nn.Module):
     """The trunk: NHWC image -> the 4 stage-end maps (strides 4/8/16/32),
-    NHWC, fine to coarse."""
+    NHWC, fine to coarse.
 
-    def __init__(self, cfg: HieraConfig, adapter_dim: int = 32,
-                 remat: bool = False):
+    `use_adapters` (the JAX package's Hiera, hiera.py:578,640-650 there)
+    wraps each block in an `AdapterBlock` (keys `blocks.N.block.*` and
+    `blocks.N.prompt_learn.*`) and freezes every parameter but the
+    adapters', as SAM2-UNet does; without it the blocks are plain
+    `MultiScaleBlock`s (keys `blocks.N.*`, SAM2's own trunk) and nothing is
+    frozen."""
+
+    def __init__(self, cfg: HieraConfig, use_adapters: bool = False,
+                 adapter_dim: int = 32, remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.remat = remat
@@ -261,13 +271,15 @@ class Hiera(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.embed_dim, bh, bw))
         self.pos_embed_window = nn.Parameter(
             torch.zeros(1, cfg.embed_dim, win0, win0))
+        blocks = (MultiScaleBlock(**bk) for bk in _block_plan(cfg))
         self.blocks = nn.ModuleList(
-            AdapterBlock(MultiScaleBlock(**bk), adapter_dim)
-            for bk in _block_plan(cfg))
-        # adapters imply the reference's hard trunk freeze
-        for name, p in self.named_parameters():
-            if "prompt_learn" not in name.split("."):
-                p.requires_grad_(False)
+            AdapterBlock(blk, adapter_dim) if use_adapters else blk
+            for blk in blocks)
+        if use_adapters:
+            # adapters imply the reference's hard trunk freeze
+            for name, p in self.named_parameters():
+                if "prompt_learn" not in name.split("."):
+                    p.requires_grad_(False)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         x = self.patch_embed.proj(x.permute(0, 3, 1, 2))

@@ -94,7 +94,8 @@ class SAM2UNet(nn.Module):
         backward (`Hiera`), for bigger batches."""
         super().__init__()
         self.cfg = cfg
-        self.encoder = Hiera(cfg.trunk, cfg.adapter_dim, remat=remat)
+        self.encoder = Hiera(cfg.trunk, use_adapters=True,
+                             adapter_dim=cfg.adapter_dim, remat=remat)
         ch, r = cfg.trunk.channel_list, cfg.rfb_out
         self.rfb1 = RFBModified(ch[0], r)
         self.rfb2 = RFBModified(ch[1], r)

@@ -64,10 +64,41 @@ class ConvBN(nn.Module):
 
 
 class MLP(nn.Module):
-    """Linear stack with `layers.{i}` names (sam2_utils.MLP)."""
+    """Linear stack with `layers.{i}` names (sam2_utils.MLP:108-132):
+    `activation` (ReLU by default; GELU in Hiera's block tails) between
+    the layers, optionally a sigmoid on the output. Hiera's blocks read
+    `layers` and run K1, whose plain version computes this forward."""
 
-    def __init__(self, dim: int, hidden: int, out: int, num_layers: int = 2):
+    def __init__(self, dim: int, hidden: int, out: int, num_layers: int = 2,
+                 activation=F.relu, sigmoid_output: bool = False):
         super().__init__()
         dims = [dim] + [hidden] * (num_layers - 1) + [out]
         self.layers = nn.ModuleList(
             nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.activation, self.sigmoid_output = activation, sigmoid_output
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = self.activation(x)
+        return torch.sigmoid(x) if self.sigmoid_output else x
+
+
+class LayerNorm2d(nn.Module):
+    """LayerNorm over the channels of an NCHW tensor (sam2_utils.py
+    LayerNorm2d, eps 1e-6), statistics in fp32, output in x's dtype."""
+
+    def __init__(self, channels: int, eps: float = LN_EPS):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mu = xf.mean(dim=1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(dim=1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + self.eps)
+        w, b = self.weight.float(), self.bias.float()
+        return (y * w[:, None, None] + b[:, None, None]).to(x.dtype)

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("fused_mlp", "fused_attention_block", "fused_transition",
            "flash_attention", "fused_mlp_bwd", "fused_attention_block_bwd",
-           "fused_transition_bwd", "flash_attention_bwd")
+           "fused_transition_bwd", "flash_attention_bwd", "full_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -71,6 +71,10 @@ SIGNATURES = {
                                        ctypes.c_float, _P],
         "k11_flash_attention_bwd_dkv": [_I, *[_P] * 8, *[_I] * 5, *[_L] * 12,
                                         ctypes.c_float, _P],
+    },
+    "full_attention": {
+        "k14_full_attention": [_I, *[_P] * 4, *[_I] * 5, *[_L] * 6,
+                               ctypes.c_float, _P],
     },
 }
 

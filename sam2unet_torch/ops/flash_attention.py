@@ -1,9 +1,11 @@
 """K10 and K11: streaming flash attention over (B, S, heads, d) with the
-lse, and its backward. Counterpart of
+lse, and its backward; K14: attention over the whole key row (at most 1024
+keys); and `dispatch_attention`, which picks among them. Counterpart of
 sam2unet_tpu/ops/pallas/flash_attention.py (`_stream_fwd_impl`,
-`_stream_bwd_impl`, oracle `_xla_attention`); the kernels are
-csrc/flash_attention.cu (K10) and csrc/flash_attention_bwd.cu (K11: the
-delta pass, the dq pass and the dk/dv pass).
+`_stream_bwd_impl`, `_fused_full`, `_dispatch_fwd`, oracle
+`_xla_attention`); the kernels are csrc/flash_attention.cu (K10),
+csrc/flash_attention_bwd.cu (K11: the delta pass, the dq pass and the dk/dv
+pass) and csrc/full_attention.cu (K14).
 
 q, k and v may be strided views, as the long global-attention blocks pass
 them (channel slices of the QKV output, rows of 3c): the kernels read them
@@ -15,24 +17,25 @@ that keeps q, k, v, o and lse, and its backward is `flash_attention_bwd`.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from sam2unet_torch.ops import build, dispatch
-from sam2unet_torch.ops.attention import sdpa
+from sam2unet_torch.ops.attention import MAX_FULL_SEQ, einsum_attention
 
 MAX_HEAD_DIM = 96  # attention.cuh instantiates head dims up to 6 x 16
 
 
 def plain_flash_attention(q, k, v, scale: float | None = None,
                           return_lse: bool = False):
-    """Plain version: `sdpa` (fp32 scores and softmax, probabilities in the
-    working type) and, on request, the logsumexp of the scaled fp32 scores
+    """Plain version: `einsum_attention` (fp32 scores and softmax,
+    probabilities in the working type) and, on request, the logsumexp of the scaled fp32 scores
     as (B*heads, Sq)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    o = sdpa(q, k, v, scale)
+    o = einsum_attention(q, k, v, scale)
     if not return_lse:
         return o
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -274,3 +277,103 @@ def flash_attention_bwd(q, k, v, o, lse, dout, scale: float | None = None,
     dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, dq_out)
     dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, dkv_out)
     return dq, dk, dv
+
+
+# ------------------------------------------------- K14 and the dispatch
+
+# 16-aligned block sizes the JAX package's streaming kernels take
+# (flash_attention.py:116-117)
+_STREAM_BLOCKS = (768, 720, 640, 576, 512, 448, 400, 384, 320, 288, 256,
+                  240, 224, 192, 160, 128, 96, 64, 32, 16)
+
+
+def pick_stream_blocks(sq: int, sk: int) -> tuple[int, int] | None:
+    """The JAX package's `_pick_stream_blocks` (flash_attention.py:120-133):
+    the largest block of `_STREAM_BLOCKS` dividing each length, or None
+    where one length has none (there it runs the einsum form). K10 needs no
+    such blocks (it masks a ragged tile); the dispatch asks only to launch
+    where the JAX package does."""
+
+    def pick(n: int) -> int | None:
+        return next((b for b in _STREAM_BLOCKS if b <= n and n % b == 0), None)
+
+    bq, bk = pick(sq), pick(sk)
+    return None if bq is None or bk is None else (bq, bk)
+
+
+def plain_full_attention(q, k, v, scale: float | None = None):
+    """Plain version of K14, the arithmetic of the JAX package's `_kernel`
+    (flash_attention.py:47-65): fp32 scores times the scale, p = e / sum(e)
+    with e = exp(s - max) in fp32, p cast to v's dtype, the product with v
+    accumulated in fp32, the output in q's dtype."""
+    return einsum_attention(q, k, v, scale).to(q.dtype)
+
+
+def _full_attention_kernel(q, k, v, scale: float):
+    b, sq, sk, nh, d = _check_args(q, k, v)
+    if sk > MAX_FULL_SEQ:
+        raise ValueError(f"full_attention takes at most {MAX_FULL_SEQ} keys, "
+                         f"got {sk}")
+    o = torch.empty((b, sq, nh, d), dtype=q.dtype, device=q.device)
+    p = dispatch.ptr
+    err = build.library("full_attention").k14_full_attention(
+        int(q.dtype == torch.bfloat16), p(q), p(k), p(v), p(o), b, sq, sk, nh,
+        d, *q.stride()[:3], *k.stride()[:3], scale, dispatch.stream_of(q))
+    build.check(err, "full_attention")
+    dispatch.count_launch("full_attention", f"Sq={sq},Sk={sk},d={d}")
+    return o
+
+
+def plain_full_attention_bwd(q, k, v, g, scale: float | None = None):
+    """(dq, dk, dv) of K14 for the cotangent g: the JAX package's einsum
+    recompute in this regime (`_bwd`, flash_attention.py:465-474). p is the
+    fp32 softmax, never rounded to v's dtype; dv, dp and ds are fp32, each
+    gradient is cast to its input's dtype at the end."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    q32, k32, v32, g32 = q.float(), k.float(), v.float(), g.float()
+    p = torch.softmax(
+        torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale, dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, g32).to(v.dtype)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g32, v32)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = (torch.einsum("bhqk,bkhd->bqhd", ds, k32) * scale).to(q.dtype)
+    dk = (torch.einsum("bhqk,bqhd->bkhd", ds, q32) * scale).to(k.dtype)
+    return dq, dk, dv
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float | None = None) -> torch.Tensor:
+    """K14: softmax(q k^T * scale) v over (B, S, heads, d), at most 1024
+    keys, o (B, Sq, heads, d) in q's dtype. q, k and v may be strided views
+    (unit stride over d, 16-byte aligned, strides multiples of 8 elements),
+    read where they lie. Differentiable: the backward is
+    `plain_full_attention_bwd`, the JAX package's einsum recompute in this
+    regime, on the card and on CPU tensors alike."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if dispatch.use_kernel(q):
+        fwd = functools.partial(_full_attention_kernel, scale=scale)
+    else:
+        fwd = functools.partial(plain_full_attention, scale=scale)
+    if not dispatch.needs_grad(q, k, v):
+        return fwd(q, k, v)
+    return dispatch.with_backward(
+        fwd, lambda saved, gy, needs: tuple(
+            gr if n else None for gr, n in zip(
+                plain_full_attention_bwd(*saved, gy, scale), needs)),
+        q, k, v)
+
+
+def dispatch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float | None = None) -> torch.Tensor:
+    """The JAX package's `_dispatch_fwd` (flash_attention.py:432-443): K14
+    up to 1024 keys; past that K10 where 16-aligned blocks divide both
+    lengths (`pick_stream_blocks`), else the einsum form (8 decoder tokens
+    against 4096 image tokens, say). A kernel launches exactly where the
+    JAX package launches one."""
+    if k.shape[1] <= MAX_FULL_SEQ:
+        return full_attention(q, k, v, scale)
+    if pick_stream_blocks(q.shape[1], k.shape[1]) is None:
+        return einsum_attention(q, k, v, scale)
+    return flash_attention(q, k, v, scale)

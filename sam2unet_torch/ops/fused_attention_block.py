@@ -29,7 +29,13 @@ import torch.nn.functional as F
 
 from sam2unet_torch.nn.layers import layer_norm_plain, linear_f32
 from sam2unet_torch.ops import build, dispatch
-from sam2unet_torch.ops.attention import attention_with_padkey, sdpa
+# past MAX_FULL_SEQ keys the XLA recompute's attention is the streaming
+# flash attention, whose backward is K11 (flash_attention.py:44, :245-251)
+from sam2unet_torch.ops.attention import (
+    MAX_FULL_SEQ,
+    attention_with_padkey,
+    einsum_attention,
+)
 from sam2unet_torch.ops.flash_attention import (
     MAX_HEAD_DIM,
     flash_attention,
@@ -50,9 +56,6 @@ LONG_SEQUENCE_BYTES = 12 * 1024 * 1024
 # its backward's live budget for one window, dx only; half of it with the
 # weight gradients (fused_attention_block.py:1956-1958, :1901-1905)
 BWD_LIVE_BYTES = 8 * 1024 * 1024
-# past this many keys the XLA recompute's attention is the streaming flash
-# attention, whose backward is K11 (flash_attention.py:44, :245-251)
-MAX_FULL_SEQ = 1024
 
 
 def plain_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
@@ -68,7 +71,7 @@ def plain_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
         b3 = b_qkv.reshape(3, num_heads, d)
         o = attention_with_padkey(q, k, v, b3[1], b3[2], n_pad)
     else:
-        o = sdpa(q, k, v)
+        o = einsum_attention(q, k, v)
     out = linear_f32(o.reshape(nw, s, c), w_proj, b_proj).to(x.dtype)
     return x + out if residual else out
 

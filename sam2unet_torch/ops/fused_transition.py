@@ -20,7 +20,7 @@ import torch
 
 from sam2unet_torch.nn.layers import layer_norm_plain, linear_f32
 from sam2unet_torch.ops import build, dispatch
-from sam2unet_torch.ops.attention import sdpa
+from sam2unet_torch.ops.attention import einsum_attention
 from sam2unet_torch.ops.fused_attention_block import MAX_HEAD_DIM
 from sam2unet_torch.ops.fused_mlp import MAX_LN_WIDTH
 from sam2unet_torch.ops.pooling import max_pool2d
@@ -43,7 +43,7 @@ def plain_transition(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj, w_short,
     k = qkv[..., cout: 2 * cout].reshape(nw_, wh * ww, num_heads, d)
     v = qkv[..., 2 * cout:].reshape(nw_, wh * ww, num_heads, d)
     hq, wq = q.shape[1], q.shape[2]
-    o = sdpa(q.reshape(nw_, hq * wq, num_heads, d), k, v)
+    o = einsum_attention(q.reshape(nw_, hq * wq, num_heads, d), k, v)
     o = linear_f32(o.reshape(nw_, hq, wq, cout), w_proj, b_proj).to(dt)
     attn = window_unpartition(o, window // 2, (hh // 2, wd // 2),
                               (hh // 2, wd // 2))

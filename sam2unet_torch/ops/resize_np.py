@@ -89,6 +89,18 @@ def _taps(in_size: int, out_size: int, method: str, align_corners: bool,
     return idx.astype(np.int32), w.astype(np.float32)
 
 
+def resize_matrix(in_size: int, out_size: int, method: str = "bilinear",
+                  align_corners: bool = False,
+                  antialias: bool = False) -> np.ndarray:
+    """Dense (out_size, in_size) float32 resize matrix of the same taps
+    (the device resize, `ops/resize.py::resize_nhwc`)."""
+    idx, w = _taps(in_size, out_size, method, align_corners, antialias)
+    mat = np.zeros((out_size, in_size), dtype=np.float64)
+    rows = np.repeat(np.arange(out_size), idx.shape[1])
+    np.add.at(mat, (rows, idx.ravel()), w.astype(np.float64).ravel())
+    return mat.astype(np.float32)
+
+
 def _apply_taps(x: np.ndarray, axis: int, idx: np.ndarray, w: np.ndarray):
     """out[..., o, ...] = sum_t w[o,t] x[idx[o,t]] along `axis`."""
     g = np.take(x, idx, axis=axis)

@@ -46,10 +46,15 @@ def test_port_package_has_the_expected_modules():
                 "train/loss.py", "train/optim.py", "train/engine.py",
                 "train/checkpoints.py", "eval/metrics.py",
                 "eval/metrics_device.py", "cli/test_cli.py",
-                "cli/train_cli.py"):
+                "cli/train_cli.py", "ops/attention.py",
+                "models/position_encoding.py", "models/fpn.py",
+                "models/prompt_encoder.py", "models/transformer.py",
+                "models/mask_decoder.py", "models/sam2_base.py",
+                "build_sam.py", "predictors/transforms.py",
+                "predictors/image_predictor.py"):
         assert f"sam2unet_torch/{mod}" in names
     for src in ("fused_mlp.cu", "fused_attention_block.cu",
                 "fused_transition.cu", "flash_attention.cu",
                 "attention_bwd.cuh", "attention_bwd_tiles.cuh",
-                "flash_attention_bwd.cu"):
+                "flash_attention_bwd.cu", "full_attention.cu"):
         assert (ROOT / "sam2unet_torch" / "csrc" / src).is_file()

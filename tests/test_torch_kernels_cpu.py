@@ -94,6 +94,27 @@ def test_k1_tail_matches_xla_mlp(shape, hidden):
     _close(got, want)
 
 
+def test_hiera_block_mlp_module_is_the_gelu_mlp_of_its_tail():
+    """A Hiera block's `mlp` module, called on its own, computes the GELU
+    MLP that its tail runs through K1 (x + mlp(norm2(x)), the JAX
+    package's `_xla_mlp` with LN and residual), not the ReLU default of
+    the SAM2 heads' MLP."""
+    from sam2unet_torch.models.hiera import MultiScaleBlock
+
+    torch.manual_seed(3)
+    blk = MultiScaleBlock(24, 24, 2, 4).eval()
+    for prm in blk.parameters():
+        torch.nn.init.normal_(prm, std=0.3)
+    x = torch.randn(2, 8, 8, 24)
+    a, b = blk.mlp.layers
+    n = lambda t: t.detach().numpy()
+    want = _xla_mlp(jnp.asarray(n(x)), n(a.weight).T, n(a.bias),
+                    n(b.weight).T, n(b.bias), n(blk.norm2.weight),
+                    n(blk.norm2.bias), residual=True)
+    with torch.no_grad():
+        _close(x + blk.mlp(blk.norm2(x)), want)
+
+
 @pytest.mark.parametrize("shape", [(2, 8, 8, 24), (6, 144), (2, 11, 11, 48)])
 def test_k1_adapter_matches_xla_mlp(shape):
     mk = _mk(np.random.default_rng(1))
@@ -757,3 +778,233 @@ def test_kernel_arg_checks_reject_what_the_kernels_do_not_take():
         dispatch.check_kernel_args(x, torch.zeros(16, 4).t())
     assert dispatch.check_kernel_args(x.bfloat16()) == 1
     assert dispatch.check_kernel_args(x) == 0
+
+
+# ------------------------------------------------------- K14 and the switch
+
+# the shapes K14 takes on the paths of the port (q and k/v lengths, heads,
+# head dim; the batch cut for the CPU): the SAM2 hiera_s@1024 and SAM2-UNet
+# hiera_s@960 stage 3->4 transition, the mask decoder's token
+# self-attention (8 tokens) and image->token attention (4096 queries), the
+# hiera_l@352 transition
+K14_SHAPES = [(2, 49, 196, 8, 96), (1, 8, 8, 8, 32), (1, 4096, 8, 8, 16),
+              (2, 64, 256, 16, 72), (2, 16, 16, 8, 32)]
+
+
+class _Ref:
+    """A stand-in for a Pallas ref: `[:]` reads the array, assignment
+    keeps the value."""
+
+    def __init__(self, value=None, dtype=jnp.float32):
+        self.value, self.dtype = value, dtype
+
+    def __getitem__(self, idx):
+        return self.value[idx]
+
+    def __setitem__(self, idx, value):
+        self.value = value
+
+
+def _qkv(shape, seed=31):
+    b, sq, sk, nh, d = shape
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(sh).astype(np.float32) * 0.7
+                 for sh in ((b, sq, nh, d), (b, sk, nh, d), (b, sk, nh, d)))
+
+
+@pytest.mark.parametrize("shape", K14_SHAPES)
+def test_k14_plain_version_matches_the_tpu_kernel_and_xla(shape):
+    """`plain_full_attention` (what `full_attention` runs on CPU tensors)
+    against the body of the JAX package's K14, `_kernel`, run on arrays in
+    its (batch*heads, S, d) layout (`_fused_full` has no interpret switch),
+    and against `_xla_attention`."""
+    b, sq, sk, nh, d = shape
+    q, k, v = _qkv(shape)
+    scale = 1.0 / math.sqrt(d)
+    flat = [jnp.asarray(t.transpose(0, 2, 1, 3).reshape(b * nh, -1, d))
+            for t in (q, k, v)]
+    out = _Ref()
+    fa._kernel(*map(_Ref, flat), out, scale=scale)
+    want = np.asarray(out.value).reshape(b, nh, sq, d).transpose(0, 2, 1, 3)
+    from sam2unet_torch.ops.flash_attention import full_attention
+
+    got = full_attention(_t(q), _t(k), _t(v))
+    _close(got, want)
+    _close(got, fa._xla_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v)))
+
+
+def test_k14_backward_matches_the_jax_recompute():
+    """Autograd through `full_attention` against the JAX package's VJP in
+    this regime (the einsum recompute of `flash_attention._bwd`)."""
+    from sam2unet_torch.ops.flash_attention import full_attention
+
+    shape = (2, 24, 40, 2, 16)
+    q, k, v = _qkv(shape, seed=32)
+    g = np.random.default_rng(33).standard_normal(q.shape).astype(np.float32)
+    want = fa._bwd(None, (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          None, None), jnp.asarray(g))
+    leaves = [_t(t).requires_grad_(True) for t in (q, k, v)]
+    full_attention(*leaves).backward(_t(g))
+    for leaf, w in zip(leaves, want):
+        _close(leaf.grad, w)
+
+
+def test_k14_backward_in_bf16_keeps_p_in_fp32_as_the_jax_recompute():
+    """In bf16 too the gradients are `_bwd`'s: p, dp and ds stay fp32 and
+    only dq, dk and dv are rounded, so the port's gradients agree with the
+    JAX package's to 1e-3 of max |grad| (fp32 summation order). Autograd
+    through the plain forward, which rounds p to bf16 before P.V, misses
+    that by 2-6e-3 at this shape."""
+    from sam2unet_torch.ops.flash_attention import full_attention
+
+    q, k, v = _qkv((2, 49, 196, 2, 32), seed=36)
+    g = np.random.default_rng(37).standard_normal(q.shape).astype(np.float32)
+    want = fa._bwd(None, tuple(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v))
+                   + (None, None), jnp.asarray(g, jnp.bfloat16))
+    leaves = [_t(t).bfloat16().requires_grad_(True) for t in (q, k, v)]
+    full_attention(*leaves).backward(_t(g).bfloat16())
+    for leaf, w in zip(leaves, want):
+        w = np.asarray(w.astype(jnp.float32))
+        assert leaf.grad.dtype == torch.bfloat16
+        assert np.abs(leaf.grad.float().numpy() - w).max() <= (
+            1e-3 * np.abs(w).max())
+
+
+def _jax_route(monkeypatch, impl, q, k, v, key_valid):
+    """Which form the JAX package's `sdpa` runs for `impl` on the card,
+    recorded on the CPU: its TPU test (`dispatch.xla_only`) answered no and
+    each form replaced by a spy that computes `_xla_attention`."""
+    from sam2unet_tpu.ops import attention as jax_attention
+
+    seen = []
+    xla = fa._xla_attention
+
+    def spy(name):
+        def run(q_, k_, v_, scale=None, **kw):
+            seen.append(name)
+            o = xla(q_, k_, v_, scale=scale, key_valid=kw.get("key_valid"))
+            return (o, jnp.zeros((q_.shape[0] * q_.shape[2], q_.shape[1], 1))
+                    ) if name == "K10" else o
+        return run
+
+    monkeypatch.setattr(fa.dispatch, "xla_only", lambda: False)
+    monkeypatch.setattr(fa, "_fused_full", spy("K14"))
+    monkeypatch.setattr(fa, "_stream_fwd_impl", spy("K10"))
+    monkeypatch.setattr(fa, "_xla_attention", spy("einsum"))
+    monkeypatch.setattr(jax.nn, "dot_product_attention", spy("xla"))
+    out = jax_attention.sdpa(*(jnp.asarray(t) for t in (q, k, v)), impl=impl,
+                             key_valid=None if key_valid is None
+                             else jnp.asarray(key_valid))
+    return seen, np.asarray(out)
+
+
+ROUTE_CASES = {
+    # the mask decoder at 1024 px: token self-attention, image->token and
+    # token->image with 8 tokens (one point) and 16 (nine points)
+    "8 tokens": (1, 8, 8, 2, 8),
+    "4096 queries x 8 tokens": (1, 4096, 8, 2, 8),
+    "8 tokens x 4096 keys": (1, 8, 4096, 2, 8),
+    "16 tokens x 4096 keys": (1, 16, 4096, 2, 8),
+    # the unfused stage 3->4 transition window at 960 and 1024 px
+    "transition window": (2, 49, 196, 2, 8),
+    # no 16-aligned block divides 1100 keys
+    "1100 keys": (1, 32, 1100, 1, 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+@pytest.mark.parametrize("impl", ["auto", "einsum", "xla", "pallas"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_sdpa_routes_like_the_jax_package(monkeypatch, case, impl, masked):
+    """The port's `sdpa` / `dispatch_attention` launch K14, K10 or nothing
+    exactly where the JAX package's `sdpa` / `_dispatch_fwd` run `_fused_full`,
+    the streaming kernel or the einsum form, for every backend and with a
+    key mask (which forces the einsum form); "xla" (the JAX package's
+    `jax.nn.dot_product_attention`, no Pallas kernel) is the einsum form in
+    the port. The outputs agree too."""
+    import sam2unet_torch.ops.attention as port_attention
+    import sam2unet_torch.ops.flash_attention as port_fa
+
+    shape = ROUTE_CASES[case]
+    q, k, v = _qkv(shape, seed=34)
+    key_valid = None
+    if masked:
+        key_valid = np.random.default_rng(35).random((shape[0], shape[2])) > 0.3
+        key_valid[:, 0] = True
+    want_route, want = _jax_route(monkeypatch, impl, q, k, v, key_valid)
+    seen, depth = [], [0]
+
+    def spy(name, fn):
+        def run(*a, **kw):   # the outermost form only: K14's plain version
+            if not depth[0]:  # is itself an einsum
+                seen.append(name)
+            depth[0] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+        return run
+
+    monkeypatch.setattr(port_fa, "full_attention",
+                        spy("K14", port_fa.full_attention))
+    monkeypatch.setattr(port_fa, "flash_attention",
+                        spy("K10", port_fa.flash_attention))
+    monkeypatch.setattr(port_fa, "einsum_attention",
+                        spy("einsum", port_fa.einsum_attention))
+    monkeypatch.setattr(port_attention, "einsum_attention",
+                        spy("einsum", port_attention.einsum_attention))
+    got = port_attention.sdpa(_t(q), _t(k), _t(v), impl=impl,
+                              key_valid=None if key_valid is None
+                              else torch.from_numpy(key_valid))
+    assert seen == ["einsum" if r == "xla" else r for r in want_route]
+    assert len(seen) == 1
+    _close(got, want)
+
+
+def test_attention_backend_switch_reaches_k14_in_the_trunk(monkeypatch):
+    """`set_attention_impl("pallas")` sends the trunk's unfused q-pool
+    transition (the 64x64 window-14 one of SAM2 at 1024 px, here at 28x28)
+    to K14 once, as the JAX package's switch sends it to `_fused_full`; the
+    default backend ("auto", 196 keys) does not reach K14. The outputs are
+    equal. Unknown backends are refused."""
+    import sam2unet_torch.models.hiera as port_hiera
+    import sam2unet_torch.ops.flash_attention as port_fa
+    from sam2unet_torch.ops import attention
+
+    calls = []
+    k14 = port_fa.full_attention
+    monkeypatch.setattr(port_fa, "full_attention",
+                        lambda *a, **kw: calls.append(a[1].shape) or k14(*a, **kw))
+    blk = port_hiera.MultiScaleBlock(16, 32, 2, 14, (2, 2)).eval()
+    x = torch.randn(1, 28, 28, 16, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = blk(x)
+        assert calls == []
+        attention.set_attention_impl("pallas")
+        try:
+            got = blk(x)
+        finally:
+            attention.set_attention_impl(None)
+    assert calls == [(4, 196, 2, 16)]
+    _close(got, want.numpy())
+    with pytest.raises(ValueError):
+        attention.set_attention_impl("flash")
+    with pytest.raises(ValueError):
+        attention.sdpa(torch.zeros(1, 2, 1, 8), torch.zeros(1, 2, 1, 8),
+                       torch.zeros(1, 2, 1, 8), impl="cudnn")
+
+
+def test_full_attention_checks_refuse_what_k14_cannot_take():
+    """On CPU tensors the plain version runs; these checks guard the
+    kernel's launch (the card's tests hold the raise there)."""
+    from sam2unet_torch.ops.flash_attention import _full_attention_kernel
+
+    q = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="1024"):
+        _full_attention_kernel(q, torch.zeros(1, 1025, 2, 16),
+                               torch.zeros(1, 1025, 2, 16), 0.25)
+    with pytest.raises(ValueError, match="shapes"):
+        _full_attention_kernel(q, torch.zeros(1, 4, 2, 8), q, 0.25)
+    with pytest.raises(TypeError):
+        _full_attention_kernel(q.double(), q.double(), q.double(), 0.25)

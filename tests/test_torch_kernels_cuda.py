@@ -9,7 +9,8 @@ Shapes are small hiera_l-like geometries (head dim 72) and the hiera_s@960
 geometries of K10, K11 and K12 (head dim 96) at a small batch. The backward
 kernels (K2, K3, K5, K7, K9) are held against autograd through their plain
 versions, at hiera_l@352's widths and head dim 96, with a ragged S for K7
-and a tie case for K9's max-pool routing; K11 against
+and a tie case for K9's max-pool routing; K14 at every shape its paths
+give it (strided views, key rows of 6 to 1024); K11 against
 `plain_flash_attention_bwd` at S 3600 and 1089, head dims 72 and 96, cross
 lengths, strided views, and through autograd and the long block's
 backward. Tolerances: max|kernel - plain| <= 2e-2 * max|plain| in bf16,
@@ -439,3 +440,115 @@ def test_backward_raises_where_the_jax_package_runs_an_unported_kernel(gen, case
         match = "K13.*ROADMAP.md open item 2"
     with pytest.raises(NotImplementedError, match=match):
         y.sum().backward()
+
+
+# ------------------------------------------------------------------ K14
+
+# (batch, q length, k length, heads, head dim) of every path that reaches
+# K14: the stage 3->4 transition of SAM2 hiera_s@1024 (25 windows), the
+# mask decoder's token self-attention and image->token attention (8
+# tokens), SAM2-UNet's transitions at 960 (batch 2 here) and 352; a key
+# row of 6, 9, 16 and 1024 keys, head dim 8
+K14_SHAPES = [(25, 49, 196, 8, 96), (1, 8, 8, 8, 32), (1, 4096, 8, 8, 16),
+              (50, 49, 196, 8, 96), (8, 64, 256, 16, 72), (2, 6, 6, 8, 32),
+              (1, 4096, 9, 8, 16), (1, 16, 16, 8, 32), (3, 100, 1024, 2, 64),
+              (2, 70, 17, 3, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", K14_SHAPES)
+def test_k14_kernel_matches_plain(gen, dtype, shape):
+    from sam2unet_torch.ops.flash_attention import full_attention
+
+    b, sq, sk, nh, d = shape
+    q = _rnd(gen, dtype, b, sq, nh, d)
+    kv = _rnd(gen, dtype, b, sk, 2, nh, d)   # k and v: strided views
+    _compare(lambda: full_attention(q, kv[:, :, 0], kv[:, :, 1]), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k14_reads_the_qkv_channel_slices_of_the_trunk(gen, dtype):
+    """q, k and v as the unfused transition's `sdpa` passes them: channel
+    blocks of one (windows, tokens, 3c) QKV output."""
+    from sam2unet_torch.ops.flash_attention import full_attention
+
+    qkv = _rnd(gen, dtype, 25, 196, 3 * 768)
+    q, k, v = (qkv[..., i * 768:(i + 1) * 768].reshape(25, 196, 8, 96)
+               for i in range(3))
+    _compare(lambda: full_attention(q[:, :49], k, v), dtype)
+
+
+@pytest.mark.cuda
+def test_k14_is_differentiable_through_the_plain_version(gen):
+    """K14's backward is the JAX package's einsum recompute
+    (`plain_full_attention_bwd`): in fp32 it equals autograd through the
+    plain forward; in bf16 it keeps p in fp32, as the recompute does."""
+    from sam2unet_torch.ops.flash_attention import (
+        full_attention,
+        plain_full_attention,
+        plain_full_attention_bwd,
+    )
+
+    q, k, v = (_rnd(gen, torch.float32, 2, 40, 2, 32).requires_grad_(True)
+               for _ in range(3))
+    gy = _rnd(gen, torch.float32, 2, 40, 2, 32)
+    got = torch.autograd.grad(full_attention(q, k, v), (q, k, v), gy)
+    want = torch.autograd.grad(plain_full_attention(q, k, v), (q, k, v), gy)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+    q, k, v, gy = (t.detach().bfloat16() for t in (q, k, v, gy))
+    got = torch.autograd.grad(
+        full_attention(*(t.requires_grad_(True) for t in (q, k, v))),
+        (q, k, v), gy)
+    want = plain_full_attention_bwd(q, k, v, gy)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert (g.float() - w.float()).abs().max() <= (
+            1e-3 * w.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["1025 keys", "head dim 12", "head dim 104",
+                                  "odd token stride", "mixed dtypes"])
+def test_k14_refuses_what_it_cannot_take(gen, case):
+    from sam2unet_torch.ops.flash_attention import full_attention
+
+    q = _rnd(gen, torch.bfloat16, 1, 8, 2, 16)
+    k = v = q
+    if case == "1025 keys":
+        k = v = _rnd(gen, torch.bfloat16, 1, 1025, 2, 16)
+    elif case == "head dim 12":
+        q = k = v = _rnd(gen, torch.bfloat16, 1, 8, 2, 12)
+    elif case == "head dim 104":
+        q = k = v = _rnd(gen, torch.bfloat16, 1, 8, 1, 104)
+    elif case == "odd token stride":
+        k = v = _rnd(gen, torch.bfloat16, 1, 8, 2 * 16 + 4)[..., :32].reshape(
+            1, 8, 2, 16)
+    else:
+        k = v = q.float()
+    with pytest.raises((ValueError, TypeError)):
+        full_attention(q, k, v)
+
+
+@pytest.mark.cuda
+def test_pallas_backend_sends_the_decoder_and_transition_to_k14(gen):
+    """Under `set_attention_impl("pallas")`: attention over at most 1024
+    keys launches K14, 16 tokens against 4096 keys K10, 8 tokens against
+    4096 keys nothing (no aligned block divides 8), as the JAX package's
+    `_dispatch_fwd` does."""
+    from sam2unet_torch.ops.attention import sdpa, set_attention_impl
+
+    q8, q16 = (_rnd(gen, torch.bfloat16, 1, t, 8, 16) for t in (8, 16))
+    img = _rnd(gen, torch.bfloat16, 1, 4096, 8, 16)
+    set_attention_impl("pallas")
+    try:
+        for (q, k), want in (((q8, q8), "full_attention"),
+                             ((img, q8), "full_attention"),
+                             ((q16, img), "flash_attention"), ((q8, img), None)):
+            dispatch.reset_launches()
+            sdpa(q, k, k)
+            assert dict(dispatch.launches) == ({want: 1} if want else {})
+    finally:
+        set_attention_impl(None)

@@ -51,12 +51,14 @@ REL_TOL = 2e-5
 
 
 def _route_of_each_block(trunk: PortHieraConfig, x: torch.Tensor,
-                         train: bool = False, stub: bool = False):
+                         train: bool = False, stub: bool = False,
+                         use_adapters: bool = True):
     """Run the port's trunk on x with spies on the kernel wrappers that
     hiera.py calls; returns the route each block took (in order) and the
     number of fused_mlp calls. `train` runs the trunk in training mode;
     `stub` makes each spied wrapper return a tensor of its output's shape
-    instead of computing it, so a full-width trunk routes in a moment."""
+    instead of computing it, so a full-width trunk routes in a moment;
+    `use_adapters` False routes SAM2's own trunk."""
     routes, mlp = [], collections.Counter()
 
     def shape_of(name, a):
@@ -84,7 +86,7 @@ def _route_of_each_block(trunk: PortHieraConfig, x: torch.Tensor,
         return a[0] if stub else fused_mlp(*a, **k)
 
     fused_mlp = port_hiera.fused_mlp
-    model = port_hiera.Hiera(trunk).train(train)
+    model = port_hiera.Hiera(trunk, use_adapters=use_adapters).train(train)
     with pytest.MonkeyPatch.context() as mp:
         for attr, name in (("fused_window_block_strips", "K4"),
                            ("fused_window_block_strips_rem", "K12"),
