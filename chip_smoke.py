@@ -2,7 +2,8 @@
 """On-card smoke test of the PyTorch/CUDA port (sam2unet_torch): inference at
 hiera_l @ 352 and hiera_s @ 960 (the test CLI's defaults), training at
 hiera_l @ 352 and at hiera_s @ 960 (the train CLI's defaults), and the SAM2
-image predictor at sam2_hiera_s @ 1024 (build_sam2's defaults).
+image and video predictors at sam2_hiera_s @ 1024 (the defaults of
+build_sam2_image_predictor and build_sam2_video_predictor).
 
     python3 chip_smoke.py            # every phase, as the acceptance run does
     python3 chip_smoke.py --phases build,kernels --batch 2 --batch960 2 \
@@ -10,6 +11,7 @@ image predictor at sam2_hiera_s @ 1024 (build_sam2's defaults).
     python3 chip_smoke.py --phases build,profile   # device time by kernel
     python3 chip_smoke.py --paths s960train        # one path
     python3 chip_smoke.py --paths s1024sam2        # the SAM2 predictor
+    python3 chip_smoke.py --paths s1024video       # the video predictor
 
 Phases, one line each, for each path of --paths (l352, s960, then the
 training paths l352train and s960train, listed after these):
@@ -91,6 +93,24 @@ build_sam2_image_predictor, bf16, seeded random weights):
      K14 at its stage 3->4 transition against the default backend.
   4. set_image ms (host clock) and its forward alone, steady-state
      one-point predict ms (device and host postprocess), peak memory.
+The SAM2 video path, s1024video (sam2_hiera_s @ 1024 through
+build_sam2_video_predictor, bf16, the predictor's weights above with the
+object-score head's last bias at +10 so that tracked objects stay present):
+  2. the image encoder's kernels at one frame (K10 at head dim 96 only)
+     and K10 at head dim 256 at (2, 4096, 1, 256), the memory attention's
+     self-attention at two objects, timed beside SDPA.
+  3. 12 seeded 480x640 frames of noise with two moving discs: init_state,
+     a point on each disc, a mask on the second, propagate_in_video
+     forward and then in reverse from the last frame; the launches of each
+     call and each yielded frame (a tracked frame: set_image's and K10 at
+     head dim 256 x4; the prompts and the prompted frame none); the masks'
+     shapes and values; the video-res logits of every step against the
+     same flow under force_plain() and on the host-gathered bank.
+  4. add_new_points ms (host clock), steady-state ms per tracked frame
+     (CUDA events, masks to the host), frames/s, peak memory, and one call
+     of the memory attention's masked cross-attention (the einsum form).
+`--phases profile` gives the device time by kernel of one forward, train
+step, set_image, predict or tracked frame, and its idle share.
 Then a JSON line of per-kernel numbers, the card line, and last the result
 line. Any failed phase exits non-zero before the result line. Without a
 CUDA device, or without the sam2unet_torch package beside this script, it
@@ -209,6 +229,22 @@ PATHS = {
                       per_predict_16={"flash_attention": 3},
                       pallas_set_image={"full_attention": 1},
                       pallas_predict_8={"full_attention": 4}),
+    # the SAM2 video predictor at build_sam2_video_predictor's defaults
+    # (binarised prompted masks, holes of up to 8 pixels filled, the
+    # device-resident bank), two objects. Each frame's features: the
+    # s1024sam2 set_image launches; each tracked frame adds the memory
+    # attention's four self-attentions, K10 at head dim 256 over 4096
+    # tokens (its cross-attention carries a key mask: the einsum form); a
+    # prompted frame runs no memory attention, and prompts of one point
+    # (8 decoder tokens) launch nothing.
+    "s1024video": dict(label="sam2_hiera_s@1024 video", cfg="sam2_hiera_s",
+                       size=1024, video=True, batch=1, objects=2,
+                       per_image={"fused_mlp": 16,
+                                  "fused_window_block_strips": 2,
+                                  "fused_transition_block": 2,
+                                  "fused_window_block_strips_rem": 8,
+                                  "flash_attention": 3},
+                       per_frame_d256=4),
 }
 BATCH_FLAG = {"l352": "batch", "s960": "batch960", "l352train": "batch_train",
               "s960train": "batch_train960"}
@@ -623,6 +659,22 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
                  lambda w, v: w == "flash_attention_bwd_dq", k11, 1),
             ]
         return specs
+    if path == "s1024video":
+        # the image encoder's kernels of s1024sam2 at one frame (K10 at head
+        # dim 96 only), and K10 at head dim 256 as the memory attention
+        # gives it: one head over the 4096 tokens, one sequence per object
+        trunk = [e for e in kernel_specs("s1024sam2", b) if "K14" not in e[0]]
+        k10 = [e for e in trunk if e[0].startswith("K10")][0]
+        trunk[trunk.index(k10)] = (
+            k10[:4] + (lambda w, v: w == "flash_attention"
+                       and v.endswith(",d=96"),
+                       [dict(batch=b, S=4096, heads=4, d=96)], 0))
+        return trunk + [
+            ("K10 flash_attention (head dim 256)", "flash",
+             "sam2unet_tpu/ops/pallas/flash_attention.py:190",
+             "sam2unet_torch/csrc/flash_attention_d256.cu",
+             lambda w, v: w == "flash_attention" and v.endswith(",d=256"),
+             [dict(batch=PATHS[path]["objects"], S=4096, heads=1, d=256)], 0)]
     if path == "s1024sam2":
         # SAM2's trunk at 1024 (no adapters): grids 256/128/64/32; the mask
         # decoder's token->image attention with 16 tokens (9 points) on K10
@@ -1176,6 +1228,251 @@ def sam2_throughput_phase(path: str, card: str, n: int = 20) -> None:
     torch.cuda.empty_cache()
 
 
+def sam2_video_predictor(resident: bool = True):
+    """The SAM2 video predictor through `build_sam2_video_predictor` at its
+    defaults (sam2_hiera_s, 1024 px, binarised prompted masks, holes of up
+    to 8 pixels filled) on the card in bf16, the weights of
+    `sam2_predictor`; `resident` False takes the host-gathered bank.
+
+    Random weights give tracked objects a score below zero, and the SAM
+    heads then replace the whole mask by -1024 (object absent): every
+    comparison would hold constants. The object-score head's last bias is
+    set to +10 so that the tracked masks are the model's logits."""
+    import torch
+
+    from sam2unet_torch.build_sam import build_sam2_video_predictor
+    from sam2unet_torch.predictors.video_predictor import SAM2VideoPredictor
+
+    torch.manual_seed(0)
+    pred = build_sam2_video_predictor(device=DEV, dtype=torch.bfloat16)
+    trunk = pred.model.image_encoder.trunk
+    with torch.no_grad():
+        trunk.pos_embed.normal_(0.0, 0.02)
+        trunk.pos_embed_window.normal_(0.0, 0.02)
+        pred.model.sam_mask_decoder.pred_obj_score_head.layers[-1].bias.fill_(
+            10.0)
+    if not resident:
+        pred = SAM2VideoPredictor(pred.model, fill_hole_area=pred.fill_hole_area,
+                                  device_resident=False)
+    return pred
+
+
+def video_frames(seed: int = 0, n: int = 12, hw: tuple[int, int] = (480, 640)):
+    """n frames of noise with a bright disc moving right and a dark one
+    moving left, as scripts/smoke_video.py draws them (at twice its size)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    yy, xx = np.mgrid[:h, :w]
+    frames = (rng.random((n, h, w, 3)) * 255).astype(np.uint8)
+    for t in range(n):
+        cx = 160 + 40 * t
+        frames[t][((yy - 240) ** 2 + (xx - cx) ** 2) < 80 ** 2] = 230
+        frames[t][((yy - 120) ** 2 + (xx - (w - cx)) ** 2) < 60 ** 2] = 25
+    return frames
+
+
+def video_prompts(pred, state):
+    """(what, call) of the flow's prompts on frame 0: one positive point on
+    each disc (objects 1 and 2), then a mask over object 2's disc."""
+    import numpy as np
+
+    box = np.zeros((480, 640), bool)
+    box[60:180, 420:540] = True
+    return [("add_new_points object 1", lambda: pred.add_new_points(
+                state, 0, 1, [[160.0, 240.0]], [1])),
+            ("add_new_points object 2", lambda: pred.add_new_points(
+                state, 0, 2, [[480.0, 120.0]], [1])),
+            ("add_new_mask object 2", lambda: pred.add_new_mask(
+                state, 0, 2, box))]
+
+
+def video_flow(pred, frames, counted=None) -> dict:
+    """init_state, the prompts, propagate_in_video forward and then in
+    reverse from the last frame; {step: masks (objects, 1, H, W) logits on
+    the host}. `counted(fn, what, tracked)` wraps each call and each
+    yielded frame (tracked: a frame the memory attention ran on)."""
+    import torch
+
+    def run(fn, what, tracked=False):
+        return counted(fn, what, tracked) if counted else fn()
+
+    def host(m):
+        return (m.float().cpu() if torch.is_tensor(m)
+                else torch.from_numpy(m).float())
+
+    state = run(lambda: pred.init_state(images=frames), "init_state")
+    out = {}
+    for what, fn in video_prompts(pred, state):
+        _, ids, masks = run(fn, what)
+        out[what] = host(masks)
+    for tag, kw in (("forward", {}),
+                    ("reverse", dict(start_frame_idx=len(frames) - 1,
+                                     reverse=True))):
+        it = pred.propagate_in_video(state, **kw)
+        while True:
+            try:
+                f, ids, masks = run(lambda: next(it), f"{tag} frame",
+                                    tracked=True)
+            except StopIteration:
+                break
+            if list(ids) != [1, 2]:
+                fail(f"video: object ids {ids}")
+            out[f"{tag} frame {f}"] = host(masks)
+    return out
+
+
+def video_main_phase(path: str) -> dict:
+    """The SAM2 video predictor end to end on 12 seeded 480x640 frames: the
+    launches of every call and of every yielded frame (counters set to 0
+    just before each, read just after; a frame served from cache, the
+    prompted frame 0, launches nothing), the masks' shapes and values; the
+    same flow under force_plain() (video-res logits, kernels vs plain) and
+    on the host-gathered bank (device_resident=False) against the device
+    bank."""
+    import torch
+
+    from sam2unet_torch.ops import dispatch
+
+    spec = PATHS[path]
+    label = spec["label"]
+    frames = video_frames()
+    variants: collections.Counter = collections.Counter()
+    per_frame = dict(spec["per_image"])
+    per_frame["flash_attention"] += spec["per_frame_d256"]
+    d256 = ("flash_attention", "S=4096,d=256")
+    seen = collections.Counter()
+    n_tracked = [0]
+
+    def counted(fn, what, tracked):
+        dispatch.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(dispatch.launches)
+        variants.update(dispatch.variants)
+        if what == "init_state":
+            want = spec["per_image"]
+        elif tracked and out[0] != 0:   # frame 0 is served from cache
+            want = per_frame
+            n_tracked[0] += 1
+        else:
+            want = {}
+        seen[(what, str(counts))] += 1
+        if counts != want or dispatch.variants.get(d256, 0) != (
+                spec["per_frame_d256"] if want is per_frame else 0):
+            fail(f"{label} {what}: launches {counts} by variant "
+                 f"{dict(dispatch.variants)}, expected {want}")
+        return out
+
+    pred = sam2_video_predictor()
+    got = video_flow(pred, frames, counted)
+    for (what, counts), n in seen.items():
+        print(f"[main] {label} {what}: launches {counts} (x{n})", flush=True)
+    n_tracked = n_tracked[0]
+    print(f"[main] {label}: {n_tracked} tracked frames, K10 at head dim 256 "
+          f"launched {variants[d256]} times ({spec['per_frame_d256']} per "
+          f"tracked frame); none on the prompted frame", flush=True)
+    if n_tracked != 2 * (len(frames) - 1):
+        fail(f"{label}: {n_tracked} tracked frames")
+    # (objects, 1, H, W): object 1 alone after the first prompt
+    bad = [k for k, m in got.items()
+           if m.shape != (1 + ("object 1" not in k), 1, 480, 640)
+           or not torch.isfinite(m).all()]
+    fg = {k: [round(float((o > 0).float().mean()), 3) for o in m]
+          for k, m in got.items()}
+    gated = [(k, i) for k, m in got.items() for i, o in enumerate(m)
+             if (o == -1024.0).all()]
+    print(f"[main] {label} masks (objects, 1, 480, 640) at every step, "
+          f"finite; foreground share by object {fg}; an object absent (its "
+          f"score gated the mask) at {gated}" + ("  <-- FAIL" if bad else ""),
+          flush=True)
+    if bad:
+        fail(f"{label}: bad masks at {bad}")
+
+    def compare(want, what):
+        keys = sorted(got)
+        g = torch.cat([got[k].flatten() for k in keys])
+        w = torch.cat([want[k].flatten() for k in keys])
+        rel, corr, ok = _agree(g, w)
+        flips = float(((g > 0) != (w > 0)).float().mean())
+        print(f"[main] {label} video-res logits of every step, {what} "
+              f"(bf16): max_rel_err {rel:.4g} (tol {MAIN_REL_TOL}) corr "
+              f"{corr:.6f} (min {MAIN_CORR_MIN}); mask pixels that differ "
+              f"{flips:.3g}" + ("" if ok else "  <-- FAIL"), flush=True)
+        if not ok:
+            fail(f"{label}: {what} disagree")
+
+    with dispatch.force_plain():
+        compare(video_flow(pred, frames), "kernels vs plain")
+    compare(video_flow(sam2_video_predictor(resident=False), frames),
+            "device-resident bank vs host-gathered bank")
+    del pred
+    torch.cuda.empty_cache()
+    return dict(variants)
+
+
+def video_throughput_phase(path: str, card: str) -> None:
+    """add_new_points ms (host clock, the prompt's decode and video-res
+    consolidation), steady-state tracked frames (CUDA events around each
+    yielded frame of a second propagation, its masks copied to the host as
+    bool; the first two tracked frames left out), frames/s, peak memory;
+    and one call of the memory attention's masked cross-attention (the
+    einsum form, fp32 scores) at its shape, for the profile's reading."""
+    import torch
+
+    from sam2unet_torch.ops.attention import einsum_attention
+
+    label = PATHS[path]["label"]
+    pred = sam2_video_predictor()
+    frames = video_frames()
+    state = pred.init_state(images=frames)
+    for _, fn in video_prompts(pred, state):
+        fn()
+    reps, t0 = 5, time.perf_counter()
+    for _ in range(reps):
+        pred.add_new_points(state, 0, 1, [[160.0, 240.0]], [1])
+    torch.cuda.synchronize()
+    points_ms = (time.perf_counter() - t0) * 1e3 / reps
+    list(pred.propagate_in_video(state))   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    it = pred.propagate_in_video(state)
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            f, _, masks = next(it)
+        except StopIteration:
+            break
+        masks = (masks > 0).cpu()
+        end.record()
+        end.synchronize()
+        if f >= 3:   # frame 0 is served from cache
+            times.append(start.elapsed_time(end))
+    ms = sum(times) / len(times)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1)
+    n_keys = 7 * 4096 + 64
+    q = torch.randn(2, 4096, 1, 256, generator=gen, device=DEV).bfloat16()
+    k, v = (torch.randn(2, n_keys, 1, 256, generator=gen, device=DEV).bfloat16()
+            for _ in range(2))
+    valid = torch.ones(2, n_keys, dtype=torch.bool, device=DEV)
+    cross_ms = time_ms(lambda: einsum_attention(q, k, v, key_valid=valid),
+                       reps=5)
+    print(f"[throughput] {label} bf16, 2 objects, 480x640 frames on {card}: "
+          f"add_new_points {points_ms:.2f} ms (host clock), tracked frame "
+          f"{ms:.2f} ms ({1e3 / ms:.1f} frames/s steady state over "
+          f"{len(times)} frames, CUDA events, masks to the host), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the masked "
+          f"cross-attention alone (einsum form, 4096 x {n_keys} keys, d 256) "
+          f"{cross_ms:.3f} ms a call, 4 per frame", flush=True)
+    del pred, q, k, v
+    torch.cuda.empty_cache()
+
+
 def train_main_phase(path: str, tmp: Path, step_seeds: list[int],
                      step_report: str = "") -> dict:
     """The train CLI end to end (with `resume`, once more from its saved
@@ -1545,6 +1842,14 @@ def _runner(path: str, batch: int, remat: bool = False,
     import torch
 
     spec = PATHS[path]
+    if spec.get("video"):
+        pred, frames = sam2_video_predictor(), video_frames()
+        state = pred.init_state(images=frames)
+        for _, fn in video_prompts(pred, state):
+            fn()
+        list(pred.propagate_in_video(state))
+        it = pred.propagate_in_video(state, start_frame_idx=1)
+        return (lambda: next(it)[2]), "tracked frame"
     if spec.get("sam2"):
         pred, image = sam2_predictor(), sam2_image()
         pred.set_image(image)
@@ -1674,7 +1979,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="build,kernels,main,throughput")
     ap.add_argument("--paths",
-                    default="l352,s960,l352train,s960train,s1024sam2")
+                    default="l352,s960,l352train,s960train,s1024sam2,"
+                            "s1024video")
     ap.add_argument("--batch", type=int, default=32,
                     help="kernel, throughput and profile batch at hiera_l@352")
     ap.add_argument("--batch960", type=int, default=16,
@@ -1733,7 +2039,9 @@ def main() -> None:
             if "kernels" in phases:
                 entries += kernel_phase(path, batch, gen)
             if "main" in phases:
-                if PATHS[path].get("sam2"):
+                if PATHS[path].get("video"):
+                    variants[path] = video_main_phase(path)
+                elif PATHS[path].get("sam2"):
                     variants[path] = sam2_main_phase(path)
                 elif PATHS[path].get("train"):
                     variants[path] = train_main_phase(
@@ -1741,7 +2049,9 @@ def main() -> None:
                         args.step_report)
                 else:
                     variants[path] = main_path_phase(path, Path(tmp))
-            if "throughput" in phases and PATHS[path].get("sam2"):
+            if "throughput" in phases and PATHS[path].get("video"):
+                video_throughput_phase(path, card)
+            elif "throughput" in phases and PATHS[path].get("sam2"):
                 sam2_throughput_phase(path, card)
             elif "throughput" in phases:
                 throughput_phase(path, batch, card)

@@ -102,7 +102,7 @@ def check_ported(model_cfg: str, size: int, device: torch.device) -> None:
         raise SystemExit(
             f"training {model_cfg} at --size {size} on the card needs "
             f"backward kernels sam2unet_torch has not ported yet (ROADMAP.md "
-            f"open item 1): {'; '.join(gaps)}")
+            f"queue 2, TPU kernels still to port): {'; '.join(gaps)}")
 
 
 def main(args) -> dict:

@@ -12,21 +12,23 @@ The key rules are a self-contained copy of the JAX package's
   output_upscaling.N (Sequentials)   -> <name>_layers_N
   point_embeddings.N,
   output_hypernetworks_mlps.N        -> <name>_N
+  mask_downsampler.encoder.N         -> mask_downsampler/encoder_layers_N
   convs.N.conv (the FPN laterals)    -> convs_N_conv
   prompt_learn.N (Sequential)        -> prompt_learn/layers_N
   patch_embed.proj                   -> patch_embed_proj
   pe_layer.positional_encoding_gaussian_matrix -> one joined name
 and the layouts: Dense (I, O) -> (O, I); Conv (kh, kw, I, O) and the
 ConvTranspose kernel (kh, kw, O, I) -> (O, I, kh, kw) and (I, O, kh, kw),
-one transpose for both; pos embeds (1, H, W, C) -> (1, C, H, W); BN
-mean/var -> running_*; num_batches_tracked is 0; embeddings and other raw
-parameters as they are. With `wrap_blocks` (SAM2-UNet's trunk) the adapter
-wrapper's `block` scope is inserted after `blocks_N` for keys that carry
-neither `block` nor `prompt_learn`; SAM2's own trunk has no such scope.
+one transpose for both (the depthwise (kh, kw, 1, C) too); pos embeds
+(1, H, W, C) -> (1, C, H, W); BN mean/var -> running_*;
+num_batches_tracked is 0; embeddings and other raw parameters (the memory
+encoder's layer scales `gamma`, `maskmem_tpos_enc`) as they are. With
+`wrap_blocks` (SAM2-UNet's trunk) the adapter wrapper's `block` scope is
+inserted after `blocks_N` for keys that carry neither `block` nor
+`prompt_learn`; SAM2's own trunk has no such scope.
 
 Strict both ways: a port key with no JAX leaf raises, and so does a JAX
-leaf that no port key consumed, except under the top-level scopes named in
-`skip` (SAM2's video path, which the image path does not hold).
+leaf that no port key consumed.
 """
 
 from __future__ import annotations
@@ -62,6 +64,8 @@ def _jax_path(name: str, wrap_blocks: bool = True) -> tuple[str, ...]:
                 out.append(f"{p}_{nxt}")
             elif p in _SEQ_FLAT or (p.startswith("branch") and p[6:].isdigit()):
                 out.append(f"{p}_layers_{nxt}")
+            elif p == "encoder" and "mask_downsampler" in parts[:i]:
+                out.append(f"encoder_layers_{nxt}")
             elif p == "convs" and i + 2 < len(parts):
                 out.append(f"convs_{nxt}_{parts[i + 2]}")
                 i += 1
@@ -92,16 +96,14 @@ def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
     return out
 
 
-def jax_to_state_dict(variables: dict, keys, wrap_blocks: bool = True,
-                      skip: tuple[str, ...] = ()) -> dict[str, torch.Tensor]:
+def jax_to_state_dict(variables: dict, keys,
+                      wrap_blocks: bool = True) -> dict[str, torch.Tensor]:
     """Convert JAX variables to a state dict covering `keys` (the port
-    module's `state_dict().keys()`); JAX leaves under the top-level scopes
-    in `skip` may stay unused."""
+    module's `state_dict().keys()`)."""
     leaves = {}
     for coll in ("params", "batch_stats"):
         leaves.update({(coll,) + p: v
-                       for p, v in _flatten(variables.get(coll, {})).items()
-                       if p[0] not in skip})
+                       for p, v in _flatten(variables.get(coll, {})).items()})
     used: set[tuple] = set()
 
     def take(path: tuple) -> np.ndarray | None:

@@ -1,12 +1,14 @@
-"""SAM2's image path (sam2/modeling/sam2_base.py:22-477; the JAX package's
-`models/sam2_base.py:33-271`): `SAM2Config`, and of `SAM2Base` the image
-encoder with the SAM heads' high-resolution projections (`forward_image`),
-the prompt encoder and mask decoder with the object pointer
-(`forward_sam_heads`), and `use_mask_as_output`. The memory attention and
-memory encoder come with the video predictor. `VIDEO_PATH_PREFIXES` names
-the reference keys of the video path: `build_sam.py` skips those an
-official checkpoint holds and this module does not (the object pointer's,
-which `forward_sam_heads` also computes, are held and loaded).
+"""SAM2's model (sam2/modeling/sam2_base.py:22-829; the JAX package's
+`models/sam2_base.py`): `SAM2Config`, and of `SAM2Base` the image encoder
+with the SAM heads' high-resolution projections (`forward_image`), the
+prompt encoder and mask decoder with the object pointer
+(`forward_sam_heads`), `use_mask_as_output`, and the memory half of the
+video tracker: the memory attention over an assembled memory bank
+(`condition_features_on_memory`) and the memory encoder
+(`encode_new_memory`). As in the JAX package, the model holds only the
+device programs; the predictors on the host choose frames and assemble the
+bank. The parameters carry the reference's state-dict names, so an
+official checkpoint loads strictly, every key included.
 
 NHWC image features; masks (B, M, h, w). The module computes in the dtype
 of its parameters (`build_sam2` casts it once); masks leave the heads in
@@ -23,23 +25,17 @@ from torch import nn
 from sam2unet_torch.configs import HieraConfig
 from sam2unet_torch.models.fpn import ImageEncoder
 from sam2unet_torch.models.mask_decoder import MaskDecoder
+from sam2unet_torch.models.memory import MemoryAttention, MemoryEncoder
 from sam2unet_torch.models.prompt_encoder import PromptEncoder
 from sam2unet_torch.nn.layers import MLP
 from sam2unet_torch.ops.resize import resize_nhwc
 
 NO_OBJ_SCORE = -1024.0
-# reference keys of the video path, which the image path does not hold
-VIDEO_PATH_PREFIXES = ("memory_attention.", "memory_encoder.",
-                       "maskmem_tpos_enc", "no_mem_pos_enc", "no_obj_ptr",
-                       "obj_ptr_proj.", "mask_downsample.",
-                       "obj_ptr_tpos_proj.")
 
 
 @dataclasses.dataclass(frozen=True)
 class SAM2Config:
-    """The JAX package's SAM2Config (sam2_hiera_s.yaml:87-116 defaults);
-    the image path reads the fields below `backbone_stride` that it needs,
-    the rest configure the video path and are kept for parity."""
+    """The JAX package's SAM2Config (sam2_hiera_s.yaml:87-116 defaults)."""
 
     image_size: int = 1024
     backbone_stride: int = 16
@@ -97,7 +93,17 @@ class SAM2Base(nn.Module):
             pred_obj_scores=c.pred_obj_scores,
             pred_obj_scores_mlp=c.pred_obj_scores_mlp,
             use_multimask_token_for_obj_ptr=c.use_multimask_token_for_obj_ptr)
+        self.memory_attention = MemoryAttention(c.hidden_dim, num_layers=4,
+                                                kv_in_dim=c.mem_dim)
+        self.memory_encoder = MemoryEncoder(c.mem_dim, c.hidden_dim)
+        self.maskmem_tpos_enc = nn.Parameter(
+            torch.randn(c.num_maskmem, 1, 1, c.mem_dim) * 0.02)
         self.no_mem_embed = nn.Parameter(torch.randn(1, 1, c.hidden_dim) * 0.02)
+        self.no_mem_pos_enc = nn.Parameter(
+            torch.randn(1, 1, c.hidden_dim) * 0.02)
+        # the JAX package creates no_obj_ptr under pred_obj_scores alone
+        # (the reference reads it there but creates it only with
+        # use_obj_ptrs_in_encoder too, sam2_base.py:169-170 vs :390-399)
         if c.pred_obj_scores:
             self.no_obj_ptr = nn.Parameter(torch.randn(1, c.hidden_dim) * 0.02)
         if c.use_obj_ptrs_in_encoder:
@@ -106,6 +112,8 @@ class SAM2Base(nn.Module):
                 MLP(c.hidden_dim, c.hidden_dim, c.hidden_dim, 3)
                 if c.use_mlp_for_obj_ptr_proj
                 else nn.Linear(c.hidden_dim, c.hidden_dim))
+        if c.proj_tpos_enc_in_obj_ptrs:
+            self.obj_ptr_tpos_proj = nn.Linear(c.hidden_dim, c.mem_dim)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -205,3 +213,74 @@ class SAM2Base(nn.Module):
             obj_ptr = obj_ptr + (1.0 - lam) * self.no_obj_ptr.float()
         lr, hr = low_res.permute(0, 3, 1, 2), high_res.permute(0, 3, 1, 2)
         return lr, hr, ious, lr, hr, obj_ptr, object_score_logits
+
+    # ------------------------------------------------------------- memory
+
+    def condition_features_on_memory(self, current_feat, current_pos, memory,
+                                     memory_pos, num_obj_ptr_tokens: int = 0,
+                                     is_init_cond_frame: bool = False,
+                                     memory_valid=None) -> torch.Tensor:
+        """The device half of _prepare_memory_conditioned_features
+        (sam2_base.py:493-662): current_feat and current_pos (B, H, W, C),
+        the assembled bank memory / memory_pos (B, S_mem, mem_dim) with its
+        last `num_obj_ptr_tokens` the object pointers, `memory_valid`
+        (B, S_mem) bool marking the real tokens of a padded bank. Returns
+        the conditioned (B, H, W, C) features."""
+        c = self.cfg
+        b, h, w, ch = current_feat.shape
+        if c.num_maskmem == 0:
+            return current_feat
+        feats = current_feat.reshape(b, h * w, ch)
+        if is_init_cond_frame:
+            if c.directly_add_no_mem_embed:
+                return (feats + self.no_mem_embed).reshape(b, h, w, ch)
+            # mem_dim-wide memory tokens (the JAX package's slice, where the
+            # reference's expand works only with mem_dim == hidden_dim)
+            memory = self.no_mem_embed[:, :, :c.mem_dim].expand(b, 1, c.mem_dim)
+            memory_pos = self.no_mem_pos_enc[:, :, :c.mem_dim].expand(
+                b, 1, c.mem_dim)
+            num_obj_ptr_tokens, memory_valid = 0, None
+        out = self.memory_attention(
+            feats, memory, current_pos.reshape(b, h * w, ch), memory_pos,
+            num_obj_ptr_tokens, memory_valid)
+        return out.reshape(b, h, w, ch)
+
+    def encode_new_memory(self, current_feat, pred_masks_high_res,
+                          is_mask_from_pts: bool = False):
+        """(sam2_base.py:664-702): current_feat (B, H, W, C), the high-res
+        mask logits (B, 1, S, S) -> (memory features (B, H, W, mem_dim),
+        [their (1, H, W, mem_dim) sine encoding]). A mask from points is
+        binarised where the config asks, else squashed by the sigmoid."""
+        c = self.cfg
+        masks = pred_masks_high_res.float().permute(0, 2, 3, 1)
+        if c.non_overlap_masks_for_mem_enc:
+            masks = self.apply_non_overlapping_constraints(masks)
+        if c.binarize_mask_from_pts_for_mem_enc and is_mask_from_pts:
+            mask_for_mem = (masks > 0).float()
+        else:
+            mask_for_mem = torch.sigmoid(masks)
+        mask_for_mem = (mask_for_mem * c.sigmoid_scale_for_mem_enc
+                        + c.sigmoid_bias_for_mem_enc)
+        out = self.memory_encoder(current_feat, mask_for_mem,
+                                  skip_mask_sigmoid=True)
+        return out["vision_features"], out["vision_pos_enc"]
+
+    @staticmethod
+    def apply_non_overlapping_constraints(pred_masks: torch.Tensor
+                                          ) -> torch.Tensor:
+        """(sam2_base.py:812-829): objects along dim 0; each pixel keeps its
+        score in the object of the highest one, the others are clamped to
+        at most -10."""
+        if pred_masks.shape[0] == 1:
+            return pred_masks
+        best = pred_masks.argmax(dim=0, keepdim=True)
+        idx = torch.arange(pred_masks.shape[0], device=pred_masks.device)
+        keep = best == idx.reshape(-1, *[1] * (pred_masks.dim() - 1))
+        return torch.where(keep, pred_masks, pred_masks.clamp(max=-10.0))
+
+    def use_multimask(self, is_init_cond_frame: bool, num_pts: int) -> bool:
+        """(sam2_base.py:791-799), decided on the host."""
+        c = self.cfg
+        return (c.multimask_output_in_sam
+                and (is_init_cond_frame or c.multimask_output_for_tracking)
+                and c.multimask_min_pt_num <= num_pts <= c.multimask_max_pt_num)

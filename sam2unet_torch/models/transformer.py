@@ -1,20 +1,31 @@
-"""SAM's two-way transformer (sam2/modeling/sam/transformer.py:30-265; the
-JAX package's `models/transformer.py`), attention in the (B, S, heads, d)
+"""SAM's two-way transformer and the memory attention's RoPE attention
+(sam2/modeling/sam/transformer.py:30-332; the JAX package's
+`models/transformer.py`), attention in the (B, S, heads, d)
 layout through the port's `sdpa`, so its backend switch applies here as in
 the JAX package: under "auto" the token attentions run the einsum form and
 the token-to-image attentions (4096 keys at 1024 px) K10 where 16-aligned
 blocks divide both lengths (16 tokens), the einsum form otherwise; under
 "pallas" every attention over at most 1024 keys runs K14.
 
-LayerNorm eps is 1e-6, as in the JAX package (flax's default). The
-memory attention's `RoPEAttention` comes with the video predictor.
+`RoPEAttention` routes the same way: the memory attention's
+self-attention (one head of 256 over the 4096 tokens of a 1024-px frame)
+runs K10; its cross-attention to the memory bank carries `key_valid`, which
+only the einsum form takes.
+
+LayerNorm eps is 1e-6, as in the JAX package (flax's default).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
+from sam2unet_torch.models.position_encoding import (
+    apply_rotary_enc,
+    axial_rope_cos_sin,
+)
 from sam2unet_torch.nn.layers import LN_EPS, MLP
 from sam2unet_torch.ops.attention import sdpa
 
@@ -43,6 +54,55 @@ class Attention(nn.Module):
                  self._heads(self.v_proj(v)))
         b, n, h, d = o.shape
         return self.out_proj(o.reshape(b, n, h * d))
+
+
+class RoPEAttention(nn.Module):
+    """Attention with the axial 2-D rotary embedding of a square query grid
+    (transformer.py:268-332), theta 10000. The angles follow the runtime
+    token count, as the reference recomputes them when its cached
+    `feat_sizes` table does not match; they are built once per grid and
+    kept on the device. The last `num_k_exclude_rope` keys (the object
+    pointers) are not rotated; with `rope_k_repeat` the angles tile the
+    memory's grids."""
+
+    def __init__(self, embedding_dim: int, num_heads: int,
+                 kv_in_dim: int | None = None, rope_k_repeat: bool = False):
+        super().__init__()
+        kv = kv_in_dim or embedding_dim
+        self.num_heads, self.rope_k_repeat = num_heads, rope_k_repeat
+        self.q_proj = nn.Linear(embedding_dim, embedding_dim)
+        self.k_proj = nn.Linear(kv, embedding_dim)
+        self.v_proj = nn.Linear(kv, embedding_dim)
+        self.out_proj = nn.Linear(embedding_dim, embedding_dim)
+        self._rope: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def _rope_table(self, dim: int, side: int, device: torch.device):
+        key = (dim, side, device)
+        if key not in self._rope:
+            with torch.inference_mode(False):   # usable outside it too
+                self._rope[key] = tuple(
+                    torch.from_numpy(t).to(device)
+                    for t in axial_rope_cos_sin(dim, side, side))
+        return self._rope[key]
+
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                num_k_exclude_rope: int = 0,
+                key_valid: torch.Tensor | None = None) -> torch.Tensor:
+        b, nq, _ = q.shape
+        nk, h = k.shape[1], self.num_heads
+        q = self.q_proj(q).reshape(b, nq, h, -1)
+        k = self.k_proj(k).reshape(b, nk, h, -1)
+        v = self.v_proj(v).reshape(b, nk, h, -1)
+        side = math.isqrt(nq)
+        if side * side != nq:
+            raise ValueError(f"RoPE needs a square token grid, got {nq}")
+        cos, sin = self._rope_table(q.shape[-1], side, q.device)
+        n_rope = nk - num_k_exclude_rope
+        q, k_rot = apply_rotary_enc(q, k[:, :n_rope], cos, sin,
+                                    self.rope_k_repeat)
+        k = torch.cat([k_rot, k[:, n_rope:]], 1) if num_k_exclude_rope else k_rot
+        o = sdpa(q, k, v, key_valid=key_valid)
+        return self.out_proj(o.reshape(b, nq, -1))
 
 
 class TwoWayAttentionBlock(nn.Module):

@@ -24,11 +24,14 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("fused_mlp", "fused_attention_block", "fused_transition",
            "flash_attention", "fused_mlp_bwd", "fused_attention_block_bwd",
-           "fused_transition_bwd", "flash_attention_bwd", "full_attention")
+           "fused_transition_bwd", "flash_attention_bwd", "full_attention",
+           "flash_attention_d256")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_K10 = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+        ctypes.c_float, _P]
 SIGNATURES = {
     "fused_mlp": {
         "k1_fused_mlp": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -47,10 +50,9 @@ SIGNATURES = {
         "k8_transition": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
-    "flash_attention": {
-        "k10_flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _L, _L, _L, _L, _L, _L, ctypes.c_float, _P],
-    },
+    "flash_attention": {"k10_flash_attention": _K10},
+    # K10 at head dim 256, a translation unit of its own
+    "flash_attention_d256": {"k10_flash_attention_d256": _K10},
     # the backward kernels, in libraries of their own (the forward's stay as
     # they are built without them)
     "fused_mlp_bwd": {

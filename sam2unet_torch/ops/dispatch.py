@@ -103,12 +103,13 @@ def needs_grad(*tensors: torch.Tensor | None) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def not_ported(kernel: str, item: str):
-    """Raise where the JAX package's backward runs a kernel the port does
-    not have yet: the plain version is not a stand-in for it on the card."""
+def not_ported(kernel: str, what: str = "this backward"):
+    """Raise where the JAX package runs a kernel the port does not have yet
+    (ROADMAP.md queue 2): the plain version is not a stand-in for it on the
+    card."""
     raise NotImplementedError(
-        f"the JAX package runs {kernel} for this backward, and "
-        f"sam2unet_torch has not ported it yet (ROADMAP.md open item {item})")
+        f"the JAX package runs {kernel} for {what}, and sam2unet_torch has "
+        "not ported it yet (ROADMAP.md queue 2, TPU kernels still to port)")
 
 
 class _KernelFunction(torch.autograd.Function):

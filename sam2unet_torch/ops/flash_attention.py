@@ -3,9 +3,12 @@ lse, and its backward; K14: attention over the whole key row (at most 1024
 keys); and `dispatch_attention`, which picks among them. Counterpart of
 sam2unet_tpu/ops/pallas/flash_attention.py (`_stream_fwd_impl`,
 `_stream_bwd_impl`, `_fused_full`, `_dispatch_fwd`, oracle
-`_xla_attention`); the kernels are csrc/flash_attention.cu (K10),
-csrc/flash_attention_bwd.cu (K11: the delta pass, the dq pass and the dk/dv
-pass) and csrc/full_attention.cu (K14).
+`_xla_attention`); the kernels are csrc/flash_attention.cu (K10 at head
+dims up to 96), csrc/flash_attention_d256.cu (K10 at head dim 256, the
+video memory attention's), csrc/flash_attention_bwd.cu (K11: the delta
+pass, the dq pass and the dk/dv pass) and csrc/full_attention.cu (K14).
+Other head dims raise on the card, and so does K11 at head dim 256
+(ROADMAP.md queue 2); on the CPU the plain versions take any.
 
 q, k and v may be strided views, as the long global-attention blocks pass
 them (channel slices of the QKV output, rows of 3c): the kernels read them
@@ -26,6 +29,7 @@ from sam2unet_torch.ops import build, dispatch
 from sam2unet_torch.ops.attention import MAX_FULL_SEQ, einsum_attention
 
 MAX_HEAD_DIM = 96  # attention.cuh instantiates head dims up to 6 x 16
+WIDE_HEAD_DIM = 256   # flash_attention_d256.cu: K10's forward only
 
 
 def plain_flash_attention(q, k, v, scale: float | None = None,
@@ -100,12 +104,13 @@ def _check_view(t: torch.Tensor, what: str) -> None:
                          "base and strides that are multiples of 8 elements")
 
 
-def _check_args(q, k, v, **more) -> tuple[int, int, int, int, int]:
-    """What K10 and K11 take: q (B, Sq, heads, d), k and v (B, Sk, heads, d)
-    with the same strides, `more` tensors shaped like q or like k (by
-    name: dk, dv like k), bf16 or fp32, one device, d % 8 == 0 and
-    d <= MAX_HEAD_DIM, every view addressable (`_check_view`). Returns
-    (B, Sq, Sk, heads, d)."""
+def _check_args(q, k, v, *, wide: bool = False,
+                **more) -> tuple[int, int, int, int, int]:
+    """What K10, K11 and K14 take: q (B, Sq, heads, d), k and v (B, Sk,
+    heads, d) with the same strides, `more` tensors shaped like q or like k
+    (by name: dk, dv like k), bf16 or fp32, one device, d % 8 == 0 and
+    d <= MAX_HEAD_DIM (or, with `wide`, K10's d == WIDE_HEAD_DIM), every
+    view addressable (`_check_view`). Returns (B, Sq, Sk, heads, d)."""
     b, sq, nh, d = q.shape
     sk = k.shape[1]
     if k.shape != (b, sk, nh, d) or v.shape != k.shape:
@@ -125,9 +130,12 @@ def _check_args(q, k, v, **more) -> tuple[int, int, int, int, int]:
             raise ValueError(f"flash_attention: {what} is on {t.device}, q on "
                              f"{q.device}")
         _check_view(t, what)
-    if d % 8 or d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel needs head dim % 8 == 0 and "
-                         f"<= {MAX_HEAD_DIM}, got {d}")
+    if d % 8 or (d > MAX_HEAD_DIM and not (wide and d == WIDE_HEAD_DIM)):
+        also = f", and K10 at {WIDE_HEAD_DIM}" if wide else ""
+        raise ValueError(
+            f"the attention kernels take head dims % 8 == 0 up to "
+            f"{MAX_HEAD_DIM}{also}, not {d} (ROADMAP.md queue 2, TPU kernels "
+            "still to port)")
     return b, sq, sk, nh, d
 
 
@@ -142,16 +150,19 @@ def _check_rows(t: torch.Tensor, what: str, q: torch.Tensor) -> None:
 
 def _flash_attention_kernel(q, k, v, scale: float):
     """K10 on the card: (o, lse)."""
-    b, sq, sk, nh, d = _check_args(q, k, v)
+    b, sq, sk, nh, d = _check_args(q, k, v, wide=True)
     o = torch.empty((b, sq, nh, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * nh, sq), dtype=torch.float32, device=q.device)
     p = dispatch.ptr
-    err = build.library("flash_attention").k10_flash_attention(
-        int(q.dtype == torch.bfloat16), p(q), p(k), p(v), p(o), p(lse), b, sq,
-        sk, nh, d, *q.stride()[:3], *k.stride()[:3], scale,
-        dispatch.stream_of(q))
+    if d == WIDE_HEAD_DIM:
+        fn = build.library("flash_attention_d256").k10_flash_attention_d256
+    else:
+        fn = build.library("flash_attention").k10_flash_attention
+    err = fn(int(q.dtype == torch.bfloat16), p(q), p(k), p(v), p(o), p(lse),
+             b, sq, sk, nh, d, *q.stride()[:3], *k.stride()[:3], scale,
+             dispatch.stream_of(q))
     build.check(err, "flash_attention")
-    dispatch.count_launch("flash_attention", f"S={sk}")
+    dispatch.count_launch("flash_attention", f"S={sk},d={d}")
     return o, lse
 
 
@@ -269,7 +280,11 @@ def flash_attention_bwd(q, k, v, o, lse, dout, scale: float | None = None,
     `_dkv`); this function launches nothing itself.
     `out` names three views to write them into (the channel blocks of one
     dqkv buffer in the long attention block). Plain version:
-    `plain_flash_attention_bwd`."""
+    `plain_flash_attention_bwd`. At head dim 256 the card raises: K11 is
+    ported up to MAX_HEAD_DIM."""
+    if dispatch.use_kernel(q) and q.shape[-1] > MAX_HEAD_DIM:
+        dispatch.not_ported(f"K11 at head dim {q.shape[-1]}",
+                            "the streaming attention's backward")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     dq_out, dkv_out = (None, None) if out is None else (out[0], tuple(out[1:]))

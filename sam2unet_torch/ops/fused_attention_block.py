@@ -286,7 +286,7 @@ def _window_block_backward(saved, gy, needs, num_heads, n_pad, residual):
         return _long_window_block_backward(saved, gy, needs, num_heads,
                                            residual)
     if route != "plain":
-        dispatch.not_ported(route, "1")
+        dispatch.not_ported(route)
     return _plain_backward(plain_window_block, saved, gy, needs,
                            num_heads=num_heads, n_pad=n_pad, residual=residual)
 
@@ -404,7 +404,7 @@ def _strips_rem_kernel(x, *weights, num_heads: int, window: int,
 
 def _strips_rem_backward(saved, gy, needs, **kw):
     if not any(needs[1:]):
-        dispatch.not_ported("K13 (the remainder strips' backward)", "2")
+        dispatch.not_ported("K13 (the remainder strips' backward)")
     return _plain_backward(plain_strips_rem, saved, gy, needs, **kw)
 
 

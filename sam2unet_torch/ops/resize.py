@@ -25,6 +25,22 @@ def resize_nchw(x: torch.Tensor, size: tuple[int, int], method: str = "bilinear"
                          align_corners=align_corners)
 
 
+_MATRICES: dict[tuple, torch.Tensor] = {}
+
+
+def _matrix(n: int, o: int, method: str, align_corners: bool,
+            antialias: bool, device: torch.device,
+            dtype: torch.dtype) -> torch.Tensor:
+    """`resize_matrix` on `device` in `dtype`, built once per key (a
+    per-call host build and copy would cost each video frame two)."""
+    key = (n, o, method, align_corners, antialias, device, dtype)
+    if key not in _MATRICES:
+        with torch.inference_mode(False):   # usable outside it too
+            _MATRICES[key] = torch.from_numpy(resize_matrix(
+                n, o, method, align_corners, antialias)).to(device, dtype)
+    return _MATRICES[key]
+
+
 def resize_nhwc(x: torch.Tensor, size: tuple[int, int],
                 method: str = "bilinear", align_corners: bool = False,
                 antialias: bool = False) -> torch.Tensor:
@@ -34,8 +50,7 @@ def resize_nhwc(x: torch.Tensor, size: tuple[int, int],
     oh, ow = size
     if (oh, ow) == (h, w):
         return x
-    rh, rw = (torch.from_numpy(resize_matrix(n, o, method, align_corners,
-                                             antialias)).to(x.device, x.dtype)
-              for n, o in ((h, oh), (w, ow)))
+    rh, rw = (_matrix(n, o, method, align_corners, antialias, x.device,
+                      x.dtype) for n, o in ((h, oh), (w, ow)))
     x = torch.einsum("oh,bhwc->bowc", rh, x)
     return torch.einsum("pw,bowc->bopc", rw, x)

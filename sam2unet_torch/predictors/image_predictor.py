@@ -12,8 +12,8 @@ bilinear resize to the original size (`ops/resize.py`, torch semantics,
 identical to the host path's taps), threshold; only the final masks come
 back. The JAX package bit-packs the binary masks before that copy, a
 measure against its TPU link's bandwidth; the port copies bool masks. A
-negative area takes the host postprocess (`SAM2Transforms`), a positive
-one raises (connected components are not ported yet). The automatic mask
+non-zero area takes the host postprocess (`SAM2Transforms`: a positive
+one fills holes or removes sprinkles there). The automatic mask
 generator's fast path (`_predict_amg`) comes with the AMG.
 
 `get_image_embedding` returns the (B, 64, 64, 256) NHWC embedding the

@@ -2,13 +2,12 @@
 the JAX package's `predictors/transforms.py`, sam2/utils/transforms.py:
 13-99): square bilinear antialiased resize and ImageNet normalisation,
 coordinates and boxes to the model's resolution, and the host mask
-postprocess (bilinear resize to the original size).
-
-Hole and sprinkle filling (`max_hole_area` / `max_sprinkle_area` > 0)
-label connected components, an op the port has not copied yet: those
-settings raise, naming the ROADMAP.md item. A negative area, as
-`scripts/bench_sam2.py` sets to force the host postprocess, labels
-nothing.
+postprocess: hole filling (background components of at most
+`max_hole_area` pixels become foreground), sprinkle removal (foreground
+components of at most `max_sprinkle_area` pixels become background), both
+through the host connected components (`ops/connected_components.py`),
+then a bilinear resize to the original size. A negative area, as
+`scripts/bench_sam2.py` sets to force the host postprocess, fills nothing.
 """
 
 from __future__ import annotations
@@ -16,10 +15,8 @@ from __future__ import annotations
 import numpy as np
 
 from sam2unet_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from sam2unet_torch.ops.connected_components import label_components_native
 from sam2unet_torch.ops.resize_np import resize_np
-
-CCL_ITEM = ("ROADMAP.md queue 1 item 10: connected components "
-            "(ops/connected_components.py) are not ported yet")
 
 
 class SAM2Transforms:
@@ -29,19 +26,11 @@ class SAM2Transforms:
         self.mask_threshold = mask_threshold
         self.max_hole_area = max_hole_area
         self.max_sprinkle_area = max_sprinkle_area
-        self._check_areas()
-
-    def _check_areas(self) -> None:
-        if self.max_hole_area > 0 or self.max_sprinkle_area > 0:
-            raise NotImplementedError(
-                f"max_hole_area={self.max_hole_area}, max_sprinkle_area="
-                f"{self.max_sprinkle_area}: {CCL_ITEM}")
 
     @property
     def device_postprocess(self) -> bool:
         """Whether the predictor may postprocess on the device: nothing to
         fill and no host path asked for (both areas 0)."""
-        self._check_areas()
         return self.max_hole_area == 0 and self.max_sprinkle_area == 0
 
     def __call__(self, image: np.ndarray) -> np.ndarray:
@@ -70,7 +59,18 @@ class SAM2Transforms:
                                      normalize, orig_hw)
 
     def postprocess_masks(self, masks: np.ndarray, orig_hw) -> np.ndarray:
-        """(B, M, h, w) logits -> (B, M, H, W) at the original size."""
-        self._check_areas()
-        return resize_np(np.asarray(masks, np.float32), tuple(orig_hw),
-                         "bilinear")
+        """(B, M, h, w) logits -> (B, M, H, W) at the original size, holes
+        and sprinkles filled first (transforms.py:74-99)."""
+        masks = np.asarray(masks, np.float32)
+        b, m, h, w = masks.shape
+        flat = masks.reshape(b * m, 1, h, w)
+        t = self.mask_threshold
+        if self.max_hole_area > 0:
+            labels, areas = label_components_native(flat <= t)
+            flat = np.where((labels > 0) & (areas <= self.max_hole_area),
+                            t + 10.0, flat)
+        if self.max_sprinkle_area > 0:
+            labels, areas = label_components_native(flat > t)
+            flat = np.where((labels > 0) & (areas <= self.max_sprinkle_area),
+                            t - 10.0, flat)
+        return resize_np(flat.reshape(b, m, h, w), tuple(orig_hw), "bilinear")

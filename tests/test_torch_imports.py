@@ -51,10 +51,14 @@ def test_port_package_has_the_expected_modules():
                 "models/prompt_encoder.py", "models/transformer.py",
                 "models/mask_decoder.py", "models/sam2_base.py",
                 "build_sam.py", "predictors/transforms.py",
-                "predictors/image_predictor.py"):
+                "predictors/image_predictor.py", "models/memory.py",
+                "ops/connected_components.py", "utils/video.py",
+                "predictors/video_predictor.py",
+                "predictors/video_device.py"):
         assert f"sam2unet_torch/{mod}" in names
     for src in ("fused_mlp.cu", "fused_attention_block.cu",
                 "fused_transition.cu", "flash_attention.cu",
                 "attention_bwd.cuh", "attention_bwd_tiles.cuh",
-                "flash_attention_bwd.cu", "full_attention.cu"):
+                "flash_attention_bwd.cu", "full_attention.cu",
+                "flash_attention_d256.cu", "ccl.cc"):
         assert (ROOT / "sam2unet_torch" / "csrc" / src).is_file()

@@ -707,21 +707,21 @@ def test_backward_raises_where_the_jax_package_runs_an_unported_kernel(case):
         call = lambda: port_fab._window_block_backward(  # noqa: E731
             saved, torch.zeros(1, 16, 24), (True,) * 7, num_heads=1, n_pad=0,
             residual=True)
-        match = "weight-grad.*open item 1"
+        match = "weight-grad.*queue 2"
     elif case == "K13":
         x, *w = _zeros_block(1, 12, 8)
         saved = (x.reshape(1, 3, 4, 8), *w)
         call = lambda: port_fab._strips_rem_backward(  # noqa: E731
             saved, saved[0], (True,) + (False,) * 6, num_heads=1, window=3,
             residual=True)
-        match = "K13.*open item 2"
+        match = "K13.*queue 2"
     else:
         x = torch.zeros(4, 16)
         saved = (x, torch.zeros(32, 16), torch.zeros(32), torch.zeros(16, 32),
                  torch.zeros(16), None, None)
         call = lambda: port_mlp._mlp_backward(  # noqa: E731
             saved, x, (True,) + (False,) * 6, residual=True, gelu_out=False)
-        match = "K2 without LayerNorm.*open item 1"
+        match = "K2 without LayerNorm.*queue 2"
     with pytest.raises(NotImplementedError, match=match):
         call()
 

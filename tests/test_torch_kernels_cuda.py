@@ -6,7 +6,8 @@ made inside the fixture, never at import). Run on a machine with the card:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 
 Shapes are small hiera_l-like geometries (head dim 72) and the hiera_s@960
-geometries of K10, K11 and K12 (head dim 96) at a small batch. The backward
+geometries of K10, K11 and K12 (head dim 96) at a small batch; K10 also
+at head dim 256 (the video memory attention's). The backward
 kernels (K2, K3, K5, K7, K9) are held against autograd through their plain
 versions, at hiera_l@352's widths and head dim 96, with a ragged S for K7
 and a tie case for K9's max-pool routing; K14 at every shape its paths
@@ -177,6 +178,48 @@ def test_k10_kernel_cross_lengths(gen, dtype):
     q = _rnd(gen, dtype, 2, 160, 2, 96)
     k, v = _rnd(gen, dtype, 2, 330, 2, 96), _rnd(gen, dtype, 2, 330, 2, 96)
     _compare(lambda: flash_attention(q, k, v, return_lse=True), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,sq,sk", [(2, 4096, 4096), (1, 1000, 1337),
+                                     (3, 70, 4100)])
+def test_k10_kernel_at_head_dim_256(gen, dtype, b, sq, sk):
+    """K10 at the video memory attention's head dim (one head of 256; two
+    objects over a 1024-px frame's 4096 tokens), a ragged last key tile and
+    query tile, as strided views: q, k and v the head slices of wider
+    buffers. o and lse against the plain version; the variant names d."""
+    qbuf = _rnd(gen, dtype, b, sq, 2, 256)
+    kvbuf = _rnd(gen, dtype, b, sk, 3, 256)
+    q, k, v = qbuf[:, :, 1:], kvbuf[:, :, 0:1], kvbuf[:, :, 2:]
+    _compare(lambda: flash_attention(q, k, v, return_lse=True), dtype)
+    assert dispatch.variants == {("flash_attention", f"S={sk},d=256"): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["head dim 128", "head dim 264", "K14 at 256",
+                                  "K11 at 256"])
+def test_head_dims_the_port_does_not_instantiate_raise(gen, case):
+    """Head dims without a kernel instance raise on the card, naming ROADMAP
+    queue 2 (K10 has 256 besides up to 96; K14 and K11 only up to 96), and
+    the backward of K10 at 256 raises rather than recompute through the
+    plain version."""
+    from sam2unet_torch.ops.flash_attention import full_attention
+
+    d = {"head dim 128": 128, "head dim 264": 264}.get(case, 256)
+    q = _rnd(gen, torch.bfloat16, 1, 2048, 1, d)
+    if case == "K14 at 256":
+        with pytest.raises(ValueError, match="queue 2"):
+            full_attention(q[:, :64], q[:, :64], q[:, :64])
+    elif case == "K11 at 256":
+        q.requires_grad_(True)
+        o = flash_attention(q, q, q)
+        with pytest.raises(NotImplementedError, match="K11 at head dim 256.*"
+                                                      "queue 2"):
+            o.sum().backward()
+    else:
+        with pytest.raises(ValueError, match="queue 2"):
+            flash_attention(q, q, q)
 
 
 def _k11_inputs(gen, dtype, b, sq, sk, nh, d):
@@ -433,11 +476,11 @@ def test_backward_raises_where_the_jax_package_runs_an_unported_kernel(gen, case
     if case == "K7 weight-grad":
         x = _rnd(gen, dtype, 2, 64, 144).requires_grad_()
         y = fused_window_block(x, *[t.requires_grad_() for t in w], num_heads=2)
-        match = "weight-grad.*ROADMAP.md open item 1"
+        match = "weight-grad.*ROADMAP.md queue 2"
     else:
         x = _rnd(gen, dtype, 1, 12, 18, 144).requires_grad_()
         y = fused_window_block_strips_rem(x, *w, num_heads=2, window=5)
-        match = "K13.*ROADMAP.md open item 2"
+        match = "K13.*ROADMAP.md queue 2"
     with pytest.raises(NotImplementedError, match=match):
         y.sum().backward()
 

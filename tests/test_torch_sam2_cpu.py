@@ -5,8 +5,9 @@ predictor end to end, at the JAX tests' tiny config (TINY_SAM2 + HIERA_TEST
 at 64 px, tests/test_predictors.py) and at a narrow trunk with hiera_s's
 geometry at 1024 px (grids 256/128/64/32, windows 8/4/14/7, a 4096-token
 global block). Also the route of every block of sam2_hiera_s at 1024
-against the JAX package's gates, build_sam2, the transforms' refusals and
-the converter (strict both ways, the official key layout).
+against the JAX package's gates, build_sam2, the transforms' hole and
+sprinkle filling and the converter (strict both ways, the official key
+layout, video keys included).
 
 Weights: the JAX package's `build_sam2` initialises them, zero leaves get
 seeded noise, and `interop/from_jax.py` moves them across (strict). The JAX
@@ -36,7 +37,6 @@ from sam2unet_torch.configs import HIERA_S as PORT_HIERA_S
 from sam2unet_torch.configs import HIERA_TEST as PORT_HIERA_TEST
 from sam2unet_torch.configs import HieraConfig as PortHieraConfig
 from sam2unet_torch.interop.from_jax import jax_to_state_dict
-from sam2unet_torch.models.sam2_base import VIDEO_PATH_PREFIXES
 from sam2unet_torch.models.sam2_base import SAM2Config as PortSAM2Config
 from sam2unet_torch.predictors.image_predictor import SAM2ImagePredictor
 from sam2unet_torch.predictors.transforms import SAM2Transforms
@@ -50,12 +50,12 @@ from sam2unet_tpu.ops.pallas.fused_attention_block import (
 from sam2unet_tpu.predictors.image_predictor import (
     SAM2ImagePredictor as JaxPredictor,
 )
+from sam2unet_tpu.predictors.transforms import (
+    SAM2Transforms as JaxTransforms,
+)
 
 REL_TOL = 2e-5
 MASK_MARGIN = 1e-4
-# the JAX SAM2Base's scopes that the port's image path does not hold
-VIDEO_SCOPES = ("memory_attention", "memory_encoder", "maskmem_tpos_enc",
-                "no_mem_pos_enc", "obj_ptr_tpos_proj")
 
 TINY = dict(size=64, sam=dict(image_size=64, hidden_dim=64, mem_dim=16,
                               max_obj_ptrs_in_encoder=4),
@@ -95,8 +95,8 @@ class Pair:
             "hiera_test", sam2_config=PortSAM2Config(**sam),
             trunk_cfg=PortHieraConfig(**trunk), device="cpu")
         self.port.load_state_dict(jax_to_state_dict(
-            self.variables, self.port.state_dict().keys(), wrap_blocks=False,
-            skip=VIDEO_SCOPES), strict=True)
+            self.variables, self.port.state_dict().keys(), wrap_blocks=False),
+            strict=True)
 
     def jax(self, fn, *args):
         return self.jax_model.apply(self.variables, *args, method=fn)
@@ -426,10 +426,23 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_hole_filling_waits_for_connected_components():
-    for kw in (dict(max_hole_area=8.0), dict(max_sprinkle_area=4.0)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            SAM2Transforms(64, **kw)
+    """Hole and sprinkle filling through the port's connected components:
+    `postprocess_masks` equals the JAX package's at each setting (logits
+    with blobs, holes and specks at 2 x 3 x 40 x 44 -> 90 x 70). The name
+    dates from when the port refused these settings."""
+    rng = np.random.default_rng(5)
+    logits = rng.standard_normal((2, 3, 40, 44)).astype(np.float32) - 0.3
+    logits[:, :, 8:30, 10:34] += 3.0
+    for kw in (dict(), dict(max_hole_area=8.0), dict(max_sprinkle_area=4.0),
+               dict(max_hole_area=20.0, max_sprinkle_area=6.0),
+               dict(max_hole_area=-1.0)):
+        got = SAM2Transforms(64, **kw).postprocess_masks(logits, (90, 70))
+        want = JaxTransforms(64, **kw).postprocess_masks(logits, (90, 70))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6,
+                                   err_msg=str(kw))
     assert SAM2Transforms(64, max_hole_area=-1.0).device_postprocess is False
+    assert SAM2Transforms(64, max_hole_area=8.0).device_postprocess is False
+    assert SAM2Transforms(64).device_postprocess is True
 
 
 # --------------------------------------------------------------- converter
@@ -437,8 +450,7 @@ def test_hole_filling_waits_for_connected_components():
 
 def test_converter_is_strict_both_ways(tiny):
     keys = list(tiny.port.state_dict())
-    sd = jax_to_state_dict(tiny.variables, keys, wrap_blocks=False,
-                           skip=VIDEO_SCOPES)
+    sd = jax_to_state_dict(tiny.variables, keys, wrap_blocks=False)
     assert set(sd) == set(keys)
     # a port key without its JAX leaf
     params = dict(tiny.variables["params"])
@@ -446,10 +458,13 @@ def test_converter_is_strict_both_ways(tiny):
     dec.pop("iou_token")
     with pytest.raises(KeyError, match="iou_token"):
         jax_to_state_dict({"params": {**params, "sam_mask_decoder": dec}},
-                          keys, wrap_blocks=False, skip=VIDEO_SCOPES)
-    # a JAX leaf no port key takes (the video scopes are not skipped)
-    with pytest.raises(KeyError, match="memory_attention"):
-        jax_to_state_dict(tiny.variables, keys, wrap_blocks=False)
+                          keys, wrap_blocks=False)
+    # a JAX leaf no port key takes (here one of the memory attention's)
+    mem = dict(params["memory_attention"])
+    mem["stray"] = {"kernel": np.zeros((2, 2), np.float32)}
+    with pytest.raises(KeyError, match="memory_attention/stray"):
+        jax_to_state_dict({"params": {**params, "memory_attention": mem}},
+                          keys, wrap_blocks=False)
     # round trip: the state dict back through the port's loader equals it
     tiny.port.load_state_dict(sd, strict=True)
     for k, v in tiny.port.state_dict().items():
@@ -457,27 +472,30 @@ def test_converter_is_strict_both_ways(tiny):
 
 
 def test_official_layout_loads_with_the_video_keys(tiny, tmp_path):
-    """A checkpoint in the reference key layout: the image path's keys
-    strictly, each video-path key skipped by name, a stray key refused."""
+    """A checkpoint in the reference key layout loads strictly, the video
+    path's keys with the image path's; a stray key, a missing one (of
+    either path) and a wrong shape are refused."""
     state = {k: v.clone() for k, v in tiny.port.state_dict().items()}
-    video = {"memory_attention.layers.0.self_attn.q_proj.weight":
-             torch.zeros(4, 4),
-             "memory_encoder.fuser.layers.0.gamma": torch.zeros(4),
-             "maskmem_tpos_enc": torch.zeros(7, 1, 1, 16),
-             "no_mem_pos_enc": torch.zeros(1, 1, 64),
-             "obj_ptr_tpos_proj.weight": torch.zeros(16, 64)}
-    assert all(k.startswith(VIDEO_PATH_PREFIXES) for k in video)
+    for k in ("memory_attention.layers.0.self_attn.q_proj.weight",
+              "memory_attention.layers.1.cross_attn_image.k_proj.weight",
+              "memory_encoder.mask_downsampler.encoder.12.weight",
+              "memory_encoder.fuser.layers.0.gamma",
+              "memory_encoder.out_proj.weight", "maskmem_tpos_enc",
+              "no_mem_pos_enc"):
+        assert k in state, k
     path = tmp_path / "sam2_tiny.pt"
-    torch.save({"model": {**state, **video}}, path)
+    torch.save({"model": state}, path)
     model = port_build.build_sam2(
         "hiera_test", str(path), sam2_config=PortSAM2Config(**TINY["sam"]),
         trunk_cfg=PORT_HIERA_TEST, device="cpu")
     for k, v in model.state_dict().items():
         assert torch.equal(v, state[k]), k
-    for bad in ({**state, **video, "sam_mask_decoder.stray.weight":
-                 torch.zeros(1)},
+    for bad in ({**state, "sam_mask_decoder.stray.weight": torch.zeros(1)},
+                {**state, "obj_ptr_tpos_proj.weight": torch.zeros(16, 64)},
                 {k: v for k, v in state.items()
                  if k != "sam_mask_decoder.iou_token.weight"},
+                {k: v for k, v in state.items()
+                 if k != "memory_encoder.fuser.layers.1.gamma"},
                 {**state, "no_mem_embed": torch.zeros(1, 1, 65)}):
         torch.save(bad, path)
         with pytest.raises(KeyError):
@@ -488,8 +506,8 @@ def test_official_layout_loads_with_the_video_keys(tiny, tmp_path):
 
 
 def test_port_keys_are_the_reference_layout(tiny):
-    """The port's keys are those of the reference SAM2Base's image path,
-    the layout official checkpoints use."""
+    """The port's keys are those of the reference SAM2Base (image and
+    video paths), the layout official checkpoints use."""
     keys = set(tiny.port.state_dict())
     for k in ("image_encoder.trunk.patch_embed.proj.weight",
               "image_encoder.trunk.blocks.0.attn.qkv.weight",
@@ -508,9 +526,19 @@ def test_port_keys_are_the_reference_layout(tiny):
               "sam_mask_decoder.output_hypernetworks_mlps.3.layers.2.weight",
               "sam_mask_decoder.pred_obj_score_head.layers.2.bias",
               "no_mem_embed", "no_obj_ptr", "mask_downsample.weight",
-              "obj_ptr_proj.layers.2.weight"):
+              "obj_ptr_proj.layers.2.weight",
+              "memory_attention.layers.3.norm3.weight",
+              "memory_attention.norm.bias",
+              "memory_attention.layers.0.cross_attn_image.v_proj.weight",
+              "memory_encoder.mask_downsampler.encoder.1.weight",
+              "memory_encoder.pix_feat_proj.weight",
+              "memory_encoder.fuser.layers.1.dwconv.weight",
+              "memory_encoder.fuser.layers.1.pwconv2.bias",
+              "maskmem_tpos_enc", "no_mem_pos_enc"):
         assert k in keys, k
     counts = collections.Counter(k.split(".")[0] for k in keys)
     assert set(counts) == {"image_encoder", "sam_prompt_encoder",
                            "sam_mask_decoder", "no_mem_embed", "no_obj_ptr",
-                           "mask_downsample", "obj_ptr_proj"}
+                           "mask_downsample", "obj_ptr_proj",
+                           "memory_attention", "memory_encoder",
+                           "maskmem_tpos_enc", "no_mem_pos_enc"}

@@ -144,7 +144,7 @@ def test_the_train_cli_accepts_its_defaults_on_the_card(monkeypatch):
                                   torch.device("cpu")) is None
     with pytest.raises(SystemExit) as e:
         train_cli.check_ported(args.model_cfg, args.size, cuda)
-    assert "ROADMAP.md open item 1" in str(e.value.code)
+    assert "ROADMAP.md queue 2" in str(e.value.code)
     assert "needs K7 weight-grad" in str(e.value.code)
 
 
