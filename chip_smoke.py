@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (sam2unet_torch): inference at
 hiera_l @ 352 and hiera_s @ 960 (the test CLI's defaults), training at
-hiera_l @ 352 and at hiera_s @ 960 (the train CLI's defaults), and the SAM2
+hiera_l @ 352 and at hiera_s @ 960 (the train CLI's defaults), the SAM2
 image and video predictors at sam2_hiera_s @ 1024 (the defaults of
-build_sam2_image_predictor and build_sam2_video_predictor).
+build_sam2_image_predictor and build_sam2_video_predictor), and at
+sam2_hiera_t the points of the JAX package's hardware scripts: the video
+predictor at 512 px under the "pallas" attention backend
+(scripts/smoke_video.py) and the automatic mask generator at 1024 px
+(scripts/bench_amg.py).
 
     python3 chip_smoke.py            # every phase, as the acceptance run does
     python3 chip_smoke.py --phases build,kernels --batch 2 --batch960 2 \
@@ -12,6 +16,7 @@ build_sam2_image_predictor and build_sam2_video_predictor).
     python3 chip_smoke.py --paths s960train        # one path
     python3 chip_smoke.py --paths s1024sam2        # the SAM2 predictor
     python3 chip_smoke.py --paths s1024video       # the video predictor
+    python3 chip_smoke.py --paths t512video,t1024amg   # hiera_t: video, AMG
 
 Phases, one line each, for each path of --paths (l352, s960, then the
 training paths l352train and s960train, listed after these):
@@ -109,8 +114,34 @@ object-score head's last bias at +10 so that tracked objects stay present):
   4. add_new_points ms (host clock), steady-state ms per tracked frame
      (CUDA events, masks to the host), frames/s, peak memory, and one call
      of the memory attention's masked cross-attention (the einsum form).
+The video path t512video (sam2_hiera_t @ 512 through
+build_sam2_video_predictor with SAM2Config(image_size=512), bf16, the same
+weights' recipe, the object-score bias at +10), as s1024video on six
+seeded 240x320 frames (scripts/smoke_video.py's discs and prompts; reverse
+from frame 3, then a drain of packed masks), with these differences:
+  2. the encoder's kernels at one frame (K1, K4, K8, K6 on the valid
+     groups; the 1024-token global blocks launch nothing), K14 at head dim
+     256 at (2, 1024, 1, 256), the memory attention's self-attention under
+     "pallas", timed beside SDPA, and K14 at the decoder's 7-token shapes
+     and the 32x32 w14 transition.
+  3. the flow under set_attention_impl("pallas"): launches of each call
+     (K14 +1 per image, 7 per decode, 4 at head dim 256 per tracked
+     frame); the packed drain equal to the forward pass's masks; kernels
+     vs plain, device bank vs host bank, and "pallas" vs the default
+     backend (its launches: no K14) on the video-res logits.
+  4. ms per tracked frame under "pallas" and under the default backend.
+The AMG path t1024amg (sam2_hiera_t @ 1024 through build_sam2, bf16,
+seeded weights; SAM2AutomaticMaskGenerator with 16 points per side, the
+iou and stability filters at 0, on bench_amg.py's 480x640 image):
+  2. the encoder's kernels at one image (K1, K4, K8, K10, K12).
+  3. generate: launches (one set_image; the decodes none), the records;
+     each point batch's _predict_amg: the device postprocess against the
+     host one on the same logits (masks equal but within 1e-4 of the
+     threshold), and kernels vs plain (ious and low-res logits to the
+     limits above, masks and stability scores within their logits' gap).
+  4. generate wall time (host clock), first call and steady, peak memory.
 `--phases profile` gives the device time by kernel of one forward, train
-step, set_image, predict or tracked frame, and its idle share.
+step, set_image, predict, tracked frame or generate, and its idle share.
 Then a JSON line of per-kernel numbers, the card line, and last the result
 line. Any failed phase exits non-zero before the result line. Without a
 CUDA device, or without the sam2unet_torch package beside this script, it
@@ -239,12 +270,55 @@ PATHS = {
     # (8 decoder tokens) launch nothing.
     "s1024video": dict(label="sam2_hiera_s@1024 video", cfg="sam2_hiera_s",
                        size=1024, video=True, batch=1, objects=2,
+                       frames=12, hw=(480, 640),
+                       points=((160.0, 240.0), (480.0, 120.0)),
+                       mask=(60, 180, 420, 540), reverse_from=11,
                        per_image={"fused_mlp": 16,
                                   "fused_window_block_strips": 2,
                                   "fused_transition_block": 2,
                                   "fused_window_block_strips_rem": 8,
                                   "flash_attention": 3},
                        per_frame_d256=4),
+    # sam2_hiera_t at 512 px through build_sam2_video_predictor with
+    # SAM2Config(image_size=512), the flow of the JAX package's
+    # scripts/smoke_video.py at its defaults: six 240x320 frames (upscaled
+    # to the input), two objects, a point each and a mask on the second,
+    # forward, reverse from the middle frame, one drain of packed masks.
+    # Per image (tests/test_torch_sam2_cpu.py, routes at 512): K1 12, K4 2,
+    # K8 2, K6 16 (the valid groups of the 32x32 w14 and 16x16 w7 grids);
+    # the three 1024-token global blocks the plain form (no K10), and under
+    # the default backend nothing else launches. The path runs under
+    # set_attention_impl("pallas"), where every unmasked attention over at
+    # most 1024 keys is K14 (tests/test_torch_video512_cpu.py): +1 per
+    # image (the 32x32 w14 transition), 7 per decode of 7 tokens (a prompt;
+    # a tracked frame's), and per tracked frame the memory attention's 4
+    # self-attentions at head dim 256 over 1024 tokens.
+    "t512video": dict(label="sam2_hiera_t@512 video", cfg="sam2_hiera_t",
+                      size=512, video=True, batch=1, objects=2, frames=6,
+                      hw=(240, 320), points=((80.0, 120.0), (240.0, 60.0)),
+                      mask=(25, 95, 205, 275), reverse_from=3, drain=True,
+                      per_image={"fused_mlp": 12,
+                                 "fused_window_block_strips": 2,
+                                 "fused_transition_block": 2,
+                                 "fused_window_block": 16},
+                      per_frame_d256=4,
+                      pallas_image={"full_attention": 1},
+                      pallas_decode={"full_attention": 7}),
+    # the automatic mask generator at the JAX package's
+    # scripts/bench_amg.py point: sam2_hiera_t at 1024 px (build_sam2's
+    # default size), 16 points per side on a 480x640 image, the iou and
+    # stability filters at 0, the default backend. One set_image per
+    # generate (no crop layers): K1 12, K4 2, K8 2, K12 4, K10 3 (the
+    # 4096-token global blocks; tests/test_torch_sam2_cpu.py, routes at
+    # 1024); its four decodes of 64 points (7 tokens) launch nothing.
+    "t1024amg": dict(label="sam2_hiera_t@1024 AMG", cfg="sam2_hiera_t",
+                     size=1024, amg=True, batch=1, hw=(480, 640),
+                     points_per_side=16,
+                     per_set_image={"fused_mlp": 12,
+                                    "fused_window_block_strips": 2,
+                                    "fused_transition_block": 2,
+                                    "fused_window_block_strips_rem": 4,
+                                    "flash_attention": 3}),
 }
 BATCH_FLAG = {"l352": "batch", "s960": "batch960", "l352train": "batch_train",
               "s960train": "batch_train960"}
@@ -659,6 +733,61 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
                  lambda w, v: w == "flash_attention_bwd_dq", k11, 1),
             ]
         return specs
+    if path == "t512video":
+        # hiera_t's trunk at 512 (grids 128/64/32/16, widths 96-768) at one
+        # frame: K1, K4, K8, K6 on the valid groups of 32x32 w14 and 16x16
+        # w7 (one image: 4 full windows, 2 + 2 edge windows, a corner);
+        # under "pallas" K14 at head dim 256 as the memory attention gives
+        # it (one head over the 1024 tokens, one sequence per object,
+        # timed) and at every other shape of the run: the decoder's 7
+        # tokens (head dims 32 and 16, both objects; a prompt's is one
+        # object) and the 32x32 w14 transition (9 windows, head dim 96)
+        grids, cs = (128, 64, 32, 16), (96, 192, 384, 768)
+        objects = PATHS[path]["objects"]
+        k14 = [dict(batch=objects, S=7, Sk=7, heads=8, d=32),
+               dict(batch=objects, S=7, Sk=1024, heads=8, d=16),
+               dict(batch=objects, S=1024, Sk=7, heads=8, d=16),
+               dict(batch=9 * b, S=49, Sk=196, heads=8, d=96)]
+        k14_held = {f"Sq={g['S']},Sk={g['Sk']},d={g['d']}" for g in k14}
+        return [
+            ("K1 fused_mlp (tail)", "mlp_tail", *mlp,
+             lambda w, v: w == "fused_mlp" and v == "ln",
+             [dict(tokens=b * hh * hh, c=c) for hh, c in zip(grids, cs)], 2),
+            ("K4 fused_window_block_strips", "strips", f"{fab}:1021", src_ab,
+             lambda w, v: w == "fused_window_block_strips",
+             [dict(batch=b, grid=128, c=96, heads=1, window=8),
+              dict(batch=b, grid=64, c=192, heads=2, window=4)], 0),
+            ("K8 fused_transition_block", "transition", *tra,
+             lambda w, v: w == "fused_transition_block",
+             [dict(batch=b, grid=128, cin=96, c=192, heads=2, window=8),
+              dict(batch=b, grid=64, cin=192, c=384, heads=4, window=4)], 0),
+            ("K6 fused_window_block (n_pad=0)", "window", f"{fab}:354", src_ab,
+             *k6_held([dict(windows=4 * b, S=196, c=384, heads=4),
+                       dict(windows=4 * b, S=49, c=768, heads=8)]), 0),
+            ("K6 fused_window_block (n_pad>0)", "window", f"{fab}:354", src_ab,
+             *k6_held([dict(windows=2 * b, S=56, c=384, heads=4, n_pad=140),
+                       dict(windows=b, S=16, c=384, heads=4, n_pad=180),
+                       dict(windows=2 * b, S=14, c=768, heads=8, n_pad=35),
+                       dict(windows=b, S=4, c=768, heads=8, n_pad=45)]), 0),
+            ("K14 full_attention (head dim 256)", "full",
+             "sam2unet_tpu/ops/pallas/flash_attention.py:93",
+             "sam2unet_torch/csrc/full_attention_d256.cu",
+             lambda w, v: w == "full_attention" and v.endswith(",d=256"),
+             [dict(batch=objects, S=1024, Sk=1024, heads=1, d=256)], 0),
+            ("K14 full_attention", "full",
+             "sam2unet_tpu/ops/pallas/flash_attention.py:93",
+             "sam2unet_torch/csrc/full_attention.cu",
+             lambda w, v: w == "full_attention" and v in k14_held, k14, 3),
+        ]
+    if path == "t1024amg":
+        # hiera_t's trunk at 1024: the s1024sam2 trunk's kernels at its
+        # shapes (the same grids and widths), K10 on the global blocks only
+        trunk = [e for e in kernel_specs("s1024sam2", b) if "K14" not in e[0]]
+        k10 = [e for e in trunk if e[0].startswith("K10")][0]
+        trunk[trunk.index(k10)] = (
+            k10[:4] + (lambda w, v: w == "flash_attention",
+                       [dict(batch=b, S=4096, heads=4, d=96)], 0))
+        return trunk
     if path == "s1024video":
         # the image encoder's kernels of s1024sam2 at one frame (K10 at head
         # dim 96 only), and K10 at head dim 256 as the memory attention
@@ -1228,11 +1357,15 @@ def sam2_throughput_phase(path: str, card: str, n: int = 20) -> None:
     torch.cuda.empty_cache()
 
 
-def sam2_video_predictor(resident: bool = True):
-    """The SAM2 video predictor through `build_sam2_video_predictor` at its
+def sam2_video_predictor(path: str = "s1024video", resident: bool = True):
+    """The SAM2 video predictor of a video path through
+    `build_sam2_video_predictor` on the card in bf16: at s1024video its
     defaults (sam2_hiera_s, 1024 px, binarised prompted masks, holes of up
-    to 8 pixels filled) on the card in bf16, the weights of
-    `sam2_predictor`; `resident` False takes the host-gathered bank.
+    to 8 pixels filled), at t512video sam2_hiera_t with
+    SAM2Config(image_size=512) as scripts/smoke_video.py builds it (holes
+    filled, the rest of the config explicit); the weights of
+    `sam2_predictor` (seeded, the pos-embeds with noise); `resident` False
+    takes the host-gathered bank.
 
     Random weights give tracked objects a score below zero, and the SAM
     heads then replace the whole mask by -1024 (object absent): every
@@ -1241,10 +1374,16 @@ def sam2_video_predictor(resident: bool = True):
     import torch
 
     from sam2unet_torch.build_sam import build_sam2_video_predictor
+    from sam2unet_torch.models.sam2_base import SAM2Config
     from sam2unet_torch.predictors.video_predictor import SAM2VideoPredictor
 
+    spec = PATHS[path]
+    kw = {}
+    if spec["size"] != SAM2Config().image_size:
+        kw["sam2_config"] = SAM2Config(image_size=spec["size"])
     torch.manual_seed(0)
-    pred = build_sam2_video_predictor(device=DEV, dtype=torch.bfloat16)
+    pred = build_sam2_video_predictor(spec["cfg"], device=DEV,
+                                      dtype=torch.bfloat16, **kw)
     trunk = pred.model.image_encoder.trunk
     with torch.no_grad():
         trunk.pos_embed.normal_(0.0, 0.02)
@@ -1257,59 +1396,72 @@ def sam2_video_predictor(resident: bool = True):
     return pred
 
 
-def video_frames(seed: int = 0, n: int = 12, hw: tuple[int, int] = (480, 640)):
-    """n frames of noise with a bright disc moving right and a dark one
-    moving left, as scripts/smoke_video.py draws them (at twice its size)."""
+def video_frames(path: str, seed: int = 0):
+    """The path's frames: noise with a bright disc moving right and a dark
+    one moving left, as scripts/smoke_video.py draws them at 240x320 (at
+    480x640 twice its size)."""
     import numpy as np
 
+    spec = PATHS[path]
     rng = np.random.default_rng(seed)
-    h, w = hw
+    h, w = spec["hw"]
+    k = h // 240
     yy, xx = np.mgrid[:h, :w]
-    frames = (rng.random((n, h, w, 3)) * 255).astype(np.uint8)
-    for t in range(n):
-        cx = 160 + 40 * t
-        frames[t][((yy - 240) ** 2 + (xx - cx) ** 2) < 80 ** 2] = 230
-        frames[t][((yy - 120) ** 2 + (xx - (w - cx)) ** 2) < 60 ** 2] = 25
+    frames = (rng.random((spec["frames"], h, w, 3)) * 255).astype(np.uint8)
+    for t in range(spec["frames"]):
+        cx = k * (80 + 20 * t)
+        frames[t][((yy - 120 * k) ** 2 + (xx - cx) ** 2) < (40 * k) ** 2] = 230
+        frames[t][((yy - 60 * k) ** 2 + (xx - (w - cx)) ** 2) < (30 * k) ** 2] = 25
     return frames
 
 
-def video_prompts(pred, state):
+def video_prompts(path: str, pred, state):
     """(what, call) of the flow's prompts on frame 0: one positive point on
     each disc (objects 1 and 2), then a mask over object 2's disc."""
     import numpy as np
 
-    box = np.zeros((480, 640), bool)
-    box[60:180, 420:540] = True
+    spec = PATHS[path]
+    y0, y1, x0, x1 = spec["mask"]
+    box = np.zeros(spec["hw"], bool)
+    box[y0:y1, x0:x1] = True
+    p1, p2 = ([list(p)] for p in spec["points"])
     return [("add_new_points object 1", lambda: pred.add_new_points(
-                state, 0, 1, [[160.0, 240.0]], [1])),
+                state, 0, 1, p1, [1])),
             ("add_new_points object 2", lambda: pred.add_new_points(
-                state, 0, 2, [[480.0, 120.0]], [1])),
+                state, 0, 2, p2, [1])),
             ("add_new_mask object 2", lambda: pred.add_new_mask(
                 state, 0, 2, box))]
 
 
-def video_flow(pred, frames, counted=None) -> dict:
+def video_flow(path: str, pred, frames, counted=None) -> dict:
     """init_state, the prompts, propagate_in_video forward and then in
-    reverse from the last frame; {step: masks (objects, 1, H, W) logits on
+    reverse from the path's frame, and (t512video) a forward drain of
+    packed masks; {step: masks (objects, 1, H, W) logits (packed: 0/1) on
     the host}. `counted(fn, what, tracked)` wraps each call and each
     yielded frame (tracked: a frame the memory attention ran on)."""
+    import numpy as np
     import torch
+
+    spec = PATHS[path]
 
     def run(fn, what, tracked=False):
         return counted(fn, what, tracked) if counted else fn()
 
     def host(m):
         return (m.float().cpu() if torch.is_tensor(m)
-                else torch.from_numpy(m).float())
+                else torch.from_numpy(np.asarray(m)).float())
 
     state = run(lambda: pred.init_state(images=frames), "init_state")
     out = {}
-    for what, fn in video_prompts(pred, state):
+    for what, fn in video_prompts(path, pred, state):
         _, ids, masks = run(fn, what)
         out[what] = host(masks)
-    for tag, kw in (("forward", {}),
-                    ("reverse", dict(start_frame_idx=len(frames) - 1,
-                                     reverse=True))):
+    runs = [("forward", {}),
+            ("reverse", dict(start_frame_idx=spec["reverse_from"],
+                             reverse=True))]
+    if spec.get("drain"):
+        runs.append(("packed", dict(yield_packed_masks=True)))
+    for tag, kw in runs:
         it = pred.propagate_in_video(state, **kw)
         while True:
             try:
@@ -1319,81 +1471,138 @@ def video_flow(pred, frames, counted=None) -> dict:
                 break
             if list(ids) != [1, 2]:
                 fail(f"video: object ids {ids}")
+            if tag == "packed":   # bit-packed along the width
+                masks = np.unpackbits(masks.cpu().numpy(), axis=-1)[
+                    ..., :spec["hw"][1]]
             out[f"{tag} frame {f}"] = host(masks)
     return out
 
 
 def video_main_phase(path: str) -> dict:
-    """The SAM2 video predictor end to end on 12 seeded 480x640 frames: the
+    """The SAM2 video predictor end to end on the path's seeded frames: the
     launches of every call and of every yielded frame (counters set to 0
     just before each, read just after; a frame served from cache, the
     prompted frame 0, launches nothing), the masks' shapes and values; the
     same flow under force_plain() (video-res logits, kernels vs plain) and
     on the host-gathered bank (device_resident=False) against the device
-    bank."""
+    bank. t512video runs under set_attention_impl("pallas") (K14, with its
+    launches per call: `pallas_image`, `pallas_decode` and the memory
+    attention's `per_frame_d256` at head dim 256), and also under the
+    default backend (no K14), against which the "pallas" logits are held;
+    its drain of packed masks must equal the forward pass's masks."""
     import torch
 
     from sam2unet_torch.ops import dispatch
+    from sam2unet_torch.ops.attention import set_attention_impl
 
     spec = PATHS[path]
     label = spec["label"]
-    frames = video_frames()
+    frames = video_frames(path)
+    pallas = "pallas_decode" in spec
     variants: collections.Counter = collections.Counter()
-    per_frame = dict(spec["per_image"])
-    per_frame["flash_attention"] += spec["per_frame_d256"]
-    d256 = ("flash_attention", "S=4096,d=256")
-    seen = collections.Counter()
-    n_tracked = [0]
+    n_tracked = collections.Counter()
 
-    def counted(fn, what, tracked):
-        dispatch.reset_launches()
-        out = fn()
-        torch.cuda.synchronize()
-        counts = dict(dispatch.launches)
-        variants.update(dispatch.variants)
+    def expected(what, tracked, out, k14: bool):
+        """(launches, head-dim-256 launches) of one call or frame."""
+        image = dict(spec["per_image"])
+        decode = {}
+        if k14:
+            image.update(spec["pallas_image"])
+            decode = spec["pallas_decode"]
         if what == "init_state":
-            want = spec["per_image"]
-        elif tracked and out[0] != 0:   # frame 0 is served from cache
-            want = per_frame
-            n_tracked[0] += 1
-        else:
-            want = {}
-        seen[(what, str(counts))] += 1
-        if counts != want or dispatch.variants.get(d256, 0) != (
-                spec["per_frame_d256"] if want is per_frame else 0):
-            fail(f"{label} {what}: launches {counts} by variant "
-                 f"{dict(dispatch.variants)}, expected {want}")
+            return image, 0
+        if not tracked:
+            return dict(decode), 0
+        if out[0] == 0:   # frame 0 is served from cache
+            return {}, 0
+        d256 = spec["per_frame_d256"] if k14 or not pallas else 0
+        frame = dict(image)
+        for name, n in decode.items():
+            frame[name] = frame.get(name, 0) + n
+        if d256:
+            key = "full_attention" if pallas else "flash_attention"
+            frame[key] = frame.get(key, 0) + d256
+        return frame, d256
+
+    def counter(k14: bool, seen: collections.Counter):
+        d256 = (("full_attention", "Sq=1024,Sk=1024,d=256") if pallas
+                else ("flash_attention", "S=4096,d=256"))
+
+        def counted(fn, what, tracked):
+            dispatch.reset_launches()
+            out = fn()
+            torch.cuda.synchronize()
+            counts = dict(dispatch.launches)
+            variants.update(dispatch.variants)
+            want, want_d256 = expected(what, tracked, out, k14)
+            if tracked and out[0] != 0:
+                n_tracked[k14] += 1
+            seen[(what, str(counts))] += 1
+            if counts != want or dispatch.variants.get(d256, 0) != want_d256:
+                fail(f"{label} {what}: launches {counts} by variant "
+                     f"{dict(dispatch.variants)}, expected {want}")
+            return out
+        return counted
+
+    def run(k14: bool, plain: bool = False, resident: bool = True,
+            counted: bool = False):
+        pred = sam2_video_predictor(path, resident)
+        seen: collections.Counter = collections.Counter()
+        set_attention_impl("pallas" if k14 else None)
+        try:
+            with dispatch.force_plain() if plain else contextlib.nullcontext():
+                out = video_flow(path, pred, frames,
+                                 counter(k14, seen) if counted else None)
+        finally:
+            set_attention_impl(None)
+        for (what, counts), n in seen.items():
+            print(f"[main] {label} {what}{' (pallas)' if k14 else ''}: "
+                  f"launches {counts} (x{n})", flush=True)
         return out
 
-    pred = sam2_video_predictor()
-    got = video_flow(pred, frames, counted)
-    for (what, counts), n in seen.items():
-        print(f"[main] {label} {what}: launches {counts} (x{n})", flush=True)
-    n_tracked = n_tracked[0]
-    print(f"[main] {label}: {n_tracked} tracked frames, K10 at head dim 256 "
-          f"launched {variants[d256]} times ({spec['per_frame_d256']} per "
-          f"tracked frame); none on the prompted frame", flush=True)
-    if n_tracked != 2 * (len(frames) - 1):
-        fail(f"{label}: {n_tracked} tracked frames")
+    got = run(pallas, counted=True)
+    hw = spec["hw"]
+    n_frames = spec["frames"]
+    want_tracked = ((n_frames - 1) + spec["reverse_from"]
+                    + (n_frames - 1 if spec.get("drain") else 0))
+    if n_tracked[pallas] != want_tracked:
+        fail(f"{label}: {n_tracked[pallas]} tracked frames, expected "
+             f"{want_tracked}")
+    what = ("K14 at head dim 256" if pallas else "K10 at head dim 256")
+    n_d256 = sum(n for (w, v), n in variants.items() if v.endswith("d=256"))
+    print(f"[main] {label}: {n_tracked[pallas]} tracked frames, {what} "
+          f"launched {n_d256} times ({spec['per_frame_d256']} per tracked "
+          f"frame); none on the prompted frame", flush=True)
     # (objects, 1, H, W): object 1 alone after the first prompt
     bad = [k for k, m in got.items()
-           if m.shape != (1 + ("object 1" not in k), 1, 480, 640)
+           if m.shape != (1 + ("object 1" not in k), 1, *hw)
            or not torch.isfinite(m).all()]
     fg = {k: [round(float((o > 0).float().mean()), 3) for o in m]
           for k, m in got.items()}
     gated = [(k, i) for k, m in got.items() for i, o in enumerate(m)
              if (o == -1024.0).all()]
-    print(f"[main] {label} masks (objects, 1, 480, 640) at every step, "
-          f"finite; foreground share by object {fg}; an object absent (its "
-          f"score gated the mask) at {gated}" + ("  <-- FAIL" if bad else ""),
-          flush=True)
+    print(f"[main] {label} masks (objects, 1, {hw[0]}, {hw[1]}) at every "
+          f"step, finite; foreground share by object {fg}; an object absent "
+          f"(its score gated the mask) at {gated}"
+          + ("  <-- FAIL" if bad else ""), flush=True)
     if bad:
         fail(f"{label}: bad masks at {bad}")
+    logits = sorted(k for k in got if not k.startswith("packed"))
+    packed = sorted(k for k in got if k.startswith("packed"))
+    for k in packed:
+        ref = got[k.replace("packed", "forward")]
+        scale = float(ref.abs().max())
+        off = (got[k] != (ref > 0).float()) & (ref.abs() > 1e-2 * scale)
+        print(f"[main] {label} {k}: packed masks vs the forward pass's, "
+              f"pixels that differ {float((got[k] != (ref > 0)).float().mean()):.3g}"
+              + ("  <-- FAIL" if off.any() else ""), flush=True)
+        if off.any():
+            fail(f"{label}: the packed drain differs from the forward pass "
+                 f"at {k} away from the threshold")
 
     def compare(want, what):
-        keys = sorted(got)
-        g = torch.cat([got[k].flatten() for k in keys])
-        w = torch.cat([want[k].flatten() for k in keys])
+        g = torch.cat([got[k].flatten() for k in logits])
+        w = torch.cat([want[k].flatten() for k in logits])
         rel, corr, ok = _agree(g, w)
         flips = float(((g > 0) != (w > 0)).float().mean())
         print(f"[main] {label} video-res logits of every step, {what} "
@@ -1403,11 +1612,12 @@ def video_main_phase(path: str) -> dict:
         if not ok:
             fail(f"{label}: {what} disagree")
 
-    with dispatch.force_plain():
-        compare(video_flow(pred, frames), "kernels vs plain")
-    compare(video_flow(sam2_video_predictor(resident=False), frames),
+    compare(run(pallas, plain=True), "kernels vs plain")
+    compare(run(pallas, resident=False),
             "device-resident bank vs host-gathered bank")
-    del pred
+    if pallas:
+        compare(run(False, counted=True),
+                '"pallas" backend vs the default backend')
     torch.cuda.empty_cache()
     return dict(variants)
 
@@ -1415,61 +1625,266 @@ def video_main_phase(path: str) -> dict:
 def video_throughput_phase(path: str, card: str) -> None:
     """add_new_points ms (host clock, the prompt's decode and video-res
     consolidation), steady-state tracked frames (CUDA events around each
-    yielded frame of a second propagation, its masks copied to the host as
-    bool; the first two tracked frames left out), frames/s, peak memory;
-    and one call of the memory attention's masked cross-attention (the
-    einsum form, fp32 scores) at its shape, for the profile's reading."""
+    yielded frame of further propagations, its masks copied to the host as
+    bool; frames 1 and 2 left out), frames/s, peak memory, under each of
+    the path's backends (t512video: "pallas" and the default); and one call
+    of the memory attention's masked cross-attention (the einsum form, fp32
+    scores) at its shape, for the profile's reading."""
     import torch
 
-    from sam2unet_torch.ops.attention import einsum_attention
+    from sam2unet_torch.ops.attention import einsum_attention, set_attention_impl
 
-    label = PATHS[path]["label"]
-    pred = sam2_video_predictor()
-    frames = video_frames()
-    state = pred.init_state(images=frames)
-    for _, fn in video_prompts(pred, state):
-        fn()
-    reps, t0 = 5, time.perf_counter()
-    for _ in range(reps):
-        pred.add_new_points(state, 0, 1, [[160.0, 240.0]], [1])
-    torch.cuda.synchronize()
-    points_ms = (time.perf_counter() - t0) * 1e3 / reps
-    list(pred.propagate_in_video(state))   # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    it = pred.propagate_in_video(state)
-    while True:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    spec = PATHS[path]
+    label = spec["label"]
+    frames = video_frames(path)
+    tokens = (spec["size"] // 16) ** 2
+    impls = ["pallas", None] if "pallas_decode" in spec else [None]
+    for impl in impls:
+        set_attention_impl(impl)
         try:
-            f, _, masks = next(it)
-        except StopIteration:
-            break
-        masks = (masks > 0).cpu()
-        end.record()
-        end.synchronize()
-        if f >= 3:   # frame 0 is served from cache
-            times.append(start.elapsed_time(end))
-    ms = sum(times) / len(times)
+            pred = sam2_video_predictor(path)
+            state = pred.init_state(images=frames)
+            for _, fn in video_prompts(path, pred, state):
+                fn()
+            point = [list(spec["points"][0])]
+            reps, t0 = 5, time.perf_counter()
+            for _ in range(reps):
+                pred.add_new_points(state, 0, 1, point, [1])
+            torch.cuda.synchronize()
+            points_ms = (time.perf_counter() - t0) * 1e3 / reps
+            list(pred.propagate_in_video(state))   # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(max(1, 24 // spec["frames"])):
+                it = pred.propagate_in_video(state)
+                while True:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    try:
+                        f, _, masks = next(it)
+                    except StopIteration:
+                        break
+                    masks = (masks > 0).cpu()
+                    end.record()
+                    end.synchronize()
+                    if f >= 3:   # frame 0 is served from cache
+                        times.append(start.elapsed_time(end))
+        finally:
+            set_attention_impl(None)
+        ms = sum(times) / len(times)
+        backend = f' under "{impl}"' if impl else ""
+        print(f"[throughput] {label}{backend} bf16, 2 objects, "
+              f"{spec['hw'][0]}x{spec['hw'][1]} frames on {card}: "
+              f"add_new_points {points_ms:.2f} ms (host clock), tracked frame "
+              f"{ms:.2f} ms ({1e3 / ms:.1f} frames/s steady state over "
+              f"{len(times)} frames, CUDA events, masks to the host), peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        del pred, state
+        torch.cuda.empty_cache()
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1)
-    n_keys = 7 * 4096 + 64
-    q = torch.randn(2, 4096, 1, 256, generator=gen, device=DEV).bfloat16()
+    n_keys = 7 * tokens + 64
+    q = torch.randn(2, tokens, 1, 256, generator=gen, device=DEV).bfloat16()
     k, v = (torch.randn(2, n_keys, 1, 256, generator=gen, device=DEV).bfloat16()
             for _ in range(2))
     valid = torch.ones(2, n_keys, dtype=torch.bool, device=DEV)
     cross_ms = time_ms(lambda: einsum_attention(q, k, v, key_valid=valid),
                        reps=5)
-    print(f"[throughput] {label} bf16, 2 objects, 480x640 frames on {card}: "
-          f"add_new_points {points_ms:.2f} ms (host clock), tracked frame "
-          f"{ms:.2f} ms ({1e3 / ms:.1f} frames/s steady state over "
-          f"{len(times)} frames, CUDA events, masks to the host), peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the masked "
-          f"cross-attention alone (einsum form, 4096 x {n_keys} keys, d 256) "
-          f"{cross_ms:.3f} ms a call, 4 per frame", flush=True)
-    del pred, q, k, v
+    print(f"[throughput] {label}: the masked cross-attention alone (einsum "
+          f"form, {tokens} x {n_keys} keys, d 256) {cross_ms:.3f} ms a call, "
+          f"4 per frame", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def amg_generator(path: str):
+    """The automatic mask generator of scripts/bench_amg.py on the card:
+    build_sam2 of the path's config in bf16 (seeded random weights, the
+    pos-embeds with noise), the path's points per side, the iou and
+    stability filters at 0 (random weights would fail them all)."""
+    import torch
+
+    from sam2unet_torch.build_sam import build_sam2
+    from sam2unet_torch.predictors.amg import SAM2AutomaticMaskGenerator
+
+    spec = PATHS[path]
+    torch.manual_seed(0)
+    model = build_sam2(spec["cfg"], device=DEV, dtype=torch.bfloat16)
+    trunk = model.image_encoder.trunk
+    with torch.no_grad():
+        trunk.pos_embed.normal_(0.0, 0.02)
+        trunk.pos_embed_window.normal_(0.0, 0.02)
+    return SAM2AutomaticMaskGenerator(
+        model, points_per_side=spec["points_per_side"], pred_iou_thresh=0.0,
+        stability_score_thresh=0.0)
+
+
+def amg_image(path: str):
+    """scripts/bench_amg.py's image: two sinusoids, noise and a bright
+    disc."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    h, w = PATHS[path]["hw"]
+    yy, xx = np.mgrid[:h, :w]
+    img = np.stack([127 + 90 * np.sin(yy / 37.0), 127 + 90 * np.cos(xx / 29.0),
+                    rng.random((h, w)) * 60 + 90], axis=-1)
+    img = img.clip(0, 255).astype(np.uint8)
+    img[((yy - h // 2) ** 2 + (xx - w // 2) ** 2) < (h // 4) ** 2] = 240
+    return img
+
+
+def amg_batches(amg, image):
+    """`_predict_amg` of each point batch of `generate` on the set image
+    (one crop): [(masks, ious, low-res logits, stability scores)], numpy."""
+    import numpy as np
+
+    from sam2unet_torch.utils.amg import batch_iterator
+
+    pred = amg.predictor
+    pred.set_image(image)
+    hw = image.shape[:2]
+    out = []
+    for (pts,) in batch_iterator(amg.points_per_batch,
+                                 amg.point_grids[0] * np.array(hw)[None, ::-1]):
+        c = pred._transforms.transform_coords(pts, normalize=True, orig_hw=hw)
+        out.append(pred._predict_amg(c[:, None], np.ones((len(c), 1), np.int32),
+                                     need_low_res=True))
+    return out
+
+
+def amg_main_phase(path: str) -> dict:
+    """The AMG end to end at scripts/bench_amg.py's point: `generate` with
+    its launches (counters set to 0 just before, read just after: one
+    set_image, its decodes none), its records (segmentation at the image's
+    size, bool; predicted IoU in [0, 1.5], as bench_amg.py checks); then
+    each point batch's `_predict_amg`: the device postprocess (clip,
+    resize, stability score, threshold) against the host one on the same
+    low-res logits (`postprocess_masks`, `calculate_stability_score`):
+    masks equal but at pixels within 1e-4 of the threshold, stability
+    scores equal but for what such pixels move; and the batches' ious,
+    stability scores and low-res logits with the kernels against
+    force_plain() (the other paths' correlation and max-error limits)."""
+    import numpy as np
+    import torch
+
+    from sam2unet_torch.ops import dispatch
+    from sam2unet_torch.utils.amg import calculate_stability_score
+
+    spec = PATHS[path]
+    label = spec["label"]
+    amg, image = amg_generator(path), amg_image(path)
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    records = amg.generate(image)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts, variants = dict(dispatch.launches), dict(dispatch.variants)
+    print(f"[main] {label} generate {image.shape[0]}x{image.shape[1]}, "
+          f"{spec['points_per_side']} points per side: {len(records)} records "
+          f"in {first_s:.2f} s (host clock, first call); launches {counts}",
+          flush=True)
+    if counts != spec["per_set_image"]:
+        fail(f"{label} generate: launches {counts}, expected "
+             f"{spec['per_set_image']}")
+    hw = tuple(spec["hw"])
+    bad = [i for i, r in enumerate(records)
+           if r["segmentation"].shape != hw or r["segmentation"].dtype != np.bool_
+           or not 0.0 <= r["predicted_iou"] <= 1.5
+           or r["area"] != int(r["segmentation"].sum())]
+    areas = sorted((r["area"] for r in records), reverse=True)[:5]
+    print(f"[main] {label} records: segmentation {hw} bool, predicted_iou "
+          f"in [0, 1.5], area = mask sum; top areas {areas}"
+          + ("  <-- FAIL" if bad or not records else ""), flush=True)
+    if bad or not records:
+        fail(f"{label}: bad records {bad[:5]} of {len(records)}")
+
+    got = amg_batches(amg, image)
+    worst_flips = worst_stab = 0.0
+    for i, (masks, ious, low, stab) in enumerate(got):
+        logits = amg.predictor._transforms.postprocess_masks(low, hw)
+        flips = (masks != (logits > 0)) & (np.abs(logits) > 1e-4)
+        near_hi = (np.abs(logits - 1.0) <= 1e-4).sum((-1, -2))
+        near_lo = (np.abs(logits + 1.0) <= 1e-4).sum((-1, -2))
+        lo = np.maximum((logits > -1.0).sum((-1, -2)) - near_lo, 1)
+        dstab = np.abs(stab - calculate_stability_score(logits, 0.0, 1.0))
+        worst_flips = max(worst_flips, float(flips.mean()))
+        worst_stab = max(worst_stab, float(dstab.max()))
+        if flips.any() or (dstab > (near_hi + near_lo) / lo + 1e-6).any():
+            fail(f"{label} batch {i}: the device postprocess disagrees with "
+                 f"the host one")
+    print(f"[main] {label} {len(got)} batches of {amg.points_per_batch} "
+          f"points: device postprocess vs host on the same logits: masks "
+          f"equal but within 1e-4 of the threshold, stability scores "
+          f"(largest gap {worst_stab:.3g}) as the near-threshold pixels "
+          f"allow", flush=True)
+    with dispatch.force_plain():
+        want = amg_batches(amg, image)
+    for j, name in ((1, "ious"), (2, "low-res logits")):
+        g = torch.from_numpy(np.concatenate([b[j].ravel() for b in got]))
+        w = torch.from_numpy(np.concatenate([b[j].ravel() for b in want]))
+        rel, corr, ok = _agree(g, w)
+        print(f"[main] {label} {name} of every batch, kernels vs plain "
+              f"(bf16): max_rel_err {rel:.4g} (tol {MAIN_REL_TOL}) corr "
+              f"{corr:.6f} (min {MAIN_CORR_MIN})" + ("" if ok else "  <-- FAIL"),
+              flush=True)
+        if not ok:
+            fail(f"{label}: {name} kernels vs plain disagree")
+    # masks and stability scores are thresholds of the full-size logits: a
+    # mask's pixels and the score's two counts can change only where the
+    # two runs' logits straddle the threshold (or thr +- 1), i.e. within
+    # that mask's largest logit gap of it
+    flips = dstab = 0.0
+    for (gm, _, glow, gs), (wm, _, wlow, ws) in zip(got, want):
+        gl, wl = (amg.predictor._transforms.postprocess_masks(x, hw)
+                  for x in (glow, wlow))
+        gap = np.abs(gl - wl).max((-1, -2), keepdims=True)
+        near_lo = (np.abs(wl + 1.0) <= gap).sum((-1, -2))
+        near = (np.abs(wl - 1.0) <= gap).sum((-1, -2)) + near_lo
+        lo = np.maximum((wl > -1.0).sum((-1, -2)) - near_lo, 1)
+        off = (gm != wm) & (np.abs(wl) > gap)
+        flips += float((gm != wm).mean()) / len(got)
+        dstab = max(dstab, float(np.abs(gs - ws).max()))
+        if off.any() or (np.abs(gs - ws) > near / lo + 1e-6).any():
+            fail(f"{label}: masks or stability scores, kernels vs plain, "
+                 f"differ beyond their logits' gap")
+        del gl, wl
+    print(f"[main] {label} masks and stability scores of every batch, "
+          f"kernels vs plain (bf16): mask pixels that differ {flips:.3g}, "
+          f"all within their logits' gap of the threshold; stability "
+          f"scores' largest gap {dstab:.4g}, within what the pixels near "
+          f"thr +- 1 allow", flush=True)
+    del amg
+    torch.cuda.empty_cache()
+    return variants
+
+
+def amg_throughput_phase(path: str, card: str) -> None:
+    """`generate` wall time by the host clock: a first call on a new
+    generator (its builds and caches) and the steady state (the mean of 3
+    more), with peak memory."""
+    import torch
+
+    label = PATHS[path]["label"]
+    amg, image = amg_generator(path), amg_image(path)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n = len(amg.generate(image))
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(3):
+        amg.generate(image)
+    steady_s = (time.perf_counter() - t0) / 3
+    print(f"[throughput] {label} bf16 {image.shape[0]}x{image.shape[1]}, "
+          f"{PATHS[path]['points_per_side']} points per side on {card}: "
+          f"generate {n} records, first {first_s:.3f} s, steady {steady_s:.3f} "
+          f"s (host clock); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del amg
     torch.cuda.empty_cache()
 
 
@@ -1843,13 +2258,29 @@ def _runner(path: str, batch: int, remat: bool = False,
 
     spec = PATHS[path]
     if spec.get("video"):
-        pred, frames = sam2_video_predictor(), video_frames()
-        state = pred.init_state(images=frames)
-        for _, fn in video_prompts(pred, state):
-            fn()
-        list(pred.propagate_in_video(state))
+        from sam2unet_torch.ops.attention import set_attention_impl
+
+        # t512video: a tracked frame under the "pallas" backend
+        impl = "pallas" if "pallas_decode" in spec else None
+
+        def under_impl(fn):
+            set_attention_impl(impl)
+            try:
+                return fn()
+            finally:
+                set_attention_impl(None)
+
+        pred, frames = sam2_video_predictor(path), video_frames(path)
+        state = under_impl(lambda: pred.init_state(images=frames))
+        for _, fn in video_prompts(path, pred, state):
+            under_impl(fn)
+        under_impl(lambda: list(pred.propagate_in_video(state)))
         it = pred.propagate_in_video(state, start_frame_idx=1)
-        return (lambda: next(it)[2]), "tracked frame"
+        return (lambda: under_impl(lambda: next(it)[2])), "tracked frame"
+    if spec.get("amg"):
+        amg, image = amg_generator(path), amg_image(path)
+        return (lambda: torch.tensor([r["area"] for r in amg.generate(image)],
+                                     dtype=torch.float32)), "generate"
     if spec.get("sam2"):
         pred, image = sam2_predictor(), sam2_image()
         pred.set_image(image)
@@ -1980,7 +2411,7 @@ def main() -> None:
     ap.add_argument("--phases", default="build,kernels,main,throughput")
     ap.add_argument("--paths",
                     default="l352,s960,l352train,s960train,s1024sam2,"
-                            "s1024video")
+                            "s1024video,t512video,t1024amg")
     ap.add_argument("--batch", type=int, default=32,
                     help="kernel, throughput and profile batch at hiera_l@352")
     ap.add_argument("--batch960", type=int, default=16,
@@ -2041,6 +2472,8 @@ def main() -> None:
             if "main" in phases:
                 if PATHS[path].get("video"):
                     variants[path] = video_main_phase(path)
+                elif PATHS[path].get("amg"):
+                    variants[path] = amg_main_phase(path)
                 elif PATHS[path].get("sam2"):
                     variants[path] = sam2_main_phase(path)
                 elif PATHS[path].get("train"):
@@ -2051,6 +2484,8 @@ def main() -> None:
                     variants[path] = main_path_phase(path, Path(tmp))
             if "throughput" in phases and PATHS[path].get("video"):
                 video_throughput_phase(path, card)
+            elif "throughput" in phases and PATHS[path].get("amg"):
+                amg_throughput_phase(path, card)
             elif "throughput" in phases and PATHS[path].get("sam2"):
                 sam2_throughput_phase(path, card)
             elif "throughput" in phases:

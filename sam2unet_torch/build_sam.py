@@ -2,17 +2,19 @@
 `build_sam2_video_predictor`, the port's copies of the JAX package's
 (sam2unet_tpu/build_sam.py:20-141).
 
-The configuration comes from the registry (`sam2_hiera_s`, the default,
-and the other names of `configs.registry`) or from explicit `sam2_config`
-/ `trunk_cfg` dataclasses, which win; with `apply_postprocessing` and no
-explicit `sam2_config` the mask decoder gets the reference's stability
-overrides (build_sam.py:25-31: dynamic multimask via stability, delta
-0.05, threshold 0.98), and the video predictor also binarises the masks
-of prompted frames for the memory encoder and fills holes of up to 8
-pixels (build_sam.py:55-66 of the reference). A YAML config path and
-`hydra_overrides_extra` need the reference's config composition
-(`configs/hydra_compat.py`), which the port has not copied yet: they
-raise, naming the ROADMAP.md item.
+The configuration comes from a registry name (`sam2_hiera_s`, the default,
+and the other names of `configs.registry`) or from a path to a
+reference-shaped YAML config (the port's copies are in
+`configs_yaml/`), with the reference's `++key.path=value` override
+strings in `hydra_overrides_extra` (composed by
+`configs_yaml/hydra_compat.py`: `++model.image_size=512` builds the model
+of `SAM2Config(image_size=512)`). With `apply_postprocessing` the mask
+decoder gets the reference's stability overrides (build_sam.py:25-31:
+dynamic multimask via stability, delta 0.05, threshold 0.98), and the
+video predictor also binarises the masks of prompted frames for the memory
+encoder and fills holes of up to 8 pixels (build_sam.py:55-66 of the
+reference). Explicit `sam2_config` / `trunk_cfg` dataclasses win over the
+YAML and every override.
 
 `ckpt_path` loads an official SAM2 checkpoint (`sam2_hiera_*.pt`, the
 reference's key layout, an optional top-level "model" entry) strictly:
@@ -24,15 +26,22 @@ for the CPU) and cast to `dtype` once, in eval mode.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
 from sam2unet_torch.cli.common import resolve_device
 from sam2unet_torch.configs import HieraConfig, hiera_config
+from sam2unet_torch.configs_yaml import hydra_compat
 from sam2unet_torch.models.sam2_base import SAM2Base, SAM2Config
 
-HYDRA_ITEM = ("ROADMAP.md queue 1 item 11: configs/hydra_compat.py is not "
-              "ported yet")
+# the reference's postprocessing overrides (build_sam.py:25-31, :55-66)
+POSTPROCESSING = (
+    "++model.sam_mask_decoder_extra_args.dynamic_multimask_via_stability=true",
+    "++model.sam_mask_decoder_extra_args.dynamic_multimask_stability_delta=0.05",
+    "++model.sam_mask_decoder_extra_args.dynamic_multimask_stability_thresh=0.98",
+)
+VIDEO_POSTPROCESSING = ("++model.binarize_mask_from_pts_for_mem_enc=true",)
 
 
 def load_sam2_checkpoint(model: SAM2Base, path: str) -> None:
@@ -52,16 +61,22 @@ def load_sam2_checkpoint(model: SAM2Base, path: str) -> None:
     model.load_state_dict({k: state[k] for k in want}, strict=True)
 
 
-def postprocessing_config(video: bool = False) -> SAM2Config:
-    """SAM2Config with the postprocessing overrides of the reference's
-    build functions: the mask decoder's stability fallback, and for video
-    the binarised masks of prompted frames in the memory encoder."""
-    cfg = dataclasses.replace(SAM2Config(), dynamic_multimask_via_stability=True,
-                              dynamic_multimask_stability_delta=0.05,
-                              dynamic_multimask_stability_thresh=0.98)
-    if video:
-        cfg = dataclasses.replace(cfg, binarize_mask_from_pts_for_mem_enc=True)
-    return cfg
+def build_configs(config_name: str = "sam2_hiera_s",
+                  hydra_overrides_extra=(),
+                  apply_postprocessing: bool = True
+                  ) -> tuple[HieraConfig, SAM2Config]:
+    """(trunk, SAM2 config) of a registry name or a YAML path with the
+    overrides, as the JAX package's `build_sam2` composes them."""
+    overrides = list(hydra_overrides_extra)
+    if apply_postprocessing:
+        overrides += POSTPROCESSING
+    if config_name.endswith((".yaml", ".yml")) and os.path.exists(config_name):
+        tree = hydra_compat.compose(config_name, overrides)
+    else:
+        tree = hydra_compat.merge_overrides({}, overrides)
+        tree.setdefault("model", {}).setdefault("image_encoder", {})[
+            "trunk"] = dataclasses.asdict(hiera_config(config_name))
+    return hydra_compat.configs_from_tree(tree)
 
 
 def build_sam2(config_name: str = "sam2_hiera_s", ckpt_path: str | None = None,
@@ -71,16 +86,10 @@ def build_sam2(config_name: str = "sam2_hiera_s", ckpt_path: str | None = None,
                dtype: torch.dtype = torch.float32,
                hydra_overrides_extra=(),
                apply_postprocessing: bool = True) -> SAM2Base:
-    if config_name.endswith((".yaml", ".yml")) or hydra_overrides_extra:
-        raise NotImplementedError(
-            f"build_sam2({config_name!r}, hydra_overrides_extra="
-            f"{list(hydra_overrides_extra)}): {HYDRA_ITEM}")
-    trunk = trunk_cfg or hiera_config(config_name)
-    cfg = sam2_config
-    if cfg is None:
-        cfg = postprocessing_config() if apply_postprocessing else SAM2Config()
+    yaml_trunk, yaml_cfg = build_configs(config_name, hydra_overrides_extra,
+                                         apply_postprocessing)
     dev = resolve_device(device)
-    model = SAM2Base(trunk, cfg)
+    model = SAM2Base(trunk_cfg or yaml_trunk, sam2_config or yaml_cfg)
     if ckpt_path:
         load_sam2_checkpoint(model, ckpt_path)
     return model.to(device=dev, dtype=dtype).eval()
@@ -103,10 +112,11 @@ def build_sam2_video_predictor(config_name: str = "sam2_hiera_s",
     first, an explicit `fill_hole_area` over the second."""
     from sam2unet_torch.predictors.video_predictor import SAM2VideoPredictor
 
+    overrides = list(kw.pop("hydra_overrides_extra", ()))
     if kw.get("apply_postprocessing", True):
-        if kw.get("sam2_config") is None:
-            kw["sam2_config"] = postprocessing_config(video=True)
+        overrides += VIDEO_POSTPROCESSING
         if fill_hole_area is None:
             fill_hole_area = 8
-    return SAM2VideoPredictor(build_sam2(config_name, ckpt_path, **kw),
-                              fill_hole_area=fill_hole_area or 0)
+    model = build_sam2(config_name, ckpt_path,
+                       hydra_overrides_extra=overrides, **kw)
+    return SAM2VideoPredictor(model, fill_hole_area=fill_hole_area or 0)

@@ -10,9 +10,10 @@ package's order (sam2unet_tpu/models/hiera.py:210-310):
     zero pads;
   - dim-preserving, window-divisible 16-aligned grid -> K4 (strip kernel);
   - dim-preserving, divisible but unaligned window -> K6 on the partition;
-  - global -> `fused_window_block`: K6 (S = 484 at 352), or LN -> QKV ->
-    K10 -> proj where one window's scores pass the JAX package's live-VMEM
-    gate (S = 3600 at 960);
+  - global -> `fused_window_block`: K6 (S = 484 at 352), or where one
+    window's scores pass the JAX package's live-VMEM gate LN -> QKV -> K10
+    -> proj past 1024 tokens (S = 3600 at 960) and the plain form up to
+    1024 (S = 1024 at 512);
   - q-pool transition on a divisible even grid -> K8 (in training only
     where the copied `transition_bwd_supported` holds and the block is
     frozen, hiera.py:318-327 there);

@@ -25,13 +25,14 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("fused_mlp", "fused_attention_block", "fused_transition",
            "flash_attention", "fused_mlp_bwd", "fused_attention_block_bwd",
            "fused_transition_bwd", "flash_attention_bwd", "full_attention",
-           "flash_attention_d256")
+           "flash_attention_d256", "full_attention_d256")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _K10 = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
         ctypes.c_float, _P]
+_K14 = [_I, *[_P] * 4, *[_I] * 5, *[_L] * 6, ctypes.c_float, _P]
 SIGNATURES = {
     "fused_mlp": {
         "k1_fused_mlp": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -74,10 +75,9 @@ SIGNATURES = {
         "k11_flash_attention_bwd_dkv": [_I, *[_P] * 8, *[_I] * 5, *[_L] * 12,
                                         ctypes.c_float, _P],
     },
-    "full_attention": {
-        "k14_full_attention": [_I, *[_P] * 4, *[_I] * 5, *[_L] * 6,
-                               ctypes.c_float, _P],
-    },
+    "full_attention": {"k14_full_attention": _K14},
+    # K14 at head dim 256, a translation unit of its own
+    "full_attention_d256": {"k14_full_attention_d256": _K14},
 }
 
 _lock = threading.Lock()

@@ -6,9 +6,11 @@ sam2unet_tpu/ops/pallas/flash_attention.py (`_stream_fwd_impl`,
 `_xla_attention`); the kernels are csrc/flash_attention.cu (K10 at head
 dims up to 96), csrc/flash_attention_d256.cu (K10 at head dim 256, the
 video memory attention's), csrc/flash_attention_bwd.cu (K11: the delta
-pass, the dq pass and the dk/dv pass) and csrc/full_attention.cu (K14).
-Other head dims raise on the card, and so does K11 at head dim 256
-(ROADMAP.md queue 2); on the CPU the plain versions take any.
+pass, the dq pass and the dk/dv pass), csrc/full_attention.cu (K14 at head
+dims up to 96) and csrc/full_attention_d256.cu (K14 at head dim 256, the
+memory attention's over a 512-px frame under the "pallas" backend). Other
+head dims raise on the card, and so does K11 at head dim 256 (ROADMAP.md
+queue 2); on the CPU the plain versions take any.
 
 q, k and v may be strided views, as the long global-attention blocks pass
 them (channel slices of the QKV output, rows of 3c): the kernels read them
@@ -29,7 +31,8 @@ from sam2unet_torch.ops import build, dispatch
 from sam2unet_torch.ops.attention import MAX_FULL_SEQ, einsum_attention
 
 MAX_HEAD_DIM = 96  # attention.cuh instantiates head dims up to 6 x 16
-WIDE_HEAD_DIM = 256   # flash_attention_d256.cu: K10's forward only
+WIDE_HEAD_DIM = 256   # flash_attention_d256.cu, full_attention_d256.cu:
+                      # the forwards of K10 and K14
 
 
 def plain_flash_attention(q, k, v, scale: float | None = None,
@@ -109,8 +112,8 @@ def _check_args(q, k, v, *, wide: bool = False,
     """What K10, K11 and K14 take: q (B, Sq, heads, d), k and v (B, Sk,
     heads, d) with the same strides, `more` tensors shaped like q or like k
     (by name: dk, dv like k), bf16 or fp32, one device, d % 8 == 0 and
-    d <= MAX_HEAD_DIM (or, with `wide`, K10's d == WIDE_HEAD_DIM), every
-    view addressable (`_check_view`). Returns (B, Sq, Sk, heads, d)."""
+    d <= MAX_HEAD_DIM (or, with `wide`, the forwards' d == WIDE_HEAD_DIM),
+    every view addressable (`_check_view`). Returns (B, Sq, Sk, heads, d)."""
     b, sq, nh, d = q.shape
     sk = k.shape[1]
     if k.shape != (b, sk, nh, d) or v.shape != k.shape:
@@ -131,7 +134,7 @@ def _check_args(q, k, v, *, wide: bool = False,
                              f"{q.device}")
         _check_view(t, what)
     if d % 8 or (d > MAX_HEAD_DIM and not (wide and d == WIDE_HEAD_DIM)):
-        also = f", and K10 at {WIDE_HEAD_DIM}" if wide else ""
+        also = f", and the forwards at {WIDE_HEAD_DIM}" if wide else ""
         raise ValueError(
             f"the attention kernels take head dims % 8 == 0 up to "
             f"{MAX_HEAD_DIM}{also}, not {d} (ROADMAP.md queue 2, TPU kernels "
@@ -325,15 +328,19 @@ def plain_full_attention(q, k, v, scale: float | None = None):
 
 
 def _full_attention_kernel(q, k, v, scale: float):
-    b, sq, sk, nh, d = _check_args(q, k, v)
+    b, sq, sk, nh, d = _check_args(q, k, v, wide=True)
     if sk > MAX_FULL_SEQ:
         raise ValueError(f"full_attention takes at most {MAX_FULL_SEQ} keys, "
                          f"got {sk}")
     o = torch.empty((b, sq, nh, d), dtype=q.dtype, device=q.device)
     p = dispatch.ptr
-    err = build.library("full_attention").k14_full_attention(
-        int(q.dtype == torch.bfloat16), p(q), p(k), p(v), p(o), b, sq, sk, nh,
-        d, *q.stride()[:3], *k.stride()[:3], scale, dispatch.stream_of(q))
+    if d == WIDE_HEAD_DIM:
+        fn = build.library("full_attention_d256").k14_full_attention_d256
+    else:
+        fn = build.library("full_attention").k14_full_attention
+    err = fn(int(q.dtype == torch.bfloat16), p(q), p(k), p(v), p(o), b, sq,
+             sk, nh, d, *q.stride()[:3], *k.stride()[:3], scale,
+             dispatch.stream_of(q))
     build.check(err, "full_attention")
     dispatch.count_launch("full_attention", f"Sq={sq},Sk={sk},d={d}")
     return o
@@ -360,8 +367,9 @@ def plain_full_attention_bwd(q, k, v, g, scale: float | None = None):
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float | None = None) -> torch.Tensor:
     """K14: softmax(q k^T * scale) v over (B, S, heads, d), at most 1024
-    keys, o (B, Sq, heads, d) in q's dtype. q, k and v may be strided views
-    (unit stride over d, 16-byte aligned, strides multiples of 8 elements),
+    keys, head dims up to 96 or 256, o (B, Sq, heads, d) in q's dtype. q,
+    k and v may be strided views (unit stride over d, 16-byte aligned,
+    strides multiples of 8 elements),
     read where they lie. Differentiable: the backward is
     `plain_full_attention_bwd`, the JAX package's einsum recompute in this
     regime, on the card and on CPU tensors alike."""

@@ -40,6 +40,7 @@ from sam2unet_torch.ops.flash_attention import (
     MAX_HEAD_DIM,
     flash_attention,
     flash_attention_bwd,
+    pick_stream_blocks,
 )
 from sam2unet_torch.ops.fused_mlp import MAX_LN_WIDTH
 from sam2unet_torch.ops.windowing import (
@@ -138,6 +139,16 @@ def strips_rem_supported(h: int, w: int, window: int,
     if h % window == 0 and w % window == 0 and (window * window) % 16 == 0:
         return False
     return -(-w // window) >= 4
+
+
+def long_form_kernel(s: int) -> bool:
+    """Whether a window of S tokens past `long_sequence` runs the long form
+    over K10, as the JAX package's `_xla_window_block` runs its streaming
+    kernel (fused_attention_block.py:245-253, flash_attention.py:432-443):
+    past 1024 tokens where a 16-aligned block divides S. Else it runs the
+    window block's plain form, `_xla_attention` there (S <= 1024: the
+    1024-token global blocks of hiera_t and hiera_s at 512 px)."""
+    return s > MAX_FULL_SEQ and pick_stream_blocks(s, s) is not None
 
 
 def window_block_bwd_route(s: int, c: int, n_pad: int,
@@ -263,10 +274,10 @@ def fused_window_block(x: torch.Tensor, w_qkv, b_qkv, ln_w, ln_b, w_proj,
                        residual: bool = True) -> torch.Tensor:
     """x: (nW, S, c) window rows -> (nW, S, c). n_pad > 0 adds the
     synthetic pad key standing for the reference's zero-padded tokens.
-    K6, or past `long_sequence` the long form over K10 (the JAX package
-    runs plain attention there for S <= 1024; the port runs K10 at any S).
-    Backward: `window_block_bwd_route` (K7, the long form's backward over
-    K11, or the plain recompute)."""
+    K6, or past `long_sequence` the long form over K10 where
+    `long_form_kernel` holds and the plain form elsewhere, as the JAX
+    package routes it. Backward: `window_block_bwd_route` (K7, the long
+    form's backward over K11, or the plain recompute)."""
     weights = (w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj)
     if not dispatch.use_kernel(x):
         return plain_window_block(x, *weights, num_heads, n_pad, residual)
@@ -301,8 +312,19 @@ def _window_block_kernel(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
     if long_sequence(s, c):
         if n_pad:
             raise ValueError(f"no kernel for a pad key over {s} tokens")
+        if not long_form_kernel(s):
+            return plain_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj,
+                                      b_proj, num_heads, 0, residual)
         return _long_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
                                   num_heads, residual)
+    return _k6_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
+                            num_heads, n_pad, residual, is_bf16)
+
+
+def _k6_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
+                     num_heads: int, n_pad: int, residual: bool,
+                     is_bf16: int):
+    nw, s, c = x.shape
     xn = torch.empty_like(x)
     qkv = torch.empty((nw * s, 3 * c), dtype=x.dtype, device=x.device)
     o = torch.empty((nw * s, c), dtype=x.dtype, device=x.device)

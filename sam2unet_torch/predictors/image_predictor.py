@@ -14,7 +14,10 @@ back. The JAX package bit-packs the binary masks before that copy, a
 measure against its TPU link's bandwidth; the port copies bool masks. A
 non-zero area takes the host postprocess (`SAM2Transforms`: a positive
 one fills holes or removes sprinkles there). The automatic mask
-generator's fast path (`_predict_amg`) comes with the AMG.
+generator's batches take `_predict_amg`: the clip, the resize, the
+stability score and the threshold of each batch all run on the device,
+and only the bool masks and the scores come back (the host path where
+holes are to be filled or the batch's logits would pass 2**28 elements).
 
 `get_image_embedding` returns the (B, 64, 64, 256) NHWC embedding the
 mask decoder reads (the reference's is NCHW).
@@ -28,10 +31,13 @@ import torch
 from sam2unet_torch.models.sam2_base import SAM2Base
 from sam2unet_torch.ops.resize import resize_nchw
 from sam2unet_torch.predictors.transforms import SAM2Transforms
+from sam2unet_torch.utils.amg import calculate_stability_score
 
 # batched prompts whose full-resolution logits would exceed this many
-# elements take the host postprocess (image_predictor.py:340-345)
+# elements take the host postprocess (image_predictor.py:340-345); an AMG
+# batch, past the second (image_predictor.py:382-384)
 DEVICE_POST_ELEMENTS = 2 ** 26
+AMG_DEVICE_ELEMENTS = 2 ** 28
 
 
 def assemble_prompts(box_coords, point_coords, point_labels):
@@ -211,6 +217,45 @@ class SAM2ImagePredictor:
             if not return_logits:
                 masks = masks > self.mask_threshold
         return masks, ious.cpu().numpy(), low_res.cpu().numpy()
+
+    def _predict_amg(self, point_coords: np.ndarray,
+                     point_labels: np.ndarray, multimask_output: bool = True,
+                     stability_offset: float = 1.0, need_low_res: bool = False,
+                     img_idx: int = 0, mask_threshold: float | None = None):
+        """The automatic mask generator's batch (image_predictor.py:363-431
+        of the JAX package): B prompts at model resolution against the set
+        image; the clip, the bilinear resize to the original size, the
+        stability score (the IoU of the masks thresholded at thr +- the
+        offset, 0 where the looser one is empty) and the threshold run on
+        the device. Returns numpy (B, M, H, W) bool masks, (B, M) ious,
+        (B, M, h, w) low-res logits or None, (B, M) fp32 stability scores.
+        Hole filling, or logits past AMG_DEVICE_ELEMENTS, take `_predict`
+        and the host score."""
+        b = point_coords.shape[0]
+        hw = tuple(self._orig_hw[img_idx])
+        n_out = 3 if multimask_output else 1
+        thr = (self.mask_threshold if mask_threshold is None
+               else float(mask_threshold))
+        if (not self._transforms.device_postprocess
+                or b * n_out * hw[0] * hw[1] > AMG_DEVICE_ELEMENTS):
+            masks, ious, low_res = self._predict(
+                point_coords, point_labels, multimask_output=multimask_output,
+                return_logits=True, img_idx=img_idx)
+            stability = calculate_stability_score(masks, thr, stability_offset)
+            return (masks > thr, ious, low_res if need_low_res else None,
+                    stability)
+        coords, labels = assemble_prompts(None, point_coords, point_labels)
+        low_res, ious = self._decode(img_idx, coords, labels, None,
+                                     multimask_output)
+        with torch.inference_mode():
+            full = resize_nchw(low_res, hw, "bilinear")
+            hi = (full > thr + stability_offset).sum((-1, -2))
+            lo = (full > thr - stability_offset).sum((-1, -2))
+            stability = torch.where(lo > 0, hi.float() / lo.clamp_min(1), 0.0)
+            masks = full > thr
+        return (masks.cpu().numpy(), ious.cpu().numpy(),
+                low_res.cpu().numpy() if need_low_res else None,
+                stability.cpu().numpy())
 
     def get_image_embedding(self) -> torch.Tensor:
         self._need_features()

@@ -455,6 +455,76 @@ def test_long_sequence_gate_matches_jax(s, c, long):
     assert long_sequence(s, c) is long
 
 
+# (S, c, heads, the form both packages run): the 1024-token global blocks
+# of hiera_t at 512 px (past the live gate, at most 1024 tokens: the plain
+# form), a window past 1024 tokens that a 16-aligned block divides (K10's
+# long form), one that none divides (the plain form), and a global block
+# under the gate (K6)
+GLOBAL_ROUTES = [(1024, 384, 4, "plain"), (2048, 256, 4, "K10"),
+                 (1100, 384, 4, "plain"), (484, 144, 2, "K6")]
+
+
+@pytest.mark.parametrize("s,c,heads,route", GLOBAL_ROUTES)
+def test_global_block_routes_like_the_jax_package(monkeypatch, s, c, heads,
+                                                  route):
+    """`fused_window_block` on the card picks K6, the long form over K10 or
+    the window block's plain form exactly where the JAX package's
+    `_fused_window_block_vjp` runs its Pallas kernel, `_xla_window_block`
+    with the streaming kernel, or `_xla_window_block` with `_xla_attention`
+    (its TPU test answered no, each form spied; the port's launch replaced
+    by a spy that runs the plain version). The outputs agree."""
+    mk = _mk(np.random.default_rng(38))
+    x = mk(1, s, c)
+    ja, pa = _block_weights(mk, c)
+    xla_block, xla = fab._xla_window_block, fa._xla_attention
+    jax_seen, depth = [], [0]
+
+    def jax_spy(name, fn):
+        def run(*a, **kw):   # the outermost form only: the K6 spy computes
+            if not depth[0]:  # `_xla_window_block`, itself spied
+                jax_seen.append(name)
+            depth[0] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+        return run
+
+    def k6(x_, *w, num_heads, n_pad, residual, **_):
+        return xla_block(x_, *w[:6], num_heads, n_pad, residual)
+
+    monkeypatch.setattr(fab.dispatch, "xla_only", lambda: False)
+    monkeypatch.setattr(
+        fab, "_fused_window_block_fwd_impl",
+        jax_spy("K6", lambda x_, *w: k6(x_, *w[:8], num_heads=w[8],
+                                        n_pad=w[9], residual=w[10])))
+    monkeypatch.setattr(fa, "_stream_fwd_impl", jax_spy(
+        "K10", lambda q, k, v, scale: (xla(q, k, v, scale=scale), None)))
+    monkeypatch.setattr(fa, "_xla_attention", jax_spy("plain", xla))
+    want = fab.fused_window_block(jnp.asarray(x), *ja, heads)
+
+    seen = []
+
+    plain_block = port_fab.plain_window_block
+
+    def spy(name):
+        def run(x_, *w, **kw):
+            seen.append(name)
+            return plain_block(x_, *w[:6], num_heads=heads)
+        return run
+
+    monkeypatch.setattr(port_fab.dispatch, "use_kernel", lambda t: True)
+    monkeypatch.setattr(port_fab, "_k6_window_block", spy("K6"))
+    monkeypatch.setattr(port_fab, "_long_window_block", spy("K10"))
+    monkeypatch.setattr(
+        port_fab, "plain_window_block",
+        lambda *a, **kw: seen.append("plain") or plain_block(*a, **kw))
+    with torch.no_grad():
+        got = fused_window_block(_t(x), *pa, num_heads=heads)
+    assert jax_seen == seen == [route]
+    _close(got, want)
+
+
 # ----------------------------------------------------------------- K12
 
 # (batch, H, W, c, heads, window, residual) — test_fused_ops.py:586-591
@@ -786,9 +856,10 @@ def test_kernel_arg_checks_reject_what_the_kernels_do_not_take():
 # head dim; the batch cut for the CPU): the SAM2 hiera_s@1024 and SAM2-UNet
 # hiera_s@960 stage 3->4 transition, the mask decoder's token
 # self-attention (8 tokens) and image->token attention (4096 queries), the
-# hiera_l@352 transition
+# hiera_l@352 transition, and the memory attention's self-attention at 512
+# px (one head of 256 over 1024 keys; 128 of its 1024 queries)
 K14_SHAPES = [(2, 49, 196, 8, 96), (1, 8, 8, 8, 32), (1, 4096, 8, 8, 16),
-              (2, 64, 256, 16, 72), (2, 16, 16, 8, 32)]
+              (2, 64, 256, 16, 72), (2, 16, 16, 8, 32), (1, 128, 1024, 1, 256)]
 
 
 class _Ref:
@@ -910,6 +981,11 @@ ROUTE_CASES = {
     "transition window": (2, 49, 196, 2, 8),
     # no 16-aligned block divides 1100 keys
     "1100 keys": (1, 32, 1100, 1, 8),
+    # at 512 px: the decoder's 7 tokens against the 32 x 32 = 1024 image
+    # tokens and back, the memory attention's self-attention over them
+    "7 tokens x 1024 keys": (1, 7, 1024, 2, 8),
+    "1024 queries x 7 tokens": (1, 1024, 7, 2, 8),
+    "1024 tokens": (2, 1024, 1024, 1, 16),
 }
 
 

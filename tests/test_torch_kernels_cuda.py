@@ -11,7 +11,8 @@ at head dim 256 (the video memory attention's). The backward
 kernels (K2, K3, K5, K7, K9) are held against autograd through their plain
 versions, at hiera_l@352's widths and head dim 96, with a ragged S for K7
 and a tie case for K9's max-pool routing; K14 at every shape its paths
-give it (strided views, key rows of 6 to 1024); K11 against
+give it (strided views, key rows of 6 to 1024) and at head dim 256 (the
+memory attention's under the "pallas" backend); K11 against
 `plain_flash_attention_bwd` at S 3600 and 1089, head dims 72 and 96, cross
 lengths, strided views, and through autograd and the long block's
 backward. Tolerances: max|kernel - plain| <= 2e-2 * max|plain| in bf16,
@@ -197,18 +198,39 @@ def test_k10_kernel_at_head_dim_256(gen, dtype, b, sq, sk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["head dim 128", "head dim 264", "K14 at 256",
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,sq,sk", [(2, 1024, 1024), (1, 100, 1000),
+                                     (3, 70, 333)])
+def test_k14_kernel_at_head_dim_256(gen, dtype, b, sq, sk):
+    """K14 at the memory attention's head dim under the "pallas" backend
+    (one head of 256; two objects over a 512-px frame's 1024 tokens), a
+    ragged last key tile, query rows not a multiple of 64, as strided
+    views: q, k and v the head slices of wider buffers. Against the plain
+    version; the variant names d."""
+    from sam2unet_torch.ops.flash_attention import full_attention
+
+    qbuf = _rnd(gen, dtype, b, sq, 2, 256)
+    kvbuf = _rnd(gen, dtype, b, sk, 3, 256)
+    q, k, v = qbuf[:, :, 1:], kvbuf[:, :, 0:1], kvbuf[:, :, 2:]
+    _compare(lambda: full_attention(q, k, v), dtype)
+    assert dispatch.variants == {
+        ("full_attention", f"Sq={sq},Sk={sk},d=256"): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["head dim 128", "head dim 264", "K14 at 128",
                                   "K11 at 256"])
 def test_head_dims_the_port_does_not_instantiate_raise(gen, case):
     """Head dims without a kernel instance raise on the card, naming ROADMAP
-    queue 2 (K10 has 256 besides up to 96; K14 and K11 only up to 96), and
+    queue 2 (K10 and K14 have 256 besides up to 96; K11 only up to 96), and
     the backward of K10 at 256 raises rather than recompute through the
     plain version."""
     from sam2unet_torch.ops.flash_attention import full_attention
 
-    d = {"head dim 128": 128, "head dim 264": 264}.get(case, 256)
+    d = {"head dim 128": 128, "head dim 264": 264, "K14 at 128": 128}.get(
+        case, 256)
     q = _rnd(gen, torch.bfloat16, 1, 2048, 1, d)
-    if case == "K14 at 256":
+    if case == "K14 at 128":
         with pytest.raises(ValueError, match="queue 2"):
             full_attention(q[:, :64], q[:, :64], q[:, :64])
     elif case == "K11 at 256":

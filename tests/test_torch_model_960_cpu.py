@@ -31,6 +31,7 @@ from sam2unet_torch.configs import SAM2UNetConfig as PortConfig
 from sam2unet_torch.interop.from_jax import jax_to_state_dict
 from sam2unet_torch.models.sam2unet import SAM2UNet as PortSAM2UNet
 from sam2unet_torch.ops.fused_attention_block import (
+    long_form_kernel,
     long_sequence,
     window_block_bwd_route,
 )
@@ -79,7 +80,9 @@ def _route_of_each_block(trunk: PortHieraConfig, x: torch.Tensor,
 
     def global_route(xw):
         _, s, c = xw.shape
-        return "long" if long_sequence(s, c) else "K6"
+        if not long_sequence(s, c):
+            return "K6"
+        return "long" if long_form_kernel(s) else "plain global"
 
     def mlp_spy(*a, **k):
         mlp[k.get("ln_w") is not None] += 1

@@ -34,16 +34,19 @@ from test_torch_model_960_cpu import _route_of_each_block
 import sam2unet_torch.models.hiera as port_hiera
 from sam2unet_torch import build_sam as port_build
 from sam2unet_torch.configs import HIERA_S as PORT_HIERA_S
+from sam2unet_torch.configs import HIERA_T as PORT_HIERA_T
 from sam2unet_torch.configs import HIERA_TEST as PORT_HIERA_TEST
 from sam2unet_torch.configs import HieraConfig as PortHieraConfig
+from sam2unet_torch.configs_yaml import YAML_DIR
 from sam2unet_torch.interop.from_jax import jax_to_state_dict
 from sam2unet_torch.models.sam2_base import SAM2Config as PortSAM2Config
 from sam2unet_torch.predictors.image_predictor import SAM2ImagePredictor
 from sam2unet_torch.predictors.transforms import SAM2Transforms
 from sam2unet_tpu.build_sam import build_sam2
-from sam2unet_tpu.configs import HIERA_S, HieraConfig
+from sam2unet_tpu.configs import HIERA_S, HIERA_T, HieraConfig
 from sam2unet_tpu.models import hiera as jax_hiera
 from sam2unet_tpu.models.sam2_base import SAM2Base, SAM2Config
+from sam2unet_tpu.ops.pallas import flash_attention as fa
 from sam2unet_tpu.ops.pallas.fused_attention_block import (
     strips_rem_supported as jax_strips_rem_supported,
 )
@@ -341,8 +344,14 @@ def _jax_route(bk: dict, h: int, w: int) -> str:
                  and w % window == 0)
         return "K8" if fused else "plain"
     if window == 0:
-        s16 = h * w + (-(h * w)) % 16
-        return "long" if 8 * s16 * s16 + 14 * s16 * c > 12 * 2**20 else "K6"
+        s = h * w
+        s16 = s + (-s) % 16
+        if 8 * s16 * s16 + 14 * s16 * c <= 12 * 2**20:
+            return "K6"
+        # `_xla_window_block`: the streaming kernel past 1024 tokens where
+        # an aligned block divides S, `_xla_attention` otherwise
+        stream = s > fa._MAX_FULL_SEQ and fa._pick_stream_blocks(s, s)
+        return "long" if stream else "plain global"
     rem = h % window or w % window or window * window % 16
     if rem and jax_strips_rem_supported(h, w, window, c, bk["num_heads"], 2):
         return "K12"
@@ -377,6 +386,44 @@ def test_sam2_hiera_s_1024_routes_every_block_like_the_jax_package():
     assert not jax_strips_rem_supported(64, 64, 14, 384, 4, 4)
 
 
+# sam2_hiera_t's routes per `set_image` (12 blocks): at 512 px, the video
+# point of the JAX package's scripts/smoke_video.py, grids 128/64/32/16; at
+# 1024 px, the AMG point of its scripts/bench_amg.py, grids 256/128/64/32
+HIERA_T_ROUTES = {
+    # the three global blocks (5, 7, 9) hold 1024 tokens at width 384, past
+    # the live gate: the JAX package runs `_xla_window_block` with
+    # `_xla_attention` there, the port the plain form, no K10; the remainder
+    # grids (32x32 w14, 16x16 w7) have n_w = 3 < 4 columns of windows, so
+    # their blocks take the valid groups (K6, four groups each): K1 12, K4 2,
+    # K8 2, K6 16
+    512: ["K4", "K8", "K4", "K8", "groups", "plain global", "groups",
+          "plain global", "groups", "plain global", "plain", "groups"],
+    # as sam2_hiera_s at 1024 with fewer stage-3 blocks: K1 12, K4 2, K8 2,
+    # K12 4, K10 3 (4096-token global blocks)
+    1024: ["K4", "K8", "K4", "K8", "K12", "long", "K12", "long", "K12", "long",
+           "plain", "K12"],
+}
+
+
+@pytest.mark.parametrize("size", sorted(HIERA_T_ROUTES))
+def test_sam2_hiera_t_routes_every_block_like_the_jax_package(size):
+    """sam2_hiera_t at full width and depth (no adapters): the route of
+    each block equals the JAX package's gates on the card's bf16 (the
+    window-14 transition of stage 3 is the plain path, K14 under the
+    "pallas" backend)."""
+    x = torch.zeros(1, size, size, 3)
+    routes, mlp, outs = _route_of_each_block(PORT_HIERA_T, x, stub=True,
+                                             use_adapters=False)
+    want, h = [], size // 4
+    for bk in jax_hiera._block_plan(HIERA_T):
+        want.append(_jax_route(bk, h, h))
+        if bk["q_stride"] is not None:
+            h //= 2
+    assert routes == want == HIERA_T_ROUTES[size]
+    assert mlp == {True: 12}
+    assert [o.shape[1] for o in outs] == [size // 4 >> i for i in range(4)]
+
+
 def test_trunk_without_adapters_is_sam2s():
     """`Hiera(use_adapters=False)`: plain blocks under `blocks.N.*`, nothing
     frozen; a global block of such a trunk at 256 px needs K7's
@@ -405,10 +452,19 @@ def test_build_sam2_config_and_refusals():
     assert not port_build.build_sam2(
         "hiera_test", device="cpu",
         sam2_config=PortSAM2Config()).cfg.dynamic_multimask_via_stability
-    for kw in (dict(config_name="sam2_hiera_s.yaml"),
-               dict(hydra_overrides_extra=["++model.x=1"])):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            port_build.build_sam2(**kw, device="cpu")
+    # a YAML config and hydra overrides, composed as the JAX package's
+    # build_sam2 composes them (the name dates from their refusal); a
+    # YAML name that is not a file is the registry's, unknown keys are
+    # ignored
+    yaml_model = port_build.build_sam2(
+        str(YAML_DIR / "sam2_hiera_t.yaml"), device="cpu",
+        hydra_overrides_extra=["++model.image_size=512", "++model.x=1"])
+    assert yaml_model.cfg.image_size == 512
+    assert yaml_model.cfg.dynamic_multimask_via_stability
+    assert yaml_model.image_encoder.trunk.cfg == PORT_HIERA_T
+    assert yaml_model.sam_prompt_encoder.image_embedding_size == (32, 32)
+    assert port_build.build_sam2(
+        "sam2_hiera_s.yaml", device="cpu").image_encoder.trunk.cfg == PORT_HIERA_S
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

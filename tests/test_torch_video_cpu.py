@@ -404,18 +404,20 @@ def test_device_path_gathers_nothing_on_the_host_and_packs_masks(tiny):
                                   np.packbits(odd, axis=-1))
 
 
-def test_memory_attention_routes_like_the_jax_package(monkeypatch):
-    """One memory-attention layer at d_model 256 over a 64 x 64 frame (4096
-    tokens) and a bank of one grid and 4 pointer tokens with a key mask:
-    the self-attention runs K10 and the masked cross-attention the einsum
-    form, in both packages (the JAX package's TPU test answered no, each
-    form spied); the outputs agree."""
+def _memory_attention_routes(monkeypatch, tokens: int, impl: str | None):
+    """One memory-attention layer at d_model 256 over a frame of `tokens`
+    and a bank of one grid and 4 pointer tokens with a key mask, under the
+    attention backend `impl` (None: the callers' own) in both packages:
+    (the JAX package's forms, the port's, the port's output, the JAX
+    one). The JAX package's TPU test answers no, each form spied."""
+    from sam2unet_tpu.ops import attention as jax_attention
+
     rng = _rng(19)
-    curr, curr_pos = (rng.standard_normal((1, 4096, 256)).astype(np.float32)
+    curr, curr_pos = (rng.standard_normal((1, tokens, 256)).astype(np.float32)
                       for _ in range(2))
-    mem, mem_pos = (rng.standard_normal((1, 4100, 64)).astype(np.float32)
-                    for _ in range(2))
-    valid = rng.random((1, 4100)) > 0.2
+    mem, mem_pos = (rng.standard_normal((1, tokens + 4, 64)).astype(
+        np.float32) for _ in range(2))
+    valid = rng.random((1, tokens + 4)) > 0.2
     jmod = MemoryAttention(d_model=256, num_layers=1, dim_feedforward=64,
                            kv_in_dim=64)
     variables = jax.jit(jmod.init, static_argnums=(5,))(
@@ -439,27 +441,69 @@ def test_memory_attention_routes_like_the_jax_package(monkeypatch):
     monkeypatch.setattr(fa, "_fused_full", jax_spy("K14"))
     monkeypatch.setattr(fa, "_stream_fwd_impl", jax_spy("K10"))
     monkeypatch.setattr(fa, "_xla_attention", jax_spy("einsum"))
-    want = jmod.apply(variables, curr, mem, curr_pos, mem_pos, 4,
-                      jnp.asarray(valid))
+    jax_attention.set_attention_impl(impl)
+    try:
+        want = jmod.apply(variables, curr, mem, curr_pos, mem_pos, 4,
+                          jnp.asarray(valid))
+    finally:
+        jax_attention.set_attention_impl(None)
 
-    seen = []
+    seen, depth = [], [0]
 
     def spy(name, fn):
-        def run(*a, **kw):
-            seen.append(name)
-            return fn(*a, **kw)
+        def run(*a, **kw):   # the outermost form only: K14's plain version
+            if not depth[0]:  # is itself an einsum
+                seen.append(name)
+            depth[0] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
         return run
 
     monkeypatch.setattr(port_fa, "full_attention",
                         spy("K14", port_fa.full_attention))
     monkeypatch.setattr(port_fa, "flash_attention",
                         spy("K10", port_fa.flash_attention))
+    monkeypatch.setattr(port_fa, "einsum_attention",
+                        spy("einsum", port_fa.einsum_attention))
     monkeypatch.setattr(port_attention, "einsum_attention",
                         spy("einsum", port_attention.einsum_attention))
-    with torch.inference_mode():
-        got = port(_t(curr), _t(mem), _t(curr_pos), _t(mem_pos), 4, _t(valid))
+    port_attention.set_attention_impl(impl)
+    try:
+        with torch.inference_mode():
+            got = port(_t(curr), _t(mem), _t(curr_pos), _t(mem_pos), 4,
+                       _t(valid))
+    finally:
+        port_attention.set_attention_impl(None)
+    return jax_seen, seen, got, want
+
+
+def test_memory_attention_routes_like_the_jax_package(monkeypatch):
+    """One memory-attention layer at d_model 256 over a 64 x 64 frame (4096
+    tokens) and a bank of one grid and 4 pointer tokens with a key mask:
+    the self-attention runs K10 and the masked cross-attention the einsum
+    form, in both packages (the JAX package's TPU test answered no, each
+    form spied); the outputs agree."""
+    jax_seen, seen, got, want = _memory_attention_routes(monkeypatch, 4096,
+                                                         None)
     assert jax_seen == seen == ["K10", "einsum"]
     _close(got, want, "one layer at d_model 256")
+
+
+@pytest.mark.parametrize("impl", [None, "pallas"])
+def test_memory_attention_at_512_px_routes_like_the_jax_package(monkeypatch,
+                                                                impl):
+    """The same layer over a 32 x 32 frame (1024 tokens, a 512-px video):
+    under the default backend both attentions take the einsum form; under
+    `set_attention_impl("pallas")` the self-attention runs K14 at head dim
+    256 (at most 1024 keys) and the masked cross-attention still the
+    einsum form, in both packages; the outputs agree."""
+    jax_seen, seen, got, want = _memory_attention_routes(monkeypatch, 1024,
+                                                         impl)
+    first = "K14" if impl == "pallas" else "einsum"
+    assert jax_seen == seen == [first, "einsum"]
+    _close(got, want, f"one layer at d_model 256 over 1024 tokens, {impl}")
 
 
 # ------------------------------------------------ factory and frame loading
@@ -469,8 +513,9 @@ def test_build_sam2_video_predictor_defaults_and_refusals(monkeypatch):
     """The reference's video postprocessing: prompted masks binarised for
     the memory encoder and holes of up to 8 pixels filled, both off with
     apply_postprocessing=False; an explicit config wins over the first, an
-    explicit fill_hole_area over the second; YAML configs and hydra
-    overrides still refused; the card by default."""
+    explicit fill_hole_area over the second; hydra overrides composed as
+    the JAX package composes them (the name dates from their refusal); the
+    card by default."""
     kw = dict(device="cpu")
     pred = port_build.build_sam2_video_predictor("hiera_test", **kw)
     assert pred.cfg.binarize_mask_from_pts_for_mem_enc
@@ -484,9 +529,10 @@ def test_build_sam2_video_predictor_defaults_and_refusals(monkeypatch):
         "hiera_test", sam2_config=PortSAM2Config(), fill_hole_area=3, **kw)
     assert not mine.cfg.binarize_mask_from_pts_for_mem_enc
     assert mine.fill_hole_area == 3
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_build.build_sam2_video_predictor(
-            "hiera_test", hydra_overrides_extra=["++model.x=1"], **kw)
+    small = port_build.build_sam2_video_predictor(
+        "hiera_test", hydra_overrides_extra=["++model.image_size=128"], **kw)
+    assert small.cfg.image_size == 128 and small.fill_hole_area == 8
+    assert small.cfg.binarize_mask_from_pts_for_mem_enc
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         port_build.build_sam2_video_predictor("hiera_test")
