@@ -7,7 +7,7 @@ build_sam2_image_predictor and build_sam2_video_predictor), and at
 sam2_hiera_t the points of the JAX package's hardware scripts: the video
 predictor at 512 px under the "pallas" attention backend
 (scripts/smoke_video.py) and the automatic mask generator at 1024 px
-(scripts/bench_amg.py).
+(scripts/bench_amg.py); and the train CLI whole at its defaults.
 
     python3 chip_smoke.py            # every phase, as the acceptance run does
     python3 chip_smoke.py --phases build,kernels --batch 2 --batch960 2 \
@@ -17,6 +17,7 @@ predictor at 512 px under the "pallas" attention backend
     python3 chip_smoke.py --paths s1024sam2        # the SAM2 predictor
     python3 chip_smoke.py --paths s1024video       # the video predictor
     python3 chip_smoke.py --paths t512video,t1024amg   # hiera_t: video, AMG
+    python3 chip_smoke.py --paths s960cli          # the train CLI whole
 
 Phases, one line each, for each path of --paths (l352, s960, then the
 training paths l352train and s960train, listed after these):
@@ -140,6 +141,22 @@ iou and stability filters at 0, on bench_amg.py's 480x640 image):
      threshold), and kernels vs plain (ious and low-res logits to the
      limits above, masks and stability scores within their logits' gap).
   4. generate wall time (host clock), first call and steady, peak memory.
+The train CLI path s960cli (its defaults: sam2_hiera_s, 960, batch 16;
+--bf16, seeded random checkpoint; 240 synthetic training JPEGs, so one
+epoch is 15 steps, and 16 eval images):
+  3. which loader decodes the JPEGs (the native libjpeg one where it
+     builds, else PIL, and why); train_cli --epoch 1 --full_eval
+     --profile_dir: its epoch img/s, the host evaluation's mIoU and time,
+     the launches (s960train's per step, s960's per eval forward; the
+     shapes are held by those paths' entries); the trace of steps 10-14:
+     its five most expensive kernels by device time (a hand-written
+     kernel's device kernels under its C entry point's name), and K1, K2,
+     K3, K10 and K11 must each show device time; the device evaluation of
+     the checkpoint; the test CLI on it and the eval CLI on its PNGs; the
+     loader A/B: the run again, native, PIL, native, PIL, epoch img/s.
+The throughput phase of l352, l352train and s960train also times the step
+with the persistent window groups and per block (SAM2UNET_DISABLE_GROUPED),
+alternating, for the record.
 `--phases profile` gives the device time by kernel of one forward, train
 step, set_image, predict, tracked frame or generate, and its idle share.
 Then a JSON line of per-kernel numbers, the card line, and last the result
@@ -196,8 +213,12 @@ STEP_GAP_MEAN_RATIO = 1.25
 # the operating points: trunk, input size, per-forward launches of each
 # kernel wrapper (a wrapper not listed must not launch)
 PATHS = {
+    # hiera_l@352: stage 3 (22x22 w16) and stage 4's last three blocks
+    # (11x11 w8) run on the persistent window groups, four each, so K1 162
+    # tails and 162 adapters per forward (tests/test_torch_grouped_cpu.py
+    # holds these against the JAX package's dispatch)
     "l352": dict(label="hiera_l@352", cfg="sam2_hiera_l", size=352,
-                 per_forward={"fused_mlp": 96, "fused_window_block_strips": 7,
+                 grouping_ab=True, per_forward={"fused_mlp": 324, "fused_window_block_strips": 7,
                               "fused_window_block": 143,
                               "fused_transition_block": 2}),
     "s960": dict(label="hiera_s@960", cfg="sam2_hiera_s", size=960,
@@ -208,33 +229,37 @@ PATHS = {
     # per train step: the forward's launches and the backward kernels'
     "l352train": dict(label="hiera_l@352 train", cfg="sam2_hiera_l", size=352,
                       train=True, eval_path="l352", cli_batch=8, step_batch=4,
-                      per_step={"fused_mlp": 96, "fused_window_block_strips": 7,
+                      grouping_ab=True,
+                      per_step={"fused_mlp": 324,
+                                "fused_window_block_strips": 7,
                                 "fused_window_block": 143,
                                 "fused_transition_block": 2,
-                                "adapter_bwd": 48, "mlp_bwd_dx": 48,
+                                "adapter_bwd": 162, "mlp_bwd_dx": 162,
                                 "window_block_strips_bwd": 7,
                                 "window_block_bwd": 38, "transition_bwd": 2}),
     # the train CLI's defaults. Per step, from the routes under train
     # (tests/test_torch_model_960_cpu.py): K4 at blocks 0 and 2, the 240x240
-    # transition unfused, K8 at block 3, eight valid-group blocks of four
-    # groups each (K6: 32, one n_pad = 0 group per block for K7: 8), three
-    # long blocks (K10 in the forward and again in the backward's recompute:
-    # 6; K11: 3, counted as its delta, dq and dk/dv passes), 16 tails and 16
-    # adapters. With --remat every trunk block's forward runs twice.
+    # transition unfused, K8 at block 3, stage 3's ten blocks after it and
+    # block 15 on the persistent window groups (four each): eight windowed
+    # blocks (K6: 32, one n_pad = 0 group per block for K7: 8), three long
+    # blocks over the concatenated tokens (K10 in the forward and again in
+    # the backward's recompute: 6; K11: 3, counted as its delta, dq and
+    # dk/dv passes), 49 tails and 49 adapters (4 + 1 dense blocks, 11 x 4
+    # groups). With --remat every trunk block's forward runs twice.
     "s960train": dict(label="hiera_s@960 train", cfg="sam2_hiera_s", size=960,
                       train=True, eval_path="s960", cli_batch=16, step_batch=2,
-                      remat=True, resume=True,
-                      per_step={"fused_mlp": 32, "fused_window_block_strips": 2,
+                      remat=True, resume=True, grouping_ab=True,
+                      per_step={"fused_mlp": 98, "fused_window_block_strips": 2,
                                 "fused_window_block": 32,
                                 "fused_transition_block": 1,
                                 "flash_attention": 6,
-                                "adapter_bwd": 16, "mlp_bwd_dx": 16,
+                                "adapter_bwd": 49, "mlp_bwd_dx": 49,
                                 "window_block_strips_bwd": 2,
                                 "window_block_bwd": 8, "transition_bwd": 1,
                                 "flash_attention_bwd_delta": 3,
                                 "flash_attention_bwd_dq": 3,
                                 "flash_attention_bwd_dkv": 3},
-                      per_step_remat={"fused_mlp": 64,
+                      per_step_remat={"fused_mlp": 196,
                                       "fused_window_block_strips": 4,
                                       "fused_window_block": 64,
                                       "fused_transition_block": 2,
@@ -284,9 +309,11 @@ PATHS = {
     # scripts/smoke_video.py at its defaults: six 240x320 frames (upscaled
     # to the input), two objects, a point each and a mask on the second,
     # forward, reverse from the middle frame, one drain of packed masks.
-    # Per image (tests/test_torch_sam2_cpu.py, routes at 512): K1 12, K4 2,
-    # K8 2, K6 16 (the valid groups of the 32x32 w14 and 16x16 w7 grids);
-    # the three 1024-token global blocks the plain form (no K10), and under
+    # Per image (tests/test_torch_sam2_cpu.py, routes at 512): K4 2, K8 2,
+    # K6 16 and K1 33 (stage 3's six blocks after the transition and block
+    # 11 on the persistent window groups of the 32x32 w14 and 16x16 w7
+    # grids, four each, five dense tails); the three 1024-token global
+    # blocks the plain form over the concatenated tokens (no K10), and under
     # the default backend nothing else launches. The path runs under
     # set_attention_impl("pallas"), where every unmasked attention over at
     # most 1024 keys is K14 (tests/test_torch_video512_cpu.py): +1 per
@@ -297,7 +324,7 @@ PATHS = {
                       size=512, video=True, batch=1, objects=2, frames=6,
                       hw=(240, 320), points=((80.0, 120.0), (240.0, 60.0)),
                       mask=(25, 95, 205, 275), reverse_from=3, drain=True,
-                      per_image={"fused_mlp": 12,
+                      per_image={"fused_mlp": 33,
                                  "fused_window_block_strips": 2,
                                  "fused_transition_block": 2,
                                  "fused_window_block": 16},
@@ -319,6 +346,16 @@ PATHS = {
                                     "fused_transition_block": 2,
                                     "fused_window_block_strips_rem": 4,
                                     "flash_attention": 3}),
+    # the train CLI whole, as a user runs it at its defaults (hiera_s, 960,
+    # batch 16): --bf16 --epoch 1 --full_eval --profile_dir on 240
+    # synthetic training JPEGs (15 steps, so the trace window of steps
+    # 10-14 fills) and 16 eval images. Its launches are s960train's per
+    # step and s960's per eval forward, its shapes those paths' (whose
+    # entries hold them). Then the test CLI on its checkpoint and the eval
+    # CLI on the PNGs.
+    "s960cli": dict(label="hiera_s@960 train CLI", cfg="sam2_hiera_s",
+                    size=960, cli=True, batch=16, train_images=240,
+                    eval_images=16, held_by=("s960train", "s960")),
 }
 BATCH_FLAG = {"l352": "batch", "s960": "batch960", "l352train": "batch_train",
               "s960train": "batch_train960"}
@@ -626,9 +663,19 @@ def _without_near_ties(x, rnd, ln_w, ln_b, w_q, b_q, w_short, b_short,
     fail("K9 fp32 input: near-ties remain after 20 redraws")
 
 
+def group_rows(b: int, grid: int, window: int) -> list[int]:
+    """The row counts (windows x tokens) of the persistent window groups of
+    a (b, grid, grid) remainder grid: full windows, an edge row or column
+    of windows (the two hold as many rows), the corner."""
+    n, r = divmod(grid, window)
+    return [b * n * n * window * window, b * n * window * r, b * r * r]
+
+
 def kernel_specs(path: str, b: int) -> list[tuple]:
     """(name, kind, replaces, source, counted launches (wrapper, variant),
     main-path shapes, index of the timed shape) of each kernel of a path."""
+    if PATHS[path].get("cli"):
+        return []   # its kernels are held at the paths of `held_by`
     fab = "sam2unet_tpu/ops/pallas/fused_attention_block.py"
     src_ab = "sam2unet_torch/csrc/fused_attention_block.cu"
     src_ab_bwd = "sam2unet_torch/csrc/fused_attention_block_bwd.cu"
@@ -654,6 +701,7 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
         src_k11 = "sam2unet_torch/csrc/flash_attention_bwd.cu"
         if path == "l352train":
             grids, cs = (88, 44, 22, 11), (144, 288, 576, 1152)
+            windows = (16, 8)
             k5 = [dict(batch=b, grid=88, c=144, heads=2, window=8),
                   dict(batch=b, grid=44, c=288, heads=4, window=4)]
             # the 16-window groups of stages 3 and 4; the 484-token global
@@ -665,6 +713,7 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
                           dict(batch=b, grid=44, cin=288, c=576, heads=8, window=4)]
         else:
             grids, cs = (240, 120, 60, 30), (96, 192, 384, 768)
+            windows = (14, 7)
             k5 = [dict(batch=b, grid=240, c=96, heads=1, window=8),
                   dict(batch=b, grid=120, c=192, heads=2, window=4)]
             # the n_pad = 0 groups: 4x4 windows of 14x14 on 60x60, of 7x7 on
@@ -683,7 +732,12 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
                       dict(windows=b, S=4, c=768, heads=8, n_pad=45)]
             tra_shapes = [dict(batch=b, grid=120, cin=192, c=384, heads=4,
                                window=4)]
+        # the dense grids, then the rows of the window groups of stages 3
+        # and 4 (the persistent layout's K1, K2 and K3 run per group)
         tokens = [dict(tokens=b * hh * hh, c=c) for hh, c in zip(grids, cs)]
+        tokens += [dict(tokens=n, c=c) for hh, c, win in
+                   zip(grids[2:], cs[2:], windows)
+                   for n in group_rows(b, hh, win)]
         specs = [
             ("K2 mlp_bwd_dx", "mlp_tail_bwd",
              "sam2unet_tpu/ops/pallas/fused_mlp.py:432", src_mlp_bwd,
@@ -709,7 +763,13 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
              lambda w, v: w == "transition_bwd",
              tra_shapes + [dict(tra_shapes[-1], ties=True)], 0))
         if path == "s960train":
+            # K1 in training: the dense tails and adapters of blocks 0-3
+            # and 14 (one grid each), the window groups' of stages 3 and 4
             specs += [
+                ("K1 fused_mlp (tail, training)", "mlp_tail", *mlp,
+                 lambda w, v: w == "fused_mlp" and v == "ln", tokens, 2),
+                ("K1 fused_mlp (adapter, training)", "mlp_adapter", *mlp,
+                 lambda w, v: w == "fused_mlp" and v == "no_ln", tokens, 2),
                 ("K6 fused_window_block (n_pad=0)", "window", f"{fab}:354",
                  src_ab, *k6_held(k6_full), 0),
                 ("K6 fused_window_block (n_pad>0)", "window", f"{fab}:354",
@@ -749,10 +809,14 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
                dict(batch=objects, S=1024, Sk=7, heads=8, d=16),
                dict(batch=9 * b, S=49, Sk=196, heads=8, d=96)]
         k14_held = {f"Sq={g['S']},Sk={g['Sk']},d={g['d']}" for g in k14}
+        groups = [dict(tokens=n, c=c) for hh, c, win in
+                  ((32, 384, 14), (16, 768, 7))
+                  for n in group_rows(b, hh, win)]
         return [
             ("K1 fused_mlp (tail)", "mlp_tail", *mlp,
              lambda w, v: w == "fused_mlp" and v == "ln",
-             [dict(tokens=b * hh * hh, c=c) for hh, c in zip(grids, cs)], 2),
+             [dict(tokens=b * hh * hh, c=c) for hh, c in zip(grids, cs)]
+             + groups, 2),
             ("K4 fused_window_block_strips", "strips", f"{fab}:1021", src_ab,
              lambda w, v: w == "fused_window_block_strips",
              [dict(batch=b, grid=128, c=96, heads=1, window=8),
@@ -848,13 +912,17 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
         ]
     if path == "l352":
         grids, cs = (88, 44, 22, 11), (144, 288, 576, 1152)
+        # the dense grids (the transitions' tails at 22 and 11 among them),
+        # then the rows of the window groups of 22x22 w16 and 11x11 w8
+        k1 = ([dict(tokens=b * hh * hh, c=c) for hh, c in zip(grids, cs)]
+              + [dict(tokens=n, c=c) for hh, c, win in
+                 ((22, 576, 16), (11, 1152, 8))
+                 for n in group_rows(b, hh, win)])
         return [
             ("K1 fused_mlp (tail)", "mlp_tail", *mlp,
-             lambda w, v: w == "fused_mlp" and v == "ln",
-             [dict(tokens=b * hh * hh, c=c) for hh, c in zip(grids, cs)], 2),
+             lambda w, v: w == "fused_mlp" and v == "ln", k1, 2),
             ("K1 fused_mlp (adapter)", "mlp_adapter", *mlp,
-             lambda w, v: w == "fused_mlp" and v == "no_ln",
-             [dict(tokens=b * hh * hh, c=c) for hh, c in zip(grids, cs)], 2),
+             lambda w, v: w == "fused_mlp" and v == "no_ln", k1, 2),
             ("K4 fused_window_block_strips", "strips", f"{fab}:1021", src_ab,
              lambda w, v: w == "fused_window_block_strips",
              [dict(batch=b, grid=88, c=144, heads=2, window=8),
@@ -2025,6 +2093,230 @@ def train_main_phase(path: str, tmp: Path, step_seeds: list[int],
     return variants
 
 
+# the hand-written kernels the train CLI's trace must name (by the C entry
+# points' profiler annotations, ops/build.py)
+TRACE_KERNELS = {"K1": ("k1_fused_mlp",), "K2": ("k2_mlp_bwd_dx",),
+                 "K3": ("k3_adapter_bwd",), "K10": ("k10_flash_attention",),
+                 "K11": ("k11_flash_attention_bwd_delta",
+                         "k11_flash_attention_bwd_dq",
+                         "k11_flash_attention_bwd_dkv")}
+
+
+def trace_device_time(path: str) -> dict[str, list]:
+    """Device time (us) and count by kernel of a torch.profiler Chrome
+    trace: a device kernel launched inside a C entry point's annotation is
+    counted under the entry point's name (its launch is the runtime call of
+    the same correlation id, inside the annotation's span on its thread),
+    any other under its own name."""
+    import bisect
+
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+    spans = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name", "").startswith("k"):
+            spans[(e["pid"], e["tid"])].append((e["ts"], e["ts"] + e["dur"],
+                                                e["name"]))
+    for v in spans.values():
+        v.sort()
+    starts = {k: [t0 for t0, _, _ in v] for k, v in spans.items()}
+    out: dict[str, list] = collections.defaultdict(lambda: [0.0, 0])
+    for k in kernels:
+        name = k["name"]
+        launch = launches.get(k.get("args", {}).get("correlation"))
+        if launch is not None:
+            key = (launch["pid"], launch["tid"])
+            i = bisect.bisect_right(starts.get(key, []), launch["ts"]) - 1
+            if i >= 0 and spans[key][i][1] >= launch["ts"]:
+                name = spans[key][i][2]
+        out[name][0] += k["dur"]
+        out[name][1] += 1
+    return out
+
+
+def cli_main_phase(path: str, tmp: Path, card: str) -> dict:
+    """The train CLI at its defaults with --full_eval and --profile_dir, the
+    device evaluation of its checkpoint, the test CLI and the eval CLI on
+    it; the loader A/B (native against PIL) on the epoch's img/s."""
+    import os
+
+    import torch
+
+    from sam2unet_torch.cli import eval_cli, test_cli, train_cli
+    from sam2unet_torch.data import native_loader
+    from sam2unet_torch.data.dataset import EvalDataset
+    from sam2unet_torch.ops import dispatch
+    from sam2unet_torch.train.engine import evaluate
+
+    spec = PATHS[path]
+    label, cfg, size = spec["label"], spec["cfg"], spec["size"]
+    train_data, data = tmp / "cli_train", tmp / "cli_test"
+    ckpt, out, prof = tmp / f"{cfg}.pth", tmp / "cli_run", tmp / "cli_trace"
+    write_dataset(train_data, n=spec["train_images"], seed=2)
+    write_dataset(data, n=spec["eval_images"], seed=3)
+    if not ckpt.exists():
+        random_checkpoint(ckpt, cfg, seed=0)
+    print(f"[main] {label} data loader: {native_loader.status()}", flush=True)
+    common = ["--checkpoint", str(ckpt),
+              "--train_image_path", str(train_data / "images"),
+              "--train_mask_path", str(train_data / "masks"),
+              "--test_image_path", str(data / "images"),
+              "--test_gt_path", str(data / "masks"), "--bf16", "--epoch", "1",
+              "--num_workers", "8", "--device", DEV]
+    args = train_cli.build_parser().parse_args(
+        common + ["--save_path", str(out), "--full_eval",
+                  "--profile_dir", str(prof)])
+    if (args.size, args.model_cfg, args.batch_size) != (size, cfg, 16):
+        fail(f"{label}: the train CLI's defaults are no longer hiera_s@960 "
+             f"batch 16: {args.size}, {args.model_cfg}, {args.batch_size}")
+    dispatch.reset_launches()
+    stats = train_cli.main(args)
+    torch.cuda.synchronize()
+    counts, variants = dict(dispatch.launches), dict(dispatch.variants)
+    steps, evals = stats["steps"], stats["eval_forwards"]
+    ips = spec["train_images"] / stats["epoch_seconds"][0]
+    report = stats["reports"][0]
+    print(f"[main] {label} train_cli --bf16 --epoch 1 --full_eval "
+          f"--profile_dir (the CLI defaults: --size {args.size} --model_cfg "
+          f"{args.model_cfg} --batch_size {args.batch_size}): {steps} steps, "
+          f"epoch {stats['epoch_seconds'][0]:.2f} s, {ips:.2f} img/s (host "
+          f"clock, steps 10-14 under the profiler) on {card}; losses "
+          f"{[round(v, 4) for v in stats['losses']]}; launches {counts}",
+          flush=True)
+    print(f"[main] {label} --full_eval (host path, {spec['eval_images']} "
+          f"images): mIoU {report['mIoU']:.4f}, mDice {report['mDice']:.4f}, "
+          f"{stats['eval_seconds'][0]:.2f} s on {card}; report {report}",
+          flush=True)
+    if steps != spec["train_images"] // 16 or not stats["saved"]:
+        fail(f"{label}: {steps} steps and checkpoints {stats['saved']}")
+    if not all(math.isfinite(v) for v in stats["losses"]):
+        fail(f"{label}: a logged loss is not finite: {stats['losses']}")
+    per_step = PATHS["s960train"]["per_step"]
+    per_forward = PATHS["s960"]["per_forward"]
+    for name in sorted(set(per_step) | set(counts)):
+        want = per_step.get(name, 0) * steps + per_forward.get(name, 0) * evals
+        if counts.get(name, 0) != want:
+            fail(f"{label}: {name} launched {counts.get(name, 0)} times, "
+                 f"expected {want} ({steps} steps, {evals} eval forwards)")
+    print(f"[main] {label} launches = s960train's per step x {steps} + "
+          f"s960's per eval forward x {evals}", flush=True)
+
+    # the trace of steps 10-14
+    trace = stats["trace"]
+    if not trace or not Path(trace).is_file():
+        fail(f"{label}: --profile_dir wrote no trace ({trace})")
+    by_name = trace_device_time(trace)
+    if not by_name:
+        fail(f"{label}: the trace {trace} holds no device kernel")
+    busy = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    print(f"[main] {label} trace {trace} ({Path(trace).stat().st_size} "
+          f"bytes), steps 10-14 on {card}: device kernels busy "
+          f"{busy / 1e3:.2f} ms; the five most expensive kernels by device "
+          f"time:", flush=True)
+    for name, (us, n) in top:
+        print(f"[main]   {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% {n:6d} "
+              f"calls  {name[:100]}", flush=True)
+    for k, entries in TRACE_KERNELS.items():
+        us = sum(by_name.get(e, [0.0])[0] for e in entries)
+        n = sum(by_name.get(e, [0, 0])[1] for e in entries)
+        print(f"[main] {label} trace: {k} ({'/'.join(entries)}) {us / 1e3:.3f} "
+              f"ms over {n} device kernels", flush=True)
+        if not us:
+            fail(f"{label}: the trace names no device time of {k}")
+
+    # the device evaluation at the same weights, the test and eval CLIs
+    model = _train_model(cfg, Path(stats["saved"][-1]))
+    t0 = time.perf_counter()
+    device_report, _ = evaluate(model, EvalDataset(
+        str(data / "images"), str(data / "masks"), size), 16, size,
+        torch.device(DEV))
+    torch.cuda.synchronize()
+    print(f"\n[main] {label} device eval of the checkpoint (the CLI's "
+          f"default): mIoU {device_report['mIoU']:.4f}, mDice "
+          f"{device_report['mDice']:.4f}, {time.perf_counter() - t0:.2f} s "
+          f"on {card}", flush=True)
+    del model
+    preds = tmp / "cli_preds"
+    tstats = test_cli.main(test_cli.build_parser().parse_args([
+        "--checkpoint", stats["saved"][-1], "--test_image_path",
+        str(data / "images"), "--test_gt_path", str(data / "masks"),
+        "--save_path", str(preds), "--bf16", "--batch_size", "4",
+        "--device", DEV]))
+    final = eval_cli.main(eval_cli.build_parser().parse_args(
+        ["--pred_path", str(preds), "--gt_path", str(data / "masks")]))
+    print(f"[main] {label} test_cli ({tstats['forwards']} forwards, "
+          f"mean_test_time {tstats['mean_test_time']:.4f} s/image) then "
+          f"eval_cli: mIoU {final['mIoU']:.4f}, mDice {final['mDice']:.4f} "
+          f"on {card}", flush=True)
+    for name, rep in (("full_eval", report), ("device eval", device_report),
+                      ("eval_cli", final)):
+        if not all(math.isfinite(v) for v in rep.values()):
+            fail(f"{label}: the {name} report is not finite: {rep}")
+
+    # the loader A/B: the same run without the profiler and the host eval,
+    # native then PIL then native then PIL
+    if not native_loader.available():
+        print(f"[main] {label} loader A/B skipped: {native_loader.status()}",
+              flush=True)
+        return variants
+    rates = collections.defaultdict(list)
+    for i, mode in enumerate(("native", "PIL", "native", "PIL")):
+        os.environ.pop("SAM2UNET_NO_NATIVE_LOADER", None)
+        if mode == "PIL":
+            os.environ["SAM2UNET_NO_NATIVE_LOADER"] = "1"
+        try:
+            ab = train_cli.main(train_cli.build_parser().parse_args(
+                common + ["--save_path", str(tmp / f"cli_ab{i}")]))
+        finally:
+            os.environ.pop("SAM2UNET_NO_NATIVE_LOADER", None)
+        rates[mode].append(spec["train_images"] / ab["epoch_seconds"][0])
+    print(f"[main] {label} loader A/B, epoch img/s (host clock, 15 steps, "
+          f"order native, PIL, native, PIL) on {card}: native "
+          f"{[round(r, 2) for r in rates['native']]}, PIL "
+          f"{[round(r, 2) for r in rates['PIL']]}", flush=True)
+    return variants
+
+
+def grouping_ab_phase(path: str, batch: int, card: str) -> None:
+    """The path's step (a forward or a train step) with the persistent
+    window groups and per block (SAM2UNET_DISABLE_GROUPED=1), alternating:
+    ms by CUDA events, 5 steps after 2 warm-ups each time."""
+    import os
+
+    import torch
+
+    run, what = _runner(path, batch)
+    ms = collections.defaultdict(list)
+    try:
+        for mode in ("grouped", "per-block", "grouped", "per-block"):
+            os.environ.pop("SAM2UNET_DISABLE_GROUPED", None)
+            if mode == "per-block":
+                os.environ["SAM2UNET_DISABLE_GROUPED"] = "1"
+            for _ in range(2):
+                run()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                run()
+            end.record()
+            end.synchronize()
+            ms[mode].append(start.elapsed_time(end) / 5)
+    finally:
+        os.environ.pop("SAM2UNET_DISABLE_GROUPED", None)
+    print(f"[ab] {PATHS[path]['label']} bf16 batch {batch}, ms/{what}, order "
+          f"grouped, per-block, grouped, per-block, on {card}: grouped "
+          f"{[round(v, 2) for v in ms['grouped']]}, per-block "
+          f"{[round(v, 2) for v in ms['per-block']]}", flush=True)
+    del run
+    torch.cuda.empty_cache()
+
+
 def _train_model(cfg: str, ckpt: Path | None = None, bf16: bool = True):
     """A model for training on the card: with bf16, the frozen trunk in
     bf16 and the rest fp32; else all fp32."""
@@ -2411,7 +2703,7 @@ def main() -> None:
     ap.add_argument("--phases", default="build,kernels,main,throughput")
     ap.add_argument("--paths",
                     default="l352,s960,l352train,s960train,s1024sam2,"
-                            "s1024video,t512video,t1024amg")
+                            "s1024video,t512video,t1024amg,s960cli")
     ap.add_argument("--batch", type=int, default=32,
                     help="kernel, throughput and profile batch at hiera_l@352")
     ap.add_argument("--batch960", type=int, default=16,
@@ -2476,12 +2768,16 @@ def main() -> None:
                     variants[path] = amg_main_phase(path)
                 elif PATHS[path].get("sam2"):
                     variants[path] = sam2_main_phase(path)
+                elif PATHS[path].get("cli"):
+                    variants[path] = cli_main_phase(path, Path(tmp), card)
                 elif PATHS[path].get("train"):
                     variants[path] = train_main_phase(
                         path, Path(tmp), [int(s) for s in args.step_seeds.split(",")],
                         args.step_report)
                 else:
                     variants[path] = main_path_phase(path, Path(tmp))
+            if PATHS[path].get("cli"):
+                continue   # its epoch img/s, A/B and trace are the main phase's
             if "throughput" in phases and PATHS[path].get("video"):
                 video_throughput_phase(path, card)
             elif "throughput" in phases and PATHS[path].get("amg"):
@@ -2492,6 +2788,8 @@ def main() -> None:
                 throughput_phase(path, batch, card)
                 if PATHS[path].get("remat"):
                     throughput_phase(path, batch, card, remat=True)
+                if PATHS[path].get("grouping_ab"):
+                    grouping_ab_phase(path, batch, card)
             if "profile" in phases:
                 profile_phase(path, batch, card)
                 if PATHS[path].get("sam2"):
@@ -2500,7 +2798,8 @@ def main() -> None:
     # a wrapper that a path's entries hold against the plain version is held
     # at every shape (variant) that path's run gave it
     for path, seen in variants.items():
-        selects = [e["select"] for e in entries if e["path"] == path]
+        holders = PATHS[path].get("held_by", (path,))
+        selects = [e["select"] for e in entries if e["path"] in holders]
         held = {w for w, v in seen if any(sel(w, v) for sel in selects)}
         loose = sorted(f"{w}[{v}]" for w, v in seen
                        if w in held and not any(sel(w, v) for sel in selects))

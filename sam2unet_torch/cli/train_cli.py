@@ -1,7 +1,7 @@
 """Training entry point, flag-compatible with the JAX package's train CLI
 (sam2unet_tpu/cli/train_cli.py:35-80, itself the reference train.py's
 flags) plus --device: per epoch, the train steps (bf16 compute over fp32
-master parameters with --bf16), then device evaluation with the IoU-gated
+master parameters with --bf16), then evaluation with the IoU-gated
 checkpoint policy and the reference's log.txt report. Its defaults are the
 fork's operating point, hiera_s at 960 with batch 16.
 
@@ -9,14 +9,22 @@ fork's operating point, hiera_s at 960 with batch 16.
         --train_image_path train/images/ --train_mask_path train/masks/ \
         --test_image_path test/images/ --test_gt_path test/masks/ \
         [--size 352 --model_cfg sam2_hiera_l] [--remat] \
-        [--save_train_state] [--resume run/<snapshot>_train_state]
+        [--save_train_state] [--resume run/<snapshot>_train_state] \
+        [--full_eval] [--profile_dir trace/]
 
 --remat recomputes each trunk block in the backward (less memory, more
 time). --save_train_state writes `<snapshot>_train_state` beside each
 snapshot (model, AdamW moments, epochs and steps done), and --resume
 continues from such a file: the epoch count and the optimizer go on where
 they stopped, and the cosine schedule, a function of the epoch and this
-run's --lr and --epoch, with them.
+run's --lr and --epoch, with them. The evaluation runs on the device at
+model resolution (mIoU and mDice against the letterboxed GT), or with
+--full_eval on the host as the reference does: each image's logits cropped
+and resized to its GT's resolution, binarized, and scored for semantic and
+instance metrics (`eval/metrics.py`); the checkpoint gate reads mIoU
+either way. --profile_dir writes a torch.profiler trace (CPU and CUDA
+activities, Chrome JSON) of this run's steps 10-14 into the directory, or
+of the steps from 10 on if the run ends first.
 """
 
 from __future__ import annotations
@@ -27,10 +35,20 @@ import time
 
 import torch
 
-from sam2unet_torch.cli.common import build_model, load_weights, resolve_device
+from sam2unet_torch.cli.common import (
+    build_model,
+    load_weights,
+    postprocess_prediction,
+    resolve_device,
+)
 from sam2unet_torch.configs import hiera_config
 from sam2unet_torch.data.dataset import EvalDataset, TrainDataset
-from sam2unet_torch.eval.metrics import MIOU, print_eval_report
+from sam2unet_torch.eval.metrics import (
+    MIOU,
+    evaluate_dataset,
+    evaluate_segmentation_performance,
+    print_eval_report,
+)
 from sam2unet_torch.models.hiera import unported_train_backward
 from sam2unet_torch.models.sam2unet import cast_frozen
 from sam2unet_torch.train.checkpoints import (
@@ -38,16 +56,19 @@ from sam2unet_torch.train.checkpoints import (
     restore_train_state,
     save_train_state,
 )
-from sam2unet_torch.train.engine import evaluate, fp32_state_dict, train_step
+from sam2unet_torch.train.engine import (
+    eval_logits,
+    evaluate,
+    fp32_state_dict,
+    train_step,
+)
 from sam2unet_torch.train.optim import cosine_lr, make_optimizer, set_lr
 
 # flags of the JAX CLI that the port does not run yet, and the ROADMAP.md
 # item that will port each
-UNPORTED = {
-    "full_eval": "queue 1 item 6 (the host evaluator, eval/metrics.py)",
-    "shard_map": "queue 1 item 12 (parallelism)",
-    "profile_dir": "queue 1 item 13 (tooling)",
-}
+UNPORTED = {"shard_map": "queue 1 item 12 (parallelism)"}
+# the profiled steps of a run, as the JAX CLI's trace window
+PROFILE_STEPS = (10, 15)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -78,10 +99,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--fast_eval", action="store_true",
                    help="deprecated: device-side semantic eval is the default")
-    p.add_argument("--full_eval", action="store_true", help="not ported yet")
+    p.add_argument("--full_eval", action="store_true",
+                   help="reference-style host eval: per-image un-pad + resize "
+                        "to GT resolution, semantic AND instance metrics "
+                        "(train.py:89-123). Slower; the default device eval "
+                        "computes mIoU/mDice at model resolution -- the "
+                        "checkpoint gate uses mIoU only either way")
     p.add_argument("--shard_map", action="store_true", help="not ported yet")
     p.add_argument("--profile_dir", type=str, default="",
-                   help="not ported yet")
+                   help="write a torch.profiler trace of steps 10-14 here")
     p.add_argument("--resume", type=str, default="",
                    help="train state file to resume from (optimizer, "
                         "epoch and step included; the reference "
@@ -103,6 +129,48 @@ def check_ported(model_cfg: str, size: int, device: torch.device) -> None:
             f"training {model_cfg} at --size {size} on the card needs "
             f"backward kernels sam2unet_torch has not ported yet (ROADMAP.md "
             f"queue 2, TPU kernels still to port): {'; '.join(gaps)}")
+
+
+def full_evaluate(model, test_data: EvalDataset, batch_size: int, size: int,
+                  device: torch.device) -> tuple[dict, int]:
+    """The JAX CLI's host evaluation (cli/train_cli.py:235-251 there): per
+    image the logits on the host, the test postprocess at GT resolution
+    (`postprocess_prediction`), the per-image metrics, then the dataset's.
+    Its "images_count" is the GT instance count (the reference's quirk).
+    Returns (report dict, forwards run)."""
+    results, forwards = [], 0
+    for bi, eb in enumerate(test_data.batches(batch_size)):
+        logits = eval_logits(model, torch.from_numpy(eb["image"]).to(device))
+        logits = logits.float().cpu().numpy()
+        forwards += 1
+        for j in range(eb["valid"]):
+            res = postprocess_prediction(logits[j: j + 1], eb["padding"][j],
+                                         size, eb["gt"][j].shape)
+            results.append(evaluate_segmentation_performance(res, eb["gt"][j]))
+            if (bi * batch_size + j) % 10 == 0:
+                print(".", end="", flush=True)
+    return evaluate_dataset(results), forwards
+
+
+def start_profile(device: torch.device) -> torch.profiler.profile:
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof: torch.profiler.profile, out_dir: str, first: int,
+                 last: int, device: torch.device) -> str:
+    """Stop the trace after the queued work and write it as Chrome JSON."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"train_steps_{first}-{last}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 def main(args) -> dict:
@@ -136,6 +204,8 @@ def main(args) -> dict:
                               args.save_interval, args.epoch)
 
     losses, saved, steps, eval_forwards = [], [], 0, 0
+    reports, epoch_seconds, eval_seconds = [], [], []
+    prof = trace = None
     start_epoch = steps_before = 0
     if args.resume:
         start_epoch, steps_before = restore_train_state(
@@ -149,28 +219,48 @@ def main(args) -> dict:
         n_imgs, epoch_losses = 0, []
         for i, batch in enumerate(dataset.epoch(args.batch_size, epoch,
                                                 num_workers=args.num_workers)):
+            if args.profile_dir and steps == PROFILE_STEPS[0]:
+                prof = start_profile(device)
             images = torch.from_numpy(batch.image).to(device)
             labels = torch.from_numpy(batch.label).to(device)
             loss = train_step(model, optimizer, images, labels)
             epoch_losses.append(loss)
             n_imgs += batch.valid
             steps += 1
+            if prof is not None and steps == PROFILE_STEPS[1]:
+                trace = stop_profile(prof, args.profile_dir, PROFILE_STEPS[0],
+                                     steps - 1, device)
+                prof = None
+                print(f"profiler trace written to {args.profile_dir}")
             if i % 10 == 0:
                 print(f"epoch-{epoch + 1}-{i + 1}: loss:{float(loss)}")
+        if prof is not None:
+            # the run ended before the window filled: flush what there is
+            trace = stop_profile(prof, args.profile_dir, PROFILE_STEPS[0],
+                                 steps - 1, device)
+            prof = None
+            print(f"profiler trace (short run) written to {args.profile_dir}")
         epoch_losses = torch.stack(epoch_losses).float().cpu().tolist()
         losses += epoch_losses
         epoch_loss = epoch_losses[-1]
         dt = time.perf_counter() - t_epoch
+        epoch_seconds.append(dt)
         print(f"epoch-{epoch + 1}: {n_imgs} imgs in {dt:.1f}s "
               f"({n_imgs / max(dt, 1e-9):.2f} img/s, host clock)")
 
         print("Evaluating", end="")
         t_eval = time.perf_counter()
-        result, forwards = evaluate(model, test_data, eval_bs, args.size,
+        run_eval = full_evaluate if args.full_eval else evaluate
+        result, forwards = run_eval(model, test_data, eval_bs, args.size,
                                     device)
         eval_forwards += forwards
+        eval_seconds.append(time.perf_counter() - t_eval)
+        reports.append(result)
+        # with --full_eval "images_count" is the GT instance count (the
+        # reference's quirk): report the real images here
         print(f"\nepoch-{epoch + 1} eval: {test_data.count} imgs in "
-              f"{time.perf_counter() - t_eval:.1f}s (device path)")
+              f"{eval_seconds[-1]:.1f}s "
+              f"({'host' if args.full_eval else 'device'} path)")
         print_eval_report(result, title=f"epoch-{epoch + 1}_loss-{epoch_loss:.3f}",
                           log_path=log_path)
         out = policy.maybe_save(epoch + 1, epoch_loss, result[MIOU],
@@ -183,7 +273,9 @@ def main(args) -> dict:
                                  epoch + 1, steps_before + steps)
     return {"steps": steps, "eval_forwards": eval_forwards, "losses": losses,
             "saved": saved, "log": log_path, "start_epoch": start_epoch,
-            "global_step": steps_before + steps}
+            "global_step": steps_before + steps, "reports": reports,
+            "epoch_seconds": epoch_seconds, "eval_seconds": eval_seconds,
+            "trace": trace}
 
 
 def run() -> None:

@@ -2,7 +2,11 @@
 TrainDataset and EvalDataset (sam2unet_tpu/data/dataset.py; reference
 FullDataset dataset.py:288-333 and TestDataset dataset.py:405-447).
 
-Sorted .jpg/.png images and .png masks, PIL decode. Train samples are
+Sorted .jpg/.png images and .png masks. JPEGs decode through the native
+loader (`data/native_loader.py`, libjpeg) where it builds and is not turned
+off (SAM2UNET_NO_NATIVE_LOADER=1), else through PIL, as the JAX package's
+datasets do (dataset.py:47-66, :147-159 there); the eval items take its
+fused letterbox and normalization too. Train samples are
 augmented with a per-sample seed derived from (dataset seed, epoch, index)
 and collated into fixed-shape NHWC batches by a thread pool feeding a
 bounded queue; a ragged last batch is wrap-filled with real samples and
@@ -21,6 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 from PIL import Image
 
+from sam2unet_torch.data import native_loader
 from sam2unet_torch.data.transforms import (
     TrainAugment,
     letterbox,
@@ -39,6 +44,10 @@ def _list_pairs(image_root: str, gt_root: str) -> tuple[list[str], list[str]]:
 
 def load_rgb(path: str) -> np.ndarray:
     """(3, H, W) float32 in [0, 1]."""
+    if path.endswith(".jpg") and native_loader.enabled():
+        rgb = native_loader.decode_jpeg(path)  # the pixels PIL gives
+        if rgb is not None:
+            return rgb.astype(np.float32).transpose(2, 0, 1) / 255.0
     with open(path, "rb") as f:
         img = Image.open(f).convert("RGB")
     return np.asarray(img, np.float32).transpose(2, 0, 1) / 255.0
@@ -106,9 +115,15 @@ class EvalDataset:
         """(image (1,S,S,3) normalized NHWC, gt (H,W) float, name, padding)."""
         path = self.images[i]
         gt = np.asarray(Image.open(self.gts[i]).convert("L"), np.float32)
+        name = os.path.basename(path)
+        if path.endswith(".jpg") and native_loader.enabled():
+            rgb = native_loader.decode_jpeg(path)
+            if rgb is not None:
+                hwc, padding = native_loader.letterbox_norm(rgb, self.size)
+                return hwc[None], gt, name, padding
         padded, padding = letterbox(load_rgb(path), self.size)
         padded = normalize(padded)
-        return padded.transpose(1, 2, 0)[None], gt, os.path.basename(path), padding
+        return padded.transpose(1, 2, 0)[None], gt, name, padding
 
     def batches(self, batch_size: int, letterbox_gt: bool = False) -> Iterator[dict]:
         """Fixed-shape batches; the tail batch is zero-padded, `valid`

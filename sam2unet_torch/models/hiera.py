@@ -2,14 +2,22 @@
 SAM2-UNet PEFT adapters, NHWC between blocks.
 
 Each block picks its path from the static grid geometry, in the JAX
-package's order (sam2unet_tpu/models/hiera.py:210-310):
-  - dim-preserving, remainder or 16-unaligned grid with n_w >= 4 columns of
-    windows (`strips_rem_supported`; hiera_s@960 stages 3-4) -> K12;
-  - dim-preserving, other remainder grids (hiera_l@352 stages 3-4) -> K6
-    per valid window group, with the synthetic pad key for the reference's
-    zero pads;
+package's order (sam2unet_tpu/models/hiera.py:210-466):
+  - dim-preserving, remainder or 16-unaligned grid that passes the JAX
+    package's remainder-strip gate (`strips_rem_supported`: n_w >= 4 columns
+    of windows and its VMEM estimate; hiera_s@960 stages 3-4 in eval) ->
+    K12, outside training only;
+  - dim-preserving, other remainder grids (hiera_l@352 stages 3-4, every
+    remainder grid in training) -> the persistent valid-group layout
+    (`ops/grouped.py`, `_groupable_block`): the Hiera loop partitions the
+    tokens into pad-free window groups once at the start of a run of such
+    blocks and merges them once at its end; inside the run each block runs
+    K6 once per group (with the synthetic pad key of the group's n_pad), a
+    global block joins the run over the concatenated tokens, and the block
+    tail and the adapter run K1 once per group;
   - dim-preserving, window-divisible 16-aligned grid -> K4 (strip kernel);
-  - dim-preserving, divisible but unaligned window -> K6 on the partition;
+  - dim-preserving, divisible but unaligned window, with the layout off ->
+    K6 on the partition;
   - global -> `fused_window_block`: K6 (S = 484 at 352), or where one
     window's scores pass the JAX package's live-VMEM gate LN -> QKV -> K10
     -> proj past 1024 tokens (S = 3600 at 960) and the plain form up to
@@ -18,27 +26,29 @@ package's order (sam2unet_tpu/models/hiera.py:210-310):
     where the copied `transition_bwd_supported` holds and the block is
     frozen, hiera.py:318-327 there);
   - any other transition (stage 3->4 at 352 and 960) -> plain tensor code;
-  - every block's LN2 -> MLP -> residual tail and every adapter -> K1.
-In training (`module.training`) the remainder strips (K12) are left for the
-valid groups, as the JAX package keeps them eval-only. The kernel wrappers
-are differentiable: the frozen blocks' backward is K5 (strips), K7 (valid
-groups with n_pad = 0, global blocks up to 1024 tokens), the long form's
-backward over K11 (the 3600-token global blocks of hiera_s@960), K9
-(transitions) and K2 (tails), the adapters' is K3, and the remainder
-groups' pad-key blocks and the plain transition go through autograd of the
-plain versions; where the JAX package runs a backward kernel not ported yet
-(K7's weight-gradient mode, `unported_train_backward`) the backward raises
-on the card. With adapters the trunk is frozen as in the reference
-(SAM2UNet.py:146-147): every parameter but the adapters' has requires_grad
-False. The drop-path rate is 0 in every SAM2 config, so drop path is the
-identity. `remat=True` runs each block under `torch.utils.checkpoint`, the
-counterpart of the JAX package's `nn.remat` per block: the block's
-activations are recomputed in the backward instead of kept. SAM2's own
-trunk (`use_adapters=False`) has the same blocks without the adapters and
-is not frozen.
+  - every other block's LN2 -> MLP -> residual tail and adapter -> K1.
+SAM2UNET_DISABLE_GROUPED=1 (the JAX package's switch, same name and
+meaning) partitions and merges around each block instead, for A/Bs. The
+kernel wrappers are differentiable: the frozen blocks' backward is K5
+(strips), K7 (window groups with n_pad = 0, global blocks up to 1024
+tokens), the long form's backward over K11 (the 3600-token global blocks of
+hiera_s@960), K9 (transitions) and K2 (tails), the adapters' is K3, all per
+group inside a grouped run, and the pad-key groups and the plain transition
+go through autograd of the plain versions; where the JAX package runs a
+backward kernel not ported yet (K7's weight-gradient mode,
+`unported_train_backward`) the backward raises on the card. With adapters
+the trunk is frozen as in the reference (SAM2UNet.py:146-147): every
+parameter but the adapters' has requires_grad False. The drop-path rate is
+0 in every SAM2 config, so drop path is the identity. `remat=True` runs each
+block under `torch.utils.checkpoint`, the counterpart of the JAX package's
+`nn.remat` per block: the block's activations are recomputed in the
+backward instead of kept. SAM2's own trunk (`use_adapters=False`) has the
+same blocks without the adapters and is not frozen.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -61,6 +71,7 @@ from sam2unet_torch.ops.fused_transition import (
     fused_transition_block,
     transition_bwd_supported,
 )
+from sam2unet_torch.ops.grouped import GroupedTokens
 from sam2unet_torch.ops.pooling import max_pool2d
 from sam2unet_torch.ops.windowing import window_partition, window_unpartition
 
@@ -116,14 +127,19 @@ class MultiScaleBlock(nn.Module):
     def frozen(self) -> bool:
         return not any(p.requires_grad for p in self.parameters())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
+        if isinstance(x, GroupedTokens):
+            return self._grouped(x)
         b, h, w, c = x.shape
         window = self.window_size
         train = self.training
         if self.dim == self.dim_out:
             args = self._attn_args()
             nh = self.num_heads
-            if strips_rem_supported(h, w, window, train):
+            rem_grid = window > 0 and (h % window or w % window
+                                       or (window * window) % 16)
+            if rem_grid and not train and strips_rem_supported(
+                    h, w, window, c, nh, x.dtype.itemsize):
                 x = fused_window_block_strips_rem(x, *args, num_heads=nh,
                                                   window=window)
             elif window > 0 and (h % window or w % window):
@@ -152,10 +168,28 @@ class MultiScaleBlock(nn.Module):
                 num_heads=self.num_heads, window=window)
         else:
             x = self._unfused(x)
+        return self._tail(x)
+
+    def _tail(self, x: torch.Tensor) -> torch.Tensor:
         m = self.mlp.layers
         return fused_mlp(x, m[0].weight, m[0].bias, m[1].weight, m[1].bias,
                          ln_w=self.norm2.weight, ln_b=self.norm2.bias,
                          residual=True)
+
+    def _grouped(self, x: GroupedTokens) -> GroupedTokens:
+        """The dim-preserving block over the persistent window groups
+        (hiera.py:415-466 there): K6 once per group with its n_pad; a global
+        block over the concatenated tokens (attention is equivariant under
+        their order), split back; the tail once per group."""
+        args, nh = self._attn_args(), self.num_heads
+        if self.window_size == 0:
+            x = x.split_tokens(fused_window_block(x.concat_tokens(), *args,
+                                                  num_heads=nh))
+        else:
+            x = x.with_groups(
+                fused_window_block(g, *args, num_heads=nh, n_pad=n_pad)
+                for g, n_pad in zip(x.groups, x.n_pads))
+        return x.with_groups(self._tail(g) for g in x.groups)
 
     def _unfused(self, x: torch.Tensor) -> torch.Tensor:
         """Plain q-pool / dim-change branch (hiera.py:361-383)."""
@@ -193,11 +227,16 @@ class AdapterBlock(nn.Module):
             nn.Linear(adapter_dim, dim), nn.GELU())
         self.block = block
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         p = self.prompt_learn
-        xa = fused_mlp(x, p[0].weight, p[0].bias, p[2].weight, p[2].bias,
-                       residual=True, gelu_out=True)
-        return self.block(xa)
+
+        def adapter(t):
+            return fused_mlp(t, p[0].weight, p[0].bias, p[2].weight,
+                             p[2].bias, residual=True, gelu_out=True)
+        if isinstance(x, GroupedTokens):
+            # per token: once per window group, the layout kept
+            return self.block(x.with_groups(adapter(g) for g in x.groups))
+        return self.block(adapter(x))
 
 
 def _block_plan(cfg: HieraConfig) -> list[dict]:
@@ -222,6 +261,41 @@ def _block_plan(cfg: HieraConfig) -> list[dict]:
             mlp_ratio=cfg.mlp_ratio))
         embed_dim = dim_out
     return plan
+
+
+def _groupable_block(bk: dict, h: int, w: int, itemsize: int,
+                     train: bool) -> bool:
+    """Whether a block runs on the persistent `GroupedTokens` layout (the
+    JAX package's `_groupable_block`, hiera.py:509-537): dim-preserving, no
+    active drop path in training, and a window geometry that neither the
+    strip kernel (a divisible 16-aligned grid) nor, outside training, the
+    remainder strips take. Global blocks join any run."""
+    if bk["dim"] != bk["dim_out"] or bk["q_stride"] is not None:
+        return False
+    if train and bk.get("drop_path", 0.0) > 0.0:
+        return False
+    window = bk["window_size"]
+    if window == 0:
+        return True
+    if h % window == 0 and w % window == 0 and (window * window) % 16 == 0:
+        return False
+    return train or not strips_rem_supported(h, w, window, bk["dim"],
+                                             bk["num_heads"], itemsize)
+
+
+def _checkpointed(blk: nn.Module, x):
+    """`blk(x)` under `torch.utils.checkpoint`. A `GroupedTokens` crosses
+    as its group tensors, so autograd reaches the adapters through each."""
+    if not isinstance(x, GroupedTokens):
+        return checkpoint(blk, x, use_reentrant=False)
+    out = {}
+
+    def run(*groups):
+        y = blk(x.with_groups(groups))
+        out["layout"] = y
+        return y.groups
+    groups = checkpoint(run, *x.groups, use_reentrant=False)
+    return out["layout"].with_groups(groups)
 
 
 def unported_train_backward(cfg: HieraConfig, size: int,
@@ -272,7 +346,8 @@ class Hiera(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.embed_dim, bh, bw))
         self.pos_embed_window = nn.Parameter(
             torch.zeros(1, cfg.embed_dim, win0, win0))
-        blocks = (MultiScaleBlock(**bk) for bk in _block_plan(cfg))
+        self.plan = _block_plan(cfg)
+        blocks = (MultiScaleBlock(**bk) for bk in self.plan)
         self.blocks = nn.ModuleList(
             AdapterBlock(blk, adapter_dim) if use_adapters else blk
             for blk in blocks)
@@ -293,8 +368,22 @@ class Hiera(nn.Module):
         outputs = []
         ends = self.cfg.stage_ends
         remat = self.remat and torch.is_grad_enabled()
-        for i, blk in enumerate(self.blocks):
-            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+        # the persistent window-group layout (hiera.py:611-657 there): enter
+        # it at a groupable windowed block, keep it while the blocks are
+        # groupable at its window (or global), leave it at a stage end
+        grouping = not os.environ.get("SAM2UNET_DISABLE_GROUPED")
+        itemsize, train = x.dtype.itemsize, self.training
+        for i, (bk, blk) in enumerate(zip(self.plan, self.blocks)):
+            grouped = isinstance(x, GroupedTokens)
+            h, w = (x.h, x.w) if grouped else (x.shape[1], x.shape[2])
+            g_ok = grouping and _groupable_block(bk, h, w, itemsize, train)
+            if grouped and not (g_ok and bk["window_size"] in (0, x.window)):
+                x = x.to_dense()
+            elif not grouped and g_ok and bk["window_size"] > 0:
+                x = GroupedTokens.from_dense(x, bk["window_size"])
+            x = _checkpointed(blk, x) if remat else blk(x)
             if i in ends:
+                if isinstance(x, GroupedTokens):
+                    x = x.to_dense()
                 outputs.append(x)
         return outputs

@@ -1,4 +1,5 @@
-"""Build the CUDA kernels with nvcc at first use and load them with ctypes.
+"""Build the CUDA kernels with nvcc, and the host libraries with g++, at
+first use, and load them with ctypes.
 
 Each `csrc/*.cu` becomes one shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds). All sources compile in
@@ -6,7 +7,13 @@ parallel, one nvcc process each, into `build/torch_kernels/<hash>/` at the
 repository root; the hash covers every source, header and flag, so an
 edited source rebuilds and an unchanged one is reused. Pointers and the
 stream cross as `c_void_p`; each C entry point returns the CUDA error code
-of its launches, and `check` raises on a non-zero one.
+of its launches, and `check` raises on a non-zero one. While a
+torch.profiler trace records, each entry point's call is a user annotation
+named after it (`k1_fused_mlp`, ...), so a trace attributes the device
+kernels it launches (`gemm_bf16_kernel` serves several) to it. A host library
+(`csrc/*.cc`: connected components, the JPEG loader) is built by
+`host_library` into `build/native/<hash>/`, the hash over its source, flags
+and link libraries.
 """
 
 from __future__ import annotations
@@ -18,10 +25,15 @@ import shutil
 import subprocess
 import threading
 import time
+import types
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+HOST_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 SOURCES = ("fused_mlp", "fused_attention_block", "fused_transition",
            "flash_attention", "fused_mlp_bwd", "fused_attention_block_bwd",
            "fused_transition_bwd", "flash_attention_bwd", "full_attention",
@@ -81,7 +93,7 @@ SIGNATURES = {
 }
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[str, types.SimpleNamespace] = {}
 # seconds nvcc took for each source built by this process (they run at once,
 # so the slowest is the build's time)
 build_seconds: dict[str, float] = {}
@@ -141,17 +153,53 @@ def build_all() -> Path:
     return out
 
 
-def library(name: str) -> ctypes.CDLL:
+def _annotated(fn, name: str):
+    """`fn` inside a profiler range named `name` while a profiler runs."""
+    def call(*args):
+        if not torch._C._autograd._profiler_enabled():
+            return fn(*args)
+        with torch.profiler.record_function(name):
+            return fn(*args)
+    return call
+
+
+def library(name: str) -> types.SimpleNamespace:
+    """The entry points of `lib<name>.so`, building every library first."""
     with _lock:
         if name not in _libs:
             out = build_all()
             for src in SOURCES:
                 lib = ctypes.CDLL(str(out / f"lib{src}.so"))
+                entries = {}
                 for fn, argtypes in SIGNATURES[src].items():
                     getattr(lib, fn).argtypes = argtypes
                     getattr(lib, fn).restype = ctypes.c_int
-                _libs[src] = lib
+                    entries[fn] = _annotated(getattr(lib, fn), fn)
+                _libs[src] = types.SimpleNamespace(**entries)
         return _libs[name]
+
+
+def host_library(name: str, libs: tuple[str, ...] = ()) -> Path:
+    """`csrc/<name>.cc` compiled with g++ (linked with `libs`) into
+    `build/native/<hash>/lib<name>.so` unless it is there; its path. A
+    failed build raises."""
+    source = CSRC / f"{name}.cc"
+    h = hashlib.sha256(" ".join(HOST_FLAGS + libs).encode())
+    h.update(source.read_bytes())
+    out = HOST_ROOT / h.hexdigest()[:16]
+    lib = out / f"lib{name}.so"
+    with _lock:
+        if not lib.exists():
+            out.mkdir(parents=True, exist_ok=True)
+            tmp = out / f"lib{name}.so.tmp{os.getpid()}"
+            proc = subprocess.run(["g++", *HOST_FLAGS, str(source), "-o",
+                                   str(tmp), *libs], capture_output=True,
+                                  text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed to build {source}:\n"
+                                   f"{proc.stderr[-4000:]}")
+            os.replace(tmp, lib)
+    return lib
 
 
 def ptxas_summary(out: Path) -> list[str]:

@@ -31,19 +31,13 @@ compare exactly.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-CCL_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "ccl.cc"
-NATIVE_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
-NATIVE_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+from sam2unet_torch.ops import build
+
 MAX_NATIVE_PIXELS = 2**31 - 1
 
 
@@ -96,36 +90,19 @@ def label_components_torch(mask: torch.Tensor
 
 # ------------------------------------------------------------- host native
 
-_lock = threading.Lock()
 _native: ctypes.CDLL | None = None
 
 
 def native_library() -> ctypes.CDLL:
-    """libccl.so, compiled from csrc/ccl.cc with g++ on first use (the hash
-    of the source and flags names the directory, so an edit rebuilds)."""
+    """libccl.so, compiled from csrc/ccl.cc with g++ on first use
+    (`build.host_library`)."""
     global _native
-    with _lock:
-        if _native is not None:
-            return _native
-        h = hashlib.sha256(" ".join(NATIVE_FLAGS).encode())
-        h.update(CCL_SOURCE.read_bytes())
-        out = NATIVE_ROOT / h.hexdigest()[:16]
-        lib = out / "libccl.so"
-        if not lib.exists():
-            out.mkdir(parents=True, exist_ok=True)
-            tmp = out / f"libccl.so.tmp{os.getpid()}"
-            proc = subprocess.run(["g++", *NATIVE_FLAGS, str(CCL_SOURCE),
-                                   "-o", str(tmp)], capture_output=True,
-                                  text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"g++ failed to build {CCL_SOURCE}:\n"
-                                   f"{proc.stderr[-4000:]}")
-            os.replace(tmp, lib)
-        cdll = ctypes.CDLL(str(lib))
+    if _native is None:
+        cdll = ctypes.CDLL(str(build.host_library("ccl")))
         cdll.ccl_label_u8.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int32] * 2
         cdll.ccl_label_u8.restype = ctypes.c_int32
         _native = cdll
-        return cdll
+    return _native
 
 
 def label_components_native(mask: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

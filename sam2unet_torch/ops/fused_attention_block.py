@@ -123,22 +123,88 @@ def long_sequence(s: int, c: int) -> bool:
     return 8 * s16 * s16 + 14 * s16 * c > LONG_SEQUENCE_BYTES
 
 
-def strips_rem_supported(h: int, w: int, window: int,
-                         train: bool = False) -> bool:
-    """Whether a block on an (h, w) grid takes K12 (the JAX package's
-    `strips_rem_supported`, fused_attention_block.py:1485-1519, with the
-    caller's remainder test, hiera.py:250-259): not training (K12 is eval
-    only there), a window, a grid it does not divide or whose window**2 is
-    not 16-aligned, and n_w = ceil(w/window) >= 4 (at n_w < 4, hiera_l@352
-    stages 3-4, the valid groups won on the TPU).
+def _rup(v: int, q: int) -> int:
+    return -(-v // q) * q
 
-    The JAX gate also needs the strip's live set under a VMEM cap, a TPU
-    limit the Hopper kernel does not have, so that estimate is left out."""
-    if window <= 0 or train:
+
+def _win_pad_dims(ws: int) -> tuple[int, int]:
+    """The JAX gate's `_win_pad_dims` (fused_attention_block.py:1169): the
+    smallest (hp, wp) >= (ws, ws) with hp * wp % 16 == 0 (ties: smaller
+    hp + wp, then smaller hp)."""
+    return min(((hp * wp, hp + wp, hp), (hp, wp))
+               for hp in range(ws, ws + 16) for wp in range(ws, ws + 16)
+               if (hp * wp) % 16 == 0)[1]
+
+
+def _rem_weight_bytes(nh: int, c: int, d: int, itemsize: int) -> int:
+    """`_pick_layout` (:183) and `_rem_weight_bytes` (:1465) there: the
+    all-heads weight stacks as the TPU tiles them when they fit its
+    resident cap (11 MiB), else one head, double-buffered."""
+    sub = 32 // itemsize
+    resident = nh * itemsize * (_rup(c, sub) * _rup(3 * d, 128)
+                                + _rup(d, sub) * _rup(c, 128))
+    if resident <= 11 * 1024 * 1024:
+        return resident
+    return 2 * (c * 3 * d + d * c) * itemsize
+
+
+def _rem_vmem_est(n_w: int, s: int, c: int, d: int, ws: int, wd: int,
+                  itemsize: int, wbytes: int, bwd: bool) -> int:
+    """`_rem_vmem_est` (:1442) there at one strip per grid step (gb = 1)."""
+    est = n_w * s * c * (itemsize + 4)
+    est += n_w * s * 3 * d * (4 + itemsize)
+    est += n_w * s * s * (8 + itemsize)
+    est += n_w * s * c * 4
+    est += 2 * (3 if bwd else 2) * ws * wd * c * itemsize
+    est += wbytes
+    if bwd:
+        est += n_w * s * c * itemsize
+        est += n_w * s * s * 4
+        est += 3 * n_w * s * d * (4 + itemsize)
+        est += 2 * ws * _rup(wd, 128) * 4
+    return est
+
+
+def _rem_vmem_est_jw(n_w: int, s: int, c: int, d: int, ws: int, wd: int,
+                     itemsize: int, wbytes: int) -> int:
+    """`_rem_vmem_est_jw` (:1874) there: the backward with the window on the
+    grid, the whole strip's scratch plus one window's transients."""
+    est = n_w * s * c * (2 * itemsize + 4)
+    est += s * 3 * d * (4 + itemsize)
+    est += s * s * (12 + itemsize)
+    est += 3 * s * d * (4 + itemsize)
+    est += s * c * 4
+    est += 2 * 3 * ws * wd * c * itemsize
+    est += 2 * ws * _rup(wd, 128) * 4
+    return est + wbytes
+
+
+def strips_rem_supported(hh: int, wd: int, window: int, c: int,
+                         num_heads: int, itemsize: int = 2,
+                         bwd: bool = False) -> bool:
+    """The JAX package's gate for its remainder-strip kernel (K12 forward,
+    K13 backward; fused_attention_block.py:1485-1519), chosen in advance to
+    match that dispatch: a window, n_w = ceil(wd / window) >= 4 columns of
+    windows (at n_w < 4, hiera_l@352 stages 3-4, the valid groups won on
+    the TPU), and the strip's live set under the TPU's 13 MiB VMEM cap by
+    the JAX package's own estimate (the backward also in its
+    window-on-the-grid form). The estimate is a TPU limit the Hopper kernel
+    does not have; it is kept so that the two packages take the same route
+    (in fp32 it refuses the 64x64 w14 and 32x32 w7 grids at 1024). The
+    caller adds the remainder test and keeps K12 out of training
+    (hiera.py:250-259 there)."""
+    if window <= 0:
         return False
-    if h % window == 0 and w % window == 0 and (window * window) % 16 == 0:
+    hp, wp = _win_pad_dims(window)
+    s_tok, d, n_w = hp * wp, c // num_heads, -(-wd // window)
+    if n_w < 4:
         return False
-    return -(-w // window) >= 4
+    wb = _rem_weight_bytes(num_heads, c, d, itemsize)
+    cap = 13 * 1024 * 1024
+    if _rem_vmem_est(n_w, s_tok, c, d, window, wd, itemsize, wb, bwd) <= cap:
+        return True
+    return bwd and _rem_vmem_est_jw(n_w, s_tok, c, d, window, wd, itemsize,
+                                    wb) <= cap
 
 
 def long_form_kernel(s: int) -> bool:

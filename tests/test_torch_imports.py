@@ -55,13 +55,15 @@ def test_port_package_has_the_expected_modules():
                 "ops/connected_components.py", "utils/video.py",
                 "predictors/video_predictor.py",
                 "predictors/video_device.py", "configs_yaml/hydra_compat.py",
-                "utils/amg.py", "predictors/amg.py"):
+                "utils/amg.py", "predictors/amg.py", "ops/grouped.py",
+                "cli/eval_cli.py", "data/native_loader.py"):
         assert f"sam2unet_torch/{mod}" in names
     for src in ("fused_mlp.cu", "fused_attention_block.cu",
                 "fused_transition.cu", "flash_attention.cu",
                 "attention_bwd.cuh", "attention_bwd_tiles.cuh",
                 "flash_attention_bwd.cu", "full_attention.cu",
-                "flash_attention_d256.cu", "full_attention_d256.cu", "ccl.cc"):
+                "flash_attention_d256.cu", "full_attention_d256.cu", "ccl.cc",
+                "dataload.cc"):
         assert (ROOT / "sam2unet_torch" / "csrc" / src).is_file()
     # the port's own copies of the reference's YAML configs
     for name in ("t", "s", "b+", "l"):

@@ -567,7 +567,7 @@ def test_k12_strips_rem_matches_pallas_interpret(geom):
 def test_rem_strip_gate_matches_jax(geom, want):
     hh, wd, win, c, nh = geom
     assert fab.strips_rem_supported(hh, wd, win, c, nh) is want
-    assert strips_rem_supported(hh, wd, win) is want
+    assert strips_rem_supported(hh, wd, win, c, nh) is want
 
 
 # ------------------------------------------------------- backward: K2, K3

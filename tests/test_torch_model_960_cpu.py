@@ -5,11 +5,14 @@ SAM2-UNet forward against the JAX package's.
 
 At 960 the stage grids are 240/120/60/30 with hiera_s's windows 8/4/14/7:
 stages 1-2 take K4 and the K8 transitions, the 60x60 and 30x30 remainder
-grids (n_w = 5) take K12, the global blocks (S = 3600) take the long form
-of `fused_window_block` (LN -> QKV -> K10 -> proj) and the stage 3->4
-transition (window 14 on 60x60) the plain path. The JAX side runs on the
-CPU, where every fused op takes its `_xla_*` form; weights come from the
-JAX variables through `interop/from_jax.py` and load with strict=True.
+grids (n_w = 5) take K12 in eval and the persistent window groups in
+training ("grouped": K6 and K1 per group), the global blocks (S = 3600)
+take the long form of `fused_window_block` (LN -> QKV -> K10 -> proj) and
+the stage 3->4 transition (window 14 on 60x60) the plain path. The launch
+counts per block kind are held against the JAX package's own dispatch in
+tests/test_torch_grouped_cpu.py. The JAX side runs on the CPU, where every
+fused op takes its `_xla_*` form; weights come from the JAX variables
+through `interop/from_jax.py` and load with strict=True.
 """
 
 from __future__ import annotations
@@ -56,11 +59,14 @@ def _route_of_each_block(trunk: PortHieraConfig, x: torch.Tensor,
                          use_adapters: bool = True):
     """Run the port's trunk on x with spies on the kernel wrappers that
     hiera.py calls; returns the route each block took (in order) and the
-    number of fused_mlp calls. `train` runs the trunk in training mode;
-    `stub` makes each spied wrapper return a tensor of its output's shape
-    instead of computing it, so a full-width trunk routes in a moment;
-    `use_adapters` False routes SAM2's own trunk."""
-    routes, mlp = [], collections.Counter()
+    number of fused_mlp calls (tails and adapters, per window group inside
+    a grouped run). A block on the persistent window groups is "grouped",
+    whatever its window. `train` runs the trunk in training mode; `stub`
+    makes each spied wrapper return a tensor of its output's shape instead
+    of computing it, so a full-width trunk routes in a moment;
+    `use_adapters` False routes SAM2's own trunk. The model takes x's
+    dtype (the remainder-strip gate reads its item size)."""
+    routes, mlp, inside = [], collections.Counter(), []
 
     def shape_of(name, a):
         if name == "K8":
@@ -74,9 +80,18 @@ def _route_of_each_block(trunk: PortHieraConfig, x: torch.Tensor,
 
     def spy(name, fn):
         def call(*a, **k):
-            routes.append(name(a[0]) if callable(name) else name)
+            if not inside:
+                routes.append(name(a[0]) if callable(name) else name)
             return shape_of(name, a) if stub else fn(*a, **k)
         return call
+
+    def grouped(blk, xg):
+        routes.append("grouped")
+        inside.append(blk)
+        try:
+            return grouped_fn(blk, xg)
+        finally:
+            inside.pop()
 
     def global_route(xw):
         _, s, c = xw.shape
@@ -89,7 +104,9 @@ def _route_of_each_block(trunk: PortHieraConfig, x: torch.Tensor,
         return a[0] if stub else fused_mlp(*a, **k)
 
     fused_mlp = port_hiera.fused_mlp
+    grouped_fn = port_hiera.MultiScaleBlock._grouped
     model = port_hiera.Hiera(trunk, use_adapters=use_adapters).train(train)
+    model = model.to(x.dtype)
     with pytest.MonkeyPatch.context() as mp:
         for attr, name in (("fused_window_block_strips", "K4"),
                            ("fused_window_block_strips_rem", "K12"),
@@ -99,6 +116,7 @@ def _route_of_each_block(trunk: PortHieraConfig, x: torch.Tensor,
             mp.setattr(port_hiera, attr, spy(name, getattr(port_hiera, attr)))
         mp.setattr(port_hiera.MultiScaleBlock, "_unfused",
                    spy("plain", port_hiera.MultiScaleBlock._unfused))
+        mp.setattr(port_hiera.MultiScaleBlock, "_grouped", grouped)
         mp.setattr(port_hiera, "fused_mlp", mlp_spy)
         with torch.no_grad():
             outs = model(x)
@@ -121,18 +139,21 @@ def test_hiera_s_960_routes_every_block_like_the_jax_package():
 
 
 def test_hiera_s_960_routes_every_block_in_training():
-    """In training, as in the JAX package (hiera.py:250-259, :311-327
-    there): no remainder strips (K12 is eval only), the valid groups instead
-    (K6 forward, K7 / the pad-key recompute backward), and the 240x240
-    window-8 transition fails the copied `transition_bwd_supported` at
-    full width and takes the plain path."""
+    """In training, as in the JAX package (hiera.py:250-259, :311-327,
+    :509-537 there): no remainder strips (K12 is eval only), so stage 3's
+    ten blocks after the transition (the three 3600-token global blocks
+    among them, on the long form over the concatenated tokens) run as one
+    grouped run on four window groups, and block 15 on 30x30 w7 as
+    another: K6 forward per group, K7 / the pad-key recompute backward; the
+    240x240 window-8 transition fails the copied `transition_bwd_supported`
+    at full width and takes the plain path. Per step K1 49 tails and 49
+    adapters (the per-block route launched 16 + 16)."""
     x = torch.zeros(1, SIZE, SIZE, 3)
     routes, mlp, outs = _route_of_each_block(PORT_HIERA_S, x, train=True,
                                              stub=True)
-    assert routes == (["K4", "plain", "K4", "K8"] + ["groups"] * 3 + ["long"]
-                      + ["groups"] * 2 + ["long"] + ["groups"] * 2 + ["long"]
-                      + ["plain", "groups"])
-    assert mlp == {True: 16, False: 16}
+    assert routes == (["K4", "plain", "K4", "K8"] + ["grouped"] * 10
+                      + ["plain", "grouped"])
+    assert mlp == {True: 49, False: 49}
     assert [o.shape[1] for o in outs] == [240, 120, 60, 30]
 
 
@@ -140,15 +161,17 @@ def test_hiera_s_960_routes_every_block_in_training():
 def test_hiera_l_352_routes_every_block(train):
     """hiera_l at full width and depth (48 blocks) at 352, in eval and in
     training (the same routes: n_w = 2 keeps K12 out, both divisible
-    transitions pass the train gate): per forward K1 96, K4 7, K8 2, and
-    35 valid-group blocks plus 3 global blocks (K6 S = 484)."""
+    transitions pass the train gate): K4 7, K8 2, stage 3's 35 blocks (the
+    3 global ones, K6 S = 484 over the concatenated tokens, among them) as
+    one grouped run on 4 window groups (22x22 w16) and stage 4's last 3 on
+    4 groups of 11x11 w8, so per forward K1 162 tails and 162 adapters,
+    the JAX package's counts (the per-block route launched 48 + 48)."""
     x = torch.zeros(1, 352, 352, 3)
     routes, mlp, outs = _route_of_each_block(PORT_HIERA_L, x, train=train,
                                              stub=True)
-    stage3 = ["K6" if i in (23, 33, 43) else "groups" for i in range(9, 44)]
-    assert routes == (["K4"] * 2 + ["K8"] + ["K4"] * 5 + ["K8"] + stage3
-                      + ["plain"] + ["groups"] * 3)
-    assert mlp == {True: 48, False: 48}
+    assert routes == (["K4"] * 2 + ["K8"] + ["K4"] * 5 + ["K8"]
+                      + ["grouped"] * 35 + ["plain"] + ["grouped"] * 3)
+    assert mlp == {True: 162, False: 162}
     assert [o.shape[1] for o in outs] == [88, 44, 22, 11]
 
 

@@ -46,6 +46,7 @@ from sam2unet_tpu.build_sam import build_sam2
 from sam2unet_tpu.configs import HIERA_S, HIERA_T, HieraConfig
 from sam2unet_tpu.models import hiera as jax_hiera
 from sam2unet_tpu.models.sam2_base import SAM2Base, SAM2Config
+from sam2unet_tpu.ops.pallas import dispatch as jax_dispatch
 from sam2unet_tpu.ops.pallas import flash_attention as fa
 from sam2unet_tpu.ops.pallas.fused_attention_block import (
     strips_rem_supported as jax_strips_rem_supported,
@@ -333,10 +334,34 @@ def test_predictor_at_each_size_matches_jax(pair):
 # ------------------------------------------------------------ routes
 
 
+def _jax_routes(cfg: HieraConfig, size: int) -> list[str]:
+    """The route of each block of the JAX package's trunk at `size`, outside
+    training on the card's working type (bf16, itemsize 2): "grouped" where
+    its Hiera loop holds the tokens in the persistent window groups
+    (hiera.py:626-657 there, `_groupable_block` with its dispatch as on the
+    TPU, remainder-strip test included), else `_jax_route`'s branch."""
+    routes, h, window = [], size // 4, None
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_dispatch, "xla_only", lambda: False)
+        for i, bk in enumerate(jax_hiera._block_plan(cfg)):
+            ok = jax_hiera._groupable_block(bk, h, h, 2, False)
+            if window is not None and not (ok and bk["window_size"] in (
+                    0, window)):
+                window = None
+            elif window is None and ok and bk["window_size"] > 0:
+                window = bk["window_size"]
+            routes.append("grouped" if window else _jax_route(bk, h, h))
+            if i in cfg.stage_ends:
+                window = None
+            if bk["q_stride"] is not None:
+                h //= 2
+    return routes
+
+
 def _jax_route(bk: dict, h: int, w: int) -> str:
-    """The branch the JAX package's MultiScaleBlock takes (hiera.py:210-383
-    there) on the card's working type (bf16, itemsize 2), outside training:
-    its gates evaluated, VMEM estimates included."""
+    """The branch the JAX package's MultiScaleBlock takes on a dense input
+    (hiera.py:210-383 there) on the card's working type (bf16, itemsize 2),
+    outside training: its gates evaluated, VMEM estimates included."""
     window, c = bk["window_size"], bk["dim"]
     if bk["dim"] != bk["dim_out"]:
         fused = (bk["q_stride"] == (2, 2) and window > 0 and window % 2 == 0
@@ -366,23 +391,19 @@ def test_sam2_hiera_s_1024_routes_every_block_like_the_jax_package():
     bf16, the remainder-strip VMEM estimate included (it admits 64x64 w14
     and 32x32 w7), so per `set_image` K1 16 (tails only), K4 2, K8 2, K12 8
     and K10 3 (the 4096-token global blocks), and the 64x64 window-14
-    transition the plain path (K14 under the "pallas" backend)."""
-    x = torch.zeros(1, 1024, 1024, 3)
+    transition the plain path (K14 under the "pallas" backend). The trunk
+    runs in bf16 here: the gate reads the item size."""
+    x = torch.zeros(1, 1024, 1024, 3, dtype=torch.bfloat16)
     routes, mlp, outs = _route_of_each_block(PORT_HIERA_S, x, stub=True,
                                              use_adapters=False)
-    want, h = [], 256
-    for bk in jax_hiera._block_plan(HIERA_S):
-        want.append(_jax_route(bk, h, h))
-        if bk["q_stride"] is not None:
-            h //= 2
-    assert routes == want
+    assert routes == _jax_routes(HIERA_S, 1024)
     assert routes == (["K4", "K8", "K4", "K8"] + ["K12"] * 3 + ["long"]
                       + ["K12"] * 2 + ["long"] + ["K12"] * 2 + ["long"]
                       + ["plain", "K12"])
     assert mlp == {True: 16}
     assert [o.shape[1] for o in outs] == [256, 128, 64, 32]
-    # in fp32 the JAX estimate refuses the 64x64 grid (the port's gate
-    # leaves the estimate out; the card runs bf16)
+    # in fp32 the estimate refuses the 64x64 grid in both packages, whose
+    # blocks then run on the window groups
     assert not jax_strips_rem_supported(64, 64, 14, 384, 4, 4)
 
 
@@ -390,14 +411,14 @@ def test_sam2_hiera_s_1024_routes_every_block_like_the_jax_package():
 # point of the JAX package's scripts/smoke_video.py, grids 128/64/32/16; at
 # 1024 px, the AMG point of its scripts/bench_amg.py, grids 256/128/64/32
 HIERA_T_ROUTES = {
-    # the three global blocks (5, 7, 9) hold 1024 tokens at width 384, past
-    # the live gate: the JAX package runs `_xla_window_block` with
-    # `_xla_attention` there, the port the plain form, no K10; the remainder
-    # grids (32x32 w14, 16x16 w7) have n_w = 3 < 4 columns of windows, so
-    # their blocks take the valid groups (K6, four groups each): K1 12, K4 2,
-    # K8 2, K6 16
-    512: ["K4", "K8", "K4", "K8", "groups", "plain global", "groups",
-          "plain global", "groups", "plain global", "plain", "groups"],
+    # the remainder grids (32x32 w14, 16x16 w7) have n_w = 3 < 4 columns of
+    # windows, so stage 3's six blocks after the transition run as one
+    # grouped run on four window groups, and block 11 on four more: K6 16,
+    # K1 33 (tails per group); the three global blocks (5, 7, 9) hold 1024
+    # tokens at width 384, past the live gate: the JAX package runs
+    # `_xla_window_block` with `_xla_attention` there, the port the plain
+    # form over the concatenated tokens, no K10; K4 2, K8 2
+    512: ["K4", "K8", "K4", "K8"] + ["grouped"] * 6 + ["plain", "grouped"],
     # as sam2_hiera_s at 1024 with fewer stage-3 blocks: K1 12, K4 2, K8 2,
     # K12 4, K10 3 (4096-token global blocks)
     1024: ["K4", "K8", "K4", "K8", "K12", "long", "K12", "long", "K12", "long",
@@ -411,16 +432,11 @@ def test_sam2_hiera_t_routes_every_block_like_the_jax_package(size):
     each block equals the JAX package's gates on the card's bf16 (the
     window-14 transition of stage 3 is the plain path, K14 under the
     "pallas" backend)."""
-    x = torch.zeros(1, size, size, 3)
+    x = torch.zeros(1, size, size, 3, dtype=torch.bfloat16)
     routes, mlp, outs = _route_of_each_block(PORT_HIERA_T, x, stub=True,
                                              use_adapters=False)
-    want, h = [], size // 4
-    for bk in jax_hiera._block_plan(HIERA_T):
-        want.append(_jax_route(bk, h, h))
-        if bk["q_stride"] is not None:
-            h //= 2
-    assert routes == want == HIERA_T_ROUTES[size]
-    assert mlp == {True: 12}
+    assert routes == _jax_routes(HIERA_T, size) == HIERA_T_ROUTES[size]
+    assert mlp == {True: {512: 33, 1024: 12}[size]}
     assert [o.shape[1] for o in outs] == [size // 4 >> i for i in range(4)]
 
 
