@@ -7,7 +7,8 @@ build_sam2_image_predictor and build_sam2_video_predictor), and at
 sam2_hiera_t the points of the JAX package's hardware scripts: the video
 predictor at 512 px under the "pallas" attention backend
 (scripts/smoke_video.py) and the automatic mask generator at 1024 px
-(scripts/bench_amg.py); and the train CLI whole at its defaults.
+(scripts/bench_amg.py); the train CLI whole at its defaults; and export
+and deploy at the fork's defaults.
 
     python3 chip_smoke.py            # every phase, as the acceptance run does
     python3 chip_smoke.py --phases build,kernels --batch 2 --batch960 2 \
@@ -18,6 +19,7 @@ predictor at 512 px under the "pallas" attention backend
     python3 chip_smoke.py --paths s1024video       # the video predictor
     python3 chip_smoke.py --paths t512video,t1024amg   # hiera_t: video, AMG
     python3 chip_smoke.py --paths s960cli          # the train CLI whole
+    python3 chip_smoke.py --paths s960deploy       # export and deploy
 
 Phases, one line each, for each path of --paths (l352, s960, then the
 training paths l352train and s960train, listed after these):
@@ -154,6 +156,26 @@ epoch is 15 steps, and 16 eval images):
      K3, K10 and K11 must each show device time; the device evaluation of
      the checkpoint; the test CLI on it and the eval CLI on its PNGs; the
      loader A/B: the run again, native, PIL, native, PIL, epoch img/s.
+The export and deploy path s960deploy (the export CLI's and the deploy
+CLI's defaults: sam2_hiera_s, 960; a seeded random checkpoint, its head
+bias at logit(0.1); 16 synthetic images of mixed aspect ratio with masks):
+  2. the kernels of the fp32 forward at batch 1 (the deployed dtype, whose
+     route differs from bf16's: K12's gate refuses 60x60 w14 at 4-byte
+     items, so stage 3 runs on the window groups): K1, K4, K8, K6, K10 and
+     K12, in bf16 (timed) and in fp32 at every shape.
+  3. export_cli --device cuda: the .pt2 program, traced under force_plain,
+     verified against the native forward with the kernels (max diff,
+     export seconds); deploy_cli over the 16 images with their masks
+     (average process_time, images/s, the evaluation); the segmenter's
+     run() called once directly, no process_time of 0 (its zero-mask
+     fallback), and the program's logits and masks against the native
+     module's with the kernels through the same pre and post process (the
+     masks to DEPLOY_MASK_SHARE of the pixels); the ONNX leg: the export
+     and its check at 960 (one forward of the ONNX runtime), the 16 images
+     at 352 px (onnxruntime where installed, else the numpy runner; the
+     line says which); the fold-BN A/B of the native forward at 960 with
+     the kernels, ms and the max gap; launches = s960's per forward x the
+     native forwards (the artifacts launch none).
 The throughput phase of l352, l352train and s960train also times the step
 with the persistent window groups and per block (SAM2UNET_DISABLE_GROUPED),
 alternating, for the record.
@@ -210,6 +232,17 @@ STEP_LOSS_RTOL = 1e-2
 STEP_GAP_RATIO = 2.0
 STEP_GAP_MARGIN = 1e-2
 STEP_GAP_MEAN_RATIO = 1.25
+# s960deploy: the .pt2 program's masks (the plain versions, fp32) against
+# the native module's with the kernels (fp32, TF32 off) through the same pre
+# and post process; only pixels within the fp32 gap of the 0.1 threshold
+# may differ: at most this share of an image's pixels
+DEPLOY_MASK_SHARE = 1e-3
+# ... with the random checkpoint's head bias at logit(0.1), so that the
+# deploy threshold cuts the random model's probabilities into both values
+DEPLOY_HEAD_BIAS = -2.197
+# the folded forward against the unfolded one, fp32: the neck's and
+# decoder's convolutions round once more; max gap over max |unfolded|
+FOLD_REL_TOL = 1e-4
 # the operating points: trunk, input size, per-forward launches of each
 # kernel wrapper (a wrapper not listed must not launch)
 PATHS = {
@@ -356,6 +389,26 @@ PATHS = {
     "s960cli": dict(label="hiera_s@960 train CLI", cfg="sam2_hiera_s",
                     size=960, cli=True, batch=16, train_images=240,
                     eval_images=16, held_by=("s960train", "s960")),
+    # export and deploy at the fork's defaults (hiera_s, 960): the export
+    # CLI's .pt2 and the deploy CLI over 16 images, then the ONNX leg (its
+    # 16 images at 352 px, full width: the numpy runner's 960 forward is
+    # too slow for 16 of them inside this script's limit), the fold-BN A/B.
+    # The artifacts run the plain versions; the native forwards at batch 1
+    # (the .pt2's check, the masks' check, the A/B) launch s960's per
+    # forward each, at shapes this path's own entries hold (batch 1).
+    # Per fp32 forward at batch 1 (the route: kernel_specs), K1 46 tails
+    # and 46 adapters (4 dense blocks, 10 grouped blocks x 4 groups, the
+    # plain transition, block 15), K4 2, K8 2, K6 28 (7 windowed grouped
+    # blocks x 4 groups), K10 3, K12 1.
+    "s960deploy": dict(label="hiera_s@960 deploy", cfg="sam2_hiera_s",
+                       size=960, deploy=True, batch=1, images=16,
+                       onnx_size=352, fp32=True,
+                       per_forward={"fused_mlp": 92,
+                                    "fused_window_block_strips": 2,
+                                    "fused_transition_block": 2,
+                                    "fused_window_block": 28,
+                                    "flash_attention": 3,
+                                    "fused_window_block_strips_rem": 1}),
 }
 BATCH_FLAG = {"l352": "batch", "s960": "batch960", "l352train": "batch_train",
               "s960train": "batch_train960"}
@@ -910,6 +963,32 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
              "sam2unet_torch/csrc/full_attention.cu",
              lambda w, v: w == "full_attention" and v in k14_held, k14, 3),
         ]
+    if path == "s960deploy":
+        # the fp32 forward at batch 1 (the deployed dtype): K12's gate
+        # (the VMEM estimate of the JAX package's, at 4-byte items) refuses
+        # 60x60 w14, so stage 3's ten blocks after the transition run on the
+        # persistent window groups: K6 per group (16 full windows, 4 + 4
+        # edge windows of 14x4 / 4x14, one 4x4 corner), K10 on the three
+        # global blocks' long form, K1 per group; block 15 (30x30 w7) takes
+        # K12 (tests/test_torch_export_cpu.py holds the route)
+        grids, cs = (240, 120, 60, 30), (96, 192, 384, 768)
+        k1 = ([dict(tokens=b * hh * hh, c=c) for hh, c in zip(grids, cs)]
+              + [dict(tokens=n, c=384) for n in group_rows(b, 60, 14)])
+        s960 = {e[0]: e for e in kernel_specs("s960", b)}
+        return [
+            s960["K1 fused_mlp (tail)"][:5] + (k1, 2),
+            s960["K1 fused_mlp (adapter)"][:5] + (k1, 2),
+            s960["K4 fused_window_block_strips"],
+            s960["K8 fused_transition_block"],
+            ("K6 fused_window_block (n_pad=0)", "window", f"{fab}:354", src_ab,
+             *k6_held([dict(windows=16 * b, S=196, c=384, heads=4)]), 0),
+            ("K6 fused_window_block (n_pad>0)", "window", f"{fab}:354", src_ab,
+             *k6_held([dict(windows=4 * b, S=56, c=384, heads=4, n_pad=140),
+                       dict(windows=b, S=16, c=384, heads=4, n_pad=180)]), 0),
+            s960["K10 flash_attention"],
+            s960["K12 fused_window_block_strips_rem"][:5]
+            + ([dict(batch=b, grid=30, c=768, heads=8, window=7)], 0),
+        ]
     if path == "l352":
         grids, cs = (88, 44, 22, 11), (144, 288, 576, 1152)
         # the dense grids (the transitions' tails at 22 and 11 among them),
@@ -1046,7 +1125,8 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
                 fail(f"{name} disagrees with its plain version at {g}")
             del call, library
         # fp32 once, at the smallest main-path shape of the kernel; K9's at
-        # its timed shape, full batch, on an input without near-ties
+        # its timed shape, full batch, on an input without near-ties; a path
+        # whose main path runs in fp32 at every shape, as it is
         g = dict(shapes[-1])
         if kind == "transition_bwd":
             g = dict(shapes[timed], no_near_ties=True)
@@ -1055,14 +1135,17 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
                 g[key] = min(g[key], 2)
         if "tokens" in g:
             g["tokens"] = min(g["tokens"], 2 * 484)
-        err, rel, share = compare(make_case(kind, torch.float32, gen, **g)[0],
-                                  FP32_REL_TOL)
-        ok = share == 0.0
-        print(f"[kernel] {name} {label} fp32 {g}: max_abs_err {err:.4g} "
-              f"max_rel_err {rel:.4g} (tol {FP32_REL_TOL})"
-              + ("" if ok else "  <-- FAIL"), flush=True)
-        if not ok:
-            fail(f"{name} fp32 disagrees with its plain version at {g}")
+        for g in (shapes if PATHS[path].get("fp32") else [g]):
+            err, rel, share = compare(
+                make_case(kind, torch.float32, gen, **g)[0], FP32_REL_TOL)
+            ok = share == 0.0
+            print(f"[kernel] {name} {label} fp32 {g}: max_abs_err {err:.4g} "
+                  f"max_rel_err {rel:.4g} (tol {FP32_REL_TOL})"
+                  + ("" if ok else "  <-- FAIL"), flush=True)
+            if not ok:
+                fail(f"{name} fp32 disagrees with its plain version at {g}")
+            if PATHS[path].get("fp32"):
+                worst_abs = max(worst_abs, err)
         entry["max_abs_err"] = worst_abs
         entries.append(entry)
         torch.cuda.empty_cache()
@@ -2281,6 +2364,207 @@ def cli_main_phase(path: str, tmp: Path, card: str) -> dict:
     return variants
 
 
+def _fp32_model(cfg: str, ckpt: Path, fold: bool = False):
+    """The checkpoint's SAM2UNet on the card in fp32 (the deployed dtype),
+    its BatchNorms folded when `fold`."""
+    import torch
+
+    from sam2unet_torch.cli.common import build_model, load_checkpoint
+    from sam2unet_torch.nn.fold_bn import fold_model
+
+    model = build_model(cfg, torch.device("cpu"))
+    load_checkpoint(model, str(ckpt))
+    if fold:
+        fold_model(model)
+    return model.to(DEV)
+
+
+def deploy_main_phase(path: str, tmp: Path, card: str) -> dict:
+    """The export CLI and the deploy CLI at their defaults (torch_export),
+    the segmenter's run() called directly and its masks against the native
+    module's with the kernels, the ONNX leg, the fold-BN A/B."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from sam2unet_torch.cli import deploy_cli, export_cli
+    from sam2unet_torch.ops import dispatch
+
+    spec = PATHS[path]
+    label, cfg, size, small = (spec["label"], spec["cfg"], spec["size"],
+                               spec["onnx_size"])
+    data, ckpt = tmp / "deploy_data", tmp / f"deploy_{cfg}.pth"
+    write_dataset(data, n=spec["images"], seed=5)
+    random_checkpoint(ckpt, cfg, seed=0)
+    state = torch.load(ckpt, weights_only=True)
+    state["head.bias"].fill_(DEPLOY_HEAD_BIAS)
+    torch.save(state, ckpt)
+    names = sorted(p.name for p in (data / "images").iterdir())
+    # native forwards with the kernels on this path, by what they are for
+    forwards: collections.Counter = collections.Counter()
+    dispatch.reset_launches()
+
+    def export(fmt: str, out: Path, extra=()) -> dict:
+        args = export_cli.build_parser().parse_args(
+            ["--checkpoint", str(ckpt), "--output", str(out), "--device", DEV]
+            + (["--format", fmt] if fmt != "torch_export" else []) + list(extra))
+        if fmt == "torch_export" and (args.size, args.model_cfg, args.format) \
+                != (size, cfg, fmt):
+            fail(f"{label}: the export CLI's defaults are no longer {cfg}@{size} "
+                 f"torch_export: {args.model_cfg}@{args.size} {args.format}")
+        t0 = time.perf_counter()
+        stats = export_cli.main(args)
+        stats["verify_seconds"] = (time.perf_counter() - t0
+                                   - stats["export_seconds"])
+        stats["mb"] = out.stat().st_size / 2**20
+        return stats
+
+    def deploy(backend: str, model_path: Path, at: int) -> dict:
+        save = tmp / f"deploy_{backend}_{at}"
+        argv = ["--model_path", str(model_path), "--test_image_path",
+                str(data / "images"), "--test_gt_path", str(data / "masks"),
+                "--save_path", str(save), "--device", DEV]
+        if backend != "torch_export":
+            argv += ["--backend", backend]
+        if at != size:
+            argv += ["--size", str(at)]
+        stats = deploy_cli.main(deploy_cli.build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        stats["save"] = save
+        if stats["images"] != len(names) or not all(
+                t > 0 for t in stats["process_times"]):
+            fail(f"{label} deploy_cli --backend {backend}: a segment failed "
+                 f"(process_time 0, the segmenter's zero-mask fallback): "
+                 f"{stats['process_times']}")
+        # the segmenter's run() once, directly: no catch-all in the way
+        seg = stats["segmenter"]
+        batch, _, _ = seg.preprocess(np.asarray(Image.open(
+            data / "images" / names[0]).convert("RGB")))
+        out = np.asarray(seg.run(batch)["output"])
+        if out.shape != (1, at, at, 1) or not np.isfinite(out).all():
+            fail(f"{label} {backend} run(): shape {out.shape}, finite "
+                 f"{np.isfinite(out).all()}")
+        rep = stats["report"]
+        print(f"[main] {label} deploy_cli --backend {backend} --size {at} over "
+              f"{stats['images']} images: average process_time "
+              f"{np.mean(stats['times']):.4f} s (run() alone "
+              f"{np.mean(stats['process_times']):.4f} s), "
+              f"{stats['images'] / stats['seconds']:.2f} images/s (host clock, "
+              f"PNGs and evaluation included) on {card}; mIoU {rep['mIoU']:.4f}"
+              f", mDice {rep['mDice']:.4f}; run() called directly: "
+              f"{out.shape} finite", flush=True)
+        return stats
+
+    # 1-2. the .pt2 program at the CLIs' defaults; its masks against the
+    # native module's with the kernels through the same pre and post process
+    pt2 = tmp / "deploy.pt2"
+    ex = export("torch_export", pt2)
+    forwards["verify_export"] += 1
+    print(f"[main] {label} export_cli (the CLI defaults: --format "
+          f"torch_export --size {size} --model_cfg {cfg}): exported in "
+          f"{ex['export_seconds']:.2f} s ({ex['mb']:.1f} MiB), verified "
+          f"against the native forward with the kernels in "
+          f"{ex['verify_seconds']:.2f} s: max abs diff {ex['max_diff']:.3e} "
+          f"(tolerance 1e-1) on {card}", flush=True)
+    run = deploy("torch_export", pt2, size)
+    seg, model = run["segmenter"], _fp32_model(cfg, ckpt)
+    shares, fg, art, nat = [], [], [], []
+    with torch.inference_mode():
+        for name in names:
+            image = np.asarray(Image.open(data / "images" / name).convert("RGB"))
+            batch, padding, hw = seg.preprocess(image)
+            logits = model(torch.from_numpy(batch).to(DEV))[0]
+            forwards["native masks"] += 1
+            nat.append(logits.float().cpu())
+            art.append(torch.from_numpy(seg.run(batch)["output"]))
+            native = seg.postprocess(nat[-1].numpy(), padding, hw)
+            deployed = np.asarray(Image.open(
+                run["save"] / (Path(name).stem + ".png")))
+            shares.append(float((native != deployed).mean()))
+            fg.append(float((native == 255).mean()))
+    rel, corr, ok_logits = _agree(torch.cat(art), torch.cat(nat))
+    ok = max(shares) <= DEPLOY_MASK_SHARE and ok_logits
+    print(f"[main] {label} the artifact against the native module with the "
+          f"kernels (fp32, same pre and post process, {len(names)} images): "
+          f"logits max_rel_err {rel:.3g} (tol {MAIN_REL_TOL}) corr {corr:.6f} "
+          f"(min {MAIN_CORR_MIN}); mask pixels that differ, worst image "
+          f"{max(shares):.3g}, mean {np.mean(shares):.3g} (at most "
+          f"{DEPLOY_MASK_SHARE}); foreground share of the native masks "
+          f"{min(fg):.3f}..{max(fg):.3f}" + ("" if ok else "  <-- FAIL"),
+          flush=True)
+    if not ok:
+        fail(f"{label}: the .pt2 program disagrees with the native module "
+             f"(logits {rel:.3g}, corr {corr:.6f}; masks {max(shares):.3g})")
+    del seg, run
+
+    # 3. ONNX: at 960, the export and its check (one forward of the numpy
+    # runner); the 16 images at `onnx_size`, full width
+    ox = export("onnx", tmp / "deploy960.onnx")
+    print(f"[main] {label} export_cli --format onnx --size {size}: exported "
+          f"in {ox['export_seconds']:.2f} s ({ox['mb']:.1f} MiB), verified "
+          f"(one forward of the ONNX runtime below, against the native "
+          f"forward's plain versions) in {ox['verify_seconds']:.2f} s: max abs "
+          f"diff {ox['max_diff']:.3e} (tolerance 1e-1) on {card}", flush=True)
+    onnx_small = tmp / f"deploy{small}.onnx"
+    small_ex = export("onnx", onnx_small, ["--size", str(small)])
+    print(f"[main] {label} export_cli --format onnx --size {small}: exported "
+          f"in {small_ex['export_seconds']:.2f} s, verified in "
+          f"{small_ex['verify_seconds']:.2f} s: max abs diff "
+          f"{small_ex['max_diff']:.3e}",
+          flush=True)
+    orun = deploy("onnx", onnx_small, small)
+    print(f"[main] {label} the ONNX leg ran on: {orun['onnx_runtime']}; its "
+          f"16 images at --size {small} (hiera_s's full width): at {size} one "
+          f"forward of that runtime takes about the verify time above, and "
+          f"16 of them would not fit this script's time limit", flush=True)
+    del orun
+
+    # 4. fold-BN A/B: the native forward at 960 with the kernels, fp32
+    folded = _fp32_model(cfg, ckpt, fold=True)
+    x = torch.randn(1, size, size, 3, device=DEV,
+                    generator=torch.Generator(DEV).manual_seed(7))
+
+    def forward(m):
+        def fn():
+            forwards["fold-BN A/B"] += 1
+            with torch.inference_mode():
+                return m(x)
+        return fn
+
+    want, got = forward(model)(), forward(folded)()
+    gap = max(((g - w).abs().max() / w.abs().max()).item()
+              for g, w in zip(got, want))
+    times = collections.defaultdict(list)
+    for name, m in (("unfolded", model), ("folded", folded),
+                    ("folded", folded), ("unfolded", model)):
+        times[name].append(time_ms(forward(m), reps=10))
+    ok = gap <= FOLD_REL_TOL
+    print(f"[main] {label} fold-BN A/B (fp32, batch 1, with the kernels, CUDA "
+          f"events, order unfolded, folded, folded, unfolded) on {card}: "
+          f"unfolded {[round(t, 3) for t in times['unfolded']]} ms, folded "
+          f"{[round(t, 3) for t in times['folded']]} ms; max gap "
+          f"{gap:.3g} of max |unfolded| (at most {FOLD_REL_TOL})"
+          + ("" if ok else "  <-- FAIL"), flush=True)
+    if not ok:
+        fail(f"{label}: the folded forward is {gap:.3g} off the unfolded one")
+    del model, folded
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    counts, variants = dict(dispatch.launches), dict(dispatch.variants)
+    n = sum(forwards.values())
+    per_forward = spec["per_forward"]
+    for name in sorted(set(per_forward) | set(counts)):
+        if counts.get(name, 0) != per_forward.get(name, 0) * n:
+            fail(f"{label}: {name} launched {counts.get(name, 0)} times, "
+                 f"expected {per_forward.get(name, 0) * n} ({n} native "
+                 f"forwards)")
+    print(f"[main] {label} launches {counts} = per fp32 forward x {n} "
+          f"native forwards at batch 1 ({dict(forwards)}); the artifacts "
+          f"launch none (traced under force_plain)", flush=True)
+    return variants
+
+
 def grouping_ab_phase(path: str, batch: int, card: str) -> None:
     """The path's step (a forward or a train step) with the persistent
     window groups and per block (SAM2UNET_DISABLE_GROUPED=1), alternating:
@@ -2703,7 +2987,7 @@ def main() -> None:
     ap.add_argument("--phases", default="build,kernels,main,throughput")
     ap.add_argument("--paths",
                     default="l352,s960,l352train,s960train,s1024sam2,"
-                            "s1024video,t512video,t1024amg,s960cli")
+                            "s1024video,t512video,t1024amg,s960cli,s960deploy")
     ap.add_argument("--batch", type=int, default=32,
                     help="kernel, throughput and profile batch at hiera_l@352")
     ap.add_argument("--batch960", type=int, default=16,
@@ -2770,14 +3054,16 @@ def main() -> None:
                     variants[path] = sam2_main_phase(path)
                 elif PATHS[path].get("cli"):
                     variants[path] = cli_main_phase(path, Path(tmp), card)
+                elif PATHS[path].get("deploy"):
+                    variants[path] = deploy_main_phase(path, Path(tmp), card)
                 elif PATHS[path].get("train"):
                     variants[path] = train_main_phase(
                         path, Path(tmp), [int(s) for s in args.step_seeds.split(",")],
                         args.step_report)
                 else:
                     variants[path] = main_path_phase(path, Path(tmp))
-            if PATHS[path].get("cli"):
-                continue   # its epoch img/s, A/B and trace are the main phase's
+            if PATHS[path].get("cli") or PATHS[path].get("deploy"):
+                continue   # their times and A/Bs are the main phase's
             if "throughput" in phases and PATHS[path].get("video"):
                 video_throughput_phase(path, card)
             elif "throughput" in phases and PATHS[path].get("amg"):

@@ -44,7 +44,7 @@ class GroupedTokens:
 
     @classmethod
     def from_dense(cls, x: torch.Tensor, window: int) -> "GroupedTokens":
-        b, h, w, c = x.shape
+        b, h, w, c = (int(s) for s in x.shape)
         gs, pads, geoms = [], [], []
         for g, n_pad in window_partition_valid(x, window):
             nw_, gh, gw, _ = g.shape

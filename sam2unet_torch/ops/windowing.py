@@ -43,8 +43,9 @@ def window_partition_valid(x: torch.Tensor, window: int
     Returns [(windows (B*nW, gh, gw, C), n_pad)] in the order ff, fr, rf,
     rr, where n_pad = window**2 - gh*gw is how many identical pad tokens
     the padded partition would have added to each window (the synthetic
-    pad key of the attention reproduces them exactly)."""
-    b, h, w, c = x.shape
+    pad key of the attention reproduces them exactly). Sizes are taken as
+    ints: the ONNX exporter's tracer hands out tensor sizes."""
+    b, h, w, c = (int(s) for s in x.shape)
     nh, rh = divmod(h, window)
     nw, rw = divmod(w, window)
 
@@ -71,6 +72,7 @@ def window_partition_valid(x: torch.Tensor, window: int
 def window_merge_valid(outs: list[torch.Tensor], b: int, h: int, w: int,
                        window: int) -> torch.Tensor:
     """Inverse of window_partition_valid (same group order)."""
+    b, h, w = int(b), int(h), int(w)
     nh, rh = divmod(h, window)
     nw, rw = divmod(w, window)
     it = iter(outs)

@@ -56,7 +56,11 @@ def test_port_package_has_the_expected_modules():
                 "predictors/video_predictor.py",
                 "predictors/video_device.py", "configs_yaml/hydra_compat.py",
                 "utils/amg.py", "predictors/amg.py", "ops/grouped.py",
-                "cli/eval_cli.py", "data/native_loader.py"):
+                "cli/eval_cli.py", "data/native_loader.py",
+                "nn/fold_bn.py", "interop/export.py",
+                "interop/onnx_compat/__init__.py", "deploy/onnx_numpy.py",
+                "deploy/segmenter.py", "cli/export_cli.py",
+                "cli/deploy_cli.py"):
         assert f"sam2unet_torch/{mod}" in names
     for src in ("fused_mlp.cu", "fused_attention_block.cu",
                 "fused_transition.cu", "flash_attention.cu",
@@ -65,6 +69,11 @@ def test_port_package_has_the_expected_modules():
                 "flash_attention_d256.cu", "full_attention_d256.cu", "ccl.cc",
                 "dataload.cc"):
         assert (ROOT / "sam2unet_torch" / "csrc" / src).is_file()
+    # the port's own ONNX schema and its committed protoc bindings
+    assert (ROOT / "sam2unet_torch" / "interop" / "onnx_compat"
+            / "sam2unet_torch_onnx.proto").is_file()
+    assert "sam2unet_torch/interop/onnx_compat/_gen/sam2unet_torch_onnx_pb2.py" \
+        in names
     # the port's own copies of the reference's YAML configs
     for name in ("t", "s", "b+", "l"):
         assert (ROOT / "sam2unet_torch" / "configs_yaml"
