@@ -7,8 +7,9 @@ build_sam2_image_predictor and build_sam2_video_predictor), and at
 sam2_hiera_t the points of the JAX package's hardware scripts: the video
 predictor at 512 px under the "pallas" attention backend
 (scripts/smoke_video.py) and the automatic mask generator at 1024 px
-(scripts/bench_amg.py); the train CLI whole at its defaults; and export
-and deploy at the fork's defaults.
+(scripts/bench_amg.py); the train CLI whole at its defaults; export and
+deploy at the fork's defaults; and the JAX package's checkpoints and
+tooling there (Orbax directories, the FLOP audit, the profiler).
 
     python3 chip_smoke.py            # every phase, as the acceptance run does
     python3 chip_smoke.py --phases build,kernels --batch 2 --batch960 2 \
@@ -20,6 +21,7 @@ and deploy at the fork's defaults.
     python3 chip_smoke.py --paths t512video,t1024amg   # hiera_t: video, AMG
     python3 chip_smoke.py --paths s960cli          # the train CLI whole
     python3 chip_smoke.py --paths s960deploy       # export and deploy
+    python3 chip_smoke.py --paths s960interop      # checkpoints and tooling
 
 Phases, one line each, for each path of --paths (l352, s960, then the
 training paths l352train and s960train, listed after these):
@@ -176,6 +178,20 @@ bias at logit(0.1); 16 synthetic images of mixed aspect ratio with masks):
      line says which); the fold-BN A/B of the native forward at 960 with
      the kernels, ms and the max gap; launches = s960's per forward x the
      native forwards (the artifacts launch none).
+The checkpoint and tooling path s960interop (hiera_s, 960; a seeded random
+checkpoint; its launches are s960's per forward and s960train's per step,
+at shapes those paths' entries hold):
+  3. the checkpoint through state_dict_to_jax and save_variables into an
+     Orbax directory and back through load_any_checkpoint, every tensor
+     bit for bit (bytes on disk, write and read seconds); the test CLI at
+     its defaults (--bf16 --batch_size 4) over 16 synthetic images from
+     the directory and from the .pth, byte-identical PNGs (images/s); the
+     FLOP audit at hiera_s@960 and hiera_l@352, both modes (its seconds,
+     and the achieved TFLOP/s of this run's l352, s960 and s960train
+     throughput); utils/profile_model.py --mode infer and --mode train at
+     batch 16, 3 steps each: the top 10 kernels, and each entry point's
+     calls in the trace = s960's per forward or s960train's per step x 3;
+     the launches of the whole path against the same tables.
 The throughput phase of l352, l352train and s960train also times the step
 with the persistent window groups and per block (SAM2UNET_DISABLE_GROUPED),
 alternating, for the record.
@@ -409,6 +425,20 @@ PATHS = {
                                     "fused_window_block": 28,
                                     "flash_attention": 3,
                                     "fused_window_block_strips_rem": 1}),
+    # the JAX package's checkpoints and tooling at the fork's defaults
+    # (hiera_s, 960): a seeded random checkpoint through an Orbax directory
+    # (state_dict_to_jax, save_variables, load_any_checkpoint) bit for bit;
+    # the test CLI (--bf16 --batch_size 4) over 16 images from the directory
+    # and from the .pth, the same PNGs; the FLOP audit at hiera_s@960 and
+    # hiera_l@352; utils/profile_model.py, --mode infer and train at batch
+    # 16, 3 steps each after a warm-up, its entry-point calls in the trace
+    # against s960's per forward and s960train's per step. Launches: s960's
+    # per forward x (8 test CLI forwards + 4 profiled infer steps) +
+    # s960train's per step x 4, at the shapes those paths' entries hold.
+    "s960interop": dict(label="hiera_s@960 interop", cfg="sam2_hiera_s",
+                        size=960, interop=True, batch=16, images=16,
+                        cli_batch=4, steps=3, held_by=("s960train", "s960"),
+                        audits=(("sam2_hiera_s", 960), ("sam2_hiera_l", 352))),
 }
 BATCH_FLAG = {"l352": "batch", "s960": "batch960", "l352train": "batch_train",
               "s960train": "batch_train960"}
@@ -727,7 +757,7 @@ def group_rows(b: int, grid: int, window: int) -> list[int]:
 def kernel_specs(path: str, b: int) -> list[tuple]:
     """(name, kind, replaces, source, counted launches (wrapper, variant),
     main-path shapes, index of the timed shape) of each kernel of a path."""
-    if PATHS[path].get("cli"):
+    if "held_by" in PATHS[path]:
         return []   # its kernels are held at the paths of `held_by`
     fab = "sam2unet_tpu/ops/pallas/fused_attention_block.py"
     src_ab = "sam2unet_torch/csrc/fused_attention_block.cu"
@@ -2185,41 +2215,6 @@ TRACE_KERNELS = {"K1": ("k1_fused_mlp",), "K2": ("k2_mlp_bwd_dx",),
                          "k11_flash_attention_bwd_dkv")}
 
 
-def trace_device_time(path: str) -> dict[str, list]:
-    """Device time (us) and count by kernel of a torch.profiler Chrome
-    trace: a device kernel launched inside a C entry point's annotation is
-    counted under the entry point's name (its launch is the runtime call of
-    the same correlation id, inside the annotation's span on its thread),
-    any other under its own name."""
-    import bisect
-
-    events = json.loads(Path(path).read_text())["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    launches = {e["args"]["correlation"]: e for e in events
-                if e.get("cat") == "cuda_runtime"
-                and "correlation" in e.get("args", {})}
-    spans = collections.defaultdict(list)
-    for e in events:
-        if e.get("cat") == "user_annotation" and e.get("name", "").startswith("k"):
-            spans[(e["pid"], e["tid"])].append((e["ts"], e["ts"] + e["dur"],
-                                                e["name"]))
-    for v in spans.values():
-        v.sort()
-    starts = {k: [t0 for t0, _, _ in v] for k, v in spans.items()}
-    out: dict[str, list] = collections.defaultdict(lambda: [0.0, 0])
-    for k in kernels:
-        name = k["name"]
-        launch = launches.get(k.get("args", {}).get("correlation"))
-        if launch is not None:
-            key = (launch["pid"], launch["tid"])
-            i = bisect.bisect_right(starts.get(key, []), launch["ts"]) - 1
-            if i >= 0 and spans[key][i][1] >= launch["ts"]:
-                name = spans[key][i][2]
-        out[name][0] += k["dur"]
-        out[name][1] += 1
-    return out
-
-
 def cli_main_phase(path: str, tmp: Path, card: str) -> dict:
     """The train CLI at its defaults with --full_eval and --profile_dir, the
     device evaluation of its checkpoint, the test CLI and the eval CLI on
@@ -2233,6 +2228,7 @@ def cli_main_phase(path: str, tmp: Path, card: str) -> dict:
     from sam2unet_torch.data.dataset import EvalDataset
     from sam2unet_torch.ops import dispatch
     from sam2unet_torch.train.engine import evaluate
+    from sam2unet_torch.utils.profile_model import trace_device_time
 
     spec = PATHS[path]
     label, cfg, size = spec["label"], spec["cfg"], spec["size"]
@@ -2361,6 +2357,158 @@ def cli_main_phase(path: str, tmp: Path, card: str) -> dict:
           f"order native, PIL, native, PIL) on {card}: native "
           f"{[round(r, 2) for r in rates['native']]}, PIL "
           f"{[round(r, 2) for r in rates['PIL']]}", flush=True)
+    return variants
+
+
+def _dir_bytes(root: Path) -> int:
+    return sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+
+
+def interop_main_phase(path: str, tmp: Path, card: str,
+                       rates: dict[str, float]) -> dict:
+    """The Orbax round trip, the test CLI from the directory and from the
+    .pth, the FLOP audit (with the achieved TFLOP/s of this run's l352,
+    s960 and s960train throughput), the profiles' entry-point calls; the
+    launch counts over all of it."""
+    import torch
+
+    from sam2unet_torch.cli import test_cli
+    from sam2unet_torch.interop.from_jax import (
+        jax_to_state_dict,
+        state_dict_to_jax,
+    )
+    from sam2unet_torch.ops import dispatch
+    from sam2unet_torch.train.checkpoints import (
+        load_any_checkpoint,
+        save_variables,
+    )
+    from sam2unet_torch.utils import flops_audit, profile_model
+    from sam2unet_torch.utils.profile_model import ENTRY_WRAPPER
+
+    spec = PATHS[path]
+    label, cfg, size = spec["label"], spec["cfg"], spec["size"]
+    t_path = time.perf_counter()
+    ckpt, orbax_dir = tmp / f"{cfg}.pth", tmp / "SAM2-UNet_epoch-latest"
+    if not ckpt.exists():
+        random_checkpoint(ckpt, cfg, seed=0)
+    dispatch.reset_launches()
+
+    # 1. the checkpoint through an Orbax directory and back, bit for bit
+    state = torch.load(ckpt, map_location="cpu", weights_only=True)
+    t0 = time.perf_counter()
+    save_variables(str(orbax_dir), state_dict_to_jax(state))
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = jax_to_state_dict(load_any_checkpoint(str(orbax_dir)),
+                             state.keys())
+    t_read = time.perf_counter() - t0
+    differ = [k for k in state if back[k].dtype != state[k].dtype
+              or not torch.equal(back[k], state[k])]
+    n_params = sum(v.numel() for v in state.values())
+    print(f"[main] {label} Orbax round trip: {len(state)} tensors, "
+          f"{n_params} values, {_dir_bytes(orbax_dir)} bytes on disk "
+          f"(zstd level 1), write {t_write:.3f} s (state_dict_to_jax + "
+          f"save_variables), read {t_read:.3f} s (load_any_checkpoint + "
+          f"jax_to_state_dict), host of the card machine; {len(differ)} "
+          f"tensors differ", flush=True)
+    if differ:
+        fail(f"{label}: the Orbax round trip changed {differ[:5]}")
+
+    # 2. the test CLI on the directory and on the .pth: the same PNGs
+    data = tmp / "interop_data"
+    write_dataset(data, n=spec["images"], seed=4)
+    pngs, forwards = {}, 0
+    for name, source in (("dir", orbax_dir), ("pth", ckpt)):
+        out = tmp / f"interop_preds_{name}"
+        args = test_cli.build_parser().parse_args([
+            "--checkpoint", str(source), "--test_image_path",
+            str(data / "images"), "--test_gt_path", str(data / "masks"),
+            "--save_path", str(out), "--bf16", "--batch_size",
+            str(spec["cli_batch"]), "--device", DEV])
+        if (args.size, args.model_cfg) != (size, cfg):
+            fail(f"{label}: the test CLI's defaults are no longer {cfg}@{size}")
+        t0 = time.perf_counter()
+        stats = test_cli.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        forwards += stats["forwards"]
+        pngs[name] = {p.name: p.read_bytes() for p in sorted(out.glob("*.png"))}
+        print(f"[main] {label} test_cli --checkpoint <{name}> --bf16 "
+              f"--batch_size {spec['cli_batch']} (--size {args.size} "
+              f"--model_cfg {args.model_cfg}, the CLI defaults): "
+              f"{stats['images']} images, mean_test_time "
+              f"{stats['mean_test_time']:.4f} s/image ("
+              f"{1 / stats['mean_test_time']:.2f} images/s), whole run "
+              f"{wall:.2f} s ({stats['images'] / wall:.2f} images/s, model "
+              f"build and load included) on {card}", flush=True)
+    if len(pngs["dir"]) != spec["images"] or pngs["dir"] != pngs["pth"]:
+        fail(f"{label}: the PNGs from the Orbax directory differ from the "
+             f".pth's ({len(pngs['dir'])} and {len(pngs['pth'])} files)")
+    print(f"[main] {label} {spec['images']} PNGs byte-identical from the "
+          f"directory and from the .pth", flush=True)
+
+    # 3. the FLOP audit (the plain versions on the card, fp32, batch 1)
+    flops = {}
+    for acfg, asize in spec["audits"]:
+        t0 = time.perf_counter()
+        flops[(acfg, asize)] = f = flops_audit.audit(acfg, asize, "both", DEV)
+        print(f"[main] {label} flops_audit {acfg}@{asize}: infer "
+              f"{f['infer']:.6g}, train {f['train']:.6g} FLOP/img "
+              f"(FlopCounterMode, matrix products, convolutions and "
+              f"attention), {time.perf_counter() - t0:.2f} s on {card}",
+              flush=True)
+        if not all(math.isfinite(v) and v > 0 for v in f.values()):
+            fail(f"{label}: the audit of {acfg}@{asize} is not positive: {f}")
+    for rp in ("l352", "s960", "s960train"):
+        point = (PATHS[rp]["cfg"], PATHS[rp]["size"])
+        if rp not in rates or point not in flops:
+            print(f"[main] {label} achieved TFLOP/s at {rp}: not measured "
+                  f"(its throughput phase did not run)", flush=True)
+            continue
+        mode = "train" if PATHS[rp].get("train") else "infer"
+        tflops = flops[point][mode] * rates[rp] / 1e12
+        print(f"[main] {label} achieved TFLOP/s at {rp} (the count x this "
+              f"run's {rates[rp]:.2f} img/s): {tflops:.2f}, "
+              f"{tflops / (BF16_FLOPS / 1e12):.4f} of the bf16 dense peak "
+              f"on {card}", flush=True)
+
+    # 4. the profiles: entry-point calls in each trace against the tables
+    for mode, table, key in (("infer", "s960", "per_forward"),
+                             ("train", "s960train", "per_step")):
+        want = PATHS[table][key]
+        prof = profile_model.run(mode, spec["batch"], size, cfg, top=10,
+                                 steps=spec["steps"], device=DEV)
+        got = collections.Counter()
+        for entry, n in prof["calls"].items():
+            got[ENTRY_WRAPPER[entry]] += n
+        print(f"[main] {label} profile_model --mode {mode} --batch "
+              f"{spec['batch']}: {prof['wall_ms']:.2f} ms a step (host "
+              f"clock, profiler on), device kernels {prof['busy_ms']:.2f} ms "
+              f"a step; entry-point calls over {spec['steps']} steps "
+              f"{dict(got)}", flush=True)
+        for name in sorted(set(want) | set(got)):
+            if got.get(name, 0) != want.get(name, 0) * spec["steps"]:
+                fail(f"{label}: the {mode} trace calls {name} "
+                     f"{got.get(name, 0)} times, expected "
+                     f"{want.get(name, 0)} x {spec['steps']} ({table})")
+        print(f"[main] {label} the {mode} trace's calls = {table}'s "
+              f"{key.replace('_', ' ')} x {spec['steps']}", flush=True)
+
+    torch.cuda.synchronize()
+    counts, variants = dict(dispatch.launches), dict(dispatch.variants)
+    # the profiles' warm-up step and their steps; the test CLI's forwards
+    infer_n, train_n = forwards + spec["steps"] + 1, spec["steps"] + 1
+    per_forward, per_step = PATHS["s960"]["per_forward"], \
+        PATHS["s960train"]["per_step"]
+    for name in sorted(set(per_forward) | set(per_step) | set(counts)):
+        want = (per_forward.get(name, 0) * infer_n
+                + per_step.get(name, 0) * train_n)
+        if counts.get(name, 0) != want:
+            fail(f"{label}: {name} launched {counts.get(name, 0)} times, "
+                 f"expected {want} ({infer_n} forwards, {train_n} steps)")
+    print(f"[main] {label} launches = s960's per forward x {infer_n} + "
+          f"s960train's per step x {train_n}; the path took "
+          f"{time.perf_counter() - t_path:.1f} s", flush=True)
     return variants
 
 
@@ -2987,7 +3135,8 @@ def main() -> None:
     ap.add_argument("--phases", default="build,kernels,main,throughput")
     ap.add_argument("--paths",
                     default="l352,s960,l352train,s960train,s1024sam2,"
-                            "s1024video,t512video,t1024amg,s960cli,s960deploy")
+                            "s1024video,t512video,t1024amg,s960cli,s960deploy,"
+                            "s960interop")
     ap.add_argument("--batch", type=int, default=32,
                     help="kernel, throughput and profile batch at hiera_l@352")
     ap.add_argument("--batch960", type=int, default=16,
@@ -3039,7 +3188,7 @@ def main() -> None:
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
-    entries, variants = [], {}
+    entries, variants, rates = [], {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for path in paths:
             batch = PATHS[path].get("batch") or getattr(args, BATCH_FLAG[path])
@@ -3056,13 +3205,16 @@ def main() -> None:
                     variants[path] = cli_main_phase(path, Path(tmp), card)
                 elif PATHS[path].get("deploy"):
                     variants[path] = deploy_main_phase(path, Path(tmp), card)
+                elif PATHS[path].get("interop"):
+                    variants[path] = interop_main_phase(path, Path(tmp), card,
+                                                        rates)
                 elif PATHS[path].get("train"):
                     variants[path] = train_main_phase(
                         path, Path(tmp), [int(s) for s in args.step_seeds.split(",")],
                         args.step_report)
                 else:
                     variants[path] = main_path_phase(path, Path(tmp))
-            if PATHS[path].get("cli") or PATHS[path].get("deploy"):
+            if "held_by" in PATHS[path] or PATHS[path].get("deploy"):
                 continue   # their times and A/Bs are the main phase's
             if "throughput" in phases and PATHS[path].get("video"):
                 video_throughput_phase(path, card)
@@ -3071,7 +3223,7 @@ def main() -> None:
             elif "throughput" in phases and PATHS[path].get("sam2"):
                 sam2_throughput_phase(path, card)
             elif "throughput" in phases:
-                throughput_phase(path, batch, card)
+                rates[path] = throughput_phase(path, batch, card)
                 if PATHS[path].get("remat"):
                     throughput_phase(path, batch, card, remat=True)
                 if PATHS[path].get("grouping_ab"):

@@ -1,14 +1,19 @@
 """Shared CLI plumbing: device, model construction, strict weight loading
-(a SAM2 trunk .pt, a SAM2-UNet .pth), the reference postprocess."""
+(a SAM2 trunk .pt; a SAM2-UNet .pth, or an Orbax directory that the JAX
+package's train CLI saved), the reference postprocess."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from sam2unet_torch.configs import SAM2UNetConfig, hiera_config
+from sam2unet_torch.interop.from_jax import jax_to_state_dict
 from sam2unet_torch.models.sam2unet import SAM2UNet
 from sam2unet_torch.ops.resize_np import resize_np
+from sam2unet_torch.train.checkpoints import load_any_checkpoint
 
 
 def resolve_device(name: str | torch.device) -> torch.device:
@@ -31,10 +36,17 @@ def build_model(model_cfg: str, device: torch.device,
 
 def load_checkpoint(model: SAM2UNet, path: str) -> None:
     """Strict load of a reference-style `.pth` state dict (an optional
-    top-level "model" entry is unwrapped)."""
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(state, dict) and isinstance(state.get("model"), dict):
-        state = state["model"]
+    top-level "model" entry is unwrapped) or of the JAX package's Orbax
+    directory (`load_any_checkpoint`, then `jax_to_state_dict`: every port
+    key must find its JAX leaf and every leaf its key), as the JAX CLIs'
+    `--checkpoint` takes either."""
+    if os.path.isdir(path):
+        keys = model.state_dict().keys()
+        state = jax_to_state_dict(load_any_checkpoint(path), keys)
+    else:
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(state, dict) and isinstance(state.get("model"), dict):
+            state = state["model"]
     model.load_state_dict(state, strict=True)
 
 

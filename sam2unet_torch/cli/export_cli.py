@@ -34,7 +34,9 @@ FORMATS = ("torch_export", "onnx")
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
-    p.add_argument("--checkpoint", type=str, required=True)
+    p.add_argument("--checkpoint", type=str, required=True,
+                   help="a .pth state dict or an Orbax directory the JAX "
+                        "train CLI saved")
     p.add_argument("--onnx_path", type=str, default="",
                    help="output path (kept for reference flag parity)")
     p.add_argument("--output", type=str, default="", help="output path")

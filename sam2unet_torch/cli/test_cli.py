@@ -27,7 +27,9 @@ from sam2unet_torch.data.dataset import EvalDataset
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
-    p.add_argument("--checkpoint", type=str, required=True)
+    p.add_argument("--checkpoint", type=str, required=True,
+                   help="a .pth state dict or an Orbax directory the JAX "
+                        "train CLI saved")
     p.add_argument("--test_image_path", type=str, required=True)
     p.add_argument("--test_gt_path", type=str, required=True)
     p.add_argument("--save_path", type=str, required=True)

@@ -77,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hiera_path", type=str, default="",
                    help="path to the sam2 pretrained hiera (.pt)")
     p.add_argument("--checkpoint", type=str, default="",
-                   help="SAM2-UNet checkpoint (.pth state dict)")
+                   help="SAM2-UNet checkpoint: a .pth state dict or an "
+                        "Orbax directory the JAX train CLI saved")
     p.add_argument("--train_image_path", type=str, required=True)
     p.add_argument("--train_mask_path", type=str, required=True)
     p.add_argument("--test_image_path", type=str, required=True)

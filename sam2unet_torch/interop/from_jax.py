@@ -1,8 +1,12 @@
-"""JAX package variables -> this package's state dict.
+"""JAX package variables <-> this package's state dict.
 
-Input: the JAX SAM2-UNet's variables as a nested dict of numpy arrays
-({"params": ..., "batch_stats": ...}). Output: a state dict for the port's
-module keys, ready for `load_state_dict(strict=True)`.
+`jax_to_state_dict`: the JAX SAM2-UNet's variables as a nested dict of
+numpy arrays ({"params": ..., "batch_stats": ...}) -> a state dict for the
+port's module keys, ready for `load_state_dict(strict=True)`.
+`state_dict_to_jax`: the inverse, a port state dict -> the JAX package's
+variables (its `convert_state_dict`, interop/torch_convert.py:130-160, on
+the port's keys), so that `save_variables` writes what the JAX package
+restores.
 
 The key rules are a self-contained copy of the JAX package's
 `_to_flax_path` / `_wrap_block_path` / `flax_to_torch_state_dict`
@@ -28,7 +32,11 @@ inserted after `blocks_N` for keys that carry neither `block` nor
 `prompt_learn`; SAM2's own trunk has no such scope.
 
 Strict both ways: a port key with no JAX leaf raises, and so does a JAX
-leaf that no port key consumed.
+leaf that no port key consumed; two port keys that land on one JAX leaf
+raise. BatchNorm's running variance is carried as it is, both ways: the
+JAX package stores the biased batch variance, torch the unbiased one, but
+that only changes how a training step updates the statistic; an eval-mode
+BatchNorm on either side normalises with the stored value.
 """
 
 from __future__ import annotations
@@ -41,6 +49,12 @@ _SUFFIXES = (".weight", ".bias", ".running_mean", ".running_var",
 
 
 _LIST_FLAT = ("point_embeddings", "output_hypernetworks_mlps")
+# raw parameters and nn.Embedding tables stored as they are (no transpose,
+# no kernel / scale leaf); the JAX package's `_EMBED_BASES`
+_RAW = ("not_a_point_embed", "no_mask_embed", "iou_token", "mask_tokens",
+        "obj_score_token", "no_mem_embed", "no_mem_pos_enc",
+        "maskmem_tpos_enc", "no_obj_ptr", "no_obj_embed_spatial",
+        "positional_encoding_gaussian_matrix", "gamma")
 _SEQ_FLAT = ("mask_downscaling", "output_upscaling")
 
 
@@ -86,6 +100,13 @@ def _jax_path(name: str, wrap_blocks: bool = True) -> tuple[str, ...]:
     return tuple(wrapped)
 
 
+def _split_suffix(key: str) -> tuple[str, str]:
+    for s in _SUFFIXES:
+        if key.endswith(s):
+            return key[: -len(s)], s
+    return key, ""
+
+
 def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
     out = {}
     for k, v in tree.items():
@@ -114,11 +135,7 @@ def jax_to_state_dict(variables: dict, keys,
 
     out: dict[str, torch.Tensor] = {}
     for key in keys:
-        name, suffix = key, ""
-        for s in _SUFFIXES:
-            if key.endswith(s):
-                name, suffix = key[: -len(s)], s
-                break
+        name, suffix = _split_suffix(key)
         path = _jax_path(name, wrap_blocks)
         if suffix == ".num_batches_tracked":
             out[key] = torch.tensor(0, dtype=torch.int64)
@@ -152,3 +169,53 @@ def jax_to_state_dict(variables: dict, keys,
         raise KeyError(f"JAX variables with no port key: {unused[:8]}"
                        f"{'...' if len(unused) > 8 else ''}")
     return out
+
+
+def state_dict_to_jax(state_dict: dict, wrap_blocks: bool = True) -> dict:
+    """A port state dict -> the JAX package's variables, nested dicts of
+    numpy arrays: Linear (O, I) -> Dense (I, O); Conv and ConvTranspose
+    (O, I, kh, kw) / (I, O, kh, kw) -> (kh, kw, I, O) / (kh, kw, O, I); a
+    1-D weight (BatchNorm, LayerNorm) -> `scale`; running_mean / var ->
+    `batch_stats` mean / var; pos embeds (1, C, H, W) -> (1, H, W, C);
+    raw parameters and embedding tables as they are; num_batches_tracked
+    dropped (`jax_to_state_dict` gives 0 back). Raises where two keys land
+    on one JAX leaf."""
+    tree: dict = {"params": {}, "batch_stats": {}}
+    for key, value in state_dict.items():
+        arr = (value.detach().cpu().numpy() if isinstance(value, torch.Tensor)
+               else np.asarray(value))
+        name, suffix = _split_suffix(key)
+        if suffix == ".num_batches_tracked":
+            continue
+        path = _jax_path(name, wrap_blocks)
+        coll, leaf = "params", None
+        parts = name.split(".")
+        raw = parts[-1] in _RAW or (len(parts) > 1 and parts[-2]
+                                    == "point_embeddings" and parts[-1].isdigit())
+        if suffix in (".running_mean", ".running_var"):
+            coll, leaf = "batch_stats", suffix[len(".running_"):]
+        elif suffix == ".weight" and not raw:
+            if arr.ndim == 4:
+                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:
+                leaf, arr = "kernel", arr.T
+            else:
+                leaf = "scale"
+        elif suffix == ".bias":
+            leaf = "bias"
+        elif name.endswith(("pos_embed", "pos_embed_window")):
+            arr = arr.transpose(0, 2, 3, 1)
+        path = path + (leaf,) if leaf else path
+        node = tree[coll]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+            if not isinstance(node, dict):
+                raise KeyError(f"port key {key} lands under the JAX leaf "
+                               f"{'/'.join(path)}")
+        if path[-1] in node:
+            raise KeyError(f"port key {key} lands on the JAX leaf "
+                           f"{coll}/{'/'.join(path)} a second time")
+        node[path[-1]] = np.ascontiguousarray(arr)
+    if not tree["batch_stats"]:
+        tree.pop("batch_stats")
+    return tree

@@ -5,15 +5,20 @@ Each `csrc/*.cu` becomes one shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds). All sources compile in
 parallel, one nvcc process each, into `build/torch_kernels/<hash>/` at the
 repository root; the hash covers every source, header and flag, so an
-edited source rebuilds and an unchanged one is reused. Pointers and the
+edited source rebuilds and an unchanged one is reused. The sources ship in
+the wheel (package data, `sam2unet_torch/csrc/`). Outputs go to `build/`
+beside the package's parent directory (the repository root in a checkout)
+where that directory is writable; where it is not (an installed package in
+a read-only site-packages), to a per-user cache,
+`$XDG_CACHE_HOME/sam2unet_torch/` (by default `~/.cache/sam2unet_torch/`). Pointers and the
 stream cross as `c_void_p`; each C entry point returns the CUDA error code
 of its launches, and `check` raises on a non-zero one. While a
 torch.profiler trace records, each entry point's call is a user annotation
 named after it (`k1_fused_mlp`, ...), so a trace attributes the device
 kernels it launches (`gemm_bf16_kernel` serves several) to it. A host library
 (`csrc/*.cc`: connected components, the JPEG loader) is built by
-`host_library` into `build/native/<hash>/`, the hash over its source, flags
-and link libraries.
+`host_library` into `native/<hash>/` under the same directory, the hash over
+its source, flags and link libraries.
 """
 
 from __future__ import annotations
@@ -31,8 +36,6 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-HOST_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
 HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 SOURCES = ("fused_mlp", "fused_attention_block", "fused_transition",
            "flash_attention", "fused_mlp_bwd", "fused_attention_block_bwd",
@@ -99,6 +102,20 @@ _libs: dict[str, types.SimpleNamespace] = {}
 build_seconds: dict[str, float] = {}
 
 
+def build_base() -> Path:
+    """`build/` in the package's parent directory where it can be made and
+    written, else the per-user cache."""
+    local = Path(__file__).resolve().parents[2] / "build"
+    try:
+        local.mkdir(exist_ok=True)
+        if os.access(local, os.W_OK):
+            return local
+    except OSError:   # a read-only parent, or a file in the way
+        pass
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "sam2unet_torch"
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -115,7 +132,7 @@ def build_dir() -> Path:
         if f.suffix in (".cu", ".cuh"):
             h.update(f.name.encode())
             h.update(f.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16]
+    return build_base() / "torch_kernels" / h.hexdigest()[:16]
 
 
 def build_all() -> Path:
@@ -181,12 +198,12 @@ def library(name: str) -> types.SimpleNamespace:
 
 def host_library(name: str, libs: tuple[str, ...] = ()) -> Path:
     """`csrc/<name>.cc` compiled with g++ (linked with `libs`) into
-    `build/native/<hash>/lib<name>.so` unless it is there; its path. A
-    failed build raises."""
+    `native/<hash>/lib<name>.so` under `build_base()` unless it is there;
+    its path. A failed build raises."""
     source = CSRC / f"{name}.cc"
     h = hashlib.sha256(" ".join(HOST_FLAGS + libs).encode())
     h.update(source.read_bytes())
-    out = HOST_ROOT / h.hexdigest()[:16]
+    out = build_base() / "native" / h.hexdigest()[:16]
     lib = out / f"lib{name}.so"
     with _lock:
         if not lib.exists():

@@ -5,15 +5,26 @@ and IoU whenever the mean IoU beats the best so far, else a rolling
 epoch. Files are state dicts written with torch.save, which the port's
 test CLI loads with strict=True. `save_train_state` / `restore_train_state`
 (the JAX package's, checkpoints.py:77-95 there) keep the whole training
-state for a true resume: the reference restarts the optimizer."""
+state for a true resume: the reference restarts the optimizer.
+
+`save_variables`, `restore_variables` and `load_any_checkpoint` are the
+JAX package's (checkpoints.py:25-36,90-97 there), on the same Orbax
+directories (`interop/orbax.py`, no JAX): variables are the JAX tree, a
+nested dict of numpy arrays ({"params", "batch_stats"});
+`interop/from_jax.py` converts them from and to the port's state dict. The
+policy above keeps writing `.pth` files."""
 
 from __future__ import annotations
 
 import os
 from collections.abc import Callable
 
+import numpy as np
 import torch
 from torch import nn
+
+from sam2unet_torch.interop import orbax
+from sam2unet_torch.interop.from_jax import state_dict_to_jax
 
 LATEST_NAME = "SAM2-UNet_epoch-latest.pth"
 
@@ -84,3 +95,60 @@ def restore_train_state(path: str, model: nn.Module,
         masters[name] = state["model"][name]
     optimizer.load_state_dict(state["optimizer"])
     return state["epoch"], state["step"]
+
+
+def save_variables(path: str, variables: dict) -> None:
+    """Save model variables ({"params", "batch_stats"}, nested dicts of
+    arrays) to an Orbax directory, replacing one that is there."""
+    orbax.write_tree(path, variables)
+
+
+def _flat(tree: dict, prefix: tuple = ()) -> dict[tuple, object]:
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, prefix + (k,)) if isinstance(v, dict)
+                   else {prefix + (k,): v})
+    return out
+
+
+def _like(variables: dict, template: dict) -> dict:
+    """`variables` held to `template`: the same leaves and shapes (else
+    KeyError / ValueError), each cast to the template leaf's dtype."""
+    got, want = _flat(variables), _flat(template)
+    if got.keys() != want.keys():
+        missing = sorted("/".join(k) for k in want.keys() - got.keys())
+        extra = sorted("/".join(k) for k in got.keys() - want.keys())
+        raise KeyError(f"checkpoint does not match the template: missing "
+                       f"{missing[:5]}, unexpected {extra[:5]}")
+    out: dict = {}
+    for k, t in want.items():
+        t = np.asarray(t)
+        v = np.asarray(got[k])
+        if v.shape != t.shape:
+            raise ValueError(f"{'/'.join(k)}: shape {v.shape} in the "
+                             f"checkpoint, {t.shape} in the template")
+        node = out
+        for p in k[:-1]:
+            node = node.setdefault(p, {})
+        node[k[-1]] = v.astype(t.dtype, copy=False)
+    return out
+
+
+def restore_variables(path: str, template: dict | None = None) -> dict:
+    """The variables of an Orbax directory; with `template`, held to its
+    leaves, shapes and dtypes."""
+    variables = orbax.read_tree(path)
+    return variables if template is None else _like(variables, template)
+
+
+def load_any_checkpoint(path: str, template: dict | None = None) -> dict:
+    """Model variables from an Orbax directory or a torch `.pth`/`.pt`
+    state dict (an optional top-level "model" entry unwrapped), converted
+    to the JAX tree."""
+    if os.path.isdir(path):
+        return restore_variables(path, template)
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, dict) and isinstance(state.get("model"), dict):
+        state = state["model"]
+    variables = state_dict_to_jax(state)
+    return variables if template is None else _like(variables, template)

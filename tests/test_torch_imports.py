@@ -1,5 +1,6 @@
 """The port stands alone: no file of sam2unet_torch/, and not chip_smoke.py,
-imports jax, flax or anything of sam2unet_tpu."""
+imports jax, flax, orbax, tensorstore, zstandard or anything of
+sam2unet_tpu."""
 
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch._dynamo  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "sam2unet_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sam2unet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+             "zstandard", "sam2unet_tpu")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -60,7 +62,9 @@ def test_port_package_has_the_expected_modules():
                 "nn/fold_bn.py", "interop/export.py",
                 "interop/onnx_compat/__init__.py", "deploy/onnx_numpy.py",
                 "deploy/segmenter.py", "cli/export_cli.py",
-                "cli/deploy_cli.py"):
+                "cli/deploy_cli.py", "interop/ocdbt.py", "interop/orbax.py",
+                "utils/flops_audit.py", "utils/profile_model.py",
+                "utils/dump_augmentations.py"):
         assert f"sam2unet_torch/{mod}" in names
     for src in ("fused_mlp.cu", "fused_attention_block.cu",
                 "fused_transition.cu", "flash_attention.cu",
