@@ -8,8 +8,10 @@ sam2_hiera_t the points of the JAX package's hardware scripts: the video
 predictor at 512 px under the "pallas" attention backend
 (scripts/smoke_video.py) and the automatic mask generator at 1024 px
 (scripts/bench_amg.py); the train CLI whole at its defaults; export and
-deploy at the fork's defaults; and the JAX package's checkpoints and
-tooling there (Orbax directories, the FLOP audit, the profiler).
+deploy at the fork's defaults; the JAX package's checkpoints and
+tooling there (Orbax directories, the FLOP audit, the profiler); and the
+train CLI across ranks (data parallelism with SyncBN, a resume from the
+JAX package's train state layout).
 
     python3 chip_smoke.py            # every phase, as the acceptance run does
     python3 chip_smoke.py --phases build,kernels --batch 2 --batch960 2 \
@@ -22,6 +24,7 @@ tooling there (Orbax directories, the FLOP audit, the profiler).
     python3 chip_smoke.py --paths s960cli          # the train CLI whole
     python3 chip_smoke.py --paths s960deploy       # export and deploy
     python3 chip_smoke.py --paths s960interop      # checkpoints and tooling
+    python3 chip_smoke.py --paths s960dp           # data parallelism
 
 Phases, one line each, for each path of --paths (l352, s960, then the
 training paths l352train and s960train, listed after these):
@@ -65,7 +68,9 @@ bf16 over fp32 master parameters, the trunk frozen:
      checkpoint, --size 352 --model_cfg sam2_hiera_l --bf16 --batch_size 8
      --epoch 2, or for s960train the CLI's defaults (hiera_s, 960, batch
      16) with --bf16 --epoch 2 --save_train_state and then --resume from
-     the saved state for a third epoch: finite losses that fall, every trainable parameter moved, every frozen
+     the saved state with --epoch 3 (epochs 0-2 again from the saved step,
+     the first rate the schedule's there, as the JAX CLI resumes): finite
+     losses that fall, every trainable parameter moved, every frozen
      one bit-identical, the epoch reports in log.txt, a checkpoint that the
      test CLI loads strictly and runs; launches per train step of every
      wrapper (counters set to 0 just before, read just after); then one
@@ -192,6 +197,26 @@ at shapes those paths' entries hold):
      batch 16, 3 steps each: the top 10 kernels, and each entry point's
      calls in the trace = s960's per forward or s960train's per step x 3;
      the launches of the whole path against the same tables.
+The data-parallel path s960dp (the train CLI's defaults: hiera_s, 960,
+global batch 16; bf16, the seeded random checkpoint; each rank a process
+started by torch.distributed.run on the one card):
+  3. (a) one process: step 1's gradients and BatchNorm statistics in fp32
+     (the reference), then 2 bf16 train steps; 2 ranks over gloo (NCCL
+     refuses two ranks on one device; the line says which backend ran),
+     8 rows each, SyncBN, the same 2 steps: each step's global loss, step
+     1's gradient of every trainable leaf against one process's (1 - corr
+     and max relative gap; both runs' gaps to fp32, 1 - corr, max relative
+     gap and the norm's gap, within s960train's bf16 bounds), the BatchNorm statistics' max gap, the ranks' launches
+     (s960train's per step each), step ms against one process's and the
+     all-reduces' share of a timed extra step; (b) train_cli under
+     torch.distributed.run on 2 ranks, --bf16 --epoch 1 --save_train_state
+     --shard_map over 32 synthetic images (2 steps) and 4 eval images:
+     every write under the save path from rank 0 (an audit hook), the
+     JAX-layout train state restored with the moments bit-equal to the
+     saved optimizer's, then --resume from it with --epoch 2: its first
+     rate the schedule's at the saved step; (c) world 1 over NCCL through
+     make_mesh: init, an all_reduce, one train step at batch 2, its
+     gradients all-reduced.
 The throughput phase of l352, l352train and s960train also times the step
 with the persistent window groups and per block (SAM2UNET_DISABLE_GROUPED),
 alternating, for the record.
@@ -210,6 +235,9 @@ import collections
 import contextlib
 import json
 import math
+import os
+import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -439,6 +467,18 @@ PATHS = {
                         size=960, interop=True, batch=16, images=16,
                         cli_batch=4, steps=3, held_by=("s960train", "s960"),
                         audits=(("sam2_hiera_s", 960), ("sam2_hiera_l", 352))),
+    # data parallelism at the train CLI's defaults (hiera_s, 960, global
+    # batch 16) on the one card: (a) 2 bf16 train steps in one process,
+    # then on 2 ranks over gloo (8 rows each, SyncBN; NCCL refuses two ranks
+    # on one device), (b) the train CLI under torch.distributed.run on 2
+    # ranks, --epoch 1 --save_train_state --shard_map over 32 images (2
+    # steps) and 4 eval images, then --resume from its JAX-layout train
+    # state with --epoch 2, (c) world 1 over NCCL: init, all_reduce, one
+    # step at batch 2. Every rank launches s960train's per step (and s960's
+    # per eval forward) at shapes that path's entries hold.
+    "s960dp": dict(label="hiera_s@960 data parallel", cfg="sam2_hiera_s",
+                   size=960, dp=True, batch=16, ranks=2, steps=2, seed=2,
+                   train_images=32, eval_images=4, held_by=("s960train",)),
 }
 BATCH_FLAG = {"l352": "batch", "s960": "batch960", "l352train": "batch_train",
               "s960train": "batch_train960"}
@@ -2079,7 +2119,7 @@ def train_main_phase(path: str, tmp: Path, step_seeds: list[int],
     from sam2unet_torch.cli import test_cli, train_cli
     from sam2unet_torch.cli.common import build_model
     from sam2unet_torch.ops import dispatch
-    from sam2unet_torch.train.optim import is_trainable
+    from sam2unet_torch.train.optim import cosine_step_lr, is_trainable
 
     spec = PATHS[path]
     label, cfg, size = spec["label"], spec["cfg"], spec["size"]
@@ -2182,15 +2222,19 @@ def train_main_phase(path: str, tmp: Path, step_seeds: list[int],
         again = train_cli.main(train_cli.build_parser().parse_args(
             common + point + ["--epoch", "3", "--resume", state]))
         torch.cuda.synchronize()
+        spe = steps // 2
+        first_lr = cosine_step_lr(args.lr, steps, 3, spe)
         print(f"[main] {label} train_cli --resume {Path(state).name} --epoch 3: "
-              f"resumed at epoch {again['start_epoch']}, {again['steps']} "
-              f"step(s), global step {again['global_step']}, losses "
+              f"from step {steps}, {again['steps']} step(s) (epochs 0-2 again, "
+              f"as the JAX CLI), global step {again['global_step']}, first "
+              f"rate {again['lrs'][0]:.6g} (the schedule at step {steps}: "
+              f"{first_lr:.6g}), losses "
               f"{[round(v, 4) for v in again['losses']]}", flush=True)
-        if ((again["start_epoch"], again["steps"], again["global_step"])
-                != (2, steps // 2, steps + steps // 2) or not again["saved"]
+        if ((again["steps"], again["global_step"]) != (3 * spe, steps + 3 * spe)
+                or again["lrs"][0] != first_lr or not again["saved"]
                 or not all(math.isfinite(v) for v in again["losses"])):
-            fail(f"{label}: the resumed run did not continue from epoch 2: "
-                 f"{again}")
+            fail(f"{label}: the resumed run did not train epochs 0-2 from step "
+                 f"{steps}: {again}")
         check_moved(torch.load(again["saved"][-1], map_location="cpu",
                                weights_only=True), saved,
                     "resumed run's checkpoint against the 2-epoch one")
@@ -3130,13 +3174,512 @@ def profile_phase(path: str, batch: int, card: str,
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- s960dp
+
+
+def _torchrun(n: int, kind: str, spec: dict, tmp: Path, timeout: float):
+    """Run this script's `--dp_worker kind` on `n` ranks of one card through
+    torch.distributed.run (--standalone: a rendezvous on localhost), under
+    `timeout` seconds; every process it starts is gone when it returns.
+    Returns each rank's result (JSON) and the run's wall seconds."""
+    spec_path = tmp / f"dp_{kind}_spec.json"
+    spec_path.write_text(json.dumps(dict(spec, out=str(tmp))))
+    log_path = tmp / f"dp_{kind}.log"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={n}", str(REPO / "chip_smoke.py"),
+           "--dp_worker", kind, "--dp_spec", str(spec_path)]
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                cwd=str(REPO), start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        tail = log_path.read_text(errors="replace")[-6000:]
+        fail(f"{kind} on {n} rank(s) {'timed out' if rc is None else f'exited {rc}'}"
+             f" after {wall:.1f} s:\n{tail}")
+    out = []
+    for r in range(n):
+        out.append(json.loads((tmp / f"dp_{kind}_rank{r}.json").read_text()))
+    return out, wall
+
+
+def _dp_flat(tensors: dict) -> dict:
+    """fp32 host copies."""
+    return {k: v.detach().float().cpu().clone() for k, v in tensors.items()}
+
+
+def _bn_stats(model) -> dict:
+    return {k: v for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def _step_record(model) -> dict:
+    """The trainable gradients (the ranks' mean) and the BatchNorm running
+    statistics after a step, fp32 host copies."""
+    from sam2unet_torch.train.optim import trainable_parameters
+
+    return {"grads": _dp_flat({n: p.grad for n, p in trainable_parameters(model)}),
+            "stats": _dp_flat(_bn_stats(model))}
+
+
+def dp_step_worker(spec: dict) -> dict:
+    """One rank of (a): the bf16 train model with SyncBN, this rank's rows of
+    the global batch, `steps` train steps (counters set to 0 just before,
+    read just after); then one more step with every all-reduce timed."""
+    import torch
+    import torch.distributed as dist
+
+    from sam2unet_torch.ops import dispatch
+    from sam2unet_torch.parallel.mesh import make_mesh, shard_batch
+    from sam2unet_torch.train.engine import train_step
+    from sam2unet_torch.train.optim import make_optimizer, trainable_parameters
+
+    mesh = make_mesh(DEV)
+    model = _train_model(spec["cfg"], Path(spec["ckpt"]), bf16=True).train()
+    opt = make_optimizer(model)
+    x, y = _train_batch(spec["batch"], spec["size"], seed=spec["seed"])
+    x, y = shard_batch(mesh, x), shard_batch(mesh, y)
+    losses, ms, first = [], [], None
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    for _ in range(spec["steps"]):
+        t0 = time.perf_counter()
+        losses.append(float(train_step(model, opt, x, y)))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        first = first or _step_record(model)
+    counts = dict(dispatch.launches)
+    variants = [[w, v, n] for (w, v), n in dispatch.variants.items()]
+    path = Path(spec["out"]) / f"dp_step_tensors_rank{mesh.rank}.pt"
+    torch.save(dict(first, params=_dp_flat(dict(trainable_parameters(model)))),
+                path)
+    # one more step, each all-reduce synchronised and timed on the host
+    real, spent = dist.all_reduce, []
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    dist.all_reduce = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(model, opt, x, y)
+        torch.cuda.synchronize()
+        timed_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        dist.all_reduce = real
+    return {"rank": mesh.rank, "world": mesh.world,
+            "backend": dist.get_backend(), "losses": losses, "ms": ms,
+            "counts": counts, "variants": variants, "tensors": str(path),
+            "all_reduce_ms": 1e3 * sum(spent), "all_reduces": len(spent),
+            "timed_step_ms": timed_ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def dp_cli_worker(spec: dict) -> dict:
+    """One rank of (b): the train CLI, every write this process makes under
+    the save path recorded (an audit hook; torch.save, which writes from
+    C++, wrapped)."""
+    import torch
+
+    from sam2unet_torch.cli import train_cli
+    from sam2unet_torch.ops import dispatch
+
+    root = os.path.realpath(spec["save_path"])
+    writes = []
+
+    def audit(event, args):
+        if event == "open" and isinstance(args[0], (str, bytes, os.PathLike)):
+            mode, flags = args[1] or "", args[2] or 0
+            writing = any(c in mode for c in "wax+") or flags & (
+                os.O_WRONLY | os.O_RDWR | os.O_CREAT)
+        elif event in ("os.mkdir", "os.rename", "os.replace", "os.remove",
+                       "shutil.rmtree", "os.rmdir"):
+            writing = True
+        else:
+            return
+        path = os.path.realpath(os.fsdecode(args[0]))
+        if writing and path.startswith(root):
+            writes.append(f"{event} {os.path.relpath(path, root)}")
+
+    sys.addaudithook(audit)
+    real_save = torch.save   # writes from C++: no audit event
+
+    def save(obj, f, *a, **k):
+        path = os.path.realpath(os.fsdecode(f))
+        if path.startswith(root):
+            writes.append(f"torch.save {os.path.relpath(path, root)}")
+        return real_save(obj, f, *a, **k)
+
+    torch.save = save
+    dispatch.reset_launches()
+    stats = train_cli.main(train_cli.build_parser().parse_args(spec["argv"]))
+    stats.pop("reports")
+    return {"stats": stats, "writes": writes,
+            "counts": dict(dispatch.launches),
+            "variants": [[w, v, n] for (w, v), n in dispatch.variants.items()]}
+
+
+def dp_nccl_worker(spec: dict) -> dict:
+    """(c): world 1 through make_mesh, which picks NCCL for a rank with a
+    card of its own: the group's init, one all_reduce, one train step of
+    the SyncBN model, and its gradients all-reduced over NCCL."""
+    import torch
+    import torch.distributed as dist
+
+    from sam2unet_torch.ops import dispatch
+    from sam2unet_torch.parallel.mesh import make_mesh
+    from sam2unet_torch.train.engine import train_step
+    from sam2unet_torch.train.optim import make_optimizer, trainable_parameters
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(DEV)
+    probe = torch.arange(4.0, device=mesh.device)
+    dist.all_reduce(probe)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = _train_model(spec["cfg"], Path(spec["ckpt"]), bf16=True).train()
+    opt = make_optimizer(model)
+    x, y = _train_batch(spec["batch"], spec["size"], seed=spec["seed"])
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    loss = float(train_step(model, opt, x, y))
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    counts = dict(dispatch.launches)
+    variants = [[w, v, n] for (w, v), n in dispatch.variants.items()]
+    grads = torch.cat([p.grad.reshape(-1) for _, p in trainable_parameters(model)])
+    summed = grads.clone()
+    dist.all_reduce(summed)
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "world": mesh.world,
+            "device": str(mesh.device), "probe": probe.tolist(),
+            "init_s": init_s, "loss": loss, "step_ms": step_ms,
+            "counts": counts, "variants": variants,
+            "grad_values": grads.numel(),
+            "grads_unchanged": bool(torch.equal(summed, grads))}
+
+
+DP_WORKERS = {"step": dp_step_worker, "cli": dp_cli_worker,
+              "nccl": dp_nccl_worker}
+
+
+def dp_worker_main(kind: str, spec_path: str) -> None:
+    """A rank started by `_torchrun`: run the worker, write its result."""
+    import torch
+
+    spec = json.loads(Path(spec_path).read_text())
+    result = DP_WORKERS[kind](spec)
+    rank = int(os.environ.get("RANK", "0"))
+    Path(spec["out"], f"dp_{kind}_rank{rank}.json").write_text(
+        json.dumps(result))
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+def _per_rank_launches(label: str, what: str, counts: dict, per: dict,
+                       n: int) -> None:
+    for name in sorted(set(per) | set(counts)):
+        if counts.get(name, 0) != per.get(name, 0) * n:
+            fail(f"{label}: {what}: {name} launched {counts.get(name, 0)} "
+                 f"times, expected {per.get(name, 0)} x {n}")
+
+
+def dp_main_phase(path: str, tmp: Path, card: str) -> dict:
+    """(a) two ranks on the card over gloo against one process, (b) the
+    train CLI on two ranks and resumed from its JAX-layout train state,
+    (c) world 1 over NCCL. Returns the ranks' launch variants."""
+    import torch
+
+    from sam2unet_torch.ops import dispatch
+    from sam2unet_torch.train.checkpoints import (
+        jax_train_state_path,
+        restore_train_state,
+    )
+    from sam2unet_torch.train.engine import train_step
+    from sam2unet_torch.train.loss import multi_head_loss
+    from sam2unet_torch.train.optim import cosine_step_lr, make_optimizer
+
+    spec = PATHS[path]
+    label, cfg, size, batch = spec["label"], spec["cfg"], spec["size"], spec["batch"]
+    ranks, steps = spec["ranks"], spec["steps"]
+    per_step = PATHS["s960train"]["per_step"]
+    per_forward = PATHS["s960"]["per_forward"]
+    t_path = time.perf_counter()
+    ckpt = tmp / f"{cfg}.pth"
+    if not ckpt.exists():
+        random_checkpoint(ckpt, cfg, seed=0)
+    variants = collections.Counter()
+
+    # (a) one process: step 1's gradients and statistics in fp32 (the
+    # reference), then the bf16 steps; each model freed before the next
+    x, y = _train_batch(batch, size, seed=spec["seed"])
+    model = _train_model(cfg, ckpt, bf16=False).train()
+    model.zero_grad(set_to_none=True)
+    multi_head_loss(model(x), y).backward()
+    fp32 = _step_record(model)
+    del model
+    torch.cuda.empty_cache()
+    model = _train_model(cfg, ckpt, bf16=True).train()
+    opt = make_optimizer(model)
+    losses, ms, one = [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(train_step(model, opt, x, y)))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        one = one or _step_record(model)
+    _per_rank_launches(label, "one process", dict(dispatch.launches),
+                       per_step, steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, opt, x, y
+    torch.cuda.empty_cache()
+    print(f"[main] {label} one process, global batch {batch}, bf16: losses "
+          f"{[round(v, 6) for v in losses]}, step ms "
+          f"{[round(v, 1) for v in ms]} (host clock, synchronised), peak "
+          f"{peak:.2f} GiB on {card}", flush=True)
+
+    (r0, r1), wall = _torchrun(ranks, "step", {
+        "cfg": cfg, "ckpt": str(ckpt), "size": size, "batch": batch,
+        "seed": spec["seed"], "steps": steps}, tmp, timeout=300)
+    print(f"[main] {label} {ranks} ranks on one card over {r0['backend']} "
+          f"(NCCL refuses two ranks on one device), {batch // ranks} rows "
+          f"each, SyncBN: losses {[round(v, 6) for v in r0['losses']]} "
+          f"(rank 1 {[round(v, 6) for v in r1['losses']]}), step ms rank 0 "
+          f"{[round(v, 1) for v in r0['ms']]}, rank 1 "
+          f"{[round(v, 1) for v in r1['ms']]} against one process's "
+          f"{[round(v, 1) for v in ms]} (host clock, synchronised; the ranks "
+          f"share the card); all-reduces in a timed extra step: "
+          f"{r0['all_reduces']} taking {r0['all_reduce_ms']:.1f} ms of its "
+          f"{r0['timed_step_ms']:.1f} ms "
+          f"({r0['all_reduce_ms'] / r0['timed_step_ms']:.3f}; each "
+          f"synchronised); peak {r0['peak_gib']:.2f} GiB a rank; the run "
+          f"{wall:.1f} s with the processes' start on {card}", flush=True)
+    if r0["backend"] != "gloo" or r0["world"] != ranks:
+        fail(f"{label}: the ranks ran on {r0['backend']} at world {r0['world']}")
+    if r0["losses"] != r1["losses"]:
+        fail(f"{label}: the ranks report different global losses")
+    for k, (a, b) in enumerate(zip(r0["losses"], losses)):
+        if abs(a - b) > STEP_LOSS_RTOL * abs(b):
+            fail(f"{label}: step {k + 1}'s loss {a} on {ranks} ranks, {b} in "
+                 f"one process (tol {STEP_LOSS_RTOL})")
+    for r in (r0, r1):
+        _per_rank_launches(label, f"rank {r['rank']}", r["counts"], per_step,
+                           steps)
+        variants.update({(w, v): n for w, v, n in r["variants"]})
+    print(f"[main] {label} launches per rank over {steps} steps = s960train's "
+          f"per step x {steps}: "
+          f"{ {k: r0['counts'][k] for k in sorted(r0['counts'])} }", flush=True)
+    t0, t1 = (torch.load(r["tensors"], weights_only=True) for r in (r0, r1))
+    for part in ("params", "stats", "grads"):
+        differ = [k for k in t0[part] if not torch.equal(t0[part][k], t1[part][k])]
+        if differ:
+            fail(f"{label}: the ranks' {part} differ: {differ[:4]}")
+    # step 1's gradients (the same parameters in both runs): each bf16
+    # run's gap to the fp32 gradient, s960train's bf16 bound with the
+    # one-process run in the plain version's place, on three readings of
+    # each leaf: 1 - corr; the max relative gap; and the norm's relative
+    # gap, which a fault of scale (gradients summed over the ranks, or
+    # divided twice) moves while it leaves the correlation at 1
+    def readings(got: dict) -> dict:
+        agree = _leaf_agreement(got, fp32["grads"])
+        return {n: (1 - agree[n][0], agree[n][1],
+                    abs(float(got[n].double().norm())
+                        / max(float(b.double().norm()), 1e-30) - 1))
+                for n, b in fp32["grads"].items()}
+
+    direct = _leaf_agreement(t0["grads"], one["grads"])
+    dp_r, one_r = readings(t0["grads"]), readings(one["grads"])
+    kinds = ("1 - corr", "max_rel_gap", "norm gap")
+    for n in sorted(dp_r):
+        print(f"[dp-leaf] {n}: {ranks} ranks vs one process 1-corr "
+              f"{1 - direct[n][0]:.3g} max_rel_gap {direct[n][1]:.3g}; to fp32 "
+              + ", ".join(f"{kind} {dp_r[n][i]:.3g} vs {one_r[n][i]:.3g}"
+                          for i, kind in enumerate(kinds)), flush=True)
+    rel_n = max(direct, key=lambda n: direct[n][1])
+    print(f"[main] {label} step 1's gradients of the {len(dp_r)} trainable "
+          f"leaves, {ranks} ranks (the mean of the ranks') against one "
+          f"process: worst 1 - corr {max(1 - c for c, _ in direct.values()):.4g}"
+          f", largest max_rel_gap {rel_n} {direct[rel_n][1]:.4g}", flush=True)
+    bad = []
+    for i, kind in enumerate(kinds):
+        over = {n: dp_r[n][i] - (STEP_GAP_RATIO * one_r[n][i] + STEP_GAP_MARGIN)
+                for n in dp_r}
+        worst = max(over, key=over.get)
+        mean_dp = sum(r[i] for r in dp_r.values()) / len(dp_r)
+        mean_one = sum(r[i] for r in one_r.values()) / len(one_r)
+        good = over[worst] <= 0 and mean_dp <= (STEP_GAP_MEAN_RATIO * mean_one
+                                                + (STEP_GAP_MARGIN if i else 0))
+        print(f"[main] {label} step 1's gradients, {kind} to the fp32 "
+              f"gradient: mean {mean_dp:.4g} vs one process's {mean_one:.4g}, "
+              f"closest to the limit {worst} {dp_r[worst][i]:.4g} vs "
+              f"{one_r[worst][i]:.4g} (tol, s960train's bf16 bounds: each "
+              f"leaf <= {STEP_GAP_RATIO} x one process's + {STEP_GAP_MARGIN}; "
+              f"mean <= {STEP_GAP_MEAN_RATIO} x one process's"
+              f"{'' if i == 0 else f' + {STEP_GAP_MARGIN}'})"
+              f"{'' if good else '  <-- FAIL'}", flush=True)
+        if not good:
+            bad.append(kind)
+    if bad:
+        fail(f"{label}: the {ranks}-rank gradients disagree with one "
+             f"process's ({', '.join(bad)})")
+
+    def rel_gap(a: dict, b: dict, k: str) -> float:
+        """max |a - b| of a statistic over its layer's scale: the largest
+        variance, for a mean its square root (a mean near 0 has no scale
+        of its own)."""
+        var = b[k.rsplit(".", 1)[0] + ".running_var"]
+        scale = float(var.abs().max()) ** (0.5 if k.endswith("mean") else 1)
+        return float((a[k] - b[k]).abs().max()) / max(scale, 1e-30)
+
+    stat_gap = {k: (rel_gap(t0["stats"], fp32["stats"], k),
+                    rel_gap(one["stats"], fp32["stats"], k))
+                for k in fp32["stats"]}
+    direct_gap = {k: rel_gap(t0["stats"], one["stats"], k) for k in one["stats"]}
+    k_max = max(direct_gap, key=direct_gap.get)
+    bad = [k for k, (g, r) in stat_gap.items()
+           if g > STEP_GAP_RATIO * r + STEP_GAP_MARGIN]
+    print(f"[main] {label} BatchNorm running statistics after step 1, "
+          f"{ranks} ranks (SyncBN: the global batch's fp32 moments, unbiased "
+          f"over the global count) against one process: max gap "
+          f"{direct_gap[k_max]:.4g} of the layer's variance (a mean's: of its "
+          f"standard deviation; {k_max}); to the "
+          f"fp32 run's: worst {max(g for g, _ in stat_gap.values()):.4g} vs "
+          f"one process's {max(r for _, r in stat_gap.values()):.4g} (tol "
+          f"each <= {STEP_GAP_RATIO} x one process's + {STEP_GAP_MARGIN})",
+          flush=True)
+    if bad:
+        fail(f"{label}: the ranks' BatchNorm statistics disagree: {bad[:4]}")
+    del t0, t1, fp32, one
+
+    # (b) the train CLI on 2 ranks, then resumed from its JAX-layout state
+    train_data, data = tmp / "dp_train", tmp / "dp_test"
+    write_dataset(train_data, n=spec["train_images"], seed=6)
+    write_dataset(data, n=spec["eval_images"], seed=7)
+    out = tmp / "dp_run"
+    common = ["--save_path", str(out), "--checkpoint", str(ckpt),
+              "--train_image_path", str(train_data / "images"),
+              "--train_mask_path", str(train_data / "masks"),
+              "--test_image_path", str(data / "images"),
+              "--test_gt_path", str(data / "masks"), "--bf16",
+              "--num_workers", "4", "--device", DEV, "--shard_map"]
+    first, wall1 = _torchrun(ranks, "cli", {
+        "argv": common + ["--epoch", "1", "--save_train_state"],
+        "save_path": str(out)}, tmp, timeout=300)
+    f0, f1 = first
+    s0 = f0["stats"]
+    print(f"[main] {label} torchrun --nproc_per_node {ranks} train_cli --bf16 "
+          f"--epoch 1 --save_train_state --shard_map (the CLI defaults: "
+          f"hiera_s, 960, global batch 16), {spec['train_images']} images: "
+          f"{s0['steps']} steps, losses {[round(v, 4) for v in s0['losses']]}, "
+          f"epoch {s0['epoch_seconds'][0]:.2f} s "
+          f"({spec['train_images'] / s0['epoch_seconds'][0]:.2f} img/s, host "
+          f"clock), eval {s0['eval_seconds'][0]:.2f} s; the run {wall1:.1f} s "
+          f"with the processes' start on {card}", flush=True)
+    names = sorted({re.sub(r"\.tmp\d+$", "", w.split(" ", 1)[1].split("/")[0])
+                    for w in f0["writes"]} - {"."})
+    print(f"[main] {label} writes under the save path: rank 0 "
+          f"{len(f0['writes'])} ({names}), rank 1 {len(f1['writes'])} "
+          f"{f1['writes'][:5]}", flush=True)
+    if f1["writes"] or f1["stats"]["saved"] or not s0["saved"] or not any(
+            w.endswith("log.txt") for w in f0["writes"]) or not any(
+            w == f"torch.save {Path(s0['saved'][-1]).name}" for w in f0["writes"]):
+        fail(f"{label}: rank 1 wrote {f1['writes'][:5]}, or rank 0 wrote no "
+             "log and snapshot")
+    if s0["losses"] != f1["stats"]["losses"] or not all(
+            math.isfinite(v) for v in s0["losses"]):
+        fail(f"{label}: the ranks' losses differ or are not finite")
+    snapshot = s0["saved"][-1]
+    jax_dir = jax_train_state_path(snapshot)
+    saved = torch.load(snapshot + "_train_state", map_location="cpu",
+                       weights_only=True)
+    model = _train_model(cfg, None, bf16=False).cpu()
+    opt = make_optimizer(model)
+    step = restore_train_state(jax_dir, model, opt)
+    got, want = opt.state_dict()["state"], saved["optimizer"]["state"]
+    differ = [i for i in want if any(not torch.equal(got[i][k], want[i][k])
+                                     for k in ("exp_avg", "exp_avg_sq", "step"))]
+    model_differ = [k for k, v in saved["model"].items()
+                    if not k.endswith("num_batches_tracked")
+                    and not torch.equal(model.state_dict()[k], v)]
+    print(f"[main] {label} {Path(jax_dir).name} (the JAX TrainState layout) "
+          f"restored: step {step}, {len(want)} AdamW states, {len(differ)} "
+          f"differ from the saved optimizer's (exp_avg, exp_avg_sq, step, bit "
+          f"for bit); {len(model_differ)} model tensors differ", flush=True)
+    if step != s0["global_step"] or differ or model_differ or len(got) != len(want):
+        fail(f"{label}: the JAX-layout train state did not restore what was "
+             f"saved: step {step}, moments {differ[:4]}, model {model_differ[:4]}")
+    del model, opt, saved
+    resumed, wall2 = _torchrun(ranks, "cli", {
+        "argv": common + ["--epoch", "2", "--resume", jax_dir],
+        "save_path": str(out)}, tmp, timeout=300)
+    a0, a1 = resumed
+    spe = s0["steps"]
+    want_lr = cosine_step_lr(1e-3, step, 2, spe)
+    print(f"[main] {label} resumed from {Path(jax_dir).name} with --epoch 2: "
+          f"{a0['stats']['steps']} steps (epochs 0-1, as the JAX CLI), global "
+          f"step {a0['stats']['global_step']}, first rate "
+          f"{a0['stats']['lrs'][0]:.9g} = the schedule at step {step} "
+          f"({want_lr:.9g}), losses "
+          f"{[round(v, 4) for v in a0['stats']['losses']]}; rank 1 wrote "
+          f"{len(a1['writes'])} files; the run {wall2:.1f} s", flush=True)
+    if (a0["stats"]["lrs"][0] != want_lr or a1["writes"]
+            or a0["stats"]["global_step"] != step + 2 * spe):
+        fail(f"{label}: the resumed run: first rate {a0['stats']['lrs'][0]} "
+             f"(want {want_lr}), rank 1 writes {a1['writes'][:4]}")
+    for run in (first, resumed):
+        for r in run:
+            st = r["stats"]
+            per = {k: per_step.get(k, 0) * st["steps"]
+                   + per_forward.get(k, 0) * st["eval_forwards"]
+                   for k in set(per_step) | set(per_forward)}
+            _per_rank_launches(label, f"train CLI rank {st['rank']}",
+                               r["counts"], per, 1)
+            variants.update({(w, v): n for w, v, n in r["variants"]})
+
+    # (c) world 1 over NCCL
+    (nc,), wall3 = _torchrun(1, "nccl", {
+        "cfg": cfg, "ckpt": str(ckpt), "size": size, "batch": 2,
+        "seed": spec["seed"]}, tmp, timeout=200)
+    print(f"[main] {label} world 1 through make_mesh on {nc['device']}: "
+          f"backend {nc['backend']}, init + all_reduce {nc['init_s']:.2f} s "
+          f"(probe {nc['probe']}), one train step at batch 2 {nc['step_ms']:.1f}"
+          f" ms (loss {nc['loss']:.5f}), its {nc['grad_values']} gradient "
+          f"values all-reduced over {nc['backend']}, unchanged at world 1: "
+          f"{nc['grads_unchanged']}; the run {wall3:.1f} s", flush=True)
+    if (nc["backend"] != "nccl" or nc["probe"] != [0.0, 1.0, 2.0, 3.0]
+            or not nc["grads_unchanged"] or not math.isfinite(nc["loss"])):
+        fail(f"{label}: world 1 over NCCL failed: {nc}")
+    _per_rank_launches(label, "the NCCL step", nc["counts"], per_step, 1)
+    variants.update({(w, v): n for w, v, n in nc["variants"]})
+    print(f"[main] {label} the path took {time.perf_counter() - t_path:.1f} s",
+          flush=True)
+    return dict(variants)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="build,kernels,main,throughput")
     ap.add_argument("--paths",
                     default="l352,s960,l352train,s960train,s1024sam2,"
                             "s1024video,t512video,t1024amg,s960cli,s960deploy,"
-                            "s960interop")
+                            "s960interop,s960dp")
     ap.add_argument("--batch", type=int, default=32,
                     help="kernel, throughput and profile batch at hiera_l@352")
     ap.add_argument("--batch960", type=int, default=16,
@@ -3151,6 +3694,9 @@ def main() -> None:
                          "comparison")
     ap.add_argument("--step_report", default="",
                     help="JSON file for that comparison's per-leaf gaps")
+    ap.add_argument("--dp_worker", choices=sorted(DP_WORKERS),
+                    help="(internal) run one rank of s960dp")
+    ap.add_argument("--dp_spec", default="", help="(internal) its inputs")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     paths = args.paths.split(",")
@@ -3172,6 +3718,9 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.dp_worker:
+        dp_worker_main(args.dp_worker, args.dp_spec)
+        return
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
     card = card_line()
@@ -3205,6 +3754,8 @@ def main() -> None:
                     variants[path] = cli_main_phase(path, Path(tmp), card)
                 elif PATHS[path].get("deploy"):
                     variants[path] = deploy_main_phase(path, Path(tmp), card)
+                elif PATHS[path].get("dp"):
+                    variants[path] = dp_main_phase(path, Path(tmp), card)
                 elif PATHS[path].get("interop"):
                     variants[path] = interop_main_phase(path, Path(tmp), card,
                                                         rates)

@@ -64,7 +64,7 @@ def load_gray(path: str) -> np.ndarray:
 class Batch:
     image: np.ndarray  # (B, H, W, 3) normalized
     label: np.ndarray  # (B, H, W, 1) in {0, 1}
-    valid: int         # number of real samples (the rest repeat them)
+    valid: int         # real samples in the global batch (the rest repeat them)
 
 
 class TrainDataset:
@@ -84,7 +84,12 @@ class TrainDataset:
         return aug(load_rgb(self.images[idx]), load_gray(self.gts[idx]))
 
     def epoch(self, batch_size: int, epoch: int = 0, shuffle: bool = True,
-              num_workers: int = 8, drop_last: bool = False) -> Iterator[Batch]:
+              num_workers: int = 8, drop_last: bool = False,
+              rows: slice | None = None) -> Iterator[Batch]:
+        """The epoch's global batches of `batch_size`, or with `rows` only
+        those rows of each (a data-parallel rank's, `parallel/mesh.py`):
+        each sample's augmentation is seeded by (seed, epoch, index), so a
+        rank's rows are those of the whole batch, bit for bit."""
         order = np.arange(len(self))
         if shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
@@ -96,7 +101,7 @@ class TrainDataset:
             return self.sample(int(idx), rng_seed=seed)
 
         yield from _batched_prefetch(order, produce, batch_size, self.size,
-                                     num_workers)
+                                     num_workers, rows)
 
 
 class EvalDataset:
@@ -149,13 +154,17 @@ class EvalDataset:
             yield out
 
 
-def _batched_prefetch(order, produce, batch_size, size, num_workers):
-    """Thread-pool sample production feeding a bounded batch queue. A
-    failure in a worker reaches the consumer; an abandoned generator stops
-    the producer."""
+def _batched_prefetch(order, produce, batch_size, size, num_workers,
+                      rows: slice | None = None):
+    """Thread-pool sample production feeding a bounded batch queue: batches
+    of `batch_size`, a short tail wrap-filled with its own samples, or only
+    their `rows`; `valid` counts the whole batch's real samples. A failure
+    in a worker reaches the consumer; an abandoned generator stops the
+    producer."""
     from concurrent.futures import ThreadPoolExecutor
 
     n = len(order)
+    picked = slice(None) if rows is None else rows
     out_q: queue.Queue = queue.Queue(maxsize=4)
     stop = threading.Event()
 
@@ -174,17 +183,17 @@ def _batched_prefetch(order, produce, batch_size, size, num_workers):
                 for start in range(0, n, batch_size):
                     if stop.is_set():
                         return
-                    results = list(pool.map(produce,
-                                            order[start: start + batch_size]))
-                    b = len(results)
-                    images = np.zeros((batch_size, size, size, 3), np.float32)
-                    labels = np.zeros((batch_size, size, size, 1), np.float32)
-                    for j, (img, lbl) in enumerate(results):
-                        images[j] = img.transpose(1, 2, 0)
-                        labels[j] = lbl.transpose(1, 2, 0)
-                    for j in range(b, batch_size):  # wrap-fill the tail
-                        images[j] = images[j % b]
-                        labels[j] = labels[j % b]
+                    chunk = order[start: start + batch_size]
+                    b = len(chunk)
+                    # row j holds sample j % b (the tail's wrap-fill)
+                    take = [j % b for j in range(batch_size)[picked]]
+                    made = dict(zip(sorted(set(take)), pool.map(
+                        produce, [chunk[t] for t in sorted(set(take))])))
+                    images = np.zeros((len(take), size, size, 3), np.float32)
+                    labels = np.zeros((len(take), size, size, 1), np.float32)
+                    for j, t in enumerate(take):
+                        images[j] = made[t][0].transpose(1, 2, 0)
+                        labels[j] = made[t][1].transpose(1, 2, 0)
                     if not put(Batch(images, labels, valid=b)):
                         return
             put(None)

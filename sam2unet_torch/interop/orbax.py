@@ -14,14 +14,23 @@ A directory holds
   `fill_value`), and `<name>/<i>.<j>...` each chunk, a full chunk's C-order
   bytes, zstd-compressed when the compressor says so.
 
+The tree's keys, as the JAX package's train state has them
+(`sam2unet_tpu/train/checkpoints.py::save_train_state`): a dict key
+(`key_type` 2) is a string, or a tuple of strings where a dict was
+flattened by flax (`TrainState.trainable`, optax's `mu`), whose key orbax
+writes as the tuple's Python string `"('encoder', 'blocks_0', ...)"`; a
+sequence index (`key_type` 1, optax's chain of states) is an int. The
+nested dicts here carry them as such: str, tuple of str, int.
+
 `read_tree` reads every chunk. A chunk that is absent equals the fill
 value (orbax's `store_array_data_equal_to_fill_value` writes every chunk;
 tensorstore may leave chunks at their fill unwritten); one absent where
 `fill_value` is null, an unknown compressor, filters, Fortran order, a
-value type other than an array, a dtype other than bool, integer or float
-(the JAX train CLI saves fp32 parameters) or a leaf under a sequence fails
-the read. `write_tree` writes the same layout, one chunk per leaf,
-compressed as orbax compresses (zstd level 1).
+value type other than an array or None (optax's `EmptyState`, which
+holds no array and reads as None), another key type, or a dtype other than
+bool, integer or float (the JAX train CLI saves fp32 parameters and int32
+counts) fails the read. `write_tree` writes the same layout, one chunk per
+leaf, compressed as orbax compresses (zstd level 1).
 """
 
 from __future__ import annotations
@@ -44,8 +53,11 @@ CHECKPOINT_METADATA = "_CHECKPOINT_METADATA"
 HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
            "StandardCheckpointHandler")
 ZSTD_LEVEL = 1
-_DICT_KEY = 2   # orbax's key_type of a dict key (1 is a sequence index)
+_SEQUENCE_KEY, _DICT_KEY = 1, 2   # orbax's key_type values
 _ARRAY_TYPES = ("np.ndarray", "jax.Array")
+# the value metadata of an empty node (optax's EmptyState), which holds no
+# array
+_EMPTY = {"value_type": "None", "skip_deserialize": True}
 
 
 def _dtype(name: str) -> np.dtype:
@@ -107,9 +119,38 @@ def _read_array(db: ocdbt.Database, name: str) -> np.ndarray:
     return out.astype(dtype.newbyteorder("="), copy=False)
 
 
+def _tree_key(meta: dict) -> str | tuple[str, ...] | int:
+    """A node's key as the tree holds it, from orbax's key metadata."""
+    key, kind = meta["key"], meta.get("key_type")
+    if kind == _SEQUENCE_KEY:
+        return int(key)
+    if kind != _DICT_KEY:
+        raise ValueError(f"key {key!r} has the unknown key_type {kind!r}")
+    if key.startswith("("):
+        try:
+            parts = ast.literal_eval(key)
+        except (ValueError, SyntaxError):
+            return key
+        if isinstance(parts, tuple) and all(isinstance(p, str) for p in parts):
+            return parts
+    return key
+
+
+def _key_metadata(key) -> dict:
+    """The inverse of `_tree_key`."""
+    if isinstance(key, bool) or not isinstance(key, (str, tuple, int)) or (
+            isinstance(key, tuple) and not all(isinstance(p, str) for p in key)):
+        raise TypeError(f"tree key {key!r} is not a str, a tuple of str or "
+                        "an int")
+    if isinstance(key, int):
+        return {"key": str(key), "key_type": _SEQUENCE_KEY}
+    return {"key": key if isinstance(key, str) else repr(key),
+            "key_type": _DICT_KEY}
+
+
 def read_tree(path: str | os.PathLike) -> dict:
     """The checkpoint at `path` as a nested dict of numpy arrays under the
-    JAX tree's names."""
+    JAX tree's names (keys as the module docstring says)."""
     path = Path(path)
     meta = json.loads((path / METADATA).read_text())
     if not meta.get("use_ocdbt") or meta.get("use_zarr3"):
@@ -120,31 +161,37 @@ def read_tree(path: str | os.PathLike) -> dict:
     tree: dict = {}
     for leaf_name, leaf in meta["tree_metadata"].items():
         keys = [k["key"] for k in leaf["key_metadata"]]
-        if any(k.get("key_type") != _DICT_KEY for k in leaf["key_metadata"]):
-            raise ValueError(f"{path}: leaf {leaf_name} is not under dict keys")
+        try:
+            tree_keys = [_tree_key(k) for k in leaf["key_metadata"]]
+        except ValueError as e:
+            raise ValueError(f"{path}: leaf {leaf_name}: {e}") from None
         if tuple(keys) != ast.literal_eval(leaf_name):
             raise ValueError(f"{path}: leaf {leaf_name} names the keys {keys}")
         value = leaf["value_metadata"]
-        if (value.get("value_type") not in _ARRAY_TYPES
-                or value.get("skip_deserialize")):
+        empty = value == _EMPTY
+        if not empty and (value.get("value_type") not in _ARRAY_TYPES
+                          or value.get("skip_deserialize")):
             raise ValueError(f"{path}: leaf {leaf_name} is a "
                              f"{value.get('value_type')}, not an array")
         node = tree
-        for k in keys[:-1]:
+        for k in tree_keys[:-1]:
             node = node.setdefault(k, {})
-        node[keys[-1]] = _read_array(db, ".".join(keys))
+        node[tree_keys[-1]] = None if empty else _read_array(db, ".".join(keys))
     return tree
 
 
 def _leaves(tree: dict, prefix: tuple = ()) -> list[tuple[tuple, np.ndarray]]:
+    """(orbax key metadata of the path, array) of every leaf."""
     out = []
     for k, v in tree.items():
-        if not isinstance(k, str):
-            raise TypeError(f"tree key {k!r} under {prefix} is not a string")
+        try:
+            meta = _key_metadata(k)
+        except TypeError as e:
+            raise TypeError(f"under {[m['key'] for m in prefix]}: {e}") from None
         if isinstance(v, dict):
-            out += _leaves(v, prefix + (k,))
+            out += _leaves(v, prefix + (meta,))
         else:
-            out.append((prefix + (k,), np.asarray(v)))
+            out.append((prefix + (meta,), None if v is None else np.asarray(v)))
     return out
 
 
@@ -153,18 +200,24 @@ def write_tree(path: str | os.PathLike, tree: dict) -> None:
     `StandardCheckpointer.save(..., force=True)` does: a directory that is
     there is replaced (the new one is written beside it and renamed)."""
     path = Path(path).absolute()
-    leaves = sorted(_leaves(tree), key=lambda kv: kv[0])
+    leaves = sorted(((tuple(m["key"] for m in metas), metas, arr)
+                     for metas, arr in _leaves(tree)), key=lambda kv: kv[0])
     tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True)
     start = time.time_ns()
     items, tree_metadata = {}, {}
-    for keys, arr in leaves:
+    for keys, metas, arr in leaves:
+        if arr is None:
+            tree_metadata[repr(keys)] = {"key_metadata": list(metas),
+                                         "value_metadata": dict(_EMPTY)}
+            continue
         if arr.dtype.kind not in "biuf" or arr.dtype.itemsize > 8:
             raise TypeError(f"{'/'.join(keys)}: dtype {arr.dtype} is not "
                             "supported")
         name = ".".join(keys)
-        arr = np.ascontiguousarray(arr, arr.dtype.newbyteorder("<"))
+        # (np.ascontiguousarray would make a 0-d array 1-d)
+        arr = np.asarray(arr, arr.dtype.newbyteorder("<"), order="C")
         zarray = {"chunks": [max(s, 1) for s in arr.shape],
                   "compressor": {"id": "zstd", "level": ZSTD_LEVEL},
                   "dimension_separator": ".", "dtype": arr.dtype.str,
@@ -177,7 +230,7 @@ def write_tree(path: str | os.PathLike, tree: dict) -> None:
             items[f"{name}/{ckey}".encode()] = ocdbt.zstd_compress(
                 arr.tobytes(), ZSTD_LEVEL)
         tree_metadata[repr(keys)] = {
-            "key_metadata": [{"key": k, "key_type": _DICT_KEY} for k in keys],
+            "key_metadata": list(metas),
             "value_metadata": {"value_type": "np.ndarray",
                                "skip_deserialize": False}}
     ocdbt.write_database(tmp, items)

@@ -22,7 +22,7 @@ from torch import nn
 
 from sam2unet_torch.configs import SAM2UNetConfig
 from sam2unet_torch.models.hiera import Hiera
-from sam2unet_torch.nn.layers import BN_EPS, Conv2d, ConvBN
+from sam2unet_torch.nn.layers import BN_EPS, Conv2d, ConvBN, SyncBatchNorm2d
 from sam2unet_torch.ops.resize import resize_nchw
 
 
@@ -61,9 +61,9 @@ class DoubleConv(nn.Module):
         super().__init__()
         self.double_conv = nn.Sequential(
             Conv2d(cin, mid, 3, padding=1, bias=False),
-            nn.BatchNorm2d(mid, eps=BN_EPS), nn.ReLU(inplace=True),
+            SyncBatchNorm2d(mid, eps=BN_EPS), nn.ReLU(inplace=True),
             Conv2d(mid, cout, 3, padding=1, bias=False),
-            nn.BatchNorm2d(cout, eps=BN_EPS), nn.ReLU(inplace=True))
+            SyncBatchNorm2d(cout, eps=BN_EPS), nn.ReLU(inplace=True))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.double_conv(x)
@@ -91,7 +91,10 @@ class SAM2UNet(nn.Module):
     def __init__(self, cfg: SAM2UNetConfig = SAM2UNetConfig(),
                  remat: bool = False):
         """`remat`: recompute each trunk block's activations in the
-        backward (`Hiera`), for bigger batches."""
+        backward (`Hiera`), for bigger batches. The neck's and decoder's
+        BatchNorms are `SyncBatchNorm2d`s: in a train step across ranks they
+        normalise over the global batch (the JAX model's `bn_axis`), and
+        otherwise they are `nn.BatchNorm2d`s."""
         super().__init__()
         self.cfg = cfg
         self.encoder = Hiera(cfg.trunk, use_adapters=True,

@@ -7,11 +7,17 @@
   - `Conv2d` computes in its input's dtype: the fp32 master weights of the
     neck and decoder are cast to bf16 inside the graph under bf16 compute.
     BatchNorm takes bf16 activations with fp32 parameters and statistics.
+  - `SyncBatchNorm2d` normalises a train-mode batch split over ranks with
+    the global batch's moments (flax `BatchNorm(axis_name=...)`).
 """
 
 from __future__ import annotations
 
+import warnings
+
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 
@@ -50,6 +56,49 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+class SyncBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d over the global batch of a data-parallel step, the
+    counterpart of flax `BatchNorm(axis_name=bn_axis)` (sam2unet_tpu/nn/
+    layers.py:42,64). In train mode across ranks, each rank all-reduces its
+    per-channel sum, sum of squares and count (`torch.distributed.nn.
+    functional.all_reduce`, whose backward all-reduces the cotangent, so
+    the gradient reaches every rank's input) and normalises with the global
+    mean and biased variance E[x^2] - E[x]^2 in fp32, as flax does; the
+    running statistics move with momentum 0.1 toward the global mean and
+    the global variance corrected by n/(n-1) over the global count
+    (torch's convention, as `nn.BatchNorm2d`'s). The output takes the
+    input's dtype. In eval mode, at world 1 or with no process group it
+    is `nn.BatchNorm2d`, whose state-dict names it keeps. (torch's own
+    `nn.SyncBatchNorm` refuses CPU tensors.)"""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            return super().forward(x)
+        c = x.shape[1]
+        xf = x.float()
+        local = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                           xf.new_full((1,), x.numel() // c)])
+        with warnings.catch_warnings():
+            # deprecated in favour of functional collectives that carry no
+            # gradient
+            warnings.simplefilter("ignore", FutureWarning)
+            total = dist_nn.all_reduce(local)
+        count = total[2 * c]
+        mean = total[:c] / count
+        var = (total[c: 2 * c] / count - mean * mean).clamp(min=0)
+        scale = self.weight.float() * torch.rsqrt(var + self.eps)
+        shift = self.bias.float() - mean * scale
+        with torch.no_grad():
+            # the count stays on the device: no host sync in the step
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1 - m).add_(
+                var.detach() * (count / (count - 1)), alpha=m)
+            self.num_batches_tracked.add_(1)
+        return (xf * scale[:, None, None] + shift[:, None, None]).to(x.dtype)
+
+
 class ConvBN(nn.Module):
     """Conv (no bias) + BatchNorm, NO activation (BasicConv2d quirk)."""
 
@@ -57,7 +106,7 @@ class ConvBN(nn.Module):
         super().__init__()
         self.conv = Conv2d(cin, cout, kernel, padding=padding,
                            dilation=dilation, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.bn = SyncBatchNorm2d(cout, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(self.conv(x))

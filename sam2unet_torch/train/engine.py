@@ -5,7 +5,17 @@ backward computes dx only), one AdamW step; train-mode BatchNorm updates
 its running statistics (torch's convention: the running variance is the
 unbiased one, as in the reference; the JAX package stores the biased one).
 Evaluation runs the model in eval mode and reduces IoU and Dice on the
-device."""
+device.
+
+Across ranks (a process group of world > 1, `parallel/mesh.py`) both are
+the JAX package's shard_map forms (sam2unet_tpu/train/engine.py:127-176):
+each rank holds its rows of the global batch, computes its local structure
+loss (its `SyncBatchNorm2d`s normalise over the global batch), and the
+trainable gradients are averaged over the ranks by one explicit all-reduce
+before AdamW (the JAX step's pmean'd loss, whose gradient is the mean of
+the ranks' gradients), which carries the loss too: the loss returned is
+the global mean. `evaluate` scores each rank's rows and sums the metrics
+over the ranks, so every rank reads the global mIoU."""
 
 from __future__ import annotations
 
@@ -15,6 +25,13 @@ from torch import nn
 
 from sam2unet_torch.eval.metrics import MIOU
 from sam2unet_torch.eval.metrics_device import batched_semantic_metrics
+from sam2unet_torch.parallel.mesh import (
+    Mesh,
+    all_mean_,
+    all_sum,
+    rank_and_world,
+    shard_batch,
+)
 from sam2unet_torch.train.loss import multi_head_loss
 
 
@@ -22,13 +39,18 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                images: torch.Tensor, labels: torch.Tensor,
                weighted_bce: bool = False) -> torch.Tensor:
     """One step on (B, H, W, 3) normalized images and (B, H, W, 1) {0, 1}
-    labels. Returns the loss (a device scalar, not synchronised)."""
+    labels, this rank's rows of the global batch. Returns the global
+    batch's loss (a device scalar, not synchronised at world 1)."""
     model.train()
     loss = multi_head_loss(model(images), labels, weighted_bce)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    loss = loss.detach()
+    # one all-reduce: the gradients' and the loss's means over the ranks
+    all_mean_([p.grad for group in optimizer.param_groups
+               for p in group["params"] if p.grad is not None] + [loss])
     optimizer.step()
-    return loss.detach()
+    return loss
 
 
 def eval_logits(model: nn.Module, images: torch.Tensor) -> torch.Tensor:
@@ -65,26 +87,30 @@ def evaluate(model: nn.Module, test_data, batch_size: int, size: int,
              device: torch.device) -> tuple[dict, int]:
     """Device evaluation over `test_data` (an EvalDataset): mean IoU and
     Dice at model resolution against the letterboxed GT, with the
-    reference's binarization. Returns (report dict, forwards run)."""
+    reference's binarization; `batch_size` is the global eval batch, of
+    which each rank scores its rows. Returns (report dict, forwards run)."""
+    mesh = Mesh(*rank_and_world(), device)
     ious, dices, count, forwards = [], [], 0, 0
     for eb in test_data.batches(batch_size, letterbox_gt=True):
-        logits = eval_logits(model, torch.from_numpy(eb["image"]).to(device))
+        logits = eval_logits(model, shard_batch(mesh, eb["image"]))
         forwards += 1
         pad = np.zeros((batch_size, 4), np.int64)
         pad[: eb["valid"]] = np.asarray(eb["padding"], np.int64)
-        paddings = torch.from_numpy(pad).to(device)
+        paddings = shard_batch(mesh, pad)
         probs = postprocess_logits(logits, paddings, size)[..., 0]
-        valid = torch.arange(batch_size, device=device) < eb["valid"]
+        valid = shard_batch(mesh, np.arange(batch_size) < eb["valid"])
         pix = letterbox_valid_mask(paddings, size, probs.shape[1],
                                    probs.shape[2])[..., 0]
-        gt = torch.from_numpy(eb["gt_letterboxed"]).to(device)
+        gt = shard_batch(mesh, eb["gt_letterboxed"])
         iou, dice = batched_semantic_metrics(probs, gt, valid, pix)
         ious.append(iou.cpu())
         dices.append(dice.cpu())
         count += eb["valid"]
         print(".", end="", flush=True)
-    return ({MIOU: float(torch.cat(ious).sum()) / count,
-             "mDice": float(torch.cat(dices).sum()) / count,
+    sums = torch.stack([torch.cat(ious).sum(), torch.cat(dices).sum()])
+    if mesh.world > 1:
+        sums = all_sum(sums.to(device)).cpu()
+    return ({MIOU: float(sums[0]) / count, "mDice": float(sums[1]) / count,
              "images_count": count}, forwards)
 
 

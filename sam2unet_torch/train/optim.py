@@ -2,8 +2,9 @@
 sam2unet_tpu/train/optim.py (reference train.py:48-54): AdamW (betas
 0.9/0.999, eps 1e-8, decoupled weight decay) with the reference's
 CosineAnnealingLR, one value per epoch down to eta_min 1e-7, as a function
-of the epoch and the run's flags (`cosine_lr`), so that a resumed run needs
-no schedule state.
+of the epoch and the run's flags (`cosine_lr`), or of the global step, as
+the JAX package's optax schedule is (`cosine_step_lr`, which the train CLI
+sets before every step), so that a resumed run needs no schedule state.
 
 The trainable set is the adapters, the neck, the decoder and the heads;
 the trunk is frozen (SAM2UNet.py:146-147) and `up4`, built but never
@@ -47,6 +48,17 @@ def cosine_lr(base_lr: float, epoch: int, epochs: int) -> float:
     """The learning rate of 0-based `epoch` in a run of `epochs`:
     CosineAnnealingLR(T_max=epochs, eta_min=ETA_MIN) in closed form."""
     return ETA_MIN + (base_lr - ETA_MIN) * (1 + math.cos(math.pi * epoch / epochs)) / 2
+
+
+def cosine_step_lr(base_lr: float, step: int, epochs: int,
+                   steps_per_epoch: int) -> float:
+    """The rate of the update at 0-based global `step` (the JAX package's
+    `cosine_epoch_schedule`, optim.py:20-29 there): `cosine_lr` of the
+    epoch `step // steps_per_epoch`, held at the last value past
+    `epochs`."""
+    epoch = min(step // max(steps_per_epoch, 1), epochs)
+    return ETA_MIN + (base_lr - ETA_MIN) * (
+        1 + math.cos(math.pi * epoch / max(epochs, 1))) / 2
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

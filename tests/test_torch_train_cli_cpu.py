@@ -3,9 +3,10 @@ manner of tests/test_cli_e2e.py: the `hiera_test` trunk at --size 64 on a
 small synthetic dataset, two epochs. It writes log.txt with the epoch
 reports and a checkpoint that the port's test CLI loads strictly and runs;
 the frozen trunk comes back bit-identical, the trainable set changed. Also:
---save_train_state and --resume reproduce the uninterrupted run, --remat
-trains to the same losses, the flags not ported yet exit non-zero naming
-their ROADMAP.md item, the defaults (hiera_s@960) pass the card's gate, and
+--save_train_state writes the train state and --resume trains --epoch
+epochs from it as the JAX CLI does (every epoch from 0, the rate of the
+global step), --remat trains to the same losses, --shard_map changes no
+number at world 1, the defaults (hiera_s@960) pass the card's gate, and
 --hiera_path loads a SAM2 trunk through the port's own key rules."""
 
 from __future__ import annotations
@@ -17,18 +18,32 @@ from PIL import Image
 
 from sam2unet_torch.cli import test_cli, train_cli
 from sam2unet_torch.cli.common import build_model, load_weights
+from sam2unet_torch.data.dataset import TrainDataset
 from sam2unet_torch.train.checkpoints import (
     restore_train_state,
     save_train_state,
 )
+from sam2unet_torch.train.loss import multi_head_loss
 from sam2unet_torch.train.optim import (
     ETA_MIN,
     cosine_lr,
+    cosine_step_lr,
     is_trainable,
     make_optimizer,
 )
 
 SIZE, CFG = 64, "hiera_test"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several test processes on the
+    machine's cores, where torch's own thread pool would oversubscribe
+    them and a small train step would take seconds."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _write_split(root, n, rng):
@@ -106,14 +121,18 @@ def test_the_test_cli_loads_the_checkpoint_strictly(run, tmp_path):
     assert len(list(tmp_path.glob("*.png"))) == 3
 
 
-@pytest.mark.parametrize("flag", sorted(train_cli.UNPORTED))
-def test_unported_flags_exit_with_their_roadmap_item(run, flag):
-    _, _, _, argv = run
-    extra = [f"--{flag}"] + ([] if isinstance(
-        getattr(train_cli.build_parser().parse_args(argv), flag), bool) else ["x"])
-    with pytest.raises(SystemExit) as e:
-        train_cli.main(train_cli.build_parser().parse_args(argv + extra))
-    assert "ROADMAP.md" in str(e.value.code) and f"--{flag}" in str(e.value.code)
+def test_shard_map_changes_no_number(run, tmp_path):
+    """--shard_map is the JAX CLI's flag for the per-rank step with SyncBN;
+    every run over ranks is that step here, so at world 1 the flag trains
+    to the same losses as the run without it."""
+    _, _, stats, argv = run
+    argv = list(argv)
+    argv[argv.index("--save_path") + 1] = str(tmp_path)
+    argv[argv.index("--epoch") + 1] = "1"
+    got = train_cli.main(train_cli.build_parser().parse_args(
+        argv + ["--shard_map"]))
+    assert got["world"] == 1 and got["steps"] == 2
+    np.testing.assert_array_equal(got["losses"], stats["losses"][:2])
 
 
 def test_the_train_cli_defaults_to_the_card():
@@ -184,21 +203,28 @@ def test_save_train_state_writes_the_state_beside_each_snapshot(resumed):
     assert len(first["optimizer"]["state"]) > 0
 
 
-def test_resume_reproduces_the_uninterrupted_run(resumed):
-    """The counterpart of tests/test_resume_and_reverse.py::
-    test_train_state_resume_roundtrip: resumed after epoch 1, epochs 2 and
-    3 see the same batches, schedule, AdamW moments and BatchNorm statistics,
-    so their losses are those of the run that never stopped."""
-    full, again, _ = resumed
-    assert full["steps"] == 6 and again["steps"] == 4
-    assert (again["start_epoch"], again["global_step"]) == (1, 6)
-    assert again["eval_forwards"] == 2
-    np.testing.assert_allclose(again["losses"], full["losses"][2:], rtol=1e-6)
-    a = torch.load(full["saved"][-1], weights_only=True)
-    b = torch.load(again["saved"][-1], weights_only=True)
-    for k in a:
-        np.testing.assert_allclose(b[k].numpy(), a[k].numpy(), rtol=1e-6,
-                                   atol=1e-7, err_msg=k)
+def test_resume_trains_every_epoch_from_the_saved_state(resumed, run):
+    """As the JAX CLI (sam2unet_tpu/cli/train_cli.py:165): resumed from the
+    state after epoch 1 with --epoch 3, the run trains epochs 0-2 again
+    (three evaluations, the steps of three epochs), each step at the
+    schedule's rate at the global step, which goes on from the saved 2; its
+    first step is the restored state's on epoch 0's first batch."""
+    _, again, state_path = resumed
+    root, _, _, _ = run
+    assert (again["steps"], again["global_step"], again["eval_forwards"]) \
+        == (6, 8, 3)
+    assert again["lrs"] == [cosine_step_lr(1e-3, s, 3, 2) for s in range(2, 8)]
+    log = open(again["log"]).read()
+    assert all(f"epoch-{e}_loss-" in log for e in (1, 2, 3))
+    model = build_model(CFG, torch.device("cpu"))
+    assert restore_train_state(state_path, model, make_optimizer(model)) == 2
+    batch = next(iter(TrainDataset(str(root / "train" / "images"),
+                                   str(root / "train" / "masks"), SIZE)
+                      .epoch(4, 0, num_workers=2)))
+    loss = multi_head_loss(model.train()(torch.from_numpy(batch.image)),
+                           torch.from_numpy(batch.label))
+    np.testing.assert_allclose(again["losses"][0], float(loss.detach()),
+                               rtol=1e-6)
 
 
 def test_resume_refuses_a_file_that_is_no_train_state(run):
@@ -210,10 +236,11 @@ def test_resume_refuses_a_file_that_is_no_train_state(run):
 
 def test_resume_with_another_epoch_count_follows_that_schedule(
         run, resumed, tmp_path, monkeypatch):
-    """The schedule is torch's CosineAnnealingLR, and a function of the
-    epoch and the resuming run's flags (as the JAX package's is of the step
-    count and the flags): resumed with a longer --epoch, the learning rate
-    is the new length's from the restored epoch on, whatever the saved
+    """The schedule is torch's CosineAnnealingLR per epoch, and a function of
+    the global step and the resuming run's flags, as the JAX package's
+    optax schedule is: resumed at step 2 with --epoch 5 (2 steps an
+    epoch), the run trains 5 epochs, its rates those of steps 2-11 of a
+    5-epoch run, held at eta_min past the fifth epoch, whatever the saved
     optimizer state held."""
     model = build_model(CFG, torch.device("cpu"))
     opt = make_optimizer(model, 1e-3, 5e-4)
@@ -222,11 +249,15 @@ def test_resume_with_another_epoch_count_follows_that_schedule(
     for epoch in range(5):
         assert cosine_lr(1e-3, epoch, 5) == pytest.approx(
             sched.get_last_lr()[0], rel=1e-12)
+        for step in (2 * epoch, 2 * epoch + 1):
+            assert cosine_step_lr(1e-3, step, 5, 2) == cosine_lr(1e-3, epoch, 5)
         opt.step()
         sched.step()
+    assert cosine_step_lr(1e-3, 13, 5, 2) == cosine_lr(1e-3, 5, 5) \
+        == pytest.approx(ETA_MIN)
     save_train_state(str(tmp_path / "s"), model.state_dict(), opt, 1, 2)
     opt2 = make_optimizer(model, 1e-3, 5e-4)
-    assert restore_train_state(str(tmp_path / "s"), model, opt2) == (1, 2)
+    assert restore_train_state(str(tmp_path / "s"), model, opt2) == 2
     assert opt2.state_dict()["state"].keys() == opt.state_dict()["state"].keys()
 
     _, _, _, argv = run
@@ -242,8 +273,10 @@ def test_resume_with_another_epoch_count_follows_that_schedule(
                                       step(model, optimizer, *a))[1])
     got = train_cli.main(train_cli.build_parser().parse_args(
         argv + ["--resume", state_path]))
-    assert got["start_epoch"] == 1 and got["steps"] == len(seen) == 8
-    assert seen == [cosine_lr(1e-3, e, 5) for e in (1, 2, 3, 4) for _ in range(2)]
+    assert got["global_step"] == 12 and got["steps"] == len(seen) == 10
+    assert seen == got["lrs"] == [cosine_step_lr(1e-3, s, 5, 2)
+                                  for s in range(2, 12)]
+    assert seen[-2:] == [cosine_lr(1e-3, 5, 5)] * 2
 
 
 def test_remat_trains_to_the_same_losses(run, tmp_path):
