@@ -9,9 +9,10 @@ predictor at 512 px under the "pallas" attention backend
 (scripts/smoke_video.py) and the automatic mask generator at 1024 px
 (scripts/bench_amg.py); the train CLI whole at its defaults; export and
 deploy at the fork's defaults; the JAX package's checkpoints and
-tooling there (Orbax directories, the FLOP audit, the profiler); and the
+tooling there (Orbax directories, the FLOP audit, the profiler); the
 train CLI across ranks (data parallelism with SyncBN, a resume from the
-JAX package's train state layout).
+JAX package's train state layout); and the multi-device dry run
+(tensor and sequence parallelism) on four ranks of the one card.
 
     python3 chip_smoke.py            # every phase, as the acceptance run does
     python3 chip_smoke.py --phases build,kernels --batch 2 --batch960 2 \
@@ -25,6 +26,7 @@ JAX package's train state layout).
     python3 chip_smoke.py --paths s960deploy       # export and deploy
     python3 chip_smoke.py --paths s960interop      # checkpoints and tooling
     python3 chip_smoke.py --paths s960dp           # data parallelism
+    python3 chip_smoke.py --paths s352mc           # dryrun_multichip(4)
 
 Phases, one line each, for each path of --paths (l352, s960, then the
 training paths l352train and s960train, listed after these):
@@ -217,6 +219,27 @@ started by torch.distributed.run on the one card):
      rate the schedule's at the saved step; (c) world 1 over NCCL through
      make_mesh: init, an all_reduce, one train step at batch 2, its
      gradients all-reduced.
+The multi-device path s352mc (the port's dryrun_multichip(4) with
+DRYRUN_FULL=1: four ranks on the one card over gloo, meshes (4, 1) and
+(2, 2), fp32; and entry()):
+  2. every kernel of the dry run's phases at their shapes per rank (tiny
+     at 2 rows, hiera_s@352 and hiera_l@256 at 1 row; the train phases'
+     forward and backward kernels, the SP forward's window groups) and of
+     entry()'s bf16 forward, bf16 and fp32 at every shape.
+  3. entry() on the card (bf16, its three heads' shapes, finite); the five
+     phases, each rank's records (counters set to 0 just before each
+     phase, read just after; every kernel of the path must launch), each
+     phase's wall time beside the card; against one process on the card
+     with the same parameters and batch: the tiny TP step's and the two
+     hiera_s@352 steps' loss, trainable gradients, parameters after AdamW
+     and BatchNorm statistics at the CPU tests' one-step tolerances, a
+     rank's bytes of the split leaves and their moments half of theirs
+     whole, the SP forward's three heads against the dense forward (fp32,
+     2e-5 of the max) with 3 ring calls a rank; then 4 ranks again (this
+     script's own workers): ring_sdpa's gradient at (1, 484, 4, 96) over
+     the model axis against dense autograd, and the SP forward in bf16
+     against the dense fp32 forward within twice the dense bf16 forward's
+     own gap plus 0.01 (the bound it measures and prints).
 The throughput phase of l352, l352train and s960train also times the step
 with the persistent window groups and per block (SAM2UNET_DISABLE_GROUPED),
 alternating, for the record.
@@ -287,6 +310,16 @@ DEPLOY_HEAD_BIAS = -2.197
 # the folded forward against the unfolded one, fp32: the neck's and
 # decoder's convolutions round once more; max gap over max |unfolded|
 FOLD_REL_TOL = 1e-4
+# s352mc: the dry run's steps against one process on the card (both fp32,
+# the same kernels, the sums in other orders): tests/test_torch_train_cpu.py's
+# one-step tolerances; a leaf's gradient scale is at least MC_NOISE_FLOOR of
+# the largest leaf's (BatchNorm biases whose shift the next BatchNorm removes
+# carry rounding noise only, tests/test_torch_sharding_cpu.py). The SP
+# forward against the dense one: fp32 to SP_FP32_TOL of the max; in bf16,
+# its gap to the dense fp32 forward within STEP_GAP_RATIO x the dense bf16
+# forward's + STEP_GAP_MARGIN. The ring's gradient to SP_FP32_TOL.
+MC_LOSS_RTOL, MC_GRAD_TOL, MC_GRAD_CORR, MC_NOISE_FLOOR = 1e-5, 2e-2, 0.9999, 1e-6
+SP_FP32_TOL = 2e-5
 # the operating points: trunk, input size, per-forward launches of each
 # kernel wrapper (a wrapper not listed must not launch)
 PATHS = {
@@ -479,6 +512,17 @@ PATHS = {
     "s960dp": dict(label="hiera_s@960 data parallel", cfg="sam2_hiera_s",
                    size=960, dp=True, batch=16, ranks=2, steps=2, seed=2,
                    train_images=32, eval_images=4, held_by=("s960train",)),
+    # the port's dryrun_multichip(4) (sam2unet_torch/parallel/dryrun.py,
+    # the JAX package's __graft_entry__.py::dryrun_multichip) with every
+    # phase, four ranks on the one card over gloo, fp32: tiny dp x tp at 64
+    # px (2 rows a rank, mesh (2, 2)), hiera_s@352 dp and shard_map, and
+    # hiera_l@256 shard_map (1 row a rank, mesh (4, 1)), hiera_s@352's SP
+    # forward (1 row a data index, its global blocks' attention over the
+    # model axis, the window blocks per block); and entry(), hiera_s@352 in
+    # bf16 at batch 1. Every kernel of those routes runs (K1-K9; K12's gate
+    # refuses 22x22 w14 and 11x11 w7, K10 sees no sequence past 1024).
+    "s352mc": dict(label="dryrun_multichip(4)", cfg="sam2_hiera_s", size=352,
+                   multichip=True, batch=1, ranks=4, fp32=True),
 }
 BATCH_FLAG = {"l352": "batch", "s960": "batch960", "l352train": "batch_train",
               "s960train": "batch_train960"}
@@ -819,6 +863,9 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
         held = {f"S={g['S']}" for g in shapes}
         return lambda w, v: w == "window_block_bwd" and v in held, shapes
 
+    if PATHS[path].get("multichip"):
+        return multichip_kernel_specs(k6_held, k7_held, mlp, tra, fab, src_ab,
+                                      src_ab_bwd, src_mlp_bwd)
     if PATHS[path].get("train"):
         fa = "sam2unet_tpu/ops/pallas/flash_attention.py"
         src_k11 = "sam2unet_torch/csrc/flash_attention_bwd.cu"
@@ -1119,6 +1166,80 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
     ]
 
 
+def multichip_kernel_specs(k6_held, k7_held, mlp, tra, fab, src_ab, src_ab_bwd,
+                           src_mlp_bwd) -> list[tuple]:
+    """The kernels of the dry run's routes at their shapes per rank (tiny
+    at 2 rows; hiera_s@352, hiera_l@256 and the SP forward at 1 row) and
+    of entry()'s forward (batch 1): the forward kernels of each, and the
+    backward kernels of the three train models."""
+    from sam2unet_torch.ops.fused_attention_block import strips_bwd_kernel
+
+    # K1 rows x width: tiny (grids 16/8/4/2, widths 8-64), hiera_s@352
+    # (grids 88/44/22/11, the window groups of 22x22 w14 and 11x11 w7),
+    # hiera_l@256 (grids 64/32/16/8)
+    tails = ((512, 8), (128, 16), (32, 32), (8, 64), (7744, 96), (1936, 192),
+             (484, 384), (121, 768), (196, 384), (112, 384), (64, 384),
+             (49, 768), (28, 768), (16, 768), (4096, 144), (1024, 288),
+             (256, 576), (64, 1152))
+    adapters = tuple(t for t in tails if t != (8, 64))
+    k1t = [dict(tokens=n, c=c) for n, c in tails]
+    k1a = [dict(tokens=n, c=c) for n, c in adapters]
+    strips = [dict(batch=2, grid=16, c=8, heads=1, window=4),
+              dict(batch=1, grid=88, c=96, heads=1, window=8),
+              dict(batch=1, grid=44, c=192, heads=2, window=4),
+              dict(batch=1, grid=64, c=144, heads=2, window=8),
+              dict(batch=1, grid=32, c=288, heads=4, window=4),
+              dict(batch=1, grid=16, c=576, heads=8, window=16),
+              dict(batch=1, grid=8, c=1152, heads=16, window=8)]
+    transitions = [dict(batch=2, grid=16, cin=8, c=16, heads=2, window=4),
+                   dict(batch=1, grid=88, cin=96, c=192, heads=2, window=8),
+                   dict(batch=1, grid=44, cin=192, c=384, heads=4, window=4),
+                   dict(batch=1, grid=64, cin=144, c=288, heads=4, window=8),
+                   dict(batch=1, grid=32, cin=288, c=576, heads=8, window=4),
+                   dict(batch=1, grid=16, cin=576, c=1152, heads=16,
+                        window=16)]
+    windows = [dict(windows=1, S=196, c=384, heads=4),
+               dict(windows=1, S=49, c=768, heads=8)]
+    pads = [dict(windows=1, S=112, c=384, heads=4, n_pad=84),
+            dict(windows=1, S=64, c=384, heads=4, n_pad=132),
+            dict(windows=1, S=28, c=768, heads=8, n_pad=21),
+            dict(windows=1, S=16, c=768, heads=8, n_pad=33)]
+    glob = [dict(windows=1, S=484, c=384, heads=4),
+            dict(windows=1, S=256, c=576, heads=8)]
+    return [
+        ("K1 fused_mlp (tail)", "mlp_tail", *mlp,
+         lambda w, v: w == "fused_mlp" and v == "ln", k1t, 4),
+        ("K1 fused_mlp (adapter)", "mlp_adapter", *mlp,
+         lambda w, v: w == "fused_mlp" and v == "no_ln", k1a, 4),
+        ("K2 mlp_bwd_dx", "mlp_tail_bwd",
+         "sam2unet_tpu/ops/pallas/fused_mlp.py:432", src_mlp_bwd,
+         lambda w, v: w == "mlp_bwd_dx", k1t, 4),
+        ("K3 adapter_bwd", "mlp_adapter_bwd",
+         "sam2unet_tpu/ops/pallas/fused_mlp.py:551", src_mlp_bwd,
+         lambda w, v: w == "adapter_bwd", k1a, 4),
+        ("K4 fused_window_block_strips", "strips", f"{fab}:1021", src_ab,
+         lambda w, v: w == "fused_window_block_strips", strips, 1),
+        ("K5 window_block_strips_bwd", "strips_bwd", f"{fab}:1082", src_ab_bwd,
+         lambda w, v: w == "window_block_strips_bwd",
+         [g for g in strips if strips_bwd_kernel(g["window"], g["c"])], 1),
+        ("K6 fused_window_block (n_pad=0)", "window", f"{fab}:354", src_ab,
+         *k6_held(windows), 0),
+        ("K6 fused_window_block (n_pad>0)", "window", f"{fab}:354", src_ab,
+         *k6_held(pads), 0),
+        ("K6 fused_window_block (global)", "window", f"{fab}:354", src_ab,
+         *k6_held(glob), 0),
+        ("K7 window_block_bwd", "window_bwd", f"{fab}:669", src_ab_bwd,
+         *k7_held(windows + glob), 2),
+        ("K8 fused_transition_block", "transition", *tra,
+         lambda w, v: w == "fused_transition_block", transitions, 1),
+        ("K9 transition_bwd", "transition_bwd",
+         "sam2unet_tpu/ops/pallas/fused_transition.py:483",
+         "sam2unet_torch/csrc/fused_transition_bwd.cu",
+         lambda w, v: w == "transition_bwd",
+         transitions + [dict(transitions[1], ties=True)], 1),
+    ]
+
+
 def compare(call, tol: float) -> tuple[float, float, float]:
     """Max |kernel - plain| over the call's outputs, that over max |plain|
     (the worst of the outputs), and the largest share of an output's tokens
@@ -1205,7 +1326,9 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
                 g[key] = min(g[key], 2)
         if "tokens" in g:
             g["tokens"] = min(g["tokens"], 2 * 484)
-        for g in (shapes if PATHS[path].get("fp32") else [g]):
+        every = [dict(g, no_near_ties=True) if kind == "transition_bwd"
+                 and not g.get("ties") else g for g in shapes]
+        for g in (every if PATHS[path].get("fp32") else [g]):
             err, rel, share = compare(
                 make_case(kind, torch.float32, gen, **g)[0], FP32_REL_TOL)
             ok = share == 0.0
@@ -2216,9 +2339,13 @@ def train_main_phase(path: str, tmp: Path, step_seeds: list[int],
 
     losses = list(stats["losses"])
     if spec.get("resume"):
-        state = stats["saved"][-1] + "_train_state"
-        if not Path(state).is_file():
-            fail(f"{label}: --save_train_state wrote no {state}")
+        from sam2unet_torch.train.checkpoints import jax_train_state_path
+
+        state = jax_train_state_path(stats["saved"][-1])
+        if not Path(state).is_dir() or Path(
+                stats["saved"][-1] + "_train_state").exists():
+            fail(f"{label}: --save_train_state wrote no {state}, or a second "
+                 "train state beside it")
         again = train_cli.main(train_cli.build_parser().parse_args(
             common + point + ["--epoch", "3", "--resume", state]))
         torch.cuda.synchronize()
@@ -3325,6 +3452,16 @@ def dp_cli_worker(spec: dict) -> dict:
         return real_save(obj, f, *a, **k)
 
     torch.save = save
+    # what the CLI hands to the JAX-layout train state's writer, kept
+    # outside the save path for the check of what it wrote
+    real_jax_save = train_cli.save_jax_train_state
+
+    def jax_save(path, model_state, model, optimizer, step):
+        real_save({"model": model_state, "optimizer": optimizer.state_dict(),
+                   "step": step}, Path(spec["out"]) / "dp_saved_state.pt")
+        return real_jax_save(path, model_state, model, optimizer, step)
+
+    train_cli.save_jax_train_state = jax_save
     dispatch.reset_launches()
     stats = train_cli.main(train_cli.build_parser().parse_args(spec["argv"]))
     stats.pop("reports")
@@ -3373,8 +3510,6 @@ def dp_nccl_worker(spec: dict) -> dict:
             "grads_unchanged": bool(torch.equal(summed, grads))}
 
 
-DP_WORKERS = {"step": dp_step_worker, "cli": dp_cli_worker,
-              "nccl": dp_nccl_worker}
 
 
 def dp_worker_main(kind: str, spec_path: str) -> None:
@@ -3607,7 +3742,7 @@ def dp_main_phase(path: str, tmp: Path, card: str) -> dict:
         fail(f"{label}: the ranks' losses differ or are not finite")
     snapshot = s0["saved"][-1]
     jax_dir = jax_train_state_path(snapshot)
-    saved = torch.load(snapshot + "_train_state", map_location="cpu",
+    saved = torch.load(tmp / "dp_saved_state.pt", map_location="cpu",
                        weights_only=True)
     model = _train_model(cfg, None, bf16=False).cpu()
     opt = make_optimizer(model)
@@ -3618,10 +3753,13 @@ def dp_main_phase(path: str, tmp: Path, card: str) -> dict:
     model_differ = [k for k, v in saved["model"].items()
                     if not k.endswith("num_batches_tracked")
                     and not torch.equal(model.state_dict()[k], v)]
-    print(f"[main] {label} {Path(jax_dir).name} (the JAX TrainState layout) "
-          f"restored: step {step}, {len(want)} AdamW states, {len(differ)} "
-          f"differ from the saved optimizer's (exp_avg, exp_avg_sq, step, bit "
-          f"for bit); {len(model_differ)} model tensors differ", flush=True)
+    print(f"[main] {label} {Path(jax_dir).name} (the JAX TrainState layout, "
+          f"the one train state beside the snapshot) restored: step {step}, "
+          f"{len(want)} AdamW states, {len(differ)} differ from the saved "
+          f"optimizer's (exp_avg, exp_avg_sq, step, bit for bit); "
+          f"{len(model_differ)} model tensors differ", flush=True)
+    if Path(snapshot + "_train_state").exists():
+        fail(f"{label}: --save_train_state wrote a second train state")
     if step != s0["global_step"] or differ or model_differ or len(got) != len(want):
         fail(f"{label}: the JAX-layout train state did not restore what was "
              f"saved: step {step}, moments {differ[:4]}, model {model_differ[:4]}")
@@ -3673,13 +3811,267 @@ def dp_main_phase(path: str, tmp: Path, card: str) -> dict:
     return dict(variants)
 
 
+# ------------------------------------------------------------- s352mc
+
+
+def mc_sp_worker(spec: dict) -> dict:
+    """One of 4 ranks on a (2, 2) mesh: ring_sdpa's forward and gradient at
+    (1, 484, 4, 96) over the model axis (seeded q, k, v and cotangent, this
+    rank's token slice), gathered whole; then the dry run's SP forward in
+    bf16 (this rank's data row). Rank 0 writes the ring's tensors, the
+    model index 0 ranks their rows' bf16 outputs."""
+    import torch
+
+    from sam2unet_torch.ops import sp_attention
+    from sam2unet_torch.parallel import dryrun
+    from sam2unet_torch.parallel.mesh import all_gather_cat, make_mesh, shard_batch
+
+    mesh = make_mesh(DEV, model_parallel=2)
+    group, n = mesh.model_group, mesh.model_parallel
+    g = torch.Generator().manual_seed(5)
+    q, k, v, cot = (torch.randn(1, 484, 4, 96, generator=g) for _ in range(4))
+    sl = 484 // n
+    own = slice(mesh.model_index * sl, (mesh.model_index + 1) * sl)
+    leaves = [t[:, own].to(mesh.device).requires_grad_(True) for t in (q, k, v)]
+    o = sp_attention.ring_sdpa(*leaves, group)
+    (o * cot[:, own].to(mesh.device)).sum().backward()
+    ring = {name: all_gather_cat(t.detach(), 1, group).cpu()
+            for name, t in zip(("o", "dq", "dk", "dv"),
+                               [o] + [t.grad for t in leaves])}
+    out = Path(spec["out"])
+    if mesh.rank == 0:
+        torch.save(dict(ring, q=q, k=k, v=v, cot=cot), out / "mc_ring.pt")
+    xs, _ = dryrun.phase_batch(mesh.data_size, 352, dryrun.phase_seed("sp"))
+    model = dryrun.phase_model("sam2_hiera_s", sp_group=group, sp_degree=n)
+    model = model.to(device=mesh.device, dtype=torch.bfloat16).eval()
+    sp_attention.calls.clear()
+    with torch.inference_mode():
+        outs = model(shard_batch(mesh, xs))
+    if mesh.model_index == 0:
+        torch.save([t.float().cpu() for t in outs],
+                   out / f"mc_sp_bf16_rows{mesh.data_index}.pt")
+    return {"rank": mesh.rank, "ring_calls": sp_attention.calls["ring_sdpa"],
+            "backend": torch.distributed.get_backend()}
+
+
+# the ranks' work of s960dp and s352mc (`--dp_worker`)
+DP_WORKERS = {"step": dp_step_worker, "cli": dp_cli_worker,
+              "nccl": dp_nccl_worker, "mc_sp": mc_sp_worker}
+
+
+def _mc_faults(got: dict, want: dict) -> list[str]:
+    """The leaves where a dry-run step's record departs from the one-process
+    step's (`MC_*` tolerances): loss, gradients, parameters after AdamW
+    (a gradient near zero may flip Adam's first +-lr update), statistics."""
+    bad = []
+    if abs(got["loss"] - want["loss"]) > MC_LOSS_RTOL * abs(want["loss"]):
+        bad.append(f"loss {got['loss']} vs {want['loss']}")
+    grads = {k[6:]: v for k, v in want["tensors"].items() if k.startswith("grads/")}
+    floor = MC_NOISE_FLOOR * max(float(w.abs().max()) for w in grads.values())
+    for name, w in grads.items():
+        g = got["tensors"][f"grads/{name}"]
+        scale = max(float(w.abs().max()), floor)
+        if float((g - w).abs().max()) > MC_GRAD_TOL * scale:
+            bad.append(f"grad {name}")
+        elif scale > floor and _leaf_agreement({"a": g}, {"a": w})["a"][0] < MC_GRAD_CORR:
+            bad.append(f"grad corr {name}")
+        near = w.abs() <= MC_GRAD_TOL * scale
+        lr = 1e-3
+        allowed = near * (2 * lr) + (~near) * (1e-2 * lr)
+        if not bool(((got["tensors"][f"params/{name}"]
+                      - want["tensors"][f"params/{name}"]).abs() <= allowed).all()):
+            bad.append(f"param {name}")
+    for key, w in want["tensors"].items():
+        if key.startswith("stats/"):
+            # a mean's gap over its layer's standard deviation (a mean near
+            # 0 has no scale of its own), a variance's over its largest
+            var = want["tensors"][key.rsplit(".", 1)[0] + ".running_var"]
+            if key.endswith("running_var"):
+                tol, scale = 1e-4, float(var.max())
+            else:
+                tol, scale = 1e-5, float(var.max()) ** 0.5
+            if float((got["tensors"][key] - w).abs().max()) > tol * scale:
+                bad.append(key)
+    return bad
+
+
+def _mc_one_process(cfg: str, rfb_out, size: int, key: str, n: int) -> dict:
+    """The dry run's step of phase `key` in one process on the card: the
+    same parameters (`phase_model`), the whole batch, fp32."""
+    import torch
+
+    from sam2unet_torch.parallel import dryrun
+    from sam2unet_torch.train.engine import train_step
+    from sam2unet_torch.train.optim import make_optimizer, trainable_parameters
+
+    model = dryrun.phase_model(cfg, rfb_out).to(DEV)
+    opt = make_optimizer(model, lr=dryrun.LR)
+    x, y = dryrun.phase_batch(n, size, dryrun.phase_seed(key))
+    loss = float(train_step(model, opt, torch.from_numpy(x).to(DEV),
+                            torch.from_numpy(y).to(DEV)))
+    named = trainable_parameters(model)
+    tensors = {f"params/{k}": p.detach().cpu() for k, p in named}
+    tensors.update({f"grads/{k}": p.grad.cpu() for k, p in named})
+    tensors.update({f"stats/{k}": v.cpu() for k, v in model.state_dict().items()
+                    if k.endswith(("running_mean", "running_var"))})
+    return {"loss": loss, "tensors": tensors}
+
+
+def multichip_main_phase(path: str, tmp: Path, card: str) -> dict:
+    """entry() on the card, then dryrun_multichip(4) with every phase,
+    its records against one process, the ring's gradient and the bf16 SP
+    forward. Returns the launch variants of entry() and of the ranks."""
+    import torch
+
+    from sam2unet_torch.ops import dispatch
+    from sam2unet_torch.parallel import dryrun
+
+    spec = PATHS[path]
+    label, ranks = spec["label"], spec["ranks"]
+    t_path = time.perf_counter()
+    variants = collections.Counter()
+
+    # entry(): the flagship forward, bf16 on the card
+    dispatch.reset_launches()
+    fn, (model, x) = dryrun.entry(DEV)
+    outs = fn(model, x)
+    torch.cuda.synchronize()
+    variants.update(dispatch.variants)
+    shapes = [tuple(o.shape) for o in outs]
+    print(f"[main] {label} entry(): {type(model).__name__}(hiera_s) "
+          f"{next(model.parameters()).dtype} on {x.device}, heads {shapes}, "
+          f"launches {dict(dispatch.launches)}", flush=True)
+    if shapes != [(1, 352, 352, 1)] * 3 or not all(
+            bool(torch.isfinite(o).all()) for o in outs):
+        fail(f"{label}: entry()'s forward gave {shapes} or non-finite values")
+    del fn, model, x, outs
+    torch.cuda.empty_cache()
+
+    # the dry run, every phase, four ranks on the card; TF32 off in the
+    # ranks' cuBLAS and cuDNN too (NVIDIA_TF32_OVERRIDE), as in this process
+    record = tmp / "mc_record"
+    knobs = {"DRYRUN_FULL": "1", "DRYRUN_BUDGET_S": "100000",
+             "NVIDIA_TF32_OVERRIDE": "0"}
+    os.environ.update(knobs)
+    t0 = time.perf_counter()
+    try:
+        dryrun.dryrun_multichip(ranks, DEV, record=str(record))
+    except RuntimeError as e:
+        fail(f"{label}: {e}")
+    finally:
+        for k in knobs:
+            os.environ.pop(k)
+    wall = time.perf_counter() - t0
+    phases = dryrun.PHASES + dryrun.HEAVY
+    recs = {}
+    for i, (name, key, *_) in enumerate(phases, 1):
+        recs[key] = [torch.load(record / f"{key}_rank{r}.pt", weights_only=True)
+                     for r in range(ranks)]
+        per_rank = [dict(sorted(r["launches"].items())) for r in recs[key]]
+        for r in recs[key]:
+            variants.update({(w, v): c for w, v, c in r["variants"]})
+        print(f"[main] {label} phase {i}/{len(phases)} {name}: "
+              f"{recs[key][0]['seconds']:.2f} s (rank 0's clock; a timing of "
+              f"the mechanism, {ranks} ranks sharing the card over gloo) on "
+              f"{card}; launches per rank "
+              f"{per_rank[0] if all(p == per_rank[0] for p in per_rank) else per_rank}",
+              flush=True)
+    print(f"[main] {label} all {len(phases)} phases {wall:.1f} s with the "
+          f"ranks' start on {card}", flush=True)
+
+    # the steps against one process
+    for key, (cfg, rfb_out, size) in {
+            "tiny": ("hiera_test", 8, 64), "s352dp": ("sam2_hiera_s", None, 352),
+            "s352sm": ("sam2_hiera_s", None, 352)}.items():
+        want = _mc_one_process(cfg, rfb_out, size, key, ranks)
+        torch.cuda.empty_cache()
+        got = recs[key][0]
+        bad = _mc_faults(got, want)
+        losses = sorted({r["loss"] for r in recs[key]})
+        print(f"[main] {label} {key}: loss {got['loss']:.7f} on every rank "
+              f"{losses}, one process {want['loss']:.7f}; "
+              f"{sum(k.startswith('grads/') for k in want['tensors'])} trainable "
+              f"leaves (gradients, parameters after AdamW) and "
+              f"{sum(k.startswith('stats/') for k in want['tensors'])} "
+              f"statistics: {len(bad)} outside the one-step tolerances "
+              f"{bad[:4]}", flush=True)
+        if bad or len(losses) != 1:
+            fail(f"{label}: {key} departs from one process: {bad[:6]}")
+    tiny = recs["tiny"]
+    print(f"[main] {label} tiny dp x tp: a rank holds "
+          f"{[r['held_bytes'] for r in tiny]} bytes of the split leaves and "
+          f"their moments, {tiny[0]['full_bytes']} whole", flush=True)
+    if not all(2 * r["held_bytes"] == r["full_bytes"] > 0 for r in tiny):
+        fail(f"{label}: a rank does not hold half of the split leaves' bytes")
+
+    # the SP forward against the dense one, fp32
+    xs, _ = dryrun.phase_batch(2, 352, dryrun.phase_seed("sp"))
+    dense = dryrun.phase_model("sam2_hiera_s").to(DEV).eval()
+    with torch.inference_mode():
+        want = [t.float().cpu() for t in dense(torch.from_numpy(xs).to(DEV))]
+        want_bf16 = [t.float().cpu() for t in dense.to(torch.bfloat16)(
+            torch.from_numpy(xs).to(DEV))]
+    del dense
+    torch.cuda.empty_cache()
+    sp = sorted((r for r in recs["sp"] if "outs" in r), key=lambda r: r["rows"])
+    got = [torch.cat([r["outs"][i] for r in sp]) for i in range(3)]
+    rel = [float((g - w).abs().max()) / float(w.abs().max())
+           for g, w in zip(got, want)]
+    rings = [r["ring_calls"] for r in recs["sp"]]
+    print(f"[main] {label} SP forward (fp32, global blocks over the model "
+          f"axis) against the dense forward: max gap / max of each head "
+          f"{[f'{v:.3g}' for v in rel]} (tol {SP_FP32_TOL}); ring_sdpa calls "
+          f"per rank {rings} (3 global blocks, one forward each)", flush=True)
+    if max(rel) > SP_FP32_TOL or rings != [3] * ranks:
+        fail(f"{label}: the SP forward departs from the dense one or the ring "
+             f"ran {rings} times")
+
+    # the ring's gradient and the bf16 SP forward, four ranks again
+    res, wall2 = _torchrun(ranks, "mc_sp", {}, tmp, timeout=300)
+    ring = torch.load(tmp / "mc_ring.pt", weights_only=True)
+    leaves = [ring[n].to(DEV).requires_grad_(True) for n in ("q", "k", "v")]
+    o = torch.nn.functional.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in leaves)).transpose(1, 2)
+    (o * ring["cot"].to(DEV)).sum().backward()
+    ref = {"o": o.detach().cpu(), **{d: t.grad.cpu() for d, t in
+                                     zip(("dq", "dk", "dv"), leaves)}}
+    ring_rel = {n: float((ring[n] - w).abs().max()) / float(w.abs().max())
+                for n, w in ref.items()}
+    print(f"[main] {label} ring_sdpa over the model axis (2 ranks a row, "
+          f"{res[0]['backend']}) at (1, 484, 4, 96) fp32 against dense "
+          f"autograd: max gap / max {({k: f'{v:.3g}' for k, v in ring_rel.items()})}"
+          f" (tol {SP_FP32_TOL}); the run {wall2:.1f} s", flush=True)
+    if max(ring_rel.values()) > SP_FP32_TOL:
+        fail(f"{label}: the ring's forward or gradient departs from dense")
+    got16 = [torch.cat([torch.load(tmp / f"mc_sp_bf16_rows{d}.pt",
+                                   weights_only=True)[i] for d in range(2)])
+             for i in range(3)]
+    gap_sp = [float((g - w).abs().max()) / float(w.abs().max())
+              for g, w in zip(got16, want)]
+    gap_dense = [float((g - w).abs().max()) / float(w.abs().max())
+                 for g, w in zip(want_bf16, want)]
+    bound = [STEP_GAP_RATIO * d + STEP_GAP_MARGIN for d in gap_dense]
+    print(f"[main] {label} SP forward in bf16 against the dense fp32 forward: "
+          f"max gap / max {[f'{v:.4g}' for v in gap_sp]}, the dense bf16 "
+          f"forward's {[f'{v:.4g}' for v in gap_dense]}, bound "
+          f"{[f'{v:.4g}' for v in bound]} ({STEP_GAP_RATIO} x the dense's + "
+          f"{STEP_GAP_MARGIN}); ring calls per rank "
+          f"{[r['ring_calls'] for r in res]}", flush=True)
+    if any(g > b for g, b in zip(gap_sp, bound)) or any(
+            r["ring_calls"] != 3 for r in res):
+        fail(f"{label}: the bf16 SP forward is past its bound")
+    print(f"[main] {label} the path took {time.perf_counter() - t_path:.1f} s",
+          flush=True)
+    return dict(variants)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="build,kernels,main,throughput")
     ap.add_argument("--paths",
                     default="l352,s960,l352train,s960train,s1024sam2,"
                             "s1024video,t512video,t1024amg,s960cli,s960deploy,"
-                            "s960interop,s960dp")
+                            "s960interop,s960dp,s352mc")
     ap.add_argument("--batch", type=int, default=32,
                     help="kernel, throughput and profile batch at hiera_l@352")
     ap.add_argument("--batch960", type=int, default=16,
@@ -3695,7 +4087,7 @@ def main() -> None:
     ap.add_argument("--step_report", default="",
                     help="JSON file for that comparison's per-leaf gaps")
     ap.add_argument("--dp_worker", choices=sorted(DP_WORKERS),
-                    help="(internal) run one rank of s960dp")
+                    help="(internal) run one rank of s960dp or s352mc")
     ap.add_argument("--dp_spec", default="", help="(internal) its inputs")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -3756,6 +4148,8 @@ def main() -> None:
                     variants[path] = deploy_main_phase(path, Path(tmp), card)
                 elif PATHS[path].get("dp"):
                     variants[path] = dp_main_phase(path, Path(tmp), card)
+                elif PATHS[path].get("multichip"):
+                    variants[path] = multichip_main_phase(path, Path(tmp), card)
                 elif PATHS[path].get("interop"):
                     variants[path] = interop_main_phase(path, Path(tmp), card,
                                                         rates)
@@ -3765,7 +4159,8 @@ def main() -> None:
                         args.step_report)
                 else:
                     variants[path] = main_path_phase(path, Path(tmp))
-            if "held_by" in PATHS[path] or PATHS[path].get("deploy"):
+            if ("held_by" in PATHS[path] or PATHS[path].get("deploy")
+                    or PATHS[path].get("multichip")):
                 continue   # their times and A/Bs are the main phase's
             if "throughput" in phases and PATHS[path].get("video"):
                 video_throughput_phase(path, card)

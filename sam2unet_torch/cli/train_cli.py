@@ -9,7 +9,7 @@ fork's operating point, hiera_s at 960 with batch 16.
         --train_image_path train/images/ --train_mask_path train/masks/ \
         --test_image_path test/images/ --test_gt_path test/masks/ \
         [--size 352 --model_cfg sam2_hiera_l] [--remat] \
-        [--save_train_state] [--resume run/<snapshot>_train_state] \
+        [--save_train_state] [--resume run/SAM2-UNet_epoch-latest_train_state] \
         [--full_eval] [--profile_dir trace/]
     torchrun --nproc_per_node N -m sam2unet_torch.cli.train_cli ...
 
@@ -23,10 +23,11 @@ JAX CLI's flag for that form and changes nothing here.
 
 --remat recomputes each trunk block in the backward (less memory, more
 time). --save_train_state writes the train state beside each snapshot
-(model, AdamW moments, steps done): the JAX CLI's TrainState directory
-`<snapshot without .pth>_train_state`, which the JAX CLI resumes, and this
-package's file `<snapshot>_train_state`. --resume takes either, or a
-TrainState the JAX CLI saved, and then does what the JAX CLI does: it
+(model, AdamW moments, steps done) as the JAX CLI does: its TrainState
+directory `<snapshot without .pth>_train_state`, which either CLI resumes.
+--resume takes such a directory, the JAX CLI's or this one's, or this
+package's older single-file train state `<snapshot>_train_state`, and then
+does what the JAX CLI does: it
 trains --epoch epochs from epoch 0 (the same shuffles, the same checkpoint
 epochs), each step at the cosine schedule's rate at the global step (the
 saved step plus this run's), held at its last value past --epoch epochs.
@@ -78,7 +79,6 @@ from sam2unet_torch.train.checkpoints import (
     jax_train_state_path,
     restore_train_state,
     save_jax_train_state,
-    save_train_state,
 )
 from sam2unet_torch.train.engine import (
     eval_logits,
@@ -144,8 +144,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "saved step on")
     p.add_argument("--save_train_state", action="store_true",
                    help="also save the full train state beside each "
-                        "snapshot, as the JAX CLI's TrainState directory "
-                        "and as this package's file")
+                        "snapshot, as the JAX CLI's TrainState directory")
     p.add_argument("--device", default="cuda", type=str)
     return p
 
@@ -337,10 +336,8 @@ def _train(args, mesh: Mesh) -> dict:
         if out:
             saved.append(out)
             if args.save_train_state:
-                state = fp32_state_dict(model, masters)
-                save_train_state(out + "_train_state", state, optimizer,
-                                 epoch + 1, steps_before + steps)
-                save_jax_train_state(jax_train_state_path(out), state, model,
+                save_jax_train_state(jax_train_state_path(out),
+                                     fp32_state_dict(model, masters), model,
                                      optimizer, steps_before + steps)
     if mesh.world > 1:
         dist.barrier()   # rank 0's files are written when every rank returns

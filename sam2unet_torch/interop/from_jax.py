@@ -171,41 +171,54 @@ def jax_to_state_dict(variables: dict, keys,
     return out
 
 
+def jax_leaf(key: str, ndim: int, wrap_blocks: bool = True
+             ) -> tuple[str, tuple[str, ...], tuple[int, ...]] | None:
+    """Where a port state-dict entry of `ndim` dimensions lives in the JAX
+    package's variables: (collection, path, axes), with the JAX array the
+    port tensor permuted by `axes` (`tensor.permute(axes)`): Linear (O, I) ->
+    Dense (I, O); Conv and ConvTranspose (O, I, kh, kw) / (I, O, kh, kw) ->
+    (kh, kw, I, O) / (kh, kw, O, I); a 1-D weight (BatchNorm, LayerNorm) ->
+    `scale`; running_mean / var -> `batch_stats` mean / var; pos embeds
+    (1, C, H, W) -> (1, H, W, C); raw parameters and embedding tables as
+    they are. None for num_batches_tracked, which the JAX package lacks."""
+    name, suffix = _split_suffix(key)
+    if suffix == ".num_batches_tracked":
+        return None
+    path = _jax_path(name, wrap_blocks)
+    coll, leaf, axes = "params", None, tuple(range(ndim))
+    parts = name.split(".")
+    raw = parts[-1] in _RAW or (len(parts) > 1 and parts[-2]
+                                == "point_embeddings" and parts[-1].isdigit())
+    if suffix in (".running_mean", ".running_var"):
+        coll, leaf = "batch_stats", suffix[len(".running_"):]
+    elif suffix == ".weight" and not raw:
+        if ndim == 4:
+            leaf, axes = "kernel", (2, 3, 1, 0)
+        elif ndim == 2:
+            leaf, axes = "kernel", (1, 0)
+        else:
+            leaf = "scale"
+    elif suffix == ".bias":
+        leaf = "bias"
+    elif name.endswith(("pos_embed", "pos_embed_window")):
+        axes = (0, 2, 3, 1)
+    return coll, path + (leaf,) if leaf else path, axes
+
+
 def state_dict_to_jax(state_dict: dict, wrap_blocks: bool = True) -> dict:
     """A port state dict -> the JAX package's variables, nested dicts of
-    numpy arrays: Linear (O, I) -> Dense (I, O); Conv and ConvTranspose
-    (O, I, kh, kw) / (I, O, kh, kw) -> (kh, kw, I, O) / (kh, kw, O, I); a
-    1-D weight (BatchNorm, LayerNorm) -> `scale`; running_mean / var ->
-    `batch_stats` mean / var; pos embeds (1, C, H, W) -> (1, H, W, C);
-    raw parameters and embedding tables as they are; num_batches_tracked
-    dropped (`jax_to_state_dict` gives 0 back). Raises where two keys land
+    numpy arrays, by `jax_leaf`'s places and layouts (num_batches_tracked
+    dropped: `jax_to_state_dict` gives 0 back). Raises where two keys land
     on one JAX leaf."""
     tree: dict = {"params": {}, "batch_stats": {}}
     for key, value in state_dict.items():
         arr = (value.detach().cpu().numpy() if isinstance(value, torch.Tensor)
                else np.asarray(value))
-        name, suffix = _split_suffix(key)
-        if suffix == ".num_batches_tracked":
+        place = jax_leaf(key, arr.ndim, wrap_blocks)
+        if place is None:
             continue
-        path = _jax_path(name, wrap_blocks)
-        coll, leaf = "params", None
-        parts = name.split(".")
-        raw = parts[-1] in _RAW or (len(parts) > 1 and parts[-2]
-                                    == "point_embeddings" and parts[-1].isdigit())
-        if suffix in (".running_mean", ".running_var"):
-            coll, leaf = "batch_stats", suffix[len(".running_"):]
-        elif suffix == ".weight" and not raw:
-            if arr.ndim == 4:
-                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
-            elif arr.ndim == 2:
-                leaf, arr = "kernel", arr.T
-            else:
-                leaf = "scale"
-        elif suffix == ".bias":
-            leaf = "bias"
-        elif name.endswith(("pos_embed", "pos_embed_window")):
-            arr = arr.transpose(0, 2, 3, 1)
-        path = path + (leaf,) if leaf else path
+        coll, path, axes = place
+        arr = arr.transpose(axes)
         node = tree[coll]
         for p in path[:-1]:
             node = node.setdefault(p, {})

@@ -44,6 +44,16 @@ block under `torch.utils.checkpoint`, the counterpart of the JAX package's
 `nn.remat` per block: the block's activations are recomputed in the
 backward instead of kept. SAM2's own trunk (`use_adapters=False`) has the
 same blocks without the adapters and is not frozen.
+
+Sequence parallelism (the JAX package's `sp_axis` / `sp_degree`,
+hiera.py:164-205 there): `Hiera(sp_group=group, sp_degree=n)`, inside a
+process group of n ranks that hold the same rows, runs each global block
+whose grid splits over the n ranks (dim-preserving, h * w divisible by n)
+as plain LN in fp32 -> QKV -> `ops/sp_attention.ring_sdpa` on this rank's
+slice of the tokens -> the slices gathered along the tokens -> proj ->
+residual, then the block's tail. With it the persistent window-group layout
+is off, as in the JAX package, so the window blocks take their per-block
+routes. The state-dict keys do not change.
 """
 
 from __future__ import annotations
@@ -56,7 +66,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from sam2unet_torch.configs import HieraConfig
-from sam2unet_torch.nn.layers import LN_EPS, MLP, gelu
+from sam2unet_torch.nn.layers import LN_EPS, MLP, gelu, layer_norm_plain
+from sam2unet_torch.ops import sp_attention
 from sam2unet_torch.ops.attention import sdpa
 from sam2unet_torch.ops.fused_attention_block import (
     fused_window_block,
@@ -105,6 +116,10 @@ class MultiScaleAttention(nn.Module):
 class MultiScaleBlock(nn.Module):
     """Pre-norm windowed attention block (hieradet.py:84-167)."""
 
+    # the sequence-parallel group and its size (`Hiera`, global blocks)
+    sp_group = None
+    sp_degree = 1
+
     def __init__(self, dim: int, dim_out: int, num_heads: int,
                  window_size: int, q_stride: tuple[int, int] | None = None,
                  mlp_ratio: float = 4.0):
@@ -133,7 +148,10 @@ class MultiScaleBlock(nn.Module):
         b, h, w, c = x.shape
         window = self.window_size
         train = self.training
-        if self.dim == self.dim_out:
+        if (self.sp_group is not None and window == 0
+                and self.dim == self.dim_out and (h * w) % self.sp_degree == 0):
+            x = self._sequence_parallel(x)
+        elif self.dim == self.dim_out:
             args = self._attn_args()
             nh = self.num_heads
             rem_grid = window > 0 and (h % window or w % window
@@ -169,6 +187,25 @@ class MultiScaleBlock(nn.Module):
         else:
             x = self._unfused(x)
         return self._tail(x)
+
+    def _sequence_parallel(self, x: torch.Tensor) -> torch.Tensor:
+        """The global attention with its tokens split over `sp_group`
+        (hiera.py:170-205 there): LN in fp32 -> QKV -> ring attention of
+        this rank's token slice -> every rank's slice gathered -> proj ->
+        + x, in x's dtype."""
+        b, h, w, c = x.shape
+        a, nh, group = self.attn, self.num_heads, self.sp_group
+        xn = layer_norm_plain(x, self.norm1.weight, self.norm1.bias)
+        qkv = F.linear(xn, a.qkv.weight.to(x.dtype), a.qkv.bias.to(x.dtype))
+        sl = h * w // self.sp_degree
+        i0 = sp_attention.group_index(group) * sl
+        q, k, v = (qkv[..., j * c: (j + 1) * c].reshape(b, h * w, nh, -1)
+                   [:, i0: i0 + sl] for j in range(3))
+        o = sp_attention.gather_tokens(
+            sp_attention.ring_sdpa(q, k, v, group), group)
+        y = F.linear(o.reshape(b, h, w, c), a.proj.weight.to(x.dtype),
+                     a.proj.bias.to(x.dtype))
+        return x + y
 
     def _tail(self, x: torch.Tensor) -> torch.Tensor:
         m = self.mlp.layers
@@ -333,13 +370,16 @@ class Hiera(nn.Module):
     `blocks.N.prompt_learn.*`) and freezes every parameter but the
     adapters', as SAM2-UNet does; without it the blocks are plain
     `MultiScaleBlock`s (keys `blocks.N.*`, SAM2's own trunk) and nothing is
-    frozen."""
+    frozen. `sp_group` / `sp_degree`: sequence parallelism of the global
+    blocks over a process group of that size (module docstring)."""
 
     def __init__(self, cfg: HieraConfig, use_adapters: bool = False,
-                 adapter_dim: int = 32, remat: bool = False):
+                 adapter_dim: int = 32, remat: bool = False,
+                 sp_group=None, sp_degree: int = 1):
         super().__init__()
         self.cfg = cfg
         self.remat = remat
+        self.sp_group = sp_group
         self.patch_embed = PatchEmbed(cfg.embed_dim)
         bh, bw = cfg.window_pos_embed_bkg_spatial_size
         win0 = cfg.window_spec[0]
@@ -347,7 +387,11 @@ class Hiera(nn.Module):
         self.pos_embed_window = nn.Parameter(
             torch.zeros(1, cfg.embed_dim, win0, win0))
         self.plan = _block_plan(cfg)
-        blocks = (MultiScaleBlock(**bk) for bk in self.plan)
+        blocks = [MultiScaleBlock(**bk) for bk in self.plan]
+        if sp_group is not None:
+            for blk in blocks:
+                if blk.window_size == 0:
+                    blk.sp_group, blk.sp_degree = sp_group, sp_degree
         self.blocks = nn.ModuleList(
             AdapterBlock(blk, adapter_dim) if use_adapters else blk
             for blk in blocks)
@@ -371,7 +415,8 @@ class Hiera(nn.Module):
         # the persistent window-group layout (hiera.py:611-657 there): enter
         # it at a groupable windowed block, keep it while the blocks are
         # groupable at its window (or global), leave it at a stage end
-        grouping = not os.environ.get("SAM2UNET_DISABLE_GROUPED")
+        grouping = (self.sp_group is None
+                    and not os.environ.get("SAM2UNET_DISABLE_GROUPED"))
         itemsize, train = x.dtype.itemsize, self.training
         for i, (bk, blk) in enumerate(zip(self.plan, self.blocks)):
             grouped = isinstance(x, GroupedTokens)

@@ -89,16 +89,20 @@ class Up(nn.Module):
 
 class SAM2UNet(nn.Module):
     def __init__(self, cfg: SAM2UNetConfig = SAM2UNetConfig(),
-                 remat: bool = False):
+                 remat: bool = False, sp_group=None, sp_degree: int = 1):
         """`remat`: recompute each trunk block's activations in the
-        backward (`Hiera`), for bigger batches. The neck's and decoder's
-        BatchNorms are `SyncBatchNorm2d`s: in a train step across ranks they
-        normalise over the global batch (the JAX model's `bn_axis`), and
-        otherwise they are `nn.BatchNorm2d`s."""
+        backward (`Hiera`), for bigger batches. `sp_group` / `sp_degree`:
+        the trunk's global blocks sequence-parallel over that process group
+        (`Hiera`; the JAX model's `sp_axis` / `sp_degree`); the state-dict
+        keys are the same. The neck's and decoder's BatchNorms are
+        `SyncBatchNorm2d`s: in a train step across ranks they normalise
+        over the global batch (the JAX model's `bn_axis`), and otherwise
+        they are `nn.BatchNorm2d`s."""
         super().__init__()
         self.cfg = cfg
         self.encoder = Hiera(cfg.trunk, use_adapters=True,
-                             adapter_dim=cfg.adapter_dim, remat=remat)
+                             adapter_dim=cfg.adapter_dim, remat=remat,
+                             sp_group=sp_group, sp_degree=sp_degree)
         ch, r = cfg.trunk.channel_list, cfg.rfb_out
         self.rfb1 = RFBModified(ch[0], r)
         self.rfb2 = RFBModified(ch[1], r)

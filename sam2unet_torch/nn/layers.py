@@ -67,13 +67,21 @@ class SyncBatchNorm2d(nn.BatchNorm2d):
     running statistics move with momentum 0.1 toward the global mean and
     the global variance corrected by n/(n-1) over the global count
     (torch's convention, as `nn.BatchNorm2d`'s). The output takes the
-    input's dtype. In eval mode, at world 1 or with no process group it
-    is `nn.BatchNorm2d`, whose state-dict names it keeps. (torch's own
-    `nn.SyncBatchNorm` refuses CPU tensors.)"""
+    input's dtype. The ranks are those of `group`, the data group of the
+    mesh (`parallel/mesh.py`; None, the default, is every rank): on a
+    (data, model) mesh the model axis's ranks hold the same rows, and an
+    all-reduce over them would count each row once per rank of the model
+    axis. The moments and the gradients survive that (the count doubles
+    with the sums); the running variance's n / (n - 1) does not. In eval
+    mode, for one rank or with no process group it is `nn.BatchNorm2d`,
+    whose state-dict names it keeps. (torch's own `nn.SyncBatchNorm`
+    refuses CPU tensors.)"""
+
+    group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and dist.is_available() and dist.is_initialized()
-                and dist.get_world_size() > 1):
+                and dist.get_world_size(self.group) > 1):
             return super().forward(x)
         c = x.shape[1]
         xf = x.float()
@@ -83,7 +91,7 @@ class SyncBatchNorm2d(nn.BatchNorm2d):
             # deprecated in favour of functional collectives that carry no
             # gradient
             warnings.simplefilter("ignore", FutureWarning)
-            total = dist_nn.all_reduce(local)
+            total = dist_nn.all_reduce(local, group=self.group)
         count = total[2 * c]
         mean = total[:c] / count
         var = (total[c: 2 * c] / count - mean * mean).clamp(min=0)

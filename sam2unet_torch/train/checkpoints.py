@@ -3,18 +3,20 @@ sam2unet_tpu/train/checkpoints.py:39-75): a snapshot named by epoch, loss
 and IoU whenever the mean IoU beats the best so far, else a rolling
 `SAM2-UNet_epoch-latest.pth` every `save_interval` epochs and at the last
 epoch. Files are state dicts written with torch.save, which the port's
-test CLI loads with strict=True. `save_train_state` / `restore_train_state`
-(the JAX package's, checkpoints.py:77-95 there) keep the whole training
-state for a true resume: the reference restarts the optimizer.
-`restore_train_state` also takes the JAX package's own train state, an
-Orbax directory of its `TrainState` (`step`, the flax-flattened
-`trainable` and `frozen` parameters, `batch_stats`, and optax's adamw
-chain `(ScaleByAdamState(count, mu, nu), EmptyState(),
-ScaleByScheduleState(count))`), and `save_jax_train_state` writes one,
-which the JAX package's `restore_train_state` restores. Parameters and
-statistics go through `interop/from_jax.py`'s layouts, and so do the
-moments: `mu` / `nu` of each trainable leaf are AdamW's `exp_avg` /
-`exp_avg_sq` of the parameter, `count` its `step`.
+test CLI loads with strict=True. `save_jax_train_state` /
+`restore_train_state` (the JAX package's `save_train_state` /
+`restore_train_state`, checkpoints.py:77-95 there) keep the whole training
+state for a true resume (the reference restarts the optimizer), as the JAX
+package's own train state: an Orbax directory of its `TrainState` (`step`,
+the flax-flattened `trainable` and `frozen` parameters, `batch_stats`, and
+optax's adamw chain `(ScaleByAdamState(count, mu, nu), EmptyState(),
+ScaleByScheduleState(count))`), which the JAX package's
+`restore_train_state` restores too. `restore_train_state` also reads the
+single torch.save file this package wrote before (`{"model", "optimizer",
+"step"}` and an `epoch` it ignores), so older runs still resume.
+Parameters and statistics go through `interop/from_jax.py`'s layouts, and
+so do the moments: `mu` / `nu` of each trainable leaf are AdamW's
+`exp_avg` / `exp_avg_sq` of the parameter, `count` its `step`.
 
 optax's `adamw` (sam2unet_tpu/train/optim.py:33-49) and torch's AdamW are
 one update: both keep mu <- b1 mu + (1 - b1) g and nu <- b2 nu + (1 - b2)
@@ -84,19 +86,9 @@ class CheckpointPolicy:
         return None
 
 
-TRAIN_STATE_KEYS = ("model", "optimizer", "epoch", "step")
-
-
-def save_train_state(path: str, model_state: dict[str, torch.Tensor],
-                     optimizer: torch.optim.Optimizer, epoch: int,
-                     step: int) -> None:
-    """One torch.save file with the fp32 model state (`fp32_state_dict`:
-    frozen weights from their fp32 masters, BatchNorm statistics), the
-    AdamW moments, and the epochs and steps done (a resume reads the
-    steps: the schedule is a function of the global step and the resuming
-    run's flags, `optim.cosine_step_lr`, and has no state to keep)."""
-    torch.save({"model": model_state, "optimizer": optimizer.state_dict(),
-                "epoch": int(epoch), "step": int(step)}, path)
+# the entries of the older single-file train state (an `epoch` beside them
+# is read by nothing)
+TRAIN_STATE_KEYS = ("model", "optimizer", "step")
 
 
 def restore_train_state(path: str, model: nn.Module,
@@ -105,15 +97,18 @@ def restore_train_state(path: str, model: nn.Module,
     """Load a train state into the model (strict; a bf16 frozen weight
     takes the rounded fp32 value, and `masters`, the fp32 copies the
     checkpoints are written from, take the exact one) and the optimizer
-    (made by `optim.make_optimizer` for this model): a `save_train_state`
-    file, or a directory of the JAX package's `TrainState`. Returns the
-    steps done."""
+    (made by `optim.make_optimizer` for this model): a directory of the
+    JAX package's `TrainState`, or this package's older train-state file.
+    Returns the steps done (the schedule is a function of the global step
+    and the resuming run's flags, `optim.cosine_step_lr`, and has no state
+    to keep)."""
     if os.path.isdir(path):
         model_state, opt_state, step = _from_jax_train_state(path, model,
                                                              optimizer)
     else:
         state = torch.load(path, map_location="cpu", weights_only=True)
-        if not isinstance(state, dict) or set(state) != set(TRAIN_STATE_KEYS):
+        if not isinstance(state, dict) or set(state) - {"epoch"} != set(
+                TRAIN_STATE_KEYS):
             raise KeyError(f"{path} is not a train state: expected the "
                            f"entries {TRAIN_STATE_KEYS}")
         model_state, opt_state, step = (state["model"], state["optimizer"],

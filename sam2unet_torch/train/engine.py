@@ -15,7 +15,19 @@ trainable gradients are averaged over the ranks by one explicit all-reduce
 before AdamW (the JAX step's pmean'd loss, whose gradient is the mean of
 the ranks' gradients), which carries the loss too: the loss returned is
 the global mean. `evaluate` scores each rank's rows and sums the metrics
-over the ranks, so every rank reads the global mIoU."""
+over the ranks, so every rank reads the global mIoU.
+
+On a (data, model) mesh, `create_sharded_train_state` places the state as
+the JAX package's does (sam2unet_tpu/train/engine.py:57-68,
+`parallel/sharding.py`): between steps a rank holds only its column shard
+of each split parameter, trainable or frozen, and of its AdamW moments.
+The step (`train_step` with the state) gathers the full parameters over
+the model group, runs the forward and backward as the replicated step does,
+averages the gradients over the data group, and AdamW updates the rank's
+shards with the matching slices of the gradients. AdamW is elementwise, so
+each shard's update is that slice of the full update: the step computes
+what the JAX package's placement-only GSPMD step does, the one-process
+step."""
 
 from __future__ import annotations
 
@@ -27,28 +39,111 @@ from sam2unet_torch.eval.metrics import MIOU
 from sam2unet_torch.eval.metrics_device import batched_semantic_metrics
 from sam2unet_torch.parallel.mesh import (
     Mesh,
+    all_gather_cat,
     all_mean_,
     all_sum,
     rank_and_world,
     shard_batch,
 )
+from sam2unet_torch.parallel.sharding import shard, shard_tree
 from sam2unet_torch.train.loss import multi_head_loss
+
+
+class ShardedState:
+    """The placement of a model's train state on a mesh: `dims`, the split
+    dim of each parameter the policy splits over the model axis (empty
+    with a 1-sized model axis: plain replication). Between steps those
+    parameters, and their AdamW moments, hold this rank's shard."""
+
+    def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
+                 mesh: Mesh, dims: dict[str, int]):
+        self.mesh, self.dims = mesh, dims
+        self.params = {n: p for n, p in model.named_parameters() if n in dims}
+        self.optimizer = optimizer
+        self._shards: dict[str, torch.Tensor] = {}
+
+    def gather(self) -> None:
+        """Every split parameter whole, for the forward and backward."""
+        for name, p in self.params.items():
+            self._shards[name] = p.data
+            p.data = all_gather_cat(p.data, self.dims[name],
+                                    self.mesh.model_group)
+
+    def scatter(self) -> None:
+        """Back to this rank's shards, each gradient cut to its slice."""
+        for name, p in self.params.items():
+            grad, p.grad = p.grad, None
+            p.data = self._shards.pop(name)
+            if grad is not None:
+                p.grad = shard(grad, self.dims[name], self.mesh)
+
+    def full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """Parameter `name`'s shard (or a tensor of its shape: its gradient
+        or a moment) `t` gathered whole; replicated ones as they are."""
+        if name not in self.dims:
+            return t
+        return all_gather_cat(t, self.dims[name], self.mesh.model_group)
+
+    def held_bytes(self) -> tuple[int, int]:
+        """(bytes this rank holds, bytes whole) of the split parameters and
+        their AdamW moments."""
+        held = full = 0
+        mp = self.mesh.model_parallel
+        for p in self.params.values():
+            slots = [p] + [v for v in self.optimizer.state.get(p, {}).values()
+                           if torch.is_tensor(v) and v.shape == p.shape]
+            n = sum(t.numel() * t.element_size() for t in slots)
+            held, full = held + n, full + n * mp
+        return held, full
+
+
+def create_sharded_train_state(model: nn.Module,
+                               optimizer: torch.optim.Optimizer, mesh: Mesh,
+                               min_shard_size: int | None = None
+                               ) -> ShardedState:
+    """Place the model's parameters (and any AdamW moments the optimizer
+    holds already) by the tensor-parallel policy, in place: large matmul
+    weights split over the model axis, the rest replicated (the JAX
+    package's `create_sharded_train_state`). The neck's and decoder's
+    SyncBatchNorm2d's reduce over the data group."""
+    from sam2unet_torch.nn.layers import SyncBatchNorm2d
+
+    kw = {} if min_shard_size is None else {"min_size": min_shard_size}
+    dims = shard_tree(model, mesh, **kw)
+    state = ShardedState(model, optimizer, mesh, dims)
+    with torch.no_grad():
+        for name, p in state.params.items():
+            moments = optimizer.state.get(p, {})
+            for k, v in moments.items():
+                if torch.is_tensor(v) and v.dim() == p.dim() and v.shape != p.shape:
+                    moments[k] = shard(v, dims[name], mesh)
+    for m in model.modules():
+        if isinstance(m, SyncBatchNorm2d):
+            m.group = mesh.data_group
+    return state
 
 
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                images: torch.Tensor, labels: torch.Tensor,
-               weighted_bce: bool = False) -> torch.Tensor:
+               weighted_bce: bool = False,
+               sharded: ShardedState | None = None) -> torch.Tensor:
     """One step on (B, H, W, 3) normalized images and (B, H, W, 1) {0, 1}
-    labels, this rank's rows of the global batch. Returns the global
-    batch's loss (a device scalar, not synchronised at world 1)."""
+    labels, this rank's rows of the global batch; with `sharded`, the
+    tensor-parallel step on its mesh. Returns the global batch's loss (a
+    device scalar, not synchronised for one rank)."""
     model.train()
+    if sharded is not None:
+        sharded.gather()
     loss = multi_head_loss(model(images), labels, weighted_bce)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     loss = loss.detach()
-    # one all-reduce: the gradients' and the loss's means over the ranks
+    # one all-reduce: the gradients' and the loss's means over the data axis
     all_mean_([p.grad for group in optimizer.param_groups
-               for p in group["params"] if p.grad is not None] + [loss])
+               for p in group["params"] if p.grad is not None] + [loss],
+              None if sharded is None else sharded.mesh.data_group)
+    if sharded is not None:
+        sharded.scatter()
     optimizer.step()
     return loss
 

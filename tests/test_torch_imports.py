@@ -65,7 +65,8 @@ def test_port_package_has_the_expected_modules():
                 "cli/deploy_cli.py", "interop/ocdbt.py", "interop/orbax.py",
                 "utils/flops_audit.py", "utils/profile_model.py",
                 "utils/dump_augmentations.py", "parallel/__init__.py",
-                "parallel/mesh.py"):
+                "parallel/mesh.py", "parallel/sharding.py",
+                "parallel/dryrun.py", "ops/sp_attention.py"):
         assert f"sam2unet_torch/{mod}" in names
     for src in ("fused_mlp.cu", "fused_attention_block.cu",
                 "fused_transition.cu", "flash_attention.cu",

@@ -349,7 +349,7 @@ def test_the_train_cli_on_two_ranks_writes_only_from_rank_0(cli_runs):
     written = sorted(p.name for p in (root / "two").iterdir())
     assert written == sorted(p.name for p in (root / "one").iterdir())
     assert any(w.endswith("log.txt") for w in r0["writes"])
-    assert len(written) == 4   # log.txt, the snapshot, two train states
+    assert len(written) == 3   # log.txt, the snapshot, its train state
 
 
 # (e): two AdamW steps from one state; the 2-rank step differs from the

@@ -210,7 +210,7 @@ RESUME_STEP = 3   # 6 images at batch 4: two steps an epoch
 @pytest.fixture(scope="module")
 def resume_case(tmp_path_factory):
     """A dataset of 6 images, and one training state at step 3 in both
-    formats: the port's file and a JAX TrainState directory."""
+    formats: the port's older file and a JAX TrainState directory."""
     from test_torch_train_cli_cpu import _write_split
 
     root = tmp_path_factory.mktemp("resume_cli")
@@ -225,8 +225,9 @@ def resume_case(tmp_path_factory):
         set_lr(optimizer, cosine_step_lr(LR, s, CLI_EPOCHS, 2))
         train_step(model, optimizer, torch.from_numpy(x), torch.from_numpy(y))
     state = fp32_state_dict(model, {})
-    port_ckpt.save_train_state(str(root / "state.pth"), state, optimizer, 1,
-                               RESUME_STEP)
+    # the train-state file this package wrote before (an older run's)
+    torch.save({"model": state, "optimizer": optimizer.state_dict(),
+                "epoch": 1, "step": RESUME_STEP}, root / "state.pth")
     port_ckpt.save_jax_train_state(str(root / "state_jax"), state, model,
                                    optimizer, RESUME_STEP)
     argv = ["--train_image_path", str(root / "train" / "images"),

@@ -3,13 +3,17 @@ manner of tests/test_cli_e2e.py: the `hiera_test` trunk at --size 64 on a
 small synthetic dataset, two epochs. It writes log.txt with the epoch
 reports and a checkpoint that the port's test CLI loads strictly and runs;
 the frozen trunk comes back bit-identical, the trainable set changed. Also:
---save_train_state writes the train state and --resume trains --epoch
+--save_train_state writes the JAX CLI's train state directory and
+--resume trains --epoch
 epochs from it as the JAX CLI does (every epoch from 0, the rate of the
 global step), --remat trains to the same losses, --shard_map changes no
 number at world 1, the defaults (hiera_s@960) pass the card's gate, and
 --hiera_path loads a SAM2 trunk through the port's own key rules."""
 
 from __future__ import annotations
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -20,8 +24,8 @@ from sam2unet_torch.cli import test_cli, train_cli
 from sam2unet_torch.cli.common import build_model, load_weights
 from sam2unet_torch.data.dataset import TrainDataset
 from sam2unet_torch.train.checkpoints import (
+    jax_train_state_path,
     restore_train_state,
-    save_train_state,
 )
 from sam2unet_torch.train.loss import multi_head_loss
 from sam2unet_torch.train.optim import (
@@ -183,24 +187,41 @@ def resumed(run, tmp_path_factory):
     first = [p for p in full["saved"] if "epoch-1_" in p]
     assert len(first) == 1
     common[common.index("--save_path") + 1] = str(out / "again")
+    state = jax_train_state_path(first[0])
     again = train_cli.main(train_cli.build_parser().parse_args(
-        common + ["--resume", first[0] + "_train_state"]))
-    return full, again, first[0] + "_train_state"
+        common + ["--resume", state]))
+    return full, again, state
 
 
 def test_save_train_state_writes_the_state_beside_each_snapshot(resumed):
+    """Beside each snapshot the JAX CLI's TrainState directory and nothing
+    else: it restores the snapshot's fp32 model, AdamW moments for every
+    trainable parameter, and the steps done."""
     full, _, state_path = resumed
+    root = Path(full["saved"][0]).parent
+    assert sorted(p.name for p in root.iterdir()) == sorted(
+        ["log.txt"] + [Path(s).name for s in full["saved"]]
+        + [Path(jax_train_state_path(s)).name for s in full["saved"]])
     for snap in full["saved"]:
-        state = torch.load(snap + "_train_state", weights_only=True)
-        assert set(state) == {"model", "optimizer", "epoch", "step"}
-        model = torch.load(snap, weights_only=True)
-        assert state["model"].keys() == model.keys()
-        assert all(v.dtype == torch.float32 for v in state["model"].values()
+        state = jax_train_state_path(snap)
+        assert Path(state).is_dir() and not Path(snap + "_train_state").exists()
+        # two steps an epoch; the latest snapshot is the third epoch's
+        epoch = re.search(r"epoch-(\d+)_", snap)
+        steps = 2 * (int(epoch.group(1)) if epoch else 3)
+        model = build_model(CFG, torch.device("cpu"))
+        opt = make_optimizer(model)
+        assert restore_train_state(state, model, opt) == steps
+        want = torch.load(snap, weights_only=True)
+        got = model.state_dict()
+        assert got.keys() == want.keys()
+        assert all(torch.equal(got[n], v) for n, v in want.items()
+                   if not n.endswith("num_batches_tracked"))
+        assert all(v.dtype == torch.float32 for v in got.values()
                    if v.is_floating_point())
-    first = torch.load(state_path, weights_only=True)
-    assert (first["epoch"], first["step"]) == (1, 2)
-    assert first["optimizer"]["param_groups"][0]["lr"] == cosine_lr(1e-3, 0, 3)
-    assert len(first["optimizer"]["state"]) > 0
+        moments = opt.state_dict()["state"]
+        assert len(moments) == len(opt.param_groups[0]["params"]) > 0
+        assert all(int(m["step"]) == steps for m in moments.values())
+    assert state_path == jax_train_state_path(full["saved"][0])
 
 
 def test_resume_trains_every_epoch_from_the_saved_state(resumed, run):
@@ -255,7 +276,9 @@ def test_resume_with_another_epoch_count_follows_that_schedule(
         sched.step()
     assert cosine_step_lr(1e-3, 13, 5, 2) == cosine_lr(1e-3, 5, 5) \
         == pytest.approx(ETA_MIN)
-    save_train_state(str(tmp_path / "s"), model.state_dict(), opt, 1, 2)
+    # the train-state file this package wrote before (an older run's)
+    torch.save({"model": model.state_dict(), "optimizer": opt.state_dict(),
+                "epoch": 1, "step": 2}, tmp_path / "s")
     opt2 = make_optimizer(model, 1e-3, 5e-4)
     assert restore_train_state(str(tmp_path / "s"), model, opt2) == 2
     assert opt2.state_dict()["state"].keys() == opt.state_dict()["state"].keys()

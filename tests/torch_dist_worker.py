@@ -1,7 +1,7 @@
-"""Ranks of a data-parallel port run on the CPU, for the tests: each rank
-is a process of its own (`python tests/torch_dist_worker.py KIND SPEC
-OUT`) with torchrun's environment, on gloo over localhost with one torch
-thread, and imports no JAX. `run_ranks` starts them and joins them under
+"""Ranks of a data-, tensor- or sequence-parallel port run on the CPU, for
+the tests: each rank is a process of its own (`python
+tests/torch_dist_worker.py KIND SPEC OUT`) with torchrun's environment, on
+gloo over localhost with one torch thread, and imports no JAX. `run_ranks` starts them and joins them under
 one deadline; a rank that fails or outlives it fails the test with the
 ranks' output.
 
@@ -219,8 +219,97 @@ def _eval(spec: dict) -> dict:
     return out
 
 
+def _sp_attention(spec: dict) -> dict:
+    """Each case's sequence-parallel attention over the ranks (the default
+    group) on this rank's slice of the tokens, and its gradients for the
+    loss sum(out * cot)."""
+    import torch.distributed as dist
+
+    from sam2unet_torch.ops import sp_attention
+    from sam2unet_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh("cpu")
+    out = []
+    for case in spec["cases"]:
+        sl = case["q"].shape[1] // mesh.world
+        own = slice(mesh.rank * sl, (mesh.rank + 1) * sl)
+        q, k, v = (case[n][:, own].clone().requires_grad_(True)
+                   for n in ("q", "k", "v"))
+        fn = getattr(sp_attention, case["fn"])
+        o = fn(q, k, v, dist.group.WORLD)
+        (o * case["cot"][:, own]).sum().backward()
+        out.append({"o": o.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad})
+    dist.destroy_process_group()
+    return {"cases": out, "calls": dict(sp_attention.calls)}
+
+
+def _sp_hiera(spec: dict) -> dict:
+    """The Hiera trunk with its global block sequence-parallel over the
+    ranks, eval forward on the whole input (every rank holds it)."""
+    import torch.distributed as dist
+
+    from sam2unet_torch.configs import HieraConfig
+    from sam2unet_torch.models.hiera import Hiera
+    from sam2unet_torch.ops import sp_attention
+    from sam2unet_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh("cpu")
+    model = Hiera(HieraConfig(**spec["cfg"]), sp_group=dist.group.WORLD,
+                  sp_degree=mesh.world)
+    model.load_state_dict(spec["state"], strict=True)
+    with torch.no_grad():
+        outs = model.eval()(spec["x"])
+    dist.destroy_process_group()
+    return {"outs": outs, "calls": dict(sp_attention.calls)}
+
+
+def _tp_step(spec: dict) -> dict:
+    """One tensor-parallel AdamW step of the hiera_test SAM2-UNet (rfb_out
+    8) on a (world / 2, 2) mesh: this rank's rows of the global batch, the
+    large leaves split over the model axis (`min_shard`). With
+    `world_reduce`, the gradient mean and SyncBN reduce over every rank
+    instead of the data group (the fault the tests must catch). Returns the
+    loss, the trainable parameters and gradients whole, the statistics,
+    each split leaf's bytes held and whole (parameter and moments), and
+    each BatchNorm's elements per channel over the global batch."""
+    import torch.distributed as dist
+
+    from sam2unet_torch.configs import HIERA_TEST, SAM2UNetConfig
+    from sam2unet_torch.models.sam2unet import SAM2UNet
+    from sam2unet_torch.parallel.mesh import make_mesh, shard_batch
+    from sam2unet_torch.train.engine import create_sharded_train_state, train_step
+    from sam2unet_torch.train.optim import make_optimizer, trainable_parameters
+
+    mesh = make_mesh("cpu", model_parallel=2)
+    if spec.get("world_reduce"):
+        mesh = mesh._replace(data_group=None)
+    model = SAM2UNet(SAM2UNetConfig(trunk=HIERA_TEST, rfb_out=8))
+    model.load_state_dict(spec["state"], strict=True)
+    counts = _bn_counts(model)
+    opt = make_optimizer(model, spec["lr"], spec["wd"])
+    state = create_sharded_train_state(model, opt, mesh, spec["min_shard"])
+    loss = train_step(model, opt, shard_batch(mesh, spec["x"]),
+                      shard_batch(mesh, spec["y"]), sharded=state)
+    held = {}
+    for name, p in state.params.items():
+        moments = [v for v in opt.state.get(p, {}).values()
+                   if torch.is_tensor(v) and v.dim() > 0]
+        held[name] = ([p.numel()] + [m.numel() for m in moments],
+                      state.full(name, p.data).numel(), state.dims[name])
+    out = {"loss": float(loss),
+           "params": {k: state.full(k, p.data) for k, p in trainable_parameters(model)},
+           "grads": {k: state.full(k, p.grad) for k, p in trainable_parameters(model)},
+           "stats": {k: v for k, v in model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))},
+           "held": held, "bytes": state.held_bytes(),
+           "bn_n": {k: v * mesh.data_size for k, v in counts.items()}}
+    dist.destroy_process_group()
+    return out
+
+
 WORKERS = {"syncbn": _syncbn, "step": _step, "cli": _cli, "dual": _dual,
-           "eval": _eval}
+           "eval": _eval, "sp_attention": _sp_attention, "sp_hiera": _sp_hiera,
+           "tp_step": _tp_step}
 
 
 if __name__ == "__main__":
