@@ -11,8 +11,10 @@ predictor at 512 px under the "pallas" attention backend
 deploy at the fork's defaults; the JAX package's checkpoints and
 tooling there (Orbax directories, the FLOP audit, the profiler); the
 train CLI across ranks (data parallelism with SyncBN, a resume from the
-JAX package's train state layout); and the multi-device dry run
-(tensor and sequence parallelism) on four ranks of the one card.
+JAX package's train state layout); the multi-device dry run
+(tensor and sequence parallelism) on four ranks of the one card; and the
+JAX package's kernel entry points that no model calls (K15, K16, K2's
+other modes, the masked whole-grid K6 / K7) at full width.
 
     python3 chip_smoke.py            # every phase, as the acceptance run does
     python3 chip_smoke.py --phases build,kernels --batch 2 --batch960 2 \
@@ -27,6 +29,7 @@ JAX package's train state layout); and the multi-device dry run
     python3 chip_smoke.py --paths s960interop      # checkpoints and tooling
     python3 chip_smoke.py --paths s960dp           # data parallelism
     python3 chip_smoke.py --paths s352mc           # dryrun_multichip(4)
+    python3 chip_smoke.py --paths opsapi           # the kernel entry points
 
 Phases, one line each, for each path of --paths (l352, s960, then the
 training paths l352train and s960train, listed after these):
@@ -180,9 +183,9 @@ bias at logit(0.1); 16 synthetic images of mixed aspect ratio with masks):
      fallback), and the program's logits and masks against the native
      module's with the kernels through the same pre and post process (the
      masks to DEPLOY_MASK_SHARE of the pixels); the ONNX leg: the export
-     and its check at 960 (one forward of the ONNX runtime), the 16 images
-     at 352 px (onnxruntime where installed, else the numpy runner; the
-     line says which); the fold-BN A/B of the native forward at 960 with
+     at 960, the export, its check (one forward of the ONNX runtime) and
+     the 16 images at 352 px (onnxruntime where installed, else the numpy
+     runner; the line says which); the fold-BN A/B of the native forward at 960 with
      the kernels, ms and the max gap; launches = s960's per forward x the
      native forwards (the artifacts launch none).
 The checkpoint and tooling path s960interop (hiera_s, 960; a seeded random
@@ -240,6 +243,25 @@ DRYRUN_FULL=1: four ranks on the one card over gloo, meshes (4, 1) and
      the model axis against dense autograd, and the SP forward in bf16
      against the dense fp32 forward within twice the dense bf16 forward's
      own gap plus 0.01 (the bound it measures and prints).
+The kernel entry point path opsapi (the JAX package's functions and module
+options that no model calls, seeded random weights, bf16):
+  2. K15 and K16 on the rows of every block width of hiera_l@352 (batch
+     --batch) and hiera_s@960 (half of it), both ways of add_bias; K1 and
+     K2 in the frozen `fused_mlp`'s modes (LN without the residual, the
+     residual without LN, neither) at hiera_s@960's stage 3 and 4 tails;
+     the masked K6 and K7 on hiera_l@352's 22x22 w16 and 11x11 w8 grids;
+     bf16 at every shape, fp32 once (below the fp32 weight gate).
+  3. the functions and modules as a user calls them: fused_ln_matmul and
+     fused_ln_qkv at those shapes, MultiScaleAttention(x, ln_w, ln_b) of a
+     hiera_l@352 stage-3 block, MLP(fused=True) and fused_mlp with frozen
+     weights and x requiring a gradient, the masked fused_window_block
+     forward and backward with grid_window_mask's mask, and fp32 at batch
+     2 on both sides of the weight gate; the launches of the run against
+     PATHS' table (the fp32 calls past the gate none); then K16 against
+     K15's column blocks bit for bit, the fused-LN attention against the
+     call on LN(x), outputs and dx against the plain versions, the masked
+     blocks against the valid-group route (window_partition_valid + K6
+     with n_pad).
 The throughput phase of l352, l352train and s960train also times the step
 with the persistent window groups and per block (SAM2UNET_DISABLE_GROUPED),
 alternating, for the record.
@@ -473,14 +495,17 @@ PATHS = {
     # The artifacts run the plain versions; the native forwards at batch 1
     # (the .pt2's check, the masks' check, the A/B) launch s960's per
     # forward each, at shapes this path's own entries hold (batch 1).
-    # Per fp32 forward at batch 1 (the route: kernel_specs), K1 46 tails
-    # and 46 adapters (4 dense blocks, 10 grouped blocks x 4 groups, the
-    # plain transition, block 15), K4 2, K8 2, K6 28 (7 windowed grouped
-    # blocks x 4 groups), K10 3, K12 1.
+    # Per fp32 forward at batch 1 (the route: kernel_specs), K1 44 tails
+    # and 46 adapters (`fused_mlp` 46 + 46: 4 dense blocks, 10 grouped
+    # blocks x 4 groups, the plain transition, block 15; the tails of
+    # blocks 14 and 15, width 768, take the plain form past the fp32
+    # weight gate, as the JAX package's `_f32_weights_overflow` sends them
+    # to XLA; tests/test_torch_export_cpu.py), K4 2, K8 2, K6 28 (7
+    # windowed grouped blocks x 4 groups), K10 3, K12 1.
     "s960deploy": dict(label="hiera_s@960 deploy", cfg="sam2_hiera_s",
                        size=960, deploy=True, batch=1, images=16,
                        onnx_size=352, fp32=True,
-                       per_forward={"fused_mlp": 92,
+                       per_forward={"fused_mlp": 90,
                                     "fused_window_block_strips": 2,
                                     "fused_transition_block": 2,
                                     "fused_window_block": 28,
@@ -520,11 +545,34 @@ PATHS = {
     # forward (1 row a data index, its global blocks' attention over the
     # model axis, the window blocks per block); and entry(), hiera_s@352 in
     # bf16 at batch 1. Every kernel of those routes runs (K1-K9; K12's gate
-    # refuses 22x22 w14 and 11x11 w7, K10 sees no sequence past 1024).
+    # refuses 22x22 w14 and 11x11 w7, K10 sees no sequence past 1024). In
+    # fp32 the block tails at width 768 (hiera_s stage 4) and 1152
+    # (hiera_l@256 stage 4) take the plain form past the fp32 weight gate,
+    # forward and backward, as in the JAX package: per rank a hiera_s@352
+    # step launches K1 93 (44 tails, 49 adapters) and K2 44, a hiera_l@256
+    # step K1 92 and K2 44, the SP forward K1 30
+    # (tests/test_torch_ops_api_cpu.py derives them).
     "s352mc": dict(label="dryrun_multichip(4)", cfg="sam2_hiera_s", size=352,
                    multichip=True, batch=1, ranks=4, fp32=True),
+    # the JAX package's kernel entry points that no model calls, at full
+    # width: K15 `fused_ln_matmul` and K16 `fused_ln_qkv` on the rows of
+    # every block width of hiera_l@352 (batch --batch) and hiera_s@960
+    # (half of it), `MultiScaleAttention(x, ln_w, ln_b)` of a hiera_l@352
+    # stage-3 block (K15); `MLP(fused=True)` and `fused_mlp` with frozen
+    # weights in each mode at hiera_s@960's stage 3 and 4 tails (K1, K2
+    # without LN, without the residual, without both); the masked
+    # whole-grid K6 and K7 on hiera_l@352's stage 3 and 4 grids with
+    # `grid_window_mask`; then fp32 at batch 2 on both sides of the fp32
+    # weight gate. Per run (`opsapi_main_phase`): K15 16 + 1 + 1 fp32, K16
+    # 16, K1 6 + 1 fp32, K2 2 in each of the three modes + 1 fp32, K6
+    # masked 2, K7 masked 2.
+    "opsapi": dict(label="kernel entry points", opsapi=True,
+                   per_run={"fused_ln_matmul": 18, "fused_ln_qkv": 16,
+                            "fused_mlp": 7, "mlp_bwd_dx": 7,
+                            "fused_window_block": 2, "window_block_bwd": 2}),
 }
-BATCH_FLAG = {"l352": "batch", "s960": "batch960", "l352train": "batch_train",
+BATCH_FLAG = {"l352": "batch", "opsapi": "batch", "s960": "batch960",
+              "l352train": "batch_train",
               "s960train": "batch_train960"}
 
 
@@ -587,11 +635,18 @@ def make_case(kind: str, dtype, gen, **g):
         window_block_bwd,
         window_block_strips_bwd,
     )
-    from sam2unet_torch.ops.fused_mlp import adapter_bwd, fused_mlp, mlp_bwd_dx
+    from sam2unet_torch.ops.fused_mlp import (
+        adapter_bwd,
+        fused_ln_matmul,
+        fused_ln_qkv,
+        fused_mlp,
+        mlp_bwd_dx,
+    )
     from sam2unet_torch.ops.fused_transition import (
         fused_transition_block,
         transition_bwd,
     )
+    from sam2unet_torch.ops.windowing import grid_window_mask
 
     def rnd(*shape, scale=1.0, shift=0.0):
         t = torch.randn(*shape, generator=gen, device=DEV) * scale + shift
@@ -601,21 +656,63 @@ def make_case(kind: str, dtype, gen, **g):
         return rnd(o, i, scale=1.0 / math.sqrt(i)), rnd(o, scale=0.1)
 
     if kind in ("mlp_tail", "mlp_adapter"):
+        # the tail: LN and the residual unless g says otherwise (the frozen
+        # `fused_mlp`'s other modes)
         m, c = g["tokens"], g["c"]
         hd = 4 * c if kind == "mlp_tail" else 32
+        ln, res = g.get("ln", True), g.get("residual", True)
         x = rnd(m, c)
         w1, b1 = lin(hd, c)
         w2, b2 = lin(c, hd)
         if kind == "mlp_tail":
-            lw, lb = rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1)
-            call = lambda: fused_mlp(x, w1, b1, w2, b2, ln_w=lw, ln_b=lb,
-                                     residual=True)
+            kw = dict(ln_w=rnd(c, scale=0.1, shift=1.0),
+                      ln_b=rnd(c, scale=0.1)) if ln else {}
+            call = lambda: fused_mlp(x, w1, b1, w2, b2, residual=res, **kw)
         else:
             call = lambda: fused_mlp(x, w1, b1, w2, b2, residual=True,
                                      gelu_out=True)
         flops = 4 * m * c * hd
-        nbytes = 2 * m * c + 2 * c * hd + hd + 3 * c
+        nbytes = 2 * m * c + 2 * c * hd + hd + c + 2 * c * (kind == "mlp_tail"
+                                                             and ln)
         return call, flops, nbytes * x.element_size(), None
+
+    if kind in ("ln_matmul", "ln_qkv"):
+        # K15 / K16 on a (tokens, c) row block, W the (3c, c) QKV weight
+        m, c, add_bias = g["tokens"], g["c"], g["add_bias"]
+        x = rnd(m, c)
+        w, b = lin(3 * c, c)
+        lw, lb = rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1)
+        fn = fused_ln_qkv if kind == "ln_qkv" else fused_ln_matmul
+        call = lambda: fn(x, w, b, lw, lb, add_bias)
+        nel = m * c + 3 * c * c + 3 * c * add_bias + 2 * c + 3 * m * c
+        return call, 6 * m * c * c, nel * x.element_size(), None
+
+    if kind in ("window_masked", "window_masked_bwd"):
+        # the masked whole-grid mode: one row per image of grid x grid
+        # tokens, the mask and log-multiplicity of `grid_window_mask`; the
+        # operations count the whole S x S of scores the mask spans
+        b, hh, win, c, nh = (g[k] for k in ("batch", "grid", "window", "c",
+                                            "heads"))
+        s = hh * hh
+        mask, lm = (torch.from_numpy(a).to(DEV)
+                    for a in grid_window_mask(hh, hh, win))
+        lw, lb = rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1)
+        wq, bq = lin(3 * c, c)
+        wp, bp = lin(c, c)
+        x = rnd(b, s, c)
+        kw = dict(num_heads=nh, attn_mask=mask, pad_logmult=lm)
+        m, pairs = b * s, b * s * s
+        if kind == "window_masked":
+            call = lambda: fused_window_block(x, wq, bq, lw, lb, wp, bp, **kw)
+            flops = 2 * m * c * 3 * c + 4 * pairs * c + 2 * m * c * c
+            nel = 2 * m * c + 4 * c * c + 6 * c
+        else:
+            gy = rnd(b, s, c)
+            call = lambda: window_block_bwd(x, gy, wq, bq, lw, lb, wp, bp, **kw)
+            flops = (2 * 2 * m * c * 3 * c + 4 * pairs * c + 2 * m * c * c
+                     + 8 * pairs * c)
+            nel = 3 * m * c + 4 * c * c + 5 * c
+        return call, flops, nel * x.element_size() + 4 * (s * s + s), None
 
     if kind in ("flash", "full"):
         # q/k/v as the long-form blocks pass them: slices of the QKV output;
@@ -745,10 +842,13 @@ def make_case(kind: str, dtype, gen, **g):
         w2, b2 = lin(c, hd)
         es = x.element_size()
         if kind == "mlp_tail_bwd":
-            lw, lb = rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1)
-            call = lambda: mlp_bwd_dx(x, gy, w1, b1, w2, b2, lw, lb)
+            # LN and the residual unless g says otherwise (K2's other modes)
+            ln, res = g.get("ln", True), g.get("residual", True)
+            kw = dict(ln_w=rnd(c, scale=0.1, shift=1.0),
+                      ln_b=rnd(c, scale=0.1)) if ln else {}
+            call = lambda: mlp_bwd_dx(x, gy, w1, b1, w2, b2, residual=res, **kw)
             return (call, 6 * m * c * hd,
-                    (3 * m * c + 2 * c * hd + hd + 2 * c) * es, None)
+                    (3 * m * c + 2 * c * hd + hd + 2 * c * ln) * es, None)
         call = lambda: adapter_bwd(x, gy, w1, b1, w2, b2)
         return (call, 12 * m * c * hd,
                 (3 * m * c + 2 * c * hd + hd + c) * es + (2 * c * hd + hd + c) * 4,
@@ -866,6 +966,8 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
     if PATHS[path].get("multichip"):
         return multichip_kernel_specs(k6_held, k7_held, mlp, tra, fab, src_ab,
                                       src_ab_bwd, src_mlp_bwd)
+    if PATHS[path].get("opsapi"):
+        return opsapi_kernel_specs(b, mlp, fab, src_mlp_bwd)
     if PATHS[path].get("train"):
         fa = "sam2unet_tpu/ops/pallas/flash_attention.py"
         src_k11 = "sam2unet_torch/csrc/flash_attention_bwd.cu"
@@ -1240,10 +1342,81 @@ def multichip_kernel_specs(k6_held, k7_held, mlp, tra, fab, src_ab, src_ab_bwd,
     ]
 
 
-def compare(call, tol: float) -> tuple[float, float, float]:
+def opsapi_kernel_specs(b: int, mlp, fab, src_mlp_bwd) -> list[tuple]:
+    """The kernel entry points no model calls, at the widths of hiera_l@352
+    (batch b) and hiera_s@960 (batch b // 2): K15 and K16 on every block
+    width's rows, both ways of add_bias; K1 and K2 in the frozen
+    `fused_mlp`'s modes at hiera_s@960's tails (stages 3 and 4); the masked
+    K6 / K7 on hiera_l@352's whole stage 3 and 4 grids."""
+    b960 = max(1, b // 2)
+    rows = ([(b * hh * hh, c) for hh, c in zip((88, 44, 22, 11),
+                                                (144, 288, 576, 1152))]
+            + [(b960 * hh * hh, c) for hh, c in zip((240, 120, 60, 30),
+                                                     (96, 192, 384, 768))])
+    lnmm = [dict(tokens=n, c=c, add_bias=ab) for n, c in rows
+            for ab in (True, False)]
+    modes = {"LN, no residual": (True, False, ",no_residual"),
+             "no LN, residual": (False, True, ",no_ln"),
+             "no LN, no residual": (False, False, ",no_ln,no_residual")}
+    # stage 4's tail first: the fp32 check takes the last shape, stage 3's,
+    # under the fp32 weight gate (the main phase holds the route past it)
+    tails = ((b960 * 30 * 30, 768), (b960 * 60 * 60, 384))
+    masked = [dict(batch=b, grid=22, window=16, c=576, heads=8),
+              dict(batch=b, grid=11, window=8, c=1152, heads=16)]
+    src_mlp = "sam2unet_torch/csrc/fused_mlp.cu"
+    specs = [
+        ("K15 fused_ln_matmul", "ln_matmul",
+         "sam2unet_tpu/ops/pallas/fused_mlp.py:208", src_mlp,
+         lambda w, v: w == "fused_ln_matmul", lnmm, 4),
+        ("K16 fused_ln_qkv", "ln_qkv",
+         "sam2unet_tpu/ops/pallas/fused_mlp.py:279", src_mlp,
+         lambda w, v: w == "fused_ln_qkv", lnmm, 4),
+        ("K1 fused_mlp (frozen, each mode)", "mlp_tail", *mlp,
+         lambda w, v: w == "fused_mlp",
+         [dict(tokens=n, c=c, ln=ln, residual=res) for n, c in tails
+          for ln, res, _ in modes.values()], 5)]
+    for mode, (ln, res, tag) in modes.items():
+        specs.append(
+            (f"K2 mlp_bwd_dx ({mode})", "mlp_tail_bwd",
+             "sam2unet_tpu/ops/pallas/fused_mlp.py:432", src_mlp_bwd,
+             lambda w, v, tag=tag: w == "mlp_bwd_dx" and v.endswith(tag)
+             and (tag != ",no_residual" or ",no_ln" not in v),
+             [dict(tokens=n, c=c, ln=ln, residual=res) for n, c in tails], 1))
+    src_masked = "sam2unet_torch/csrc/fused_attention_block_masked.cu"
+    return specs + [
+        ("K6 fused_window_block (masked)", "window_masked", f"{fab}:354",
+         src_masked,
+         lambda w, v: w == "fused_window_block" and v.endswith(",masked"),
+         masked, 0),
+        ("K7 window_block_bwd (masked)", "window_masked_bwd", f"{fab}:669",
+         src_masked,
+         lambda w, v: w == "window_block_bwd" and v.endswith(",masked"),
+         masked, 0)]
+
+
+def plain_route(kind: str, g: dict, dtype) -> bool:
+    """Whether the call takes the plain version by the JAX route: fp32 past
+    the weight gate (`f32_weights_overflow`, the JAX package's
+    `_f32_weights_overflow`) for K1, K15 and K16, which launch nothing
+    there."""
+    import torch
+
+    from sam2unet_torch.ops.fused_mlp import f32_weights_overflow
+
+    c = g.get("c", 0)
+    shapes = {"mlp_tail": [(4 * c, c), (c, 4 * c)],
+              "mlp_adapter": [(32, c), (c, 32)],
+              "ln_matmul": [(3 * c, c)], "ln_qkv": [(3 * c, c)]}.get(kind)
+    return shapes is not None and f32_weights_overflow(
+        torch.empty(0, c, dtype=dtype),
+        *(torch.empty(sh, device="meta") for sh in shapes))
+
+
+def compare(call, tol: float) -> tuple[float, float, float, int]:
     """Max |kernel - plain| over the call's outputs, that over max |plain|
-    (the worst of the outputs), and the largest share of an output's tokens
-    (rows of its last axis) past tol * max |plain| (1 if not finite)."""
+    (the worst of the outputs), the largest share of an output's tokens
+    (rows of its last axis) past tol * max |plain| (1 if not finite), and
+    the launches the kernel call made."""
     import torch
 
     from sam2unet_torch.ops import dispatch
@@ -1251,7 +1424,9 @@ def compare(call, tol: float) -> tuple[float, float, float]:
     def outs(r):
         return [t.float() for t in (r if isinstance(r, tuple) else (r,))]
 
+    dispatch.reset_launches()
     got = outs(call())
+    launched = sum(dispatch.launches.values())
     with dispatch.force_plain():
         want = outs(call())
     torch.cuda.synchronize()
@@ -1266,7 +1441,7 @@ def compare(call, tol: float) -> tuple[float, float, float]:
             rel = share = math.inf
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
         worst_share = max(worst_share, share)
-    return worst_abs, worst_rel, worst_share
+    return worst_abs, worst_rel, worst_share, launched
 
 
 def kernel_phase(path: str, batch: int, gen) -> list[dict]:
@@ -1283,7 +1458,9 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
         for i, g in enumerate(shapes):
             call, flops, nbytes, library = make_case(kind, torch.bfloat16, gen,
                                                      **g)
-            err, rel, share = compare(call, BF16_REL_TOL)
+            err, rel, share, launched = compare(call, BF16_REL_TOL)
+            if not launched:
+                fail(f"{name} launched nothing in bf16 at {g}")
             near_ties = kind == "transition_bwd" and not g.get("ties")
             ok = (share <= K9_BF16_TOKEN_SHARE and rel <= K9_BF16_OUTLIER_REL
                   if near_ties else share == 0.0)
@@ -1329,14 +1506,18 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
         every = [dict(g, no_near_ties=True) if kind == "transition_bwd"
                  and not g.get("ties") else g for g in shapes]
         for g in (every if PATHS[path].get("fp32") else [g]):
-            err, rel, share = compare(
+            err, rel, share, launched = compare(
                 make_case(kind, torch.float32, gen, **g)[0], FP32_REL_TOL)
-            ok = share == 0.0
+            plain = plain_route(kind, g, torch.float32)
+            ok = share == 0.0 and bool(launched) != plain
             print(f"[kernel] {name} {label} fp32 {g}: max_abs_err {err:.4g} "
                   f"max_rel_err {rel:.4g} (tol {FP32_REL_TOL})"
+                  + (", the plain form past the fp32 weight gate (launches "
+                     f"{launched})" if plain else "")
                   + ("" if ok else "  <-- FAIL"), flush=True)
             if not ok:
-                fail(f"{name} fp32 disagrees with its plain version at {g}")
+                fail(f"{name} fp32 disagrees with its plain version or its "
+                     f"route at {g}")
             if PATHS[path].get("fp32"):
                 worst_abs = max(worst_abs, err)
         entry["max_abs_err"] = worst_abs
@@ -2816,14 +2997,14 @@ def deploy_main_phase(path: str, tmp: Path, card: str) -> dict:
              f"(logits {rel:.3g}, corr {corr:.6f}; masks {max(shares):.3g})")
     del seg, run
 
-    # 3. ONNX: at 960, the export and its check (one forward of the numpy
-    # runner); the 16 images at `onnx_size`, full width
-    ox = export("onnx", tmp / "deploy960.onnx")
-    print(f"[main] {label} export_cli --format onnx --size {size}: exported "
-          f"in {ox['export_seconds']:.2f} s ({ox['mb']:.1f} MiB), verified "
-          f"(one forward of the ONNX runtime below, against the native "
-          f"forward's plain versions) in {ox['verify_seconds']:.2f} s: max abs "
-          f"diff {ox['max_diff']:.3e} (tolerance 1e-1) on {card}", flush=True)
+    # 3. ONNX: at 960 the export (its check, one ~35 s forward of the numpy
+    # runner, is left to the 352 export: the same graph at another size, so
+    # that the script keeps inside its time limit); the check and the 16
+    # images at `onnx_size`, full width
+    ox = export("onnx", tmp / "deploy960.onnx", ["--skip_verify"])
+    print(f"[main] {label} export_cli --format onnx --size {size} "
+          f"--skip_verify: exported in {ox['export_seconds']:.2f} s "
+          f"({ox['mb']:.1f} MiB) on {card}", flush=True)
     onnx_small = tmp / f"deploy{small}.onnx"
     small_ex = export("onnx", onnx_small, ["--size", str(small)])
     print(f"[main] {label} export_cli --format onnx --size {small}: exported "
@@ -2833,9 +3014,9 @@ def deploy_main_phase(path: str, tmp: Path, card: str) -> dict:
           flush=True)
     orun = deploy("onnx", onnx_small, small)
     print(f"[main] {label} the ONNX leg ran on: {orun['onnx_runtime']}; its "
-          f"16 images at --size {small} (hiera_s's full width): at {size} one "
-          f"forward of that runtime takes about the verify time above, and "
-          f"16 of them would not fit this script's time limit", flush=True)
+          f"check and 16 images at --size {small} (hiera_s's full width): at "
+          f"{size} one forward of that runtime takes ~35 s, and 16 of them "
+          f"would not fit this script's time limit", flush=True)
     del orun
 
     # 4. fold-BN A/B: the native forward at 960 with the kernels, fp32
@@ -4065,13 +4246,205 @@ def multichip_main_phase(path: str, tmp: Path, card: str) -> dict:
     return dict(variants)
 
 
+def opsapi_main_phase(path: str, batch: int) -> dict:
+    """The kernel entry points no model calls, through the functions and
+    modules a user calls (seeded random weights and inputs): the launches
+    of the run (counters set to 0 just before, read just after) against
+    PATHS' table, each fp32 call past the weight gate with none; then the
+    checks: K16's q, k, v equal to K15's column blocks bit for bit, the
+    fused-LN `MultiScaleAttention` against the same call on LN(x), the
+    frozen MLPs' outputs and dx and the masked blocks' outputs and dx
+    against the plain versions, the masked blocks against the valid-group
+    route (window_partition_valid + K6 with n_pad) on the same inputs."""
+    import torch
+
+    from sam2unet_torch.models.hiera import MultiScaleAttention
+    from sam2unet_torch.nn.layers import MLP, gelu, layer_norm_plain
+    from sam2unet_torch.ops import dispatch
+    from sam2unet_torch.ops.fused_attention_block import (
+        fused_window_block,
+        valid_group_blocks,
+    )
+    from sam2unet_torch.ops.fused_mlp import (
+        f32_weights_overflow,
+        fused_ln_matmul,
+        fused_ln_qkv,
+        fused_mlp,
+    )
+    from sam2unet_torch.ops.windowing import grid_window_mask
+
+    spec, label = PATHS[path], PATHS[path]["label"]
+    torch.manual_seed(14)   # the modules' own initialisation
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(14)
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0, shift=0.0):
+        t = torch.randn(*shape, generator=gen, device=DEV) * scale + shift
+        return t.to(dtype)
+
+    def lin(o, i, dtype=torch.bfloat16):
+        return (rnd(o, i, dtype=dtype, scale=1.0 / math.sqrt(i)),
+                rnd(o, dtype=dtype, scale=0.1))
+
+    def ln_params(c, dtype=torch.bfloat16):
+        return (rnd(c, dtype=dtype, scale=0.1, shift=1.0),
+                rnd(c, dtype=dtype, scale=0.1))
+
+    b960 = max(1, batch // 2)
+    rows = ([(batch * hh * hh, c) for hh, c in zip((88, 44, 22, 11),
+                                                    (144, 288, 576, 1152))]
+            + [(b960 * hh * hh, c) for hh, c in zip((240, 120, 60, 30),
+                                                     (96, 192, 384, 768))])
+    tails = ((b960 * 60 * 60, 384), (b960 * 30 * 30, 768))
+    modes = ((True, False), (False, True))   # fused_mlp's; MLP(fused=True)'s
+    grids = ((22, 16, 576, 8), (11, 8, 1152, 16))   # is (False, False)
+
+    # ---- the main path: counters at 0 just before, read just after
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    split_ok = True
+    for n, c in rows:
+        x, (w, bias), (lw, lb) = rnd(n, c), lin(3 * c, c), ln_params(c)
+        for add_bias in (True, False):
+            full = fused_ln_matmul(x, w, bias, lw, lb, add_bias)
+            q, k, v = fused_ln_qkv(x, w, bias, lw, lb, add_bias)
+            split_ok &= (bool(torch.equal(torch.cat([q, k, v], -1), full))
+                         and all(t.is_contiguous() for t in (q, k, v)))
+        del x, full, q, k, v
+    msa = MultiScaleAttention(576, 576, 8).to(DEV, torch.bfloat16)
+    xw = rnd(batch * 4, 16, 16, 576)   # 22x22 padded to 32x32: 4 windows
+    msa_ln = ln_params(576)
+    with torch.no_grad():
+        msa_out = msa(xw, *msa_ln)
+    mlps = []
+    for n, c in tails:
+        mod = MLP(c, 4 * c, c, activation=gelu, fused=True).to(
+            DEV, torch.bfloat16).requires_grad_(False)
+        x, gy = rnd(n, c).requires_grad_(True), rnd(n, c)
+        y = mod(x)
+        (dx,) = torch.autograd.grad(y, x, gy)
+        mlps.append(("MLP(fused=True)", mod.layers[0].weight, mod.layers[0].bias,
+                     mod.layers[1].weight, mod.layers[1].bias, {}, False, x,
+                     gy, y, dx))
+        for ln, residual in modes:
+            (w1, b1), (w2, b2) = lin(4 * c, c), lin(c, 4 * c)
+            kw = dict(zip(("ln_w", "ln_b"), ln_params(c))) if ln else {}
+            y = fused_mlp(x, w1, b1, w2, b2, residual=residual, **kw)
+            (dx,) = torch.autograd.grad(y, x, gy)
+            mlps.append((f"fused_mlp(ln={ln}, residual={residual})", w1, b1,
+                         w2, b2, kw, residual, x, gy, y, dx))
+    blocks = []
+    for hh, win, c, nh in grids:
+        mask, lm = (torch.from_numpy(a).to(DEV)
+                    for a in grid_window_mask(hh, hh, win))
+        (wq, bq), (wp, bp), (lw, lb) = lin(3 * c, c), lin(c, c), ln_params(c)
+        weights = (wq, bq, lw, lb, wp, bp)
+        x = rnd(batch, hh * hh, c).requires_grad_(True)
+        gy = rnd(batch, hh * hh, c)
+        y = fused_window_block(x, *weights, num_heads=nh, attn_mask=mask,
+                               pad_logmult=lm)
+        (dx,) = torch.autograd.grad(y, x, gy)
+        blocks.append((hh, win, c, nh, mask, lm, weights, x, gy, y, dx))
+    # fp32 at batch 2 on both sides of the weight gate: launches per call
+    gated = []
+    for n, c in ((2 * 3600, 384), (2 * 900, 768)):
+        (w1, b1), (w2, b2) = lin(4 * c, c, torch.float32), lin(c, 4 * c,
+                                                                torch.float32)
+        x = rnd(n, c, dtype=torch.float32).requires_grad_(True)
+        before = sum(dispatch.launches.values())
+        torch.autograd.grad(fused_mlp(x, w1, b1, w2, b2), x,
+                            torch.ones(n, c, device=DEV))
+        gated.append((f"fused_mlp fp32 {n}x{c}",
+                      f32_weights_overflow(x, w1, w2),
+                      sum(dispatch.launches.values()) - before))
+    for n, c in ((2 * 121, 1152), (2 * 900, 768)):
+        x, (w, bias) = rnd(n, c, dtype=torch.float32), lin(3 * c, c,
+                                                           torch.float32)
+        before = sum(dispatch.launches.values())
+        fused_ln_matmul(x, w, bias, *ln_params(c, torch.float32))
+        gated.append((f"fused_ln_matmul fp32 {n}x{c}",
+                      f32_weights_overflow(x, w),
+                      sum(dispatch.launches.values()) - before))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, variants = dict(dispatch.launches), dict(dispatch.variants)
+    print(f"[main] {label} the run {wall:.2f} s (host clock, first calls "
+          f"included); launches {counts}; by variant "
+          f"{ {f'{w}[{v}]': n for (w, v), n in variants.items()} }", flush=True)
+    per_run = spec["per_run"]
+    for name in set(per_run) | set(counts):
+        if counts.get(name, 0) != per_run.get(name, 0):
+            fail(f"{label}: {name} launched {counts.get(name, 0)} times, "
+                 f"expected {per_run.get(name, 0)}")
+    for what, past_gate, n in gated:
+        print(f"[main] {label} {what}: "
+              + ("past the fp32 weight gate, the plain form" if past_gate
+                 else "under the gate, the kernels") + f"; launches {n}",
+              flush=True)
+        if (n == 0) != past_gate:
+            fail(f"{label}: {what} took the wrong route ({n} launches)")
+
+    # ---- the checks
+    print(f"[main] {label} K16's q, k, v equal K15's column blocks bit for "
+          f"bit, three contiguous tensors, at all {len(rows)} widths, both "
+          f"add_bias: {split_ok}", flush=True)
+    if not split_ok:
+        fail(f"{label}: fused_ln_qkv departs from fused_ln_matmul")
+    with torch.no_grad():
+        want = msa(layer_norm_plain(xw, *msa_ln))
+    rel, corr, ok = _agree(msa_out.float(), want.float())
+    print(f"[main] {label} MultiScaleAttention(x, ln_w, ln_b) (K15) against "
+          f"the call on LN(x), {tuple(xw.shape)} bf16: max_rel_err {rel:.4g} "
+          f"(tol {BF16_REL_TOL}) corr {corr:.6f}", flush=True)
+    if not ok or rel > BF16_REL_TOL:
+        fail(f"{label}: the fused-LN MultiScaleAttention departs")
+    worst = 0.0
+    for what, w1, b1, w2, b2, kw, residual, x, gy, y, dx in mlps:
+        with dispatch.force_plain():
+            x0 = x.detach().requires_grad_(True)
+            y0 = fused_mlp(x0, w1, b1, w2, b2, residual=residual, **kw)
+            (dx0,) = torch.autograd.grad(y0, x0, gy)
+        for got, ref, name in ((y, y0, "out"), (dx, dx0, "dx")):
+            rel = ((got.float() - ref.float()).abs().max()
+                   / ref.float().abs().max()).item()
+            worst = max(worst, rel)
+            print(f"[main] {label} {what} {tuple(x.shape)} {name} kernels vs "
+                  f"plain: max_rel_err {rel:.4g} (tol {BF16_REL_TOL})",
+                  flush=True)
+            if not rel <= BF16_REL_TOL:
+                fail(f"{label}: {what} {name} departs from the plain version")
+    for hh, win, c, nh, mask, lm, weights, x, gy, y, dx in blocks:
+        with dispatch.force_plain():
+            x0 = x.detach().requires_grad_(True)
+            y0 = fused_window_block(x0, *weights, num_heads=nh,
+                                    attn_mask=mask, pad_logmult=lm)
+            (dx0,) = torch.autograd.grad(y0, x0, gy)
+        with torch.no_grad():
+            groups = valid_group_blocks(
+                fused_window_block, x.detach().reshape(batch, hh, hh, c),
+                *weights, num_heads=nh, window=win).reshape(y.shape)
+        for got, ref, name in ((y, y0, "out vs plain"), (dx, dx0, "dx vs plain"),
+                               (y, groups, "out vs the valid-group route")):
+            rel = ((got.float() - ref.float()).abs().max()
+                   / ref.float().abs().max()).item()
+            worst = max(worst, rel)
+            print(f"[main] {label} masked block {hh}x{hh} w{win} c{c} "
+                  f"({batch}, {hh * hh}, {c}) {name}: max_rel_err {rel:.4g} "
+                  f"(tol {BF16_REL_TOL})", flush=True)
+            if not rel <= BF16_REL_TOL:
+                fail(f"{label}: the masked block's {name} departs")
+    del mlps, blocks
+    torch.cuda.empty_cache()
+    return variants
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="build,kernels,main,throughput")
     ap.add_argument("--paths",
                     default="l352,s960,l352train,s960train,s1024sam2,"
                             "s1024video,t512video,t1024amg,s960cli,s960deploy,"
-                            "s960interop,s960dp,s352mc")
+                            "s960interop,s960dp,s352mc,opsapi")
     ap.add_argument("--batch", type=int, default=32,
                     help="kernel, throughput and profile batch at hiera_l@352")
     ap.add_argument("--batch960", type=int, default=16,
@@ -4132,52 +4505,60 @@ def main() -> None:
     entries, variants, rates = [], {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for path in paths:
-            batch = PATHS[path].get("batch") or getattr(args, BATCH_FLAG[path])
-            if "kernels" in phases:
-                entries += kernel_phase(path, batch, gen)
-            if "main" in phases:
-                if PATHS[path].get("video"):
-                    variants[path] = video_main_phase(path)
-                elif PATHS[path].get("amg"):
-                    variants[path] = amg_main_phase(path)
-                elif PATHS[path].get("sam2"):
-                    variants[path] = sam2_main_phase(path)
-                elif PATHS[path].get("cli"):
-                    variants[path] = cli_main_phase(path, Path(tmp), card)
-                elif PATHS[path].get("deploy"):
-                    variants[path] = deploy_main_phase(path, Path(tmp), card)
-                elif PATHS[path].get("dp"):
-                    variants[path] = dp_main_phase(path, Path(tmp), card)
-                elif PATHS[path].get("multichip"):
-                    variants[path] = multichip_main_phase(path, Path(tmp), card)
-                elif PATHS[path].get("interop"):
-                    variants[path] = interop_main_phase(path, Path(tmp), card,
-                                                        rates)
-                elif PATHS[path].get("train"):
-                    variants[path] = train_main_phase(
-                        path, Path(tmp), [int(s) for s in args.step_seeds.split(",")],
-                        args.step_report)
-                else:
-                    variants[path] = main_path_phase(path, Path(tmp))
-            if ("held_by" in PATHS[path] or PATHS[path].get("deploy")
-                    or PATHS[path].get("multichip")):
-                continue   # their times and A/Bs are the main phase's
-            if "throughput" in phases and PATHS[path].get("video"):
-                video_throughput_phase(path, card)
-            elif "throughput" in phases and PATHS[path].get("amg"):
-                amg_throughput_phase(path, card)
-            elif "throughput" in phases and PATHS[path].get("sam2"):
-                sam2_throughput_phase(path, card)
-            elif "throughput" in phases:
-                rates[path] = throughput_phase(path, batch, card)
-                if PATHS[path].get("remat"):
-                    throughput_phase(path, batch, card, remat=True)
-                if PATHS[path].get("grouping_ab"):
-                    grouping_ab_phase(path, batch, card)
-            if "profile" in phases:
-                profile_phase(path, batch, card)
-                if PATHS[path].get("sam2"):
-                    profile_phase(path, batch, card, predict=True)
+            t_path = time.perf_counter()
+            try:
+                batch = PATHS[path].get("batch") or getattr(args, BATCH_FLAG[path])
+                if "kernels" in phases:
+                    entries += kernel_phase(path, batch, gen)
+                if "main" in phases:
+                    if PATHS[path].get("video"):
+                        variants[path] = video_main_phase(path)
+                    elif PATHS[path].get("amg"):
+                        variants[path] = amg_main_phase(path)
+                    elif PATHS[path].get("sam2"):
+                        variants[path] = sam2_main_phase(path)
+                    elif PATHS[path].get("cli"):
+                        variants[path] = cli_main_phase(path, Path(tmp), card)
+                    elif PATHS[path].get("deploy"):
+                        variants[path] = deploy_main_phase(path, Path(tmp), card)
+                    elif PATHS[path].get("dp"):
+                        variants[path] = dp_main_phase(path, Path(tmp), card)
+                    elif PATHS[path].get("multichip"):
+                        variants[path] = multichip_main_phase(path, Path(tmp), card)
+                    elif PATHS[path].get("opsapi"):
+                        variants[path] = opsapi_main_phase(path, batch)
+                    elif PATHS[path].get("interop"):
+                        variants[path] = interop_main_phase(path, Path(tmp), card,
+                                                            rates)
+                    elif PATHS[path].get("train"):
+                        variants[path] = train_main_phase(
+                            path, Path(tmp), [int(s) for s in args.step_seeds.split(",")],
+                            args.step_report)
+                    else:
+                        variants[path] = main_path_phase(path, Path(tmp))
+                if ("held_by" in PATHS[path] or PATHS[path].get("deploy")
+                        or PATHS[path].get("multichip")
+                        or PATHS[path].get("opsapi")):
+                    continue   # their times and A/Bs are the main phase's
+                if "throughput" in phases and PATHS[path].get("video"):
+                    video_throughput_phase(path, card)
+                elif "throughput" in phases and PATHS[path].get("amg"):
+                    amg_throughput_phase(path, card)
+                elif "throughput" in phases and PATHS[path].get("sam2"):
+                    sam2_throughput_phase(path, card)
+                elif "throughput" in phases:
+                    rates[path] = throughput_phase(path, batch, card)
+                    if PATHS[path].get("remat"):
+                        throughput_phase(path, batch, card, remat=True)
+                    if PATHS[path].get("grouping_ab"):
+                        grouping_ab_phase(path, batch, card)
+                if "profile" in phases:
+                    profile_phase(path, batch, card)
+                    if PATHS[path].get("sam2"):
+                        profile_phase(path, batch, card, predict=True)
+            finally:
+                print(f"[path] {PATHS[path]['label']}: {time.perf_counter() - t_path:.1f} s "
+                      f"(host clock, every phase of the path)", flush=True)
 
     # a wrapper that a path's entries hold against the plain version is held
     # at every shape (variant) that path's run gave it

@@ -21,7 +21,16 @@
 // q.b_k*scale + ln(n_pad), value b_v, both read from the qkv bias in the
 // working type, as the reference's plain form reads them (the Pallas kernel
 // reads them in fp32); n_pad is the call's in mode 0 and each window's own
-// in mode 1. Optional lse output (K10): m + ln(l) of each query's scaled
+// in mode 1. Masked mode (`launch_attn_dt<true>`, mode 0, `mask` set: K6
+// and K7 on a whole small token grid as one row of S tokens, a template
+// instance of its own so that the other forms compile as before): the
+// score of query t and key k adds mask[t * S + k] (0 inside a window, -1e30
+// across; one (S, S) fp32 array shared by every row, read through L2), and
+// the pad key's logit adds logmult[t] (ln of the pads of t's window, -1e30
+// where it has none) in place of the call's ln(n_pad). A -1e30 score's
+// weight comes out exactly 0 once the row's running max reaches a real
+// score; a tile whose keys are all masked for a row is wiped by that
+// rescale. Optional lse output (K10, K7): m + ln(l) of each query's scaled
 // scores, fp32.
 //
 // Streaming (flash) form: the block's Q tile is loaded once (head dim
@@ -50,6 +59,8 @@ struct AttnParams {
   float* lse;              // (windows * heads, Sq) or null
   const void* pad_bias;    // 3c qkv bias (pad key / value) or null
   float pad_logn;          // mode 0: ln(n_pad)
+  const float* mask;       // mode 0: (S, S) additive score mask, or null
+  const float* logmult;    // with mask: (S) pad-key log-multiplicity
   int c, d;
   int mode;                // 0 rows, 1 grid
   int S;                   // keys per window (mode 1: win^2, the most)
@@ -91,7 +102,7 @@ __device__ __forceinline__ long long attn_rel(int t, int vw, int W) {
   return (long long)ty * W + (t - ty * vw);
 }
 
-template <typename T, int NDF>
+template <typename T, int NDF, bool MASKED>
 __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
   constexpr bool kBF16 = std::is_same<T, bf16>::value;
   constexpr int DP = 16 * NDF, LDS = DP + 8, NDT = 2 * NDF;
@@ -194,7 +205,9 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
       for (int ch = lane; ch < p.d; ch += 32)
         dot = fmaf(to_f(Qs[r * LDS + ch]), to_f(pb[koff + ch]), dot);
       dot = warp_sum(dot);
-      if (lane == 0) spad[r] = dot * p.scale + pad_logn;
+      float lm = pad_logn;
+      if constexpr (MASKED) lm = q0 + r < Sq ? p.logmult[q0 + r] : 0.f;
+      if (lane == 0) spad[r] = dot * p.scale + lm;
     }
     __syncwarp();
   }
@@ -267,12 +280,21 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       float mx = -INFINITY;
+      const float* mrow = nullptr;
+      if constexpr (MASKED) {
+        const int t = q0 + warp * 16 + g + 8 * hh;
+        mrow = p.mask + (long long)(t < Sq ? t : 0) * S;
+      }
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
           const int key = kt * A_BKV + j * 8 + q2 + (e & 1);
-          const float v = key < S ? s[j][e] * p.scale : -INFINITY;
+          float v = -INFINITY;
+          if (key < S) {
+            v = s[j][e] * p.scale;
+            if constexpr (MASKED) v += mrow[key];
+          }
           s[j][e] = v;
           mx = fmaxf(mx, v);
         }
@@ -360,35 +382,40 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
 }
 
 // One launch for all windows x heads x query tiles.
-template <typename T, int NDF>
+template <typename T, int NDF, bool MASKED>
 static cudaError_t launch_attn_t(const AttnParams& p, int n_windows,
                                  int n_heads, cudaStream_t stream) {
   const int nwarps = p.Sq >= 64 ? 4 : (p.Sq + 15) / 16;
   const int bq = nwarps * 16;
   const size_t smem = attn_smem_bytes(bq, 16 * NDF, sizeof(T));
   cudaError_t e = cudaFuncSetAttribute(
-      attn_kernel<T, NDF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_kernel<T, NDF, MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(n_windows, n_heads, (p.Sq + bq - 1) / bq);
-  attn_kernel<T, NDF><<<grid, nwarps * 32, smem, stream>>>(p);
+  attn_kernel<T, NDF, MASKED><<<grid, nwarps * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool MASKED>
 static cudaError_t launch_attn(const AttnParams& p, int n_windows, int n_heads,
                                cudaStream_t stream) {
   // head dims of the SAM2 trunks: 56 (b+), 72 (l), 96 (t, s)
   if (p.d % 8 || p.d > 96 || n_heads > 65535 || p.Sq < 1 || p.S < 1
-      || (p.Sq + 63) / 64 > 65535)
+      || (p.Sq + 63) / 64 > 65535
+      || (MASKED ? !p.mask || !p.logmult || !p.pad_bias || p.mode != 0
+                       || p.qpool || p.Sq != p.S
+                 : p.mask != nullptr))
     return cudaErrorInvalidValue;
-  if (p.d <= 64) return launch_attn_t<T, 4>(p, n_windows, n_heads, stream);
-  if (p.d <= 80) return launch_attn_t<T, 5>(p, n_windows, n_heads, stream);
-  return launch_attn_t<T, 6>(p, n_windows, n_heads, stream);
+  if (p.d <= 64) return launch_attn_t<T, 4, MASKED>(p, n_windows, n_heads, stream);
+  if (p.d <= 80) return launch_attn_t<T, 5, MASKED>(p, n_windows, n_heads, stream);
+  return launch_attn_t<T, 6, MASKED>(p, n_windows, n_heads, stream);
 }
 
+template <bool MASKED = false>
 static cudaError_t launch_attn_dt(int is_bf16, const AttnParams& p,
                                   int n_windows, int n_heads,
                                   cudaStream_t stream) {
-  return is_bf16 ? launch_attn<bf16>(p, n_windows, n_heads, stream)
-                 : launch_attn<float>(p, n_windows, n_heads, stream);
+  return is_bf16 ? launch_attn<bf16, MASKED>(p, n_windows, n_heads, stream)
+                 : launch_attn<float, MASKED>(p, n_windows, n_heads, stream);
 }

@@ -26,7 +26,13 @@
 //
 // Geometries: rows mode (windows of S consecutive rows of the qkv buffer)
 // and grid mode on window-divisible grids; no pad key (the remainder groups'
-// backward is the reference recompute).
+// backward is the reference recompute) but in K7's masked mode
+// (`launch_attn_bwd_dt<true>`, rows mode, a template instance of its own):
+// the mask added to every score, the pad key's logit q.b_k * scale +
+// logmult[t]. Its key and value are frozen bias slices, so only dq gets a
+// term, dS_pad b_k with dS_pad = P_pad (dO.b_v - D), P_pad = exp(logit -
+// lse) (D = rowsum(dO o) already holds the pad key's share of o), added in
+// fp32 as the Pallas kernel adds it (fused_attention_block.py:521-522).
 #pragma once
 
 #include "attention.cuh"
@@ -161,7 +167,7 @@ __global__ void __launch_bounds__(256) attn_bwd_rowdot_kernel(
   D[i] = s;
 }
 
-template <typename T, int NDF>
+template <typename T, int NDF, bool MASKED>
 __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(AttnBwdParams bp) {
   constexpr int DP = 16 * NDF, LDS = DP + 8, NDT = 2 * NDF;
   constexpr int CH = 16 / sizeof(T);
@@ -227,11 +233,54 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(AttnBwdParams bp) {
       for (int e = 0; e < 4; ++e) {
         const int row = warp * 16 + g + 8 * (e >> 1);
         const int key = kt * A_BKV + j * 8 + q2 + (e & 1);
-        const float pv = key < S ? expf(s[j][e] * p.scale - lse_s[row]) : 0.f;
+        float pv = 0.f;
+        if (key < S) {
+          float v = s[j][e] * p.scale;
+          if constexpr (MASKED)
+            if (q0 + row < Sq) v += p.mask[(long long)(q0 + row) * S + key];
+          pv = expf(v - lse_s[row]);
+        }
         s[j][e] = pv * (dp[j][e] - D_s[row]);
       }
     tile_p_rows<T, NDF>(dq, s, ks, Ps + warp * 16 * A_BKV, lane);
     __syncthreads();   // buffer kt consumed before iteration kt+1 refills it
+  }
+
+  // the pad key's term: the four lanes of a row hold its columns between
+  // them, so the two dot products are lane partials summed across them
+  if constexpr (MASKED) {
+    const T* pb = reinterpret_cast<const T*>(p.pad_bias);
+    const T* kp = pb + p.c + h * p.d;
+    const T* vp = pb + 2 * p.c + h * p.d;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = warp * 16 + g + 8 * hh, t = q0 + row;
+      float sq = 0.f, sd = 0.f;
+#pragma unroll
+      for (int f = 0; f < NDT; ++f)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int col = f * 8 + q2 + i;
+          if (col < p.d) {
+            sq = fmaf(to_f(Qs[row * LDS + col]), to_f(kp[col]), sq);
+            sd = fmaf(to_f(dOs[row * LDS + col]), to_f(vp[col]), sd);
+          }
+        }
+      sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+      sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+      sd += __shfl_xor_sync(0xffffffffu, sd, 1);
+      sd += __shfl_xor_sync(0xffffffffu, sd, 2);
+      if (t >= Sq) continue;
+      const float ds =
+          expf(sq * p.scale + p.logmult[t] - lse_s[row]) * (sd - D_s[row]);
+#pragma unroll
+      for (int f = 0; f < NDT; ++f)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int col = f * 8 + q2 + i;
+          if (col < p.d) dq[f][2 * hh + i] = fmaf(ds, to_f(kp[col]), dq[f][2 * hh + i]);
+        }
+    }
   }
 
   T* dqb = reinterpret_cast<T*>(bp.dqkv) + h * p.d;
@@ -268,7 +317,7 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(AttnBwdParams bp) {
   }
 }
 
-template <typename T, int NDF>
+template <typename T, int NDF, bool MASKED>
 __global__ void __launch_bounds__(128) attn_bwd_dkv_kernel(AttnBwdParams bp) {
   constexpr int DP = 16 * NDF, LDS = DP + 8, NDT = 2 * NDF;
   extern __shared__ __align__(128) unsigned char a_smem[];
@@ -323,8 +372,13 @@ __global__ void __launch_bounds__(128) attn_bwd_dkv_kernel(AttnBwdParams bp) {
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + q2 + (e & 1);
-        s[j][e] = qt * A_BKV + col < Sq ? expf(s[j][e] * p.scale - lse_s[col]) : 0.f;
+        const int col = j * 8 + q2 + (e & 1), t = qt * A_BKV + col;
+        float v = s[j][e] * p.scale;
+        if constexpr (MASKED) {
+          const int key = k0 + warp * 16 + g + 8 * (e >> 1);
+          if (t < Sq && key < S) v += p.mask[(long long)t * S + key];
+        }
+        s[j][e] = t < Sq ? expf(v - lse_s[col]) : 0.f;
       }
     tile_p_rows<T, NDF>(dv, s, dOs, Ps + warp * 16 * A_BKV, lane);  // P^T dO
     tile_rows_dot<T, NDF>(dp, Vb + warp * 16 * LDS, dOs, p.d, lane);  // (dO v^T)^T
@@ -353,7 +407,7 @@ __global__ void __launch_bounds__(128) attn_bwd_dkv_kernel(AttnBwdParams bp) {
   }
 }
 
-template <typename T, int NDF>
+template <typename T, int NDF, bool MASKED>
 static cudaError_t launch_attn_bwd_t(const AttnBwdParams& bp, int n_windows,
                                      int nh, cudaStream_t stream) {
   const AttnParams& p = bp.a;
@@ -367,38 +421,44 @@ static cudaError_t launch_attn_bwd_t(const AttnBwdParams& bp, int n_windows,
 
   int warps = p.Sq >= 64 ? 4 : (p.Sq + 15) / 16;
   size_t smem = attn_bwd_smem_bytes(warps * 16, 4 * A_BKV, warps, 16 * NDF, sizeof(T));
-  e = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, NDF>,
+  e = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, NDF, MASKED>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  attn_bwd_dq_kernel<T, NDF><<<dim3(n_windows, nh, (p.Sq + warps * 16 - 1) / (warps * 16)),
-                               warps * 32, smem, stream>>>(bp);
+  attn_bwd_dq_kernel<T, NDF, MASKED>
+      <<<dim3(n_windows, nh, (p.Sq + warps * 16 - 1) / (warps * 16)), warps * 32,
+         smem, stream>>>(bp);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
   warps = p.S >= 64 ? 4 : (p.S + 15) / 16;
   smem = attn_bwd_smem_bytes(warps * 16, 2 * A_BKV, warps, 16 * NDF, sizeof(T));
-  e = cudaFuncSetAttribute(attn_bwd_dkv_kernel<T, NDF>,
+  e = cudaFuncSetAttribute(attn_bwd_dkv_kernel<T, NDF, MASKED>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  attn_bwd_dkv_kernel<T, NDF><<<dim3(n_windows, nh, (p.S + warps * 16 - 1) / (warps * 16)),
-                                warps * 32, smem, stream>>>(bp);
+  attn_bwd_dkv_kernel<T, NDF, MASKED>
+      <<<dim3(n_windows, nh, (p.S + warps * 16 - 1) / (warps * 16)), warps * 32,
+         smem, stream>>>(bp);
   return cudaGetLastError();
 }
 
+template <bool MASKED = false>
 static cudaError_t launch_attn_bwd_dt(int is_bf16, const AttnBwdParams& bp,
                                       int n_windows, int nh, cudaStream_t stream) {
   const AttnParams& p = bp.a;
-  if (p.d % 8 || p.d > 96 || nh > 65535 || p.Sq < 1 || p.S < 1 || p.pad_bias
+  if (p.d % 8 || p.d > 96 || nh > 65535 || p.Sq < 1 || p.S < 1
+      || (MASKED ? !p.mask || !p.logmult || !p.pad_bias || p.mode != 0
+                       || p.qpool || p.Sq != p.S
+                 : p.pad_bias || p.mask)
       || (p.S + 15) / 16 > 65535 || (p.Sq + 15) / 16 > 65535)
     return cudaErrorInvalidValue;
   if (p.mode == 1 && (p.H % p.win || p.W % p.win || (p.qpool && p.win % 2)))
     return cudaErrorInvalidValue;
   if (is_bf16) {
-    if (p.d <= 64) return launch_attn_bwd_t<bf16, 4>(bp, n_windows, nh, stream);
-    if (p.d <= 80) return launch_attn_bwd_t<bf16, 5>(bp, n_windows, nh, stream);
-    return launch_attn_bwd_t<bf16, 6>(bp, n_windows, nh, stream);
+    if (p.d <= 64) return launch_attn_bwd_t<bf16, 4, MASKED>(bp, n_windows, nh, stream);
+    if (p.d <= 80) return launch_attn_bwd_t<bf16, 5, MASKED>(bp, n_windows, nh, stream);
+    return launch_attn_bwd_t<bf16, 6, MASKED>(bp, n_windows, nh, stream);
   }
-  if (p.d <= 64) return launch_attn_bwd_t<float, 4>(bp, n_windows, nh, stream);
-  if (p.d <= 80) return launch_attn_bwd_t<float, 5>(bp, n_windows, nh, stream);
-  return launch_attn_bwd_t<float, 6>(bp, n_windows, nh, stream);
+  if (p.d <= 64) return launch_attn_bwd_t<float, 4, MASKED>(bp, n_windows, nh, stream);
+  if (p.d <= 80) return launch_attn_bwd_t<float, 5, MASKED>(bp, n_windows, nh, stream);
+  return launch_attn_bwd_t<float, 6, MASKED>(bp, n_windows, nh, stream);
 }

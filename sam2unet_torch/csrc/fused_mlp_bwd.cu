@@ -1,52 +1,63 @@
 // K2 and K3: the backward kernels of K1's two forms (fused_mlp.cu).
 //
 // K2 replaces sam2unet_tpu/ops/pallas/fused_mlp.py::_mlp_bwd_dx_kernel
-// (launched by _mlp_bwd_dx, fused_mlp.py:432): dx of the frozen block tail,
-// recomputed from x.
+// (launched by _mlp_bwd_dx, fused_mlp.py:432) in all its modes: dx of a
+// frozen MLP with or without LN and the residual, recomputed from x.
 // K3 replaces fused_mlp.py::_adapter_bwd_kernel (launched by _adapter_bwd,
 // :551): dx and the fp32 weight gradients of the trainable adapter.
 
 #include "gemm_bwd.cuh"
 
-// K2: dx of x + MLP(LN(x)) for the frozen tail (weights get no gradient).
+// K2: dx of [x +] MLP([LN](x)) for the frozen MLP (weights get no
+// gradient): the block tail (LN and the residual) and the three other
+// modes of `fused_mlp` with frozen weights (no LN, no residual, neither).
 // Bound on an H100: the three products (forward W1 recomputed, gy @ W2,
 // dh @ W1; 6 * c * 4c FLOPs per token) are compute-bound from c = 288 up.
-// Design: five launches. The LN pass writes LN(x); the forward GEMM writes
-// the fp32 pre-activation of the hidden (the TPU kernel kept it in VMEM);
-// the row-major-B GEMM gy @ W2 multiplies by the exact-erf GELU derivative
-// of it in its epilogue and rounds dh to T (where the Pallas kernel rounds
+// Design: up to five launches. The LN pass writes LN(x) (skipped without
+// LN: the products read x); the forward GEMM writes the fp32
+// pre-activation of the hidden (the TPU kernel kept it in VMEM); the
+// row-major-B GEMM gy @ W2 multiplies by the exact-erf GELU derivative of
+// it in its epilogue and rounds dh to T (where the Pallas kernel rounds
 // it, fused_mlp.py:382); dh @ W1 gives dLN(x) in T (the plain version
-// rounds it there); the LN backward pass recomputes the row statistics and
-// adds gy for the residual.
+// rounds it there); the LN backward pass recomputes the row statistics
+// and adds gy for the residual. Without LN dh @ W1 is dx itself, rounded
+// to T, with gy added in its epilogue for the residual, as the plain
+// version's autograd adds the two branches.
 extern "C" int k2_mlp_bwd_dx(int is_bf16, const void* x, const void* gy,
                              const void* w1, const void* b1, const void* w2,
                              const void* ln_w, const void* ln_b, void* xn,
                              float* hpre, void* dh, void* dz, void* dx,
-                             long long M, int C, int Hd, void* stream) {
+                             long long M, int C, int Hd, int Cout,
+                             int residual, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e = launch_ln_dt(is_bf16, x, ln_w, ln_b, xn, M, C, s);
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e;
+  if (ln_w) {
+    e = launch_ln_dt(is_bf16, x, ln_w, ln_b, xn, M, C, s);
+    if (e != cudaSuccess) return (int)e;
+  }
   GemmParams g1 = {};
-  g1.A = xn; g1.lda = C; g1.W = w1; g1.bias = b1;
+  g1.A = ln_w ? xn : x; g1.lda = C; g1.W = w1; g1.bias = b1;
   g1.M = M; g1.N = Hd; g1.K = C;
   GemmBwd o1 = {};
   o1.pre = hpre; o1.ldpre = Hd;
   e = launch_gemm_bwd_dt(is_bf16, g1, o1, s);
   if (e != cudaSuccess) return (int)e;
   GemmParams g2 = {};
-  g2.A = gy; g2.lda = C; g2.W = w2;
-  g2.C = dh; g2.ldc = Hd; g2.M = M; g2.N = Hd; g2.K = C;
+  g2.A = gy; g2.lda = Cout; g2.W = w2;
+  g2.C = dh; g2.ldc = Hd; g2.M = M; g2.N = Hd; g2.K = Cout;
   GemmBwd o2 = {};
   o2.nn = 1; o2.dgelu = 1; o2.H = hpre; o2.ldh = Hd; o2.h_f32 = 1;
   e = launch_gemm_bwd_dt(is_bf16, g2, o2, s);
   if (e != cudaSuccess) return (int)e;
   GemmParams g3 = {};
   g3.A = dh; g3.lda = Hd; g3.W = w1;
-  g3.C = dz; g3.ldc = C; g3.M = M; g3.N = C; g3.K = Hd;
+  g3.C = ln_w ? dz : dx; g3.ldc = C; g3.M = M; g3.N = C; g3.K = Hd;
+  if (!ln_w && residual) { g3.R = gy; g3.ldr = C; }
   const GemmBwd nn = {1};
   e = launch_gemm_bwd_dt(is_bf16, g3, nn, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_ln_bwd_dt(is_bf16, x, ln_w, dz, gy, dx, M, C, s);
+  if (e != cudaSuccess || !ln_w) return (int)e;
+  return (int)launch_ln_bwd_dt(is_bf16, x, ln_w, dz, residual ? gy : nullptr,
+                               dx, M, C, s);
 }
 
 // K3: dx, dW1, db1, dW2, db2 of the adapter x -> GELU(x@W1+b1) ->

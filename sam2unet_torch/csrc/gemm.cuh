@@ -5,7 +5,10 @@
 //             reference rounds the normed activations;
 //   gemm:     C = epi(A[M,K] @ W[N,K]^T), epi = + bias, [exact GELU],
 //             [round_T, + R (R direct, or the 2x2 max of a full-resolution
-//             tensor)], round_T.
+//             tensor)], round_T; the split form (`launch_gemm_dt<true>`,
+//             K16 only) sends column block j of `split` columns to its own
+//             output (C, C1, C2), each `ldc` wide. It is a template
+//             instance of its own, so every other GEMM compiles as before.
 //
 // W is a torch Linear weight (out, in) row-major, which is exactly the
 // column-major B operand the tensor cores want, so no transpose is made.
@@ -39,6 +42,8 @@ struct GemmParams {
   int res_pool;                         // 1: R is (B, 2*ph, 2*pw, ldr), 2x2 max
   int ph, pw;                           // pooled grid of C's rows (res_pool)
   void* C; long long ldc;
+  void* C1; void* C2;                   // with split: column blocks 1 and 2
+  int split;                            // 0, or the columns of each block
   long long M; int N; int K;
   int act;                              // 1: exact GELU after the bias
 };
@@ -153,6 +158,19 @@ __device__ __forceinline__ float2 gemm_epi2(const GemmParams& p, long long m,
   return make_float2(v0, v1);
 }
 
+// Where columns n and n + 1 of row m go (a column block never splits a
+// pair: `split` is even).
+template <typename T, bool SPLIT>
+__device__ __forceinline__ T* gemm_out2(const GemmParams& p, long long m, int n) {
+  if constexpr (!SPLIT) {
+    return reinterpret_cast<T*>(p.C) + m * p.ldc + n;
+  } else {
+    const int j = (n >= p.split) + (n >= 2 * p.split);
+    void* c = j == 0 ? p.C : (j == 1 ? p.C1 : p.C2);
+    return reinterpret_cast<T*>(c) + m * p.ldc + (n - j * p.split);
+  }
+}
+
 // ------------------------------------------------------------ bf16 GEMM
 
 constexpr int G_BM = 128, G_BN = 128, G_BK = 32, G_LD = G_BK + 8;
@@ -160,6 +178,7 @@ constexpr int G_STAGES = 3, G_THREADS = 256;
 constexpr int G_CHUNKS = G_BM * G_BK / 8 / G_THREADS;   // per thread and operand
 constexpr size_t G_SMEM_BF16 = sizeof(bf16) * G_STAGES * (G_BM + G_BN) * G_LD;
 
+template <bool SPLIT>
 __global__ void __launch_bounds__(G_THREADS, 2) gemm_bf16_kernel(GemmParams p) {
   extern __shared__ __align__(128) unsigned char g_smem[];
   bf16* As = reinterpret_cast<bf16*>(g_smem);      // [STAGES][BM][LD]
@@ -232,7 +251,6 @@ __global__ void __launch_bounds__(G_THREADS, 2) gemm_bf16_kernel(GemmParams p) {
     }
   }
 
-  bf16* C = reinterpret_cast<bf16*>(p.C);
   const int g = lane >> 2, q2 = (lane & 3) * 2;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -246,7 +264,7 @@ __global__ void __launch_bounds__(G_THREADS, 2) gemm_bf16_kernel(GemmParams p) {
         if (n < p.N) {
           const float2 v = gemm_epi2<bf16>(p, m, n, acc[i][j][2 * h],
                                            acc[i][j][2 * h + 1]);
-          store2(C + m * p.ldc + n, v.x, v.y);
+          store2(gemm_out2<bf16, SPLIT>(p, m, n), v.x, v.y);
         }
       }
     }
@@ -257,6 +275,7 @@ __global__ void __launch_bounds__(G_THREADS, 2) gemm_bf16_kernel(GemmParams p) {
 
 constexpr size_t G_SMEM_F32 = sizeof(float) * (G_BM + G_BN) * G_LD;
 
+template <bool SPLIT>
 __global__ void __launch_bounds__(G_THREADS) gemm_f32_kernel(GemmParams p) {
   extern __shared__ __align__(128) unsigned char g_smem[];
   float* As = reinterpret_cast<float*>(g_smem);    // [BM][LD]
@@ -299,7 +318,6 @@ __global__ void __launch_bounds__(G_THREADS) gemm_f32_kernel(GemmParams p) {
     }
     __syncthreads();
   }
-  float* C = reinterpret_cast<float*>(p.C);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const long long m = m0 + ty + 16 * i;
@@ -309,7 +327,7 @@ __global__ void __launch_bounds__(G_THREADS) gemm_f32_kernel(GemmParams p) {
       const int n = n0 + 32 * jp + 2 * tx;
       if (n < p.N) {
         const float2 v = gemm_epi2<float>(p, m, n, acc[i][2 * jp], acc[i][2 * jp + 1]);
-        store2(C + m * p.ldc + n, v.x, v.y);
+        store2(gemm_out2<float, SPLIT>(p, m, n), v.x, v.y);
       }
     }
   }
@@ -317,24 +335,27 @@ __global__ void __launch_bounds__(G_THREADS) gemm_f32_kernel(GemmParams p) {
 
 // ------------------------------------------------------------- launches
 
+template <bool SPLIT = false>
 static cudaError_t launch_gemm_dt(int is_bf16, const GemmParams& p,
                                   cudaStream_t stream) {
-  if (p.N % 8 || p.K % 8) return cudaErrorInvalidValue;
+  if (p.N % 8 || p.K % 8
+      || (SPLIT ? p.split < 2 || p.split % 2 || p.N != 3 * p.split : p.split))
+    return cudaErrorInvalidValue;
   const long long mt = (p.M + G_BM - 1) / G_BM;
   if (mt > 65535) return cudaErrorInvalidConfiguration;
   const dim3 grid((p.N + G_BN - 1) / G_BN, (unsigned)mt);
   if (is_bf16) {
     cudaError_t e = cudaFuncSetAttribute(
-        gemm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gemm_bf16_kernel<SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)G_SMEM_BF16);
     if (e != cudaSuccess) return e;
-    gemm_bf16_kernel<<<grid, G_THREADS, G_SMEM_BF16, stream>>>(p);
+    gemm_bf16_kernel<SPLIT><<<grid, G_THREADS, G_SMEM_BF16, stream>>>(p);
   } else {
     cudaError_t e = cudaFuncSetAttribute(
-        gemm_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gemm_f32_kernel<SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)G_SMEM_F32);
     if (e != cudaSuccess) return e;
-    gemm_f32_kernel<<<grid, G_THREADS, G_SMEM_F32, stream>>>(p);
+    gemm_f32_kernel<SPLIT><<<grid, G_THREADS, G_SMEM_F32, stream>>>(p);
   }
   return cudaGetLastError();
 }

@@ -266,7 +266,7 @@ static cudaError_t launch_gemm_bwd_k(K kernel, size_t smem, dim3 grid,
 
 static cudaError_t launch_gemm_bwd_dt(int is_bf16, const GemmParams& p,
                                       const GemmBwd& b, cudaStream_t stream) {
-  if (p.N % 8 || p.K % 8 || p.res_pool) return cudaErrorInvalidValue;
+  if (p.N % 8 || p.K % 8 || p.res_pool || p.split) return cudaErrorInvalidValue;
   const long long mt = (p.M + G_BM - 1) / G_BM;
   if (mt > 65535) return cudaErrorInvalidConfiguration;
   const dim3 grid((p.N + G_BN - 1) / G_BN, (unsigned)mt);

@@ -77,7 +77,7 @@ from sam2unet_torch.ops.fused_attention_block import (
     valid_group_blocks,
     window_block_bwd_route,
 )
-from sam2unet_torch.ops.fused_mlp import fused_mlp
+from sam2unet_torch.ops.fused_mlp import fused_ln_matmul, fused_mlp
 from sam2unet_torch.ops.fused_transition import (
     fused_transition_block,
     transition_bwd_supported,
@@ -88,7 +88,11 @@ from sam2unet_torch.ops.windowing import window_partition, window_unpartition
 
 
 class MultiScaleAttention(nn.Module):
-    """Attention with optional 2x2 max q-pool (hieradet.py:35-81)."""
+    """Attention with optional 2x2 max q-pool (hieradet.py:35-81), split as
+    the JAX module is (sam2unet_tpu/models/hiera.py:34-117): `project_qkv`
+    (with the block's pre-norm fused in, K15, where its LN parameters are
+    given), `attend` (q-pool, attention, `project_out`). No model passes
+    the LN: the blocks run their own fused routes."""
 
     def __init__(self, dim: int, dim_out: int, num_heads: int,
                  q_stride: tuple[int, int] | None = None):
@@ -97,11 +101,24 @@ class MultiScaleAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim_out)
         self.proj = nn.Linear(dim_out, dim_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B', h, w, dim) windows or full grid."""
-        b, h, w, _ = x.shape
+    def project_qkv(self, x: torch.Tensor, ln_w=None, ln_b=None,
+                    add_bias: bool = True) -> torch.Tensor:
+        """x: (..., dim) -> (..., 3 * dim_out); with `ln_w` / `ln_b` the
+        pre-norm LN(x) first, through `fused_ln_matmul` (K15).
+        `add_bias=False` leaves the projection's bias to `attend`."""
+        if ln_w is not None:
+            return fused_ln_matmul(x, self.qkv.weight, self.qkv.bias, ln_w,
+                                   ln_b, add_bias)
+        return F.linear(x, self.qkv.weight,
+                        self.qkv.bias if add_bias else None)
+
+    def attend(self, qkv: torch.Tensor, bias=None) -> torch.Tensor:
+        """qkv: (B', h, w, 3 * dim_out), windows or full grid; `bias` the
+        projection's bias where `project_qkv` left it out."""
+        b, h, w, _ = qkv.shape
         c, nh = self.dim_out, self.num_heads
-        qkv = self.qkv(x)
+        if bias is not None:
+            qkv = qkv + bias.to(qkv.dtype)
         # channel order [3, heads, d]: q/k/v are contiguous channel blocks
         q = qkv[..., :c]
         k = qkv[..., c: 2 * c].reshape(b, h * w, nh, -1)
@@ -110,7 +127,15 @@ class MultiScaleAttention(nn.Module):
             q = max_pool2d(q, self.q_stride[0], self.q_stride[0])
             h, w = q.shape[1], q.shape[2]
         o = sdpa(q.reshape(b, h * w, nh, -1), k, v)
-        return self.proj(o.reshape(b, h, w, c))
+        return self.project_out(o.reshape(b, h, w, c))
+
+    def project_out(self, o: torch.Tensor) -> torch.Tensor:
+        return self.proj(o)
+
+    def forward(self, x: torch.Tensor, ln_w=None, ln_b=None) -> torch.Tensor:
+        """x: (B', h, w, dim) windows or full grid; with `ln_w` / `ln_b`
+        the block's pre-norm applied first (K15)."""
+        return self.attend(self.project_qkv(x, ln_w, ln_b))
 
 
 class MultiScaleBlock(nn.Module):

@@ -124,17 +124,29 @@ class MLP(nn.Module):
     """Linear stack with `layers.{i}` names (sam2_utils.MLP:108-132):
     `activation` (ReLU by default; GELU in Hiera's block tails) between
     the layers, optionally a sigmoid on the output. Hiera's blocks read
-    `layers` and run K1, whose plain version computes this forward."""
+    `layers` and run K1, whose plain version computes this forward.
+    `fused=True`, as the JAX module's (nn/layers.py:124-150 there), runs a
+    2-layer GELU MLP without the sigmoid through `fused_mlp` (K1; with
+    frozen weights its backward is K2); any other stack keeps the layers."""
 
     def __init__(self, dim: int, hidden: int, out: int, num_layers: int = 2,
-                 activation=F.relu, sigmoid_output: bool = False):
+                 activation=F.relu, sigmoid_output: bool = False,
+                 fused: bool = False):
         super().__init__()
         dims = [dim] + [hidden] * (num_layers - 1) + [out]
         self.layers = nn.ModuleList(
             nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
         self.activation, self.sigmoid_output = activation, sigmoid_output
+        self.fused = fused
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the kernel computes GELU: no other activation goes through it
+        if (self.fused and len(self.layers) == 2 and not self.sigmoid_output
+                and self.activation in (gelu, F.gelu)):
+            from sam2unet_torch.ops.fused_mlp import fused_mlp
+
+            a, b = self.layers
+            return fused_mlp(x, a.weight, a.bias, b.weight, b.bias)
         for i, layer in enumerate(self.layers):
             x = layer(x)
             if i < len(self.layers) - 1:

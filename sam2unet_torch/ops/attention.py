@@ -76,20 +76,34 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_with_padkey(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           k_pad: torch.Tensor, v_pad: torch.Tensor,
-                          n_pad: int, scale: float | None = None
+                          n_pad: int | None = None, scale: float | None = None,
+                          attn_mask: torch.Tensor | None = None,
+                          pad_logmult: torch.Tensor | None = None
                           ) -> torch.Tensor:
-    """Attention over valid tokens plus ONE synthetic pad key per head.
+    """Attention over valid tokens plus ONE synthetic pad key per head (the
+    JAX package's `attention_with_padkey`, flash_attention.py:390-429).
 
     The reference zero-pads windows; every pad token projects to the qkv
     bias, so the n_pad identical pad keys collapse under softmax to one key
     with logit q.k_pad*scale + ln(n_pad) and value v_pad. k_pad/v_pad:
-    (heads, head_dim), rounded to the working dtype."""
+    (heads, head_dim), rounded to the working dtype. Exactly one of
+    `n_pad` (shared multiplicity) and `pad_logmult` ((1, S) additive
+    per-query log-multiplicity, -1e30 where a query's window has no pads)
+    is given; `attn_mask` ((S, S) additive, the whole-grid window mask of
+    `grid_window_mask`) applies to the real keys."""
+    if (n_pad is None) == (pad_logmult is None):
+        raise ValueError("pass exactly one of n_pad and pad_logmult")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bqhk", q.float(), k.float()) * scale
+    if attn_mask is not None:
+        s = s + attn_mask.float()[None, :, None, :]
     s_pad = torch.einsum("bqhd,hd->bqh", q.float(),
                          k_pad.to(q.dtype).float()) * scale
-    s_pad = s_pad + math.log(n_pad)
+    if pad_logmult is not None:
+        s_pad = s_pad + pad_logmult.float().reshape(-1)[None, :, None]
+    else:
+        s_pad = s_pad + math.log(n_pad)
     p = torch.softmax(torch.cat([s, s_pad[..., None]], dim=-1), dim=-1)
     out = torch.einsum("bqhk,bkhd->bqhd", p[..., :-1].to(v.dtype).float(),
                        v.float()).to(v.dtype)

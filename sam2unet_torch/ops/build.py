@@ -40,7 +40,8 @@ HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 SOURCES = ("fused_mlp", "fused_attention_block", "fused_transition",
            "flash_attention", "fused_mlp_bwd", "fused_attention_block_bwd",
            "fused_transition_bwd", "flash_attention_bwd", "full_attention",
-           "flash_attention_d256", "full_attention_d256")
+           "flash_attention_d256", "full_attention_d256",
+           "fused_attention_block_masked")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,6 +53,8 @@ SIGNATURES = {
     "fused_mlp": {
         "k1_fused_mlp": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _L, _I, _I, _I, _I, _I, _P],
+        "k15_ln_matmul": [_I, *[_P] * 7, _L, _I, _I, _P],
+        "k16_ln_qkv": [_I, *[_P] * 9, _L, _I, _I, _P],
     },
     "fused_attention_block": {
         "k4_window_block_strips": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -72,12 +75,17 @@ SIGNATURES = {
     # the backward kernels, in libraries of their own (the forward's stay as
     # they are built without them)
     "fused_mlp_bwd": {
-        "k2_mlp_bwd_dx": [_I, *[_P] * 12, _L, _I, _I, _P],
+        "k2_mlp_bwd_dx": [_I, *[_P] * 12, _L, _I, _I, _I, _I, _P],
         "k3_adapter_bwd": [_I, *[_P] * 16, _L, _I, _I, _I, _P],
     },
     "fused_attention_block_bwd": {
         "k5_window_block_strips_bwd": [_I, *[_P] * 16, *[_I] * 7, _P],
         "k7_window_block_bwd": [_I, *[_P] * 16, *[_I] * 5, _P],
+    },
+    # K6 and K7 in the masked whole-grid mode, a library of their own
+    "fused_attention_block_masked": {
+        "k6_window_block_masked": [_I, *[_P] * 13, *[_I] * 5, _P],
+        "k7_window_block_bwd_masked": [_I, *[_P] * 18, *[_I] * 5, _P],
     },
     "fused_transition_bwd": {
         "k9_transition_bwd": [_I, *[_P] * 19, *[_I] * 7, _P],

@@ -120,29 +120,33 @@ class _KernelFunction(torch.autograd.Function):
         return fwd(*tensors)
 
     @staticmethod
-    def backward(ctx, gy):
-        grads = ctx.bwd(ctx.saved_tensors, gy.contiguous(),
+    def backward(ctx, *gys):
+        gys = tuple(g.contiguous() for g in gys)
+        grads = ctx.bwd(ctx.saved_tensors, gys[0] if len(gys) == 1 else gys,
                         ctx.needs_input_grad[2:])
         return (None, None, *grads)
 
 
 def with_backward(fwd: Callable, bwd: Callable,
-                  *tensors: torch.Tensor | None) -> torch.Tensor:
-    """`fwd(*tensors)` as one autograd node. Its backward calls
-    `bwd(tensors, gy, needs)`, which returns one gradient per tensor (None
-    where `needs` is False). Only the inputs are saved."""
+                  *tensors: torch.Tensor | None):
+    """`fwd(*tensors)` (a tensor, or a tuple of them) as one autograd node.
+    Its backward calls `bwd(tensors, gy, needs)` (gy a tuple where `fwd`
+    returns one), which returns one gradient per tensor (None where `needs`
+    is False). Only the inputs are saved."""
     return _KernelFunction.apply(fwd, bwd, *tensors)
 
 
 def plain_vjp(fn: Callable, args: Sequence[torch.Tensor | None],
-              gy: torch.Tensor, needs: Sequence[bool]) -> tuple:
-    """Gradients of `fn(*args)` for the cotangent `gy`, by autograd through
-    `fn` recomputed (the plain version's backward), for the args whose
-    `needs` is True; None for the others."""
+              gy, needs: Sequence[bool]) -> tuple:
+    """Gradients of `fn(*args)` for the cotangent `gy` (a tuple where `fn`
+    returns one), by autograd through `fn` recomputed (the plain version's
+    backward), for the args whose `needs` is True; None for the others and
+    for an arg `fn` does not use."""
     with torch.enable_grad():
         leaves = [None if a is None else a.detach().requires_grad_(bool(n))
                   for a, n in zip(args, needs)]
         want = [a for a in leaves if a is not None and a.requires_grad]
-        got = iter(torch.autograd.grad(fn(*leaves), want, gy) if want else ())
+        got = iter(torch.autograd.grad(fn(*leaves), want, gy,
+                                       allow_unused=True) if want else ())
     return tuple(next(got) if a is not None and a.requires_grad else None
                  for a in leaves)

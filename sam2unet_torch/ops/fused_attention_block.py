@@ -1,6 +1,9 @@
 """K4, K6 and K12: the Hiera attention block LN1 -> QKV -> window attention
 -> proj -> +x, and its long-sequence form over K10 (backward over K11); K5
-and K7, the dx-only backward of K4 and K6. Counterpart of
+and K7, the dx-only backward of K4 and K6. K6 and K7 also take the JAX
+package's masked mode: a whole small grid a row, with the additive window
+mask and per-query pad-key log-multiplicity of `grid_window_mask`.
+Counterpart of
 sam2unet_tpu/ops/pallas/fused_attention_block.py (`fused_window_block` /
 `_xla_window_block`, `fused_window_block_strips` / `_xla_strips`,
 `_fused_strips_rem_fwd_impl` / `_xla_strips_rem`, `_strips_bwd`, `_bwd`);
@@ -12,10 +15,12 @@ Weights are in torch layout: w_qkv (3c, c) with output channels ordered
 [3, heads, d], w_proj (c, c). The wrappers are differentiable. The backward
 follows the JAX package's dispatch: the dx-only kernel where the block's
 weights are frozen and the window fits its live budget (K5 for the strips,
-K7 for n_pad = 0 window rows), the long form's backward over K11 for
-windows past 1024 tokens, autograd through the plain version, recomputed,
-where the JAX package runs its XLA recompute (the pad key, windows over the
-budget, weights that need gradients outside K7's weight-gradient mode), and
+K7 for n_pad = 0 window rows and for masked rows), the long form's
+backward over K11 for windows past 1024 tokens, autograd through the plain
+version, recomputed, where the JAX package runs its XLA recompute (the pad
+key, windows over the budget, masked rows with weights that need
+gradients, weights that need gradients outside K7's weight-gradient
+mode), and
 an error where it runs a kernel not ported yet (K7's weight-gradient mode,
 K13).
 """
@@ -60,16 +65,21 @@ BWD_LIVE_BYTES = 8 * 1024 * 1024
 
 
 def plain_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
-                       num_heads: int, n_pad: int = 0, residual: bool = True):
-    """Plain version (reference `_xla_window_block`) on (nW, S, c)."""
+                       num_heads: int, n_pad: int = 0, residual: bool = True,
+                       attn_mask=None, pad_logmult=None):
+    """Plain version (reference `_xla_window_block`) on (nW, S, c); masked
+    with `attn_mask` (S, S) and `pad_logmult` (1, S)."""
     nw, s, c = x.shape
     d = c // num_heads
     y = layer_norm_plain(x, ln_w, ln_b)
     qkv = linear_f32(y, w_qkv, b_qkv).to(x.dtype).reshape(nw, s, 3,
                                                           num_heads, d)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    if n_pad:
-        b3 = b_qkv.reshape(3, num_heads, d)
+    b3 = b_qkv.reshape(3, num_heads, d)
+    if attn_mask is not None:
+        o = attention_with_padkey(q, k, v, b3[1], b3[2], attn_mask=attn_mask,
+                                  pad_logmult=pad_logmult)
+    elif n_pad:
         o = attention_with_padkey(q, k, v, b3[1], b3[2], n_pad)
     else:
         o = einsum_attention(q, k, v)
@@ -217,19 +227,23 @@ def long_form_kernel(s: int) -> bool:
     return s > MAX_FULL_SEQ and pick_stream_blocks(s, s) is not None
 
 
-def window_block_bwd_route(s: int, c: int, n_pad: int,
-                           weight_grads: bool) -> str:
+def window_block_bwd_route(s: int, c: int, n_pad: int, weight_grads: bool,
+                           masked: bool = False) -> str:
     """The backward the JAX package runs for `fused_window_block` on
     windows of S tokens at width c (fused_attention_block.py:1945-1991,
     flash_attention.py:439-464): "K7" (dx only, the weights frozen), "K7
-    weight-grad" (its weight-gradient mode), "K11" (the XLA recompute of a
-    window past 1024 tokens, whose attention backward is the streaming
-    one: `_long_window_block_backward` here), or "plain" (the XLA
-    recompute: the pad key, windows over the live budget). At hiera_l@352
-    the 484-token global blocks take K7; at hiera_s@960 the 3600-token ones
-    take K11."""
+    masked" (its masked dx-only mode), "K7 weight-grad" (its
+    weight-gradient mode), "K11" (the XLA recompute of a window past 1024
+    tokens, whose attention backward is the streaming one:
+    `_long_window_block_backward` here), or "plain" (the XLA recompute: the
+    pad key, windows over the live budget, masked rows with weights that
+    need gradients). At hiera_l@352 the 484-token global blocks take K7; at
+    hiera_s@960 the 3600-token ones take K11."""
     s16 = s + (-s) % 16
     live = 12 * s16 * s16 + 14 * s16 * c
+    if masked:
+        return ("K7 masked" if not weight_grads and live <= BWD_LIVE_BYTES
+                else "plain")
     if n_pad:
         return "plain"
     if not weight_grads and live <= BWD_LIVE_BYTES:
@@ -335,73 +349,115 @@ def _plain_backward(plain, saved, gy, needs, **kw):
     return dispatch.plain_vjp(functools.partial(plain, **kw), saved, gy, needs)
 
 
+def _mask_args(x, attn_mask, pad_logmult):
+    """The masked mode's mask (S, S) and log-multiplicity (S,) as the
+    kernels read them: fp32, contiguous, on x's device; (None, None)
+    unmasked."""
+    if attn_mask is None:
+        return None, None
+    s = x.shape[1]
+    mask = attn_mask.to(x.device, torch.float32).contiguous()
+    logmult = pad_logmult.to(x.device, torch.float32).reshape(-1).contiguous()
+    if mask.shape != (s, s) or logmult.shape != (s,):
+        raise ValueError(f"masked mode needs attn_mask ({s}, {s}) and "
+                         f"pad_logmult (1, {s}) for rows of {s} tokens")
+    return mask, logmult
+
+
 def fused_window_block(x: torch.Tensor, w_qkv, b_qkv, ln_w, ln_b, w_proj,
                        b_proj, num_heads: int, n_pad: int = 0,
-                       residual: bool = True) -> torch.Tensor:
+                       residual: bool = True, attn_mask=None,
+                       pad_logmult=None) -> torch.Tensor:
     """x: (nW, S, c) window rows -> (nW, S, c). n_pad > 0 adds the
     synthetic pad key standing for the reference's zero-padded tokens.
-    K6, or past `long_sequence` the long form over K10 where
-    `long_form_kernel` holds and the plain form elsewhere, as the JAX
-    package routes it. Backward: `window_block_bwd_route` (K7, the long
-    form's backward over K11, or the plain recompute)."""
+    `attn_mask` (S, S) and `pad_logmult` (1, S) (`grid_window_mask`) select
+    the masked mode: each row a whole small grid of S = H*W tokens, the
+    pad key at each query's own log-multiplicity; exactly one of n_pad and
+    pad_logmult carries the pad key, and the two get no gradient. K6, or
+    past `long_sequence` the long form over K10 where `long_form_kernel`
+    holds (unmasked, no pad key) and the plain form elsewhere, as the JAX
+    package routes it. Backward: `window_block_bwd_route` (K7, K7's masked
+    mode, the long form's backward over K11, or the plain recompute)."""
+    if (attn_mask is None) != (pad_logmult is None) or (
+            attn_mask is not None and n_pad):
+        raise ValueError("the masked mode takes attn_mask and pad_logmult "
+                         "together, and no n_pad")
     weights = (w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj)
     if not dispatch.use_kernel(x):
-        return plain_window_block(x, *weights, num_heads, n_pad, residual)
+        return plain_window_block(x, *weights, num_heads, n_pad, residual,
+                                  attn_mask, pad_logmult)
     return _differentiable(_window_block_kernel, _window_block_backward, x,
                            weights, num_heads=num_heads, n_pad=n_pad,
-                           residual=residual)
+                           residual=residual, attn_mask=attn_mask,
+                           pad_logmult=pad_logmult)
 
 
-def _window_block_backward(saved, gy, needs, num_heads, n_pad, residual):
+def _window_block_backward(saved, gy, needs, num_heads, n_pad, residual,
+                           attn_mask=None, pad_logmult=None):
     x = saved[0]
     route = window_block_bwd_route(x.shape[1], x.shape[2], n_pad,
-                                   any(needs[1:]))
-    if route == "K7":
+                                   any(needs[1:]), attn_mask is not None)
+    if route in ("K7", "K7 masked"):
         return (window_block_bwd(x, gy, *saved[1:], num_heads=num_heads,
-                                 residual=residual),) + (None,) * 6
+                                 residual=residual, attn_mask=attn_mask,
+                                 pad_logmult=pad_logmult),) + (None,) * 6
     if route == "K11":
         return _long_window_block_backward(saved, gy, needs, num_heads,
                                            residual)
     if route != "plain":
         dispatch.not_ported(route)
     return _plain_backward(plain_window_block, saved, gy, needs,
-                           num_heads=num_heads, n_pad=n_pad, residual=residual)
+                           num_heads=num_heads, n_pad=n_pad, residual=residual,
+                           attn_mask=attn_mask, pad_logmult=pad_logmult)
 
 
 def _window_block_kernel(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
-                         num_heads: int, n_pad: int, residual: bool):
+                         num_heads: int, n_pad: int, residual: bool,
+                         attn_mask=None, pad_logmult=None):
     nw, s, c = x.shape
     w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj = dispatch.cast(
         x.dtype, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj)
     is_bf16 = _check_block(x, c, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
                            num_heads)
     if long_sequence(s, c):
-        if n_pad:
-            raise ValueError(f"no kernel for a pad key over {s} tokens")
-        if not long_form_kernel(s):
+        # the pad key and the masked mode past the gate: the JAX package's
+        # `_xla_window_block` runs `attention_with_padkey`, the plain form
+        if n_pad or attn_mask is not None or not long_form_kernel(s):
             return plain_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj,
-                                      b_proj, num_heads, 0, residual)
+                                      b_proj, num_heads, n_pad, residual,
+                                      attn_mask, pad_logmult)
         return _long_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
                                   num_heads, residual)
     return _k6_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
-                            num_heads, n_pad, residual, is_bf16)
+                            num_heads, n_pad, residual, is_bf16,
+                            *_mask_args(x, attn_mask, pad_logmult))
 
 
 def _k6_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
                      num_heads: int, n_pad: int, residual: bool,
-                     is_bf16: int):
+                     is_bf16: int, mask=None, logmult=None):
     nw, s, c = x.shape
     xn = torch.empty_like(x)
     qkv = torch.empty((nw * s, 3 * c), dtype=x.dtype, device=x.device)
     o = torch.empty((nw * s, c), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     p = dispatch.ptr
-    err = build.library("fused_attention_block").k6_window_block(
-        is_bf16, p(x), p(w_qkv), p(b_qkv), p(ln_w), p(ln_b), p(w_proj),
-        p(b_proj), p(xn), p(qkv), p(o), p(out), nw, s, c, num_heads, n_pad,
-        int(residual), dispatch.stream_of(x))
+    args = (is_bf16, p(x), p(w_qkv), p(b_qkv), p(ln_w), p(ln_b), p(w_proj),
+            p(b_proj))
+    geometry = (nw, s, c, num_heads)
+    if mask is None:
+        err = build.library("fused_attention_block").k6_window_block(
+            *args, p(xn), p(qkv), p(o), p(out), *geometry, n_pad,
+            int(residual), dispatch.stream_of(x))
+        variant = f"S={s},n_pad={n_pad}"
+    else:
+        lib = build.library("fused_attention_block_masked")
+        err = lib.k6_window_block_masked(
+            *args, p(mask), p(logmult), p(xn), p(qkv), p(o), p(out), *geometry,
+            int(residual), dispatch.stream_of(x))
+        variant = f"S={s},masked"
     build.check(err, "fused_window_block")
-    dispatch.count_launch("fused_window_block", f"S={s},n_pad={n_pad}")
+    dispatch.count_launch("fused_window_block", variant)
     return out
 
 
@@ -526,10 +582,11 @@ def _block_bwd_args(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
     return is_bf16, gy, (w_qkv, b_qkv, ln_w, ln_b, w_proj)
 
 
-def _launch_bwd(entry, is_bf16, x, gy, weights, buf, *geometry):
+def _launch_bwd(entry, is_bf16, x, gy, weights, buf, *geometry, masks=(),
+                lib="fused_attention_block_bwd"):
     p = dispatch.ptr
-    err = getattr(build.library("fused_attention_block_bwd"), entry)(
-        is_bf16, p(x), p(gy), *(p(w) for w in weights),
+    err = getattr(build.library(lib), entry)(
+        is_bf16, p(x), p(gy), *(p(w) for w in weights), *(p(m) for m in masks),
         *(p(buf[k]) for k in ("xn", "qkv", "o", "lse", "dout", "D", "dqkv",
                               "dxn", "dx")),
         *geometry, dispatch.stream_of(x))
@@ -538,23 +595,35 @@ def _launch_bwd(entry, is_bf16, x, gy, weights, buf, *geometry):
 
 
 def window_block_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
-                     num_heads: int, residual: bool = True) -> torch.Tensor:
-    """K7: dx of `fused_window_block` on (nW, S, c) without a pad key, for
-    a cotangent gy, the weights frozen; recomputed from x. Plain version:
-    autograd through `plain_window_block`."""
+                     num_heads: int, residual: bool = True, attn_mask=None,
+                     pad_logmult=None) -> torch.Tensor:
+    """K7: dx of `fused_window_block` on (nW, S, c) without a pad key, or in
+    its masked mode (`attn_mask`, `pad_logmult`), for a cotangent gy, the
+    weights frozen; recomputed from x. Plain version: autograd through
+    `plain_window_block`."""
     if not dispatch.use_kernel(x):
         fn = functools.partial(plain_window_block, w_qkv=w_qkv, b_qkv=b_qkv,
                                ln_w=ln_w, ln_b=ln_b, w_proj=w_proj,
                                b_proj=b_proj, num_heads=num_heads,
-                               residual=residual)
+                               residual=residual, attn_mask=attn_mask,
+                               pad_logmult=pad_logmult)
         return dispatch.plain_vjp(fn, (x,), gy, (True,))[0]
     nw, s, c = x.shape
     is_bf16, gy, weights = _block_bwd_args(x, gy, w_qkv, b_qkv, ln_w, ln_b,
                                            w_proj, b_proj, num_heads)
     buf = _bwd_buffers(x, c, num_heads, nw * s, nw * s, nw, s)
-    dx = _launch_bwd("k7_window_block_bwd", is_bf16, x, gy, weights, buf, nw,
-                     s, c, num_heads, int(residual))
-    dispatch.count_launch("window_block_bwd", f"S={s}")
+    geometry = (nw, s, c, num_heads, int(residual))
+    if attn_mask is None:
+        dx = _launch_bwd("k7_window_block_bwd", is_bf16, x, gy, weights, buf,
+                         *geometry)
+        variant = f"S={s}"
+    else:
+        dx = _launch_bwd("k7_window_block_bwd_masked", is_bf16, x, gy, weights,
+                         buf, *geometry,
+                         masks=_mask_args(x, attn_mask, pad_logmult),
+                         lib="fused_attention_block_masked")
+        variant = f"S={s},masked"
+    dispatch.count_launch("window_block_bwd", variant)
     return dx
 
 

@@ -1,14 +1,20 @@
 """K1: fused transformer MLP, `[LN ->] x@W1+b1 -> GELU -> @W2+b2 [-> GELU]
 [-> +x]`, the block tail (LN2, 4c hidden, residual) and the PEFT adapter
 (no LN, hidden 32, GELU on the output), and its backward kernels: K2, dx of
-the frozen tail, and K3, dx and the fp32 weight gradients of the adapter.
-Counterpart of sam2unet_tpu/ops/pallas/fused_mlp.py (`fused_mlp`,
-`_xla_mlp`, `_mlp_bwd_dx`, `_adapter_bwd`); the kernels are
-csrc/fused_mlp.cu (K1) and csrc/fused_mlp_bwd.cu (K2, K3).
+a frozen MLP with or without LN and the residual, and K3, dx and the fp32
+weight gradients of the adapter; K15, LN -> x@W [+b] (`fused_ln_matmul`),
+and K16, the same split into q, k and v (`fused_ln_qkv`). Counterpart of
+sam2unet_tpu/ops/pallas/fused_mlp.py (`fused_mlp`, `_xla_mlp`,
+`_mlp_bwd_dx`, `_adapter_bwd`, `fused_ln_matmul`, `_xla_ln_matmul`,
+`fused_ln_qkv`, `_xla_ln_qkv`, `_f32_weights_overflow`); the kernels are
+csrc/fused_mlp.cu (K1, K15, K16) and csrc/fused_mlp_bwd.cu (K2, K3).
 
 Weights are in torch Linear layout (out, in). GELU is exact erf. The
 kernels compute in x's dtype: fp32 master weights (the trainable adapters
 under bf16) are cast to it, and K3's weight gradients come back in fp32.
+fp32 calls with more than 12 MiB of weights take the plain versions, as
+the JAX package's gate sends them to its XLA forms (`f32_weights_overflow`);
+a bf16 call always launches.
 """
 
 from __future__ import annotations
@@ -23,6 +29,19 @@ from sam2unet_torch.ops import build, dispatch
 MAX_LN_WIDTH = 2048  # gemm.cuh LN_MAXV * 256
 ADAPTER_MAX_HIDDEN = 128  # K3's hidden width limit (fused_mlp.py:611)
 WGRAD_ROWS = 256  # gemm.cuh WG_ROWS: tokens per weight-gradient partial
+F32_WEIGHT_BYTES = 12 * 1024 * 1024  # the fp32 weight gate (fused_mlp.py:90)
+
+
+def f32_weights_overflow(x: torch.Tensor, *weights: torch.Tensor) -> bool:
+    """The JAX package's `_f32_weights_overflow` (fused_mlp.py:76-90): True
+    for 4-byte activations whose weights (not the biases) hold more than 12
+    MiB as fp32. The JAX package then runs its XLA form (a TPU limit of the
+    Pallas kernels' VMEM); the port runs the plain version there, so both
+    packages launch the same kernels: the fp32 MLP at c = 768, hidden 3072
+    (18.9 MB) takes the plain form, at c = 576, hidden 2304 (10.6 MB) K1."""
+    if x.element_size() < 4:
+        return False
+    return sum(w.numel() for w in weights) * 4 > F32_WEIGHT_BYTES
 
 
 def plain_mlp(x, w1, b1, w2, b2, ln_w=None, ln_b=None, residual=False,
@@ -78,18 +97,17 @@ def _mlp_kernel(x, w1, b1, w2, b2, ln_w, ln_b, residual, gelu_out):
 def _mlp_backward(saved, gy, needs, residual, gelu_out):
     """The JAX package's backward dispatch (fused_mlp.py:608-640): K3 for
     the adapter form with trainable weights, K2 for a frozen MLP without
-    the output GELU, else the plain version's backward, recomputed. K2 is
-    ported for the block tail's form (LN and the residual); a frozen MLP
-    without them raises."""
+    the output GELU (with or without LN and the residual), else the plain
+    version's backward, recomputed. (fp32 weights past the gate never get
+    here: `fused_mlp` runs them plain.)"""
     x, w1, b1, w2, b2, ln_w, ln_b = saved
     weight_grads = any(needs[1:])
     if (gelu_out and weight_grads and ln_w is None
             and w1.shape[0] <= ADAPTER_MAX_HIDDEN):
         return (*adapter_bwd(x, gy, w1, b1, w2, b2, residual), None, None)
     if not weight_grads and not gelu_out:
-        if ln_w is None or not residual:
-            dispatch.not_ported("K2 without LayerNorm or the residual")
-        return (mlp_bwd_dx(x, gy, w1, b1, w2, b2, ln_w, ln_b),) + (None,) * 6
+        return (mlp_bwd_dx(x, gy, w1, b1, w2, b2, ln_w, ln_b, residual),
+                ) + (None,) * 6
     fn = functools.partial(plain_mlp, residual=residual, gelu_out=gelu_out)
     return dispatch.plain_vjp(fn, saved, gy, needs)
 
@@ -97,8 +115,9 @@ def _mlp_backward(saved, gy, needs, residual, gelu_out):
 def fused_mlp(x: torch.Tensor, w1, b1, w2, b2, ln_w=None, ln_b=None,
               residual: bool = False, gelu_out: bool = False) -> torch.Tensor:
     """x: (..., C) -> (..., Cout). Differentiable: on the card the backward
-    is K2 or K3 (or the plain recompute, as in the JAX package)."""
-    if not dispatch.use_kernel(x):
+    is K2 or K3 (or the plain recompute, as in the JAX package). fp32 past
+    `f32_weights_overflow` runs the plain version, forward and backward."""
+    if not dispatch.use_kernel(x) or f32_weights_overflow(x, w1, w2):
         return plain_mlp(x, w1, b1, w2, b2, ln_w, ln_b, residual, gelu_out)
     tensors = (x, w1, b1, w2, b2, ln_w, ln_b)
     if not dispatch.needs_grad(*tensors):
@@ -108,30 +127,38 @@ def fused_mlp(x: torch.Tensor, w1, b1, w2, b2, ln_w=None, ln_b=None,
     return dispatch.with_backward(fwd, bwd, *tensors)
 
 
-def mlp_bwd_dx(x, gy, w1, b1, w2, b2, ln_w, ln_b) -> torch.Tensor:
-    """K2: dx of x + MLP(LN(x)) for a cotangent gy, the weights frozen.
-    Plain version: autograd through `plain_mlp`."""
+def mlp_bwd_dx(x, gy, w1, b1, w2, b2, ln_w=None, ln_b=None,
+               residual: bool = True) -> torch.Tensor:
+    """K2: dx of [x +] MLP([LN](x)) for a cotangent gy (shaped as the
+    output), the weights frozen: the block tail (LN and the residual) and
+    the frozen `fused_mlp` without LN, without the residual, or without
+    both. Plain version: autograd through `plain_mlp`."""
     if not dispatch.use_kernel(x):
         fn = functools.partial(plain_mlp, w1=w1, b1=b1, w2=w2, b2=b2,
-                               ln_w=ln_w, ln_b=ln_b, residual=True)
+                               ln_w=ln_w, ln_b=ln_b, residual=residual)
         return dispatch.plain_vjp(fn, (x,), gy, (True,))[0]
     w1, b1, w2, b2, ln_w, ln_b = dispatch.cast(x.dtype, w1, b1, w2, b2,
                                                ln_w, ln_b)
     gy = gy.contiguous()
     is_bf16 = dispatch.check_kernel_args(x, gy, w1, b1, w2, ln_w, ln_b)
-    c, hd, _ = _check_mlp(x, w1, b1, w2, b2, ln_w, ln_b, True)
-    if ln_w is None or gy.shape != x.shape:
-        raise ValueError("mlp_bwd_dx: needs the LN tail and gy shaped as x")
+    c, hd, cout = _check_mlp(x, w1, b1, w2, b2, ln_w, ln_b, residual)
+    if gy.shape != (*x.shape[:-1], cout):
+        raise ValueError("mlp_bwd_dx: gy must be shaped as the MLP's output")
     m = x.numel() // c
-    xn, dz, dx = (torch.empty_like(x) for _ in range(3))
+    xn, dz = ((torch.empty_like(x), torch.empty_like(x)) if ln_w is not None
+              else (None, None))
+    dx = torch.empty_like(x)
     hpre = torch.empty((m, hd), dtype=torch.float32, device=x.device)
     dh = torch.empty((m, hd), dtype=x.dtype, device=x.device)
     p = dispatch.ptr
     err = build.library("fused_mlp_bwd").k2_mlp_bwd_dx(
         is_bf16, p(x), p(gy), p(w1), p(b1), p(w2), p(ln_w), p(ln_b), p(xn),
-        p(hpre), p(dh), p(dz), p(dx), m, c, hd, dispatch.stream_of(x))
+        p(hpre), p(dh), p(dz), p(dx), m, c, hd, cout, int(residual),
+        dispatch.stream_of(x))
     build.check(err, "mlp_bwd_dx")
-    dispatch.count_launch("mlp_bwd_dx", f"C={c}")
+    variant = (f"C={c}" + (",no_ln" if ln_w is None else "")
+               + ("" if residual else ",no_residual"))
+    dispatch.count_launch("mlp_bwd_dx", variant)
     return dx
 
 
@@ -166,3 +193,81 @@ def adapter_bwd(x, gy, w1, b1, w2, b2, residual: bool = True):
     build.check(err, "adapter_bwd")
     dispatch.count_launch("adapter_bwd", f"C={c}")
     return dx, dw1, db1, dw2, db2
+
+
+# ------------------------------------------------------------ K15, K16
+
+
+def plain_ln_matmul(x, w, b, ln_w, ln_b, add_bias: bool = True):
+    """Plain version (reference `_xla_ln_matmul`, fused_mlp.py:176-187): LN
+    in fp32 (eps 1e-6), rounded to x's dtype, the fp32 product [+ b], the
+    output in x's dtype."""
+    o = linear_f32(layer_norm_plain(x, ln_w, ln_b), w, b if add_bias else None)
+    return o.to(x.dtype)
+
+
+def plain_ln_qkv(x, w, b, ln_w, ln_b, add_bias: bool = True):
+    """Plain version (reference `_xla_ln_qkv`): the three column blocks of
+    `plain_ln_matmul`."""
+    return tuple(plain_ln_matmul(x, w, b, ln_w, ln_b, add_bias).chunk(3, -1))
+
+
+def _ln_matmul_kernel(x, w, b, ln_w, ln_b, add_bias: bool, split: bool):
+    w, b, ln_w, ln_b = dispatch.cast(x.dtype, w, b, ln_w, ln_b)
+    b = b if add_bias else None
+    is_bf16 = dispatch.check_kernel_args(x, w, b, ln_w, ln_b)
+    c, n = x.shape[-1], w.shape[0]
+    if (w.shape != (n, c) or (b is not None and b.shape != (n,))
+            or ln_w.shape != (c,) or ln_b.shape != (c,)):
+        raise ValueError("fused_ln_matmul: weight shapes do not match x")
+    if c % 8 or n % (24 if split else 8) or c > MAX_LN_WIDTH:
+        raise ValueError(f"fused_ln_matmul kernel needs C % 8 == 0, C <= "
+                         f"{MAX_LN_WIDTH} and its outputs' widths % 8 == 0")
+    m = x.numel() // c
+    xn = torch.empty_like(x)
+    p, lib = dispatch.ptr, build.library("fused_mlp")
+    if not split:
+        out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+        err = lib.k15_ln_matmul(is_bf16, p(x), p(w), p(b), p(ln_w), p(ln_b),
+                                p(xn), p(out), m, c, n, dispatch.stream_of(x))
+        build.check(err, "fused_ln_matmul")
+        dispatch.count_launch("fused_ln_matmul", f"C={c},N={n}")
+        return out
+    q, k, v = (torch.empty((*x.shape[:-1], n // 3), dtype=x.dtype,
+                           device=x.device) for _ in range(3))
+    err = lib.k16_ln_qkv(is_bf16, p(x), p(w), p(b), p(ln_w), p(ln_b), p(xn),
+                         p(q), p(k), p(v), m, c, n, dispatch.stream_of(x))
+    build.check(err, "fused_ln_qkv")
+    dispatch.count_launch("fused_ln_qkv", f"C={c},N={n}")
+    return q, k, v
+
+
+def _ln_matmul(plain, x, w, b, ln_w, ln_b, add_bias, split):
+    if not dispatch.use_kernel(x) or f32_weights_overflow(x, w):
+        return plain(x, w, b, ln_w, ln_b, add_bias)
+    tensors = (x, w, b, ln_w, ln_b)
+    fwd = functools.partial(_ln_matmul_kernel, add_bias=add_bias, split=split)
+    if not dispatch.needs_grad(*tensors):
+        return fwd(*tensors)
+    def bwd(saved, gy, needs):
+        fn = functools.partial(plain, add_bias=add_bias)
+        return dispatch.plain_vjp(fn, saved, gy, needs)
+
+    return dispatch.with_backward(fwd, bwd, *tensors)
+
+
+def fused_ln_matmul(x: torch.Tensor, w, b, ln_w, ln_b,
+                    add_bias: bool = True) -> torch.Tensor:
+    """K15: LN(x) (eps 1e-6) @ W^T [+ b], x: (..., C), W (N, C) -> (...,
+    N). `add_bias=False` leaves the bias to a later pass. Differentiable:
+    the backward is the plain version's, recomputed, as the JAX custom VJP
+    differentiates `_xla_ln_matmul` (`_lm_bwd`, fused_mlp.py:330)."""
+    return _ln_matmul(plain_ln_matmul, x, w, b, ln_w, ln_b, add_bias, False)
+
+
+def fused_ln_qkv(x: torch.Tensor, w, b, ln_w, ln_b,
+                 add_bias: bool = True) -> tuple:
+    """K16: `fused_ln_matmul` with W the (3c, C) QKV weight, returned as
+    three separate contiguous (..., c) tensors q, k and v. Backward: the
+    plain recompute (`_lq_bwd`, fused_mlp.py:312)."""
+    return _ln_matmul(plain_ln_qkv, x, w, b, ln_w, ln_b, add_bias, True)

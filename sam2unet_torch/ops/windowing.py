@@ -1,8 +1,12 @@
 """Window partition/unpartition on NHWC tensors (sam2/modeling/backbones/
-utils.py:16-55 padding rules), plus the pad-free valid-group partition."""
+utils.py:16-55 padding rules), plus the pad-free valid-group partition and
+the whole-grid window mask."""
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -98,3 +102,28 @@ def window_merge_valid(outs: list[torch.Tensor], b: int, h: int, w: int,
     if bot:
         rows.append(torch.cat(bot, dim=2))
     return torch.cat(rows, dim=1).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def grid_window_mask(h: int, w: int, window: int
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """The additive mask and pad-key log-multiplicity of whole-grid masked
+    window attention over a small (H*W <= ~512 tokens) grid, the JAX
+    package's `grid_window_mask` (ops/windowing.py:106-130 there): mask
+    (S, S) fp32, 0 within a window and -1e30 across; logmult (1, S) fp32,
+    ln(n_pad) of the query's window, -1e30 where the window has no pads.
+    The n_pad identical bias-valued pad tokens of each window of the
+    reference's zero-padded partition (utils.py:16-35) collapse to one
+    synthetic key with that log-multiplicity. numpy arrays, cached and
+    shared by every caller: copy before writing."""
+    rows = np.arange(h)[:, None].repeat(w, 1).reshape(-1)
+    cols = np.arange(w)[None, :].repeat(h, 0).reshape(-1)
+    nw_cols = -(-w // window)
+    win_id = (rows // window) * nw_cols + (cols // window)
+    mask = np.where(win_id[:, None] == win_id[None, :], 0.0, -1e30)
+    counts = np.bincount(win_id, minlength=win_id.max() + 1)
+    n_pad = window * window - counts
+    logmult = np.where(n_pad[win_id] > 0,
+                       np.log(np.maximum(n_pad[win_id], 1)), -1e30)
+    return (mask.astype(np.float32),
+            logmult.astype(np.float32).reshape(1, -1))

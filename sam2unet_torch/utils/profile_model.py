@@ -44,7 +44,9 @@ ENTRY_WRAPPER = {
     "k4_window_block_strips": "fused_window_block_strips",
     "k5_window_block_strips_bwd": "window_block_strips_bwd",
     "k6_window_block": "fused_window_block",
+    "k6_window_block_masked": "fused_window_block",
     "k7_window_block_bwd": "window_block_bwd",
+    "k7_window_block_bwd_masked": "window_block_bwd",
     "k8_transition": "fused_transition_block",
     "k9_transition_bwd": "transition_bwd",
     "k10_flash_attention": "flash_attention",
@@ -55,6 +57,8 @@ ENTRY_WRAPPER = {
     "k12_window_block_strips_rem": "fused_window_block_strips_rem",
     "k14_full_attention": "full_attention",
     "k14_full_attention_d256": "full_attention",
+    "k15_ln_matmul": "fused_ln_matmul",
+    "k16_ln_qkv": "fused_ln_qkv",
 }
 
 

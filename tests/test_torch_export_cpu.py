@@ -475,8 +475,12 @@ def test_fp32_route_at_960_holds_chip_smoke_counts():
     (stubbed kernels): K12's gate refuses 60x60 w14 at 4-byte items, so
     stage 3's ten blocks after the transition run on the persistent window
     groups (7 windowed: K6 x 4 groups; 3 global: the long form, K10), block
-    15 (30x30 w7) takes K12; K1 46 tails and 46 adapters. chip_smoke.py's
-    s960deploy path holds the card's launches to these counts."""
+    15 (30x30 w7) takes K12; `fused_mlp` 46 tails and 46 adapters, of which
+    the two tails at width 768 (blocks 14 and 15: 18.9 MB of fp32 weights)
+    take the plain form past the fp32 weight gate, as the JAX package's
+    `_f32_weights_overflow` sends them to XLA: K1 launches 44 + 46.
+    chip_smoke.py's s960deploy path holds the card's launches to these
+    counts."""
     from test_torch_model_960_cpu import _route_of_each_block
 
     from sam2unet_torch.configs import HIERA_S
@@ -487,3 +491,5 @@ def test_fp32_route_at_960_holds_chip_smoke_counts():
                       + ["plain", "K12"])
     assert mlp == {True: 46, False: 46}
     assert [o.shape[1] for o in outs] == [240, 120, 60, 30]
+    _, k1, _ = _route_of_each_block(HIERA_S, x, stub=True, launched=True)
+    assert k1 == {True: 44, False: 46}

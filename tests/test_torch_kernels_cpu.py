@@ -28,7 +28,6 @@ import pytest
 import torch
 
 import sam2unet_torch.ops.fused_attention_block as port_fab
-import sam2unet_torch.ops.fused_mlp as port_mlp
 import sam2unet_tpu.ops.pallas.flash_attention as fa
 import sam2unet_tpu.ops.pallas.fused_attention_block as fab
 import sam2unet_tpu.ops.pallas.fused_transition as ft
@@ -767,7 +766,7 @@ def _zeros_block(nw, s, c):
             torch.zeros(c), torch.zeros(c, c), torch.zeros(c))
 
 
-@pytest.mark.parametrize("case", ["K7 weight-grad", "K13", "K2"])
+@pytest.mark.parametrize("case", ["K7 weight-grad", "K13"])
 def test_backward_raises_where_the_jax_package_runs_an_unported_kernel(case):
     """The backward nodes the card's wrappers record: where the JAX package
     runs a kernel the port has not ported, they raise naming the ROADMAP.md
@@ -785,13 +784,6 @@ def test_backward_raises_where_the_jax_package_runs_an_unported_kernel(case):
             saved, saved[0], (True,) + (False,) * 6, num_heads=1, window=3,
             residual=True)
         match = "K13.*queue 2"
-    else:
-        x = torch.zeros(4, 16)
-        saved = (x, torch.zeros(32, 16), torch.zeros(32), torch.zeros(16, 32),
-                 torch.zeros(16), None, None)
-        call = lambda: port_mlp._mlp_backward(  # noqa: E731
-            saved, x, (True,) + (False,) * 6, residual=True, gelu_out=False)
-        match = "K2 without LayerNorm.*queue 2"
     with pytest.raises(NotImplementedError, match=match):
         call()
 

@@ -15,9 +15,11 @@ give it (strided views, key rows of 6 to 1024) and at head dim 256 (the
 memory attention's under the "pallas" backend); K11 against
 `plain_flash_attention_bwd` at S 3600 and 1089, head dims 72 and 96, cross
 lengths, strided views, and through autograd and the long block's
-backward. Tolerances: max|kernel - plain| <= 2e-2 * max|plain| in bf16,
-1e-4 in fp32 (TF32 off), for each output (K9 in bf16: see
-K9_NEAR_TIE_SHARE). The backward of a block whose JAX backward is a kernel
+backward; K15 and K16 (LN -> x@W, its q / k / v split), K2 without LN or
+the residual, the masked whole-grid K6 / K7 (also against the valid-group
+route), and the fp32 weight gate's plain route. Tolerances: max|kernel -
+plain| <= 2e-2 * max|plain| in bf16, 1e-4 in fp32 (TF32 off), for each
+output (K9 in bf16: see K9_NEAR_TIE_SHARE). The backward of a block whose JAX backward is a kernel
 not ported yet (K7's weight-gradient mode, K13) raises on the card.
 """
 
@@ -617,3 +619,92 @@ def test_pallas_backend_sends_the_decoder_and_transition_to_k14(gen):
             assert dict(dispatch.launches) == ({want: 1} if want else {})
     finally:
         set_attention_impl(None)
+
+
+# --------------------------------------------- K15, K16, K2 modes, masked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("add_bias", [True, False])
+@pytest.mark.parametrize("c", [144, 576])
+def test_k15_k16_kernels_match_plain(gen, dtype, add_bias, c):
+    """LN -> x@W [+ b] (K15) and its q / k / v split (K16, three separate
+    contiguous tensors that equal K15's column blocks to the bit)."""
+    from sam2unet_torch.ops.fused_mlp import fused_ln_matmul, fused_ln_qkv
+
+    x = _rnd(gen, dtype, 3, 50, c)
+    w, b = _lin(gen, dtype, 3 * c, c)
+    lw, lb = _rnd(gen, dtype, c, scale=0.1, shift=1.0), _rnd(gen, dtype, c, scale=0.1)
+    _compare(lambda: fused_ln_matmul(x, w, b, lw, lb, add_bias), dtype)
+    _compare(lambda: fused_ln_qkv(x, w, b, lw, lb, add_bias), dtype)
+    q, k, v = fused_ln_qkv(x, w, b, lw, lb, add_bias)
+    assert all(t.is_contiguous() for t in (q, k, v))
+    assert q.data_ptr() != k.data_ptr() != v.data_ptr()
+    assert torch.equal(torch.cat([q, k, v], -1),
+                       fused_ln_matmul(x, w, b, lw, lb, add_bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ln,residual", [(True, False), (False, True),
+                                         (False, False)])
+def test_k2_modes_match_plain(gen, dtype, ln, residual):
+    """K2 without LN, without the residual, or without both, directly and
+    as the backward of a frozen `fused_mlp` (K1 forward, K2 backward)."""
+    c = 144
+    x, gy = _rnd(gen, dtype, 3, 50, c), _rnd(gen, dtype, 3, 50, c)
+    w1, b1 = _lin(gen, dtype, 4 * c, c)
+    w2, b2 = _lin(gen, dtype, c, 4 * c)
+    kw = dict(ln_w=_rnd(gen, dtype, c, scale=0.1, shift=1.0),
+              ln_b=_rnd(gen, dtype, c, scale=0.1)) if ln else {}
+    _compare(lambda: mlp_bwd_dx(x, gy, w1, b1, w2, b2, residual=residual, **kw),
+             dtype)
+
+    def call():
+        xx = x.detach().requires_grad_()
+        y = fused_mlp(xx, w1, b1, w2, b2, residual=residual, **kw)
+        return torch.autograd.grad(y, xx, gy)[0]
+
+    _compare(call, dtype, launches=2)
+    assert dispatch.launches["mlp_bwd_dx"] == 1
+
+
+@pytest.mark.cuda
+def test_fp32_weight_gate_runs_the_plain_mlp(gen):
+    """fp32 with more than 12 MiB of weights (c 768, hidden 3072) launches
+    nothing, as the JAX package runs its XLA form there; bf16 launches."""
+    c = 768
+    w1, b1 = _lin(gen, torch.float32, 4 * c, c)
+    w2, b2 = _lin(gen, torch.float32, c, 4 * c)
+    for dtype, want in ((torch.float32, {}), (torch.bfloat16, {"fused_mlp": 1})):
+        x = _rnd(gen, dtype, 10, c)
+        dispatch.reset_launches()
+        fused_mlp(x, w1, b1, w2, b2)
+        assert dict(dispatch.launches) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid,window,c,heads", [
+    (22, 16, 576, 8), (11, 8, 1152, 16), (18, 14, 192, 2), (4, 3, 144, 2)])
+def test_masked_k6_k7_match_plain(gen, dtype, grid, window, c, heads):
+    """The masked whole-grid mode: K6 forward and K7's masked dx-only
+    backward, and both equal to the valid-group route on the same grid."""
+    from sam2unet_torch.ops.fused_attention_block import valid_group_blocks
+    from sam2unet_torch.ops.windowing import grid_window_mask
+
+    mask, lm = (torch.from_numpy(a).cuda() for a in grid_window_mask(
+        grid, grid, window))
+    x = _rnd(gen, dtype, 2, grid * grid, c)
+    gy = _rnd(gen, dtype, 2, grid * grid, c)
+    w = _attn_weights(gen, dtype, c, c)
+    kw = dict(num_heads=heads, attn_mask=mask, pad_logmult=lm)
+    _compare(lambda: fused_window_block(x, *w, **kw), dtype)
+    _compare(lambda: window_block_bwd(x, gy, *w, **kw), dtype)
+    masked = fused_window_block(x, *w, **kw).float()
+    groups = valid_group_blocks(fused_window_block,
+                                x.reshape(2, grid, grid, c), *w,
+                                num_heads=heads, window=window)
+    err = (masked.reshape(groups.shape) - groups.float()).abs().max().item()
+    assert err <= REL_TOL[dtype] * groups.float().abs().max().item()

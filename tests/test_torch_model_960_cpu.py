@@ -38,6 +38,7 @@ from sam2unet_torch.ops.fused_attention_block import (
     long_sequence,
     window_block_bwd_route,
 )
+from sam2unet_torch.ops.fused_mlp import f32_weights_overflow
 from sam2unet_tpu.configs import HieraConfig, SAM2UNetConfig
 from sam2unet_tpu.models.sam2unet import SAM2UNet
 
@@ -56,16 +57,17 @@ REL_TOL = 2e-5
 
 def _route_of_each_block(trunk: PortHieraConfig, x: torch.Tensor,
                          train: bool = False, stub: bool = False,
-                         use_adapters: bool = True):
+                         use_adapters: bool = True, launched: bool = False):
     """Run the port's trunk on x with spies on the kernel wrappers that
     hiera.py calls; returns the route each block took (in order) and the
     number of fused_mlp calls (tails and adapters, per window group inside
-    a grouped run). A block on the persistent window groups is "grouped",
-    whatever its window. `train` runs the trunk in training mode; `stub`
-    makes each spied wrapper return a tensor of its output's shape instead
-    of computing it, so a full-width trunk routes in a moment;
-    `use_adapters` False routes SAM2's own trunk. The model takes x's
-    dtype (the remainder-strip gate reads its item size)."""
+    a grouped run; with `launched` only those that launch K1, past the fp32
+    weight gate `f32_weights_overflow`). A block on the persistent window
+    groups is "grouped", whatever its window. `train` runs the trunk in
+    training mode; `stub` makes each spied wrapper return a tensor of its
+    output's shape instead of computing it, so a full-width trunk routes in
+    a moment; `use_adapters` False routes SAM2's own trunk. The model takes
+    x's dtype (the remainder-strip gate reads its item size)."""
     routes, mlp, inside = [], collections.Counter(), []
 
     def shape_of(name, a):
@@ -100,7 +102,8 @@ def _route_of_each_block(trunk: PortHieraConfig, x: torch.Tensor,
         return "long" if long_form_kernel(s) else "plain global"
 
     def mlp_spy(*a, **k):
-        mlp[k.get("ln_w") is not None] += 1
+        if not (launched and f32_weights_overflow(a[0], a[1], a[3])):
+            mlp[k.get("ln_w") is not None] += 1
         return a[0] if stub else fused_mlp(*a, **k)
 
     fused_mlp = port_hiera.fused_mlp
