@@ -14,7 +14,9 @@ train CLI across ranks (data parallelism with SyncBN, a resume from the
 JAX package's train state layout); the multi-device dry run
 (tensor and sequence parallelism) on four ranks of the one card; and the
 JAX package's kernel entry points that no model calls (K15, K16, K2's
-other modes, the masked whole-grid K6 / K7) at full width.
+other modes, the masked whole-grid K6 / K7) at full width; and the backward
+modes of K7 and K12 that a trainable trunk and an eval-mode gradient reach
+(K7's weight-gradient mode, K13a / K13b).
 
     python3 chip_smoke.py            # every phase, as the acceptance run does
     python3 chip_smoke.py --phases build,kernels --batch 2 --batch960 2 \
@@ -30,6 +32,7 @@ other modes, the masked whole-grid K6 / K7) at full width.
     python3 chip_smoke.py --paths s960dp           # data parallelism
     python3 chip_smoke.py --paths s352mc           # dryrun_multichip(4)
     python3 chip_smoke.py --paths opsapi           # the kernel entry points
+    python3 chip_smoke.py --paths bwdmodes         # K7 weight-grad, K13
 
 Phases, one line each, for each path of --paths (l352, s960, then the
 training paths l352train and s960train, listed after these):
@@ -262,6 +265,26 @@ options that no model calls, seeded random weights, bf16):
      call on LN(x), outputs and dx against the plain versions, the masked
      blocks against the valid-group route (window_partition_valid + K6
      with n_pad).
+The backward-mode path bwdmodes (seeded random weights):
+  2. K7's weight-gradient mode (dx and all six weight gradients) at
+     hiera_l@352 stage 3's pad-free group (16, 256, 576) 8 heads,
+     hiera_s@960 stage 3's 56x56 group (256, 196, 384) and the 256-token
+     global blocks of SAM2's hiera_s trunk at 256 px (4, 256, 384), each
+     again in fp32 at a batch of 2; K13b at (16, 60, 60, 384) w14 and (1,
+     64, 64, 384) w14, K13a at (16, 30, 30, 768) w7 and (1, 32, 32, 768)
+     w7, and in fp32 at (2, 30, 30, 768) w7; every gradient against
+     autograd through the plain version, each call's launch the JAX
+     package's kernel (`dispatch.variants`), every bf16 shape timed.
+  3. (b) `Hiera(hiera_l, use_adapters=False)` at 352 in training, batch 4:
+     the gradient of a fixed scalar of the four outputs (their mean
+     squared distances to seeded targets) with respect to every
+     parameter, kernels against force_plain(), bf16 and fp32, held
+     as s960train holds a step; launches per step (K7's weight-gradient
+     mode 32: stage 3's windowed blocks, one pad-free 16x16 group each);
+     (c) `SAM2UNet` (hiera_s) at 960 in eval mode, batch 2: the structure
+     loss's gradient with respect to the trainable set through the frozen
+     trunk, the same way; launches per backward (K13b 7 on the 60x60 w14
+     blocks, K13a 1 on the 30x30 w7 block, beside K5, K9, K11, K2, K3).
 The throughput phase of l352, l352train and s960train also times the step
 with the persistent window groups and per block (SAM2UNET_DISABLE_GROUPED),
 alternating, for the record.
@@ -278,6 +301,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import json
 import math
 import os
@@ -571,6 +595,41 @@ PATHS = {
                             "fused_mlp": 7, "mlp_bwd_dx": 7,
                             "fused_window_block": 2, "window_block_bwd": 2}),
 }
+PATHS["bwdmodes"] = dict(
+    # K7's weight-gradient mode and K13a / K13b, reached through the
+    # modules as the JAX package reaches its kernels (`bwdmodes_main_phase`
+    # derives the counts). (b) a hiera_l@352 train step of the trunk
+    # without adapters (nothing frozen; bf16): K1 on the 162 block tails of
+    # the window groups and dense blocks (their backward the plain
+    # recompute: trainable weights), K4 7 forward (its backward the plain
+    # recompute), the transitions plain (a trainable transition leaves K8,
+    # hiera.py:318-327 there), K6 143 as l352's forward, and K7's
+    # weight-gradient mode 32: stage 3's 32 windowed blocks, each one
+    # pad-free 16x16 group (S 256, c 576: 16 c^2 = 5.3 MB <= 8 MiB, live
+    # 2.85 MB <= 4 MiB); stage 4's 8x8 groups (c 1152: 16 c^2 = 21.2 MB)
+    # and the 484-token global blocks (live 6.95 MB) take the plain
+    # recompute, and no frozen block runs K7's dx-only mode. (c) one
+    # eval-mode forward and backward of SAM2UNet at hiera_s@960 (the
+    # trainable set: adapters, neck, decoder): s960's forward, then K13b 7
+    # (blocks 4-6, 8, 9, 11, 12: 60x60 w14, whose strip passes the TPU's
+    # 13 MiB) and K13a 1 (block 15, 30x30 w7), K5 2 (blocks 0, 2), K9 1
+    # (block 3; block 1's 240x240 transition fails the backward gate), the
+    # three long blocks' K10 again and K11, K2 on the 16 frozen tails and
+    # K3 on the 16 adapters.
+    label="bwdmodes", bwdmodes=True, batch=16, fp32_listed=True,
+    time_each=True, trunk_cfg="sam2_hiera_l", trunk_size=352,
+    trunk_batch=4, model_cfg="sam2_hiera_s", model_size=960, model_batch=2,
+    per_step={"fused_mlp": 162, "fused_window_block_strips": 7,
+              "fused_window_block": 143, "window_block_bwd": 32},
+    per_backward={"fused_mlp": 32, "fused_window_block_strips": 2,
+                  "fused_transition_block": 2,
+                  "fused_window_block_strips_rem": 8, "flash_attention": 6,
+                  "mlp_bwd_dx": 16, "adapter_bwd": 16,
+                  "window_block_strips_bwd": 2, "transition_bwd": 1,
+                  "window_block_strips_rem_bwd": 8,
+                  "flash_attention_bwd_delta": 3,
+                  "flash_attention_bwd_dq": 3,
+                  "flash_attention_bwd_dkv": 3})
 BATCH_FLAG = {"l352": "batch", "opsapi": "batch", "s960": "batch960",
               "l352train": "batch_train",
               "s960train": "batch_train960"}
@@ -634,6 +693,7 @@ def make_case(kind: str, dtype, gen, **g):
         fused_window_block_strips_rem,
         window_block_bwd,
         window_block_strips_bwd,
+        window_block_strips_rem_bwd,
     )
     from sam2unet_torch.ops.fused_mlp import (
         adapter_bwd,
@@ -713,6 +773,46 @@ def make_case(kind: str, dtype, gen, **g):
                      + 8 * pairs * c)
             nel = 3 * m * c + 4 * c * c + 5 * c
         return call, flops, nel * x.element_size() + 4 * (s * s + s), None
+
+    if kind == "window_wgrad":
+        # K7's weight-gradient mode: dx and the six weight gradients (fp32)
+        # of pad-free window rows; the operations add the two
+        # weight-gradient products to the dx-only backward's
+        nw, s_, c, nh = g["windows"], g["S"], g["c"], g["heads"]
+        lw, lb = rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1)
+        wq, bq = lin(3 * c, c)
+        wp, bp = lin(c, c)
+        x, gy = rnd(nw, s_, c), rnd(nw, s_, c)
+        call = lambda: window_block_bwd(x, gy, wq, bq, lw, lb, wp, bp,
+                                        num_heads=nh, weight_grads=True)
+        m, pairs = nw * s_, nw * s_ * s_
+        flops = (2 * 2 * m * c * 3 * c + 4 * pairs * c + 2 * m * c * c
+                 + 8 * pairs * c + 2 * m * c * 4 * c)
+        nel = 3 * m * c + 4 * c * c + 5 * c
+        return call, flops, nel * x.element_size() + 4 * (4 * c * c + 6 * c), None
+
+    if kind == "strips_rem_bwd":
+        # K13: dx of K12 on (B, H, W, c), any grid; the pairs count each
+        # window's tokens inside the grid and an edge window's pad key
+        b, win, c, nh = g["batch"], g["window"], g["c"], g["heads"]
+        hh, wd = (g["grid"], g["grid"]) if isinstance(g["grid"], int) else g["grid"]
+        res = g.get("residual", True)
+        lw, lb = rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1)
+        wq, bq = lin(3 * c, c)
+        wp, bp = lin(c, c)
+        x, gy = rnd(b, hh, wd, c), rnd(b, hh, wd, c)
+        call = lambda: window_block_strips_rem_bwd(
+            x, gy, wq, bq, lw, lb, wp, bp, num_heads=nh, window=win,
+            residual=res)
+        m = b * hh * wd
+        vhs = [min(win, hh - i) for i in range(0, hh, win)]
+        vws = [min(win, wd - i) for i in range(0, wd, win)]
+        pairs = b * sum(vh * vw * (vh * vw + (vh * vw < win * win))
+                        for vh in vhs for vw in vws)
+        flops = (2 * 2 * m * c * 3 * c + 4 * pairs * c + 2 * m * c * c
+                 + 8 * pairs * c)
+        nel = 3 * m * c + 4 * c * c + 5 * c
+        return call, flops, nel * x.element_size(), None
 
     if kind in ("flash", "full"):
         # q/k/v as the long-form blocks pass them: slices of the QKV output;
@@ -968,6 +1068,8 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
                                       src_ab_bwd, src_mlp_bwd)
     if PATHS[path].get("opsapi"):
         return opsapi_kernel_specs(b, mlp, fab, src_mlp_bwd)
+    if PATHS[path].get("bwdmodes"):
+        return bwdmodes_kernel_specs(b, fab)
     if PATHS[path].get("train"):
         fa = "sam2unet_tpu/ops/pallas/flash_attention.py"
         src_k11 = "sam2unet_torch/csrc/flash_attention_bwd.cu"
@@ -1394,6 +1496,48 @@ def opsapi_kernel_specs(b: int, mlp, fab, src_mlp_bwd) -> list[tuple]:
          masked, 0)]
 
 
+def bwdmodes_kernel_specs(b: int, fab: str) -> list[tuple]:
+    """K7's weight-gradient mode at the groups and global blocks where the
+    JAX gate takes it (hiera_l@352 stage 3, hiera_s@960 stage 3, hiera_s's
+    global blocks at 256 px; batch b, the last at 4), K13b and K13a at
+    hiera_s@960 / 1024's stage 3 and 4 grids (batch b and 1); hiera_s@960
+    has 16 of the 56x56 group's windows an image. Each shape
+    names the launch the JAX route makes (`expect`); `f32` gives the
+    shape's fp32 run (a batch of 2, and its launch at 4-byte items), where
+    it has one."""
+    from sam2unet_torch.ops.fused_attention_block import strips_rem_bwd_regime
+
+    wgrad = [dict(windows=b, S=256, c=576, heads=8, f32=dict(windows=2)),
+             dict(windows=16 * b, S=196, c=384, heads=4, f32=dict(windows=32)),
+             dict(windows=4, S=256, c=384, heads=4, f32=dict(windows=2))]
+    for g in wgrad:
+        g["expect"] = ("window_block_bwd", f"S={g['S']},wgrad")
+    k13b = [dict(batch=b, grid=60, c=384, heads=4, window=14),
+            dict(batch=1, grid=64, c=384, heads=4, window=14)]
+    k13a = [dict(batch=b, grid=30, c=768, heads=8, window=7,
+                 f32=dict(batch=2)),
+            dict(batch=1, grid=32, c=768, heads=8, window=7)]
+    for g, regime in [(g, "K13b") for g in k13b] + [(g, "K13a") for g in k13a]:
+        g["expect"] = ("window_block_strips_rem_bwd",
+                       f"window={g['window']},{regime}")
+        if "f32" in g:
+            g["f32"]["expect"] = (g["expect"][0], "window={},{}".format(
+                g["window"], strips_rem_bwd_regime(
+                    g["grid"], g["grid"], g["window"], g["c"], g["heads"], 4)))
+    src_rem = "sam2unet_torch/csrc/fused_attention_block_rem_bwd.cu"
+    return [
+        ("K7 window_block_bwd (weight-grad)", "window_wgrad", f"{fab}:669",
+         "sam2unet_torch/csrc/fused_attention_block_wgrad.cu",
+         lambda w, v: w == "window_block_bwd" and v.endswith(",wgrad"),
+         wgrad, 0),
+        ("K13b window_block_strips_rem_bwd", "strips_rem_bwd", f"{fab}:1843",
+         src_rem, lambda w, v: (w == "window_block_strips_rem_bwd"
+                                and v.endswith(",K13b")), k13b, 0),
+        ("K13a window_block_strips_rem_bwd", "strips_rem_bwd", f"{fab}:1651",
+         src_rem, lambda w, v: (w == "window_block_strips_rem_bwd"
+                                and v.endswith(",K13a")), k13a, 0)]
+
+
 def plain_route(kind: str, g: dict, dtype) -> bool:
     """Whether the call takes the plain version by the JAX route: fp32 past
     the weight gate (`f32_weights_overflow`, the JAX package's
@@ -1450,8 +1594,18 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
 
     from sam2unet_torch.ops import dispatch
 
-    label = PATHS[path]["label"]
+    spec = PATHS[path]
+    label = spec["label"]
     entries = []
+
+    def expected_launch(name, g, dtype):
+        # one launch of the JAX route's kernel per call, where the shape
+        # names it (`compare` reset the counters before the kernel call)
+        if "expect" in g and dict(dispatch.variants) != {g["expect"]: 1}:
+            fail(f"{name} {dtype} at {g}: launched "
+                 f"{dict(dispatch.variants)}, the JAX route is one "
+                 f"{g['expect']}")
+
     for name, kind, replaces, source, select, shapes, timed in kernel_specs(
             path, batch):
         worst_abs = worst_rel = 0.0
@@ -1461,6 +1615,7 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
             err, rel, share, launched = compare(call, BF16_REL_TOL)
             if not launched:
                 fail(f"{name} launched nothing in bf16 at {g}")
+            expected_launch(name, g, "bf16")
             near_ties = kind == "transition_bwd" and not g.get("ties")
             ok = (share <= K9_BF16_TOKEN_SHARE and rel <= K9_BF16_OUTLIER_REL
                   if near_ties else share == 0.0)
@@ -1470,7 +1625,7 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
                 line += (f", tokens past the tolerance {share:.3g} (at most "
                          f"{K9_BF16_TOKEN_SHARE}, each within "
                          f"{K9_BF16_OUTLIER_REL})")
-            if i == timed:
+            if i == timed or spec.get("time_each"):
                 ms = time_ms(call)
                 with dispatch.force_plain():
                     plain_ms = time_ms(call)
@@ -1482,6 +1637,7 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
                          f"bound {bound_ms:.4f} ms ({bound_by})")
                 if library:
                     line += f", library {library_ms:.4f} ms"
+            if i == timed:
                 entry = dict(name=f"{name} [{label}]", route="cuda",
                              source=source, select=select, path=path,
                              replaces=replaces, ms=ms, plain_ms=plain_ms,
@@ -1505,9 +1661,15 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
             g["tokens"] = min(g["tokens"], 2 * 484)
         every = [dict(g, no_near_ties=True) if kind == "transition_bwd"
                  and not g.get("ties") else g for g in shapes]
-        for g in (every if PATHS[path].get("fp32") else [g]):
+        if spec.get("fp32_listed"):
+            # each shape's own fp32 run, where it has one
+            runs = [dict(g, **g["f32"]) for g in shapes if "f32" in g]
+        else:
+            runs = every if spec.get("fp32") else [g]
+        for g in runs:
             err, rel, share, launched = compare(
                 make_case(kind, torch.float32, gen, **g)[0], FP32_REL_TOL)
+            expected_launch(name, g, "fp32")
             plain = plain_route(kind, g, torch.float32)
             ok = share == 0.0 and bool(launched) != plain
             print(f"[kernel] {name} {label} fp32 {g}: max_abs_err {err:.4g} "
@@ -1518,7 +1680,7 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
             if not ok:
                 fail(f"{name} fp32 disagrees with its plain version or its "
                      f"route at {g}")
-            if PATHS[path].get("fp32"):
+            if spec.get("fp32") or spec.get("fp32_listed"):
                 worst_abs = max(worst_abs, err)
         entry["max_abs_err"] = worst_abs
         entries.append(entry)
@@ -3148,6 +3310,60 @@ def _leaf_agreement(got: dict, want: dict) -> dict:
     return out
 
 
+def _hold_step(label: str, what: str, runs: dict) -> tuple[bool, dict]:
+    """One step's loss and gradients, kernels against the plain versions,
+    as s960train holds them: `runs[(bf16, plain)]` = (loss, {leaf:
+    gradient}). fp32: loss to 1e-5, every leaf to correlation 0.9999 and
+    1e-2 of max |plain|. bf16: the loss to STEP_LOSS_RTOL; each leaf's gap
+    to the fp32 plain gradient, 1 - corr, within STEP_GAP_RATIO x the
+    plain bf16 gap of the same leaf + STEP_GAP_MARGIN, and the mean gap
+    within STEP_GAP_MEAN_RATIO x the plain's. Prints a line per dtype;
+    returns (all held, each leaf's bf16 gaps (kernels, plain))."""
+    ok, gaps = True, {}
+    for bf16 in (False, True):
+        (lk, gk), (lp, gp) = runs[bf16, False], runs[bf16, True]
+        if gk.keys() != gp.keys() or not gk:
+            fail(f"{label}: kernels and plain versions give gradients to "
+                 "different parameters")
+        agree = _leaf_agreement(gk, gp)
+        loss_rel = abs(lk - lp) / abs(lp)
+        corr_n, (corr, _) = min(agree.items(), key=lambda kv: kv[1][0])
+        rel_n, (_, rel) = max(agree.items(), key=lambda kv: kv[1][1])
+        line = (f"[main] {label}, kernels vs plain ({'bf16' if bf16 else 'fp32'}"
+                f", {what}): loss {lk:.6f} vs {lp:.6f} (rel {loss_rel:.3g}); "
+                f"{len(gp)} gradients: worst correlation {corr:.6f} "
+                f"({corr_n}), worst max_rel_err {rel:.4g} ({rel_n})")
+        if not bf16:
+            good = (loss_rel <= 1e-5 and corr >= max(MAIN_CORR_MIN, 0.9999)
+                    and rel <= min(MAIN_REL_TOL, 1e-2))
+            line += " (tol: loss 1e-5, correlation 0.9999, max_rel_err 0.01)"
+        else:
+            ref = runs[False, True][1]
+            k_ref, p_ref = _leaf_agreement(gk, ref), _leaf_agreement(gp, ref)
+            leaf = {n: (1 - k_ref[n][0], 1 - p_ref[n][0]) for n in ref}
+            gaps = leaf
+            over = {n: k - (STEP_GAP_RATIO * p + STEP_GAP_MARGIN)
+                    for n, (k, p) in leaf.items()}
+            worst = max(over, key=over.get)
+            ratio_n = max(leaf, key=lambda n: leaf[n][0] / max(leaf[n][1], 1e-12))
+            k_mean = sum(k for k, _ in leaf.values()) / len(leaf)
+            p_mean = sum(p for _, p in leaf.values()) / len(leaf)
+            good = (loss_rel <= STEP_LOSS_RTOL and over[worst] <= 0
+                    and k_mean <= STEP_GAP_MEAN_RATIO * p_mean)
+            line += (f"; 1 - correlation with the fp32 gradient, kernels vs "
+                     f"plain bf16: mean over the leaves {k_mean:.4g} vs "
+                     f"{p_mean:.4g}; closest to the limit {worst} "
+                     f"{leaf[worst][0]:.4g} vs {leaf[worst][1]:.4g}; largest "
+                     f"ratio {ratio_n} {leaf[ratio_n][0]:.4g} vs "
+                     f"{leaf[ratio_n][1]:.4g} (tol: loss {STEP_LOSS_RTOL}; "
+                     f"each leaf <= {STEP_GAP_RATIO} x plain's + "
+                     f"{STEP_GAP_MARGIN}; mean <= {STEP_GAP_MEAN_RATIO} x "
+                     f"plain's)")
+        print(line + ("" if good else "  <-- FAIL"), flush=True)
+        ok = ok and good
+    return ok, gaps
+
+
 def step_compare(path: str, ckpt: Path, seeds: list[int],
                  report: str = "") -> None:
     """One train step's loss and trainable gradients, the kernels against
@@ -3186,48 +3402,10 @@ def step_compare(path: str, ckpt: Path, seeds: list[int],
         torch.cuda.empty_cache()
     ok, gaps = True, {}
     for seed in seeds:
-        for bf16 in (False, True):
-            (lk, gk), (lp, gp) = runs[seed, bf16, False], runs[seed, bf16, True]
-            if gk.keys() != gp.keys() or not gk:
-                fail(f"{label}: kernels and plain versions give gradients to "
-                     "different parameters")
-            agree = _leaf_agreement(gk, gp)
-            loss_rel = abs(lk - lp) / abs(lp)
-            corr_n, (corr, _) = min(agree.items(), key=lambda kv: kv[1][0])
-            rel_n, (_, rel) = max(agree.items(), key=lambda kv: kv[1][1])
-            line = (f"[main] {label} one step, seed {seed}, kernels vs plain "
-                    f"({'bf16' if bf16 else 'fp32'}, batch {batch}): loss {lk:.6f} vs "
-                    f"{lp:.6f} (rel {loss_rel:.3g}); {len(gp)} trainable "
-                    f"gradients: worst correlation {corr:.6f} ({corr_n}), worst "
-                    f"max_rel_err {rel:.4g} ({rel_n})")
-            if not bf16:
-                good = (loss_rel <= 1e-5 and corr >= max(MAIN_CORR_MIN, 0.9999)
-                        and rel <= min(MAIN_REL_TOL, 1e-2))
-                line += " (tol: loss 1e-5, correlation 0.9999, max_rel_err 0.01)"
-            else:
-                ref = runs[seed, False, True][1]
-                k_ref, p_ref = _leaf_agreement(gk, ref), _leaf_agreement(gp, ref)
-                leaf = {n: (1 - k_ref[n][0], 1 - p_ref[n][0]) for n in ref}
-                gaps[seed] = leaf
-                over = {n: k - (STEP_GAP_RATIO * p + STEP_GAP_MARGIN)
-                        for n, (k, p) in leaf.items()}
-                worst = max(over, key=over.get)
-                ratio_n = max(leaf, key=lambda n: leaf[n][0] / max(leaf[n][1], 1e-12))
-                k_mean = sum(k for k, _ in leaf.values()) / len(leaf)
-                p_mean = sum(p for _, p in leaf.values()) / len(leaf)
-                good = (loss_rel <= STEP_LOSS_RTOL and over[worst] <= 0
-                        and k_mean <= STEP_GAP_MEAN_RATIO * p_mean)
-                line += (f"; 1 - correlation with the fp32 gradient, kernels vs "
-                         f"plain bf16: mean over the leaves {k_mean:.4g} vs "
-                         f"{p_mean:.4g}; closest to the limit {worst} "
-                         f"{leaf[worst][0]:.4g} vs {leaf[worst][1]:.4g}; largest "
-                         f"ratio {ratio_n} {leaf[ratio_n][0]:.4g} vs "
-                         f"{leaf[ratio_n][1]:.4g} (tol: loss {STEP_LOSS_RTOL}; "
-                         f"each leaf <= {STEP_GAP_RATIO} x plain's + "
-                         f"{STEP_GAP_MARGIN}; mean <= {STEP_GAP_MEAN_RATIO} x "
-                         f"plain's)")
-            print(line + ("" if good else "  <-- FAIL"), flush=True)
-            ok = ok and good
+        good, gaps[seed] = _hold_step(
+            f"{label} one step, seed {seed}", f"batch {batch}",
+            {k[1:]: v for k, v in runs.items() if k[0] == seed})
+        ok = ok and good
     if report:
         Path(report).parent.mkdir(parents=True, exist_ok=True)
         Path(report).write_text(json.dumps(
@@ -4438,13 +4616,151 @@ def opsapi_main_phase(path: str, batch: int) -> dict:
     return variants
 
 
+def bwdmodes_main_phase(path: str) -> dict:
+    """K7's weight-gradient mode and K13 through the modules, as the JAX
+    package reaches its kernels: (b) a trainable `Hiera(use_adapters=False)`
+    in training, the gradient of a fixed scalar of its four outputs with
+    respect to every parameter; (c) `SAM2UNet` in eval mode, the structure
+    loss's gradient with respect to its trainable set through the frozen
+    trunk. Each in bf16 and fp32, kernels against force_plain(), held as
+    s960train holds a step (`_hold_step`); the bf16 kernel run's launches
+    (counters set to 0 just before, read just after) against PATHS' tables,
+    the fp32 run's of the new kernels too (at 4-byte items K12's gate
+    refuses the 60x60 w14 blocks, so (c) runs K13a only). Returns the bf16
+    runs' variants."""
+    import torch
+
+    from sam2unet_torch.configs import hiera_config
+    from sam2unet_torch.models.hiera import Hiera
+    from sam2unet_torch.ops import dispatch
+    from sam2unet_torch.train.loss import multi_head_loss
+    from sam2unet_torch.train.optim import trainable_parameters
+
+    spec = PATHS[path]
+    label = spec["label"]
+    seen = collections.Counter()
+
+    def counted(run):
+        dispatch.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        return out, dict(dispatch.launches), dict(dispatch.variants)
+
+    def hold_counts(what, counts, table):
+        print(f"[main] {label} {what}: launches {counts}", flush=True)
+        for name in set(table) | set(counts):
+            if counts.get(name, 0) != table.get(name, 0):
+                fail(f"{label} {what}: {name} launched {counts.get(name, 0)} "
+                     f"times, expected {table.get(name, 0)}")
+
+    # ---- (b) the trainable trunk, one training step's gradients
+    size, b = spec["trunk_size"], spec["trunk_batch"]
+    torch.manual_seed(15)
+    trunk32 = Hiera(hiera_config(spec["trunk_cfg"]), use_adapters=False)
+    trunk32 = trunk32.to(DEV).train()
+    g = torch.Generator(device=DEV)
+    g.manual_seed(15)
+    x = torch.randn(b, size, size, 3, device=DEV, generator=g)
+    # the scalar: the four outputs' mean squared distances to fixed targets
+    # (a loss of order 1, so that its relative gap reads the rounding)
+    targets = [torch.randn(b, size // 4 >> i, size // 4 >> i,
+                           trunk32.cfg.embed_dim << i, device=DEV,
+                           generator=g) for i in range(4)]
+    runs, t0 = {}, time.perf_counter()
+    for bf16 in (True, False):
+        trunk = (copy.deepcopy(trunk32).to(torch.bfloat16) if bf16
+                 else trunk32)
+        params = dict(trunk.named_parameters())
+        xin = x.to(torch.bfloat16) if bf16 else x
+        for plain in (False, True):
+            def step():
+                with dispatch.force_plain() if plain else contextlib.nullcontext():
+                    outs = trunk(xin)
+                    loss = sum(((o.float() - t) ** 2).mean()
+                               for o, t in zip(outs, targets))
+                    grads = torch.autograd.grad(loss, list(params.values()))
+                return loss.item(), {n: gr.float() for n, gr in
+                                     zip(params, grads)}
+            if plain:
+                runs[bf16, plain] = step()
+                continue
+            runs[bf16, plain], counts, variants = counted(step)
+            if bf16:
+                hold_counts(f"{spec['trunk_cfg']}@{size} trainable trunk, "
+                            f"one bf16 step at batch {b}", counts,
+                            spec["per_step"])
+                seen.update(variants)
+            else:
+                wg = sum(n for (w, v), n in variants.items()
+                         if w == "window_block_bwd" and v.endswith(",wgrad"))
+                print(f"[main] {label} the same step in fp32: launches "
+                      f"{counts}", flush=True)
+                if wg != spec["per_step"]["window_block_bwd"]:
+                    fail(f"{label}: the fp32 step launched K7's "
+                         f"weight-gradient mode {wg} times")
+        del trunk
+    ok, _ = _hold_step(f"{label} {spec['trunk_cfg']}@{size} trainable trunk",
+                       f"batch {b}, {len(runs[False, True][1])} parameters",
+                       runs)
+    print(f"[main] {label} (b) {time.perf_counter() - t0:.1f} s (host clock, "
+          f"4 gradients)", flush=True)
+    del trunk32, runs, x, targets
+    torch.cuda.empty_cache()
+
+    # ---- (c) SAM2UNet in eval mode: a gradient through the frozen trunk
+    size, b = spec["model_size"], spec["model_batch"]
+    x, y = _train_batch(b, size, seed=15)
+    runs, t0 = {}, time.perf_counter()
+    for bf16 in (True, False):
+        model = _train_model(spec["model_cfg"], None, bf16).eval()
+        params = dict(trainable_parameters(model))
+        for plain in (False, True):
+            def grad():
+                with dispatch.force_plain() if plain else contextlib.nullcontext():
+                    loss = multi_head_loss(model(x), y)
+                    grads = torch.autograd.grad(loss, list(params.values()))
+                return loss.item(), {n: gr.float() for n, gr in
+                                     zip(params, grads)}
+            if plain:
+                runs[bf16, plain] = grad()
+                continue
+            runs[bf16, plain], counts, variants = counted(grad)
+            if bf16:
+                hold_counts(f"{spec['model_cfg']}@{size} SAM2UNet eval-mode "
+                            f"gradient, bf16 batch {b}", counts,
+                            spec["per_backward"])
+                seen.update(variants)
+            else:
+                k13 = {v: n for (w, v), n in variants.items()
+                       if w == "window_block_strips_rem_bwd"}
+                print(f"[main] {label} the same gradient in fp32: launches "
+                      f"{counts}; K13 {k13}", flush=True)
+                if k13 != {"window=7,K13a": 1}:
+                    fail(f"{label}: the fp32 eval-mode gradient launched K13 "
+                         f"{k13}, expected K13a once (block 15)")
+        del model
+        torch.cuda.empty_cache()
+    good, _ = _hold_step(f"{label} {spec['model_cfg']}@{size} SAM2UNet "
+                         "eval-mode gradient",
+                         f"batch {b}, {len(runs[False, True][1])} trainable "
+                         "leaves", runs)
+    print(f"[main] {label} (c) {time.perf_counter() - t0:.1f} s (host clock, "
+          f"4 gradients)", flush=True)
+    if not (ok and good):
+        fail(f"{label}: a model gradient's kernels disagree with the plain "
+             "versions")
+    del runs
+    torch.cuda.empty_cache()
+    return dict(seen)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="build,kernels,main,throughput")
     ap.add_argument("--paths",
                     default="l352,s960,l352train,s960train,s1024sam2,"
                             "s1024video,t512video,t1024amg,s960cli,s960deploy,"
-                            "s960interop,s960dp,s352mc,opsapi")
+                            "s960interop,s960dp,s352mc,opsapi,bwdmodes")
     ap.add_argument("--batch", type=int, default=32,
                     help="kernel, throughput and profile batch at hiera_l@352")
     ap.add_argument("--batch960", type=int, default=16,
@@ -4527,6 +4843,8 @@ def main() -> None:
                         variants[path] = multichip_main_phase(path, Path(tmp), card)
                     elif PATHS[path].get("opsapi"):
                         variants[path] = opsapi_main_phase(path, batch)
+                    elif PATHS[path].get("bwdmodes"):
+                        variants[path] = bwdmodes_main_phase(path)
                     elif PATHS[path].get("interop"):
                         variants[path] = interop_main_phase(path, Path(tmp), card,
                                                             rates)
@@ -4538,7 +4856,8 @@ def main() -> None:
                         variants[path] = main_path_phase(path, Path(tmp))
                 if ("held_by" in PATHS[path] or PATHS[path].get("deploy")
                         or PATHS[path].get("multichip")
-                        or PATHS[path].get("opsapi")):
+                        or PATHS[path].get("opsapi")
+                        or PATHS[path].get("bwdmodes")):
                     continue   # their times and A/Bs are the main phase's
                 if "throughput" in phases and PATHS[path].get("video"):
                     video_throughput_phase(path, card)

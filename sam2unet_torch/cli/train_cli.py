@@ -56,7 +56,6 @@ from sam2unet_torch.cli.common import (
     postprocess_prediction,
     resolve_device,
 )
-from sam2unet_torch.configs import hiera_config
 from sam2unet_torch.data.dataset import EvalDataset, TrainDataset
 from sam2unet_torch.eval.metrics import (
     MIOU,
@@ -64,7 +63,6 @@ from sam2unet_torch.eval.metrics import (
     evaluate_segmentation_performance,
     print_eval_report,
 )
-from sam2unet_torch.models.hiera import unported_train_backward
 from sam2unet_torch.models.sam2unet import cast_frozen
 from sam2unet_torch.parallel.mesh import (
     Mesh,
@@ -149,19 +147,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(model_cfg: str, size: int, device: torch.device) -> None:
-    """Exit where training this trunk at this size on the card would reach
-    a backward kernel not ported yet (none of the shipped trunks does: the
-    trunk is frozen, and hiera_s@960's long global blocks train through
-    K11)."""
-    gaps = unported_train_backward(hiera_config(model_cfg), size)
-    if device.type == "cuda" and gaps:
-        raise SystemExit(
-            f"training {model_cfg} at --size {size} on the card needs "
-            f"backward kernels sam2unet_torch has not ported yet (ROADMAP.md "
-            f"queue 2, TPU kernels still to port): {'; '.join(gaps)}")
-
-
 def full_evaluate(model, test_data: EvalDataset, batch_size: int, size: int,
                   device: torch.device) -> tuple[dict, int]:
     """The JAX CLI's host evaluation (cli/train_cli.py:235-251 there): per
@@ -217,7 +202,6 @@ def stop_profile(prof: torch.profiler.profile, out_dir: str, first: int,
 
 def main(args) -> dict:
     device = resolve_device(args.device)
-    check_ported(args.model_cfg, args.size, device)
     owns_group = not dist.is_initialized()
     mesh = make_mesh(device)
     try:

@@ -30,8 +30,8 @@
 // where it has none) in place of the call's ln(n_pad). A -1e30 score's
 // weight comes out exactly 0 once the row's running max reaches a real
 // score; a tile whose keys are all masked for a row is wiped by that
-// rescale. Optional lse output (K10, K7): m + ln(l) of each query's scaled
-// scores, fp32.
+// rescale. Optional lse output (K10, K7, K13): m + ln(l) of each query's
+// scaled scores, fp32, in rows of p.Sq per (window, head).
 //
 // Streaming (flash) form: the block's Q tile is loaded once (head dim
 // zero-padded to NDF*16 for the 16-deep MMA step; pad lanes are zero and
@@ -376,8 +376,8 @@ __global__ void __launch_bounds__(128) attn_kernel(AttnParams p) {
       const int col = f * 8 + q2;
       if (col < p.d) store2(orow + col, o[f][2 * hh] * inv, o[f][2 * hh + 1] * inv);
     }
-    if (p.lse && (lane & 3) == 0)
-      p.lse[((long long)wi * gridDim.y + h) * Sq + t] = m[hh] + logf(den);
+    if (p.lse && (lane & 3) == 0)   // rows of p.Sq: an edge window's too
+      p.lse[((long long)wi * gridDim.y + h) * p.Sq + t] = m[hh] + logf(den);
   }
 }
 

@@ -4,14 +4,17 @@
 // plain version rounds it; attention_bwd.cuh's D, dQ and dK/dV passes write
 // dqkv in T; the row-major-B GEMM dx_n = dqkv @ W_qkv; the LN backward pass
 // adds gy for the residual. Shared by K5 and K7
-// (fused_attention_block_bwd.cu) and K7's masked mode
-// (fused_attention_block_masked.cu, `MASKED`).
+// (fused_attention_block_bwd.cu), K7's masked mode
+// (fused_attention_block_masked.cu, `MASKED`), K7's weight-gradient mode
+// (fused_attention_block_wgrad.cu, which adds the weight gradients from the
+// buffers this writes) and K13 (fused_attention_block_rem_bwd.cu, `REM`:
+// the forward attention in K12's grid mode with the edge windows' pad key).
 #pragma once
 
 #include "attention_bwd.cuh"
 #include "gemm_bwd.cuh"
 
-template <bool MASKED = false>
+template <bool MASKED = false, bool REM = false>
 static int attn_block_bwd(int is_bf16, const void* x, const void* gy,
                           const void* w_qkv, const void* b_qkv, const void* ln_w,
                           const void* ln_b, const void* w_proj, void* xn,
@@ -38,7 +41,7 @@ static int attn_block_bwd(int is_bf16, const void* x, const void* gy,
   AttnBwdParams bp = {};
   bp.a = ap; bp.o = o; bp.dout = dout; bp.lse = lse; bp.D = D;
   bp.dqkv = dqkv; bp.ld = 3LL * c;
-  e = launch_attn_bwd_dt<MASKED>(is_bf16, bp, n_windows, nh, s);
+  e = launch_attn_bwd_dt<MASKED, REM>(is_bf16, bp, n_windows, nh, s);
   if (e != cudaSuccess) return (int)e;
   GemmParams g3 = {};
   g3.A = dqkv; g3.lda = 3LL * c; g3.W = w_qkv;

@@ -1,7 +1,8 @@
 // dx-only backward of attention.cuh's attention: dq, dk and dv of
 // softmax(q k^T * scale) v for each (window, head), from q, k, v (the
 // recomputed qkv buffer), the forward's output o and lse, and dO. Shared by
-// K5 (grid mode), K7 (rows mode) and K9 (grid mode with the in-window q-pool).
+// K5 (grid mode), K7 (rows mode), K9 (grid mode with the in-window q-pool)
+// and K13 (grid mode on a remainder grid).
 //
 // Two passes per (window, head), no atomics, any S (the ragged last tile of
 // keys or queries is zero-filled and masked):
@@ -26,10 +27,15 @@
 //
 // Geometries: rows mode (windows of S consecutive rows of the qkv buffer)
 // and grid mode on window-divisible grids; no pad key (the remainder groups'
-// backward is the reference recompute) but in K7's masked mode
-// (`launch_attn_bwd_dt<true>`, rows mode, a template instance of its own):
-// the mask added to every score, the pad key's logit q.b_k * scale +
-// logmult[t]. Its key and value are frozen bias slices, so only dq gets a
+// backward is the reference recompute) but in two template instances of
+// their own, so that the other forms compile as before:
+//   K7's masked mode (`launch_attn_bwd_dt<true>`, rows mode): the mask added
+//   to every score, the pad key's logit q.b_k * scale + logmult[t];
+//   K13's remainder grid (`launch_attn_bwd_dt<false, true>`, grid mode on
+//   any grid): K12's windows, an edge window holding only its vh x vw
+//   tokens inside the grid, and the pad key of its own n_pad = win^2 -
+//   vh*vw at logit q.b_k * scale + ln(n_pad).
+// The pad key's key and value are frozen bias slices, so only dq gets a
 // term, dS_pad b_k with dS_pad = P_pad (dO.b_v - D), P_pad = exp(logit -
 // lse) (D = rowsum(dO o) already holds the pad key's share of o), added in
 // fp32 as the Pallas kernel adds it (fused_attention_block.py:521-522).
@@ -52,24 +58,48 @@ struct AttnBwdParams {
 
 // Where window wi's tokens lie: key / query token t at qkv row
 // krow0 + attn_rel(t, kvw, W); output row of query t orow0 + attn_rel(t, ovw, oW).
+// With REM also its keys S and queries Sq (an edge window's own; the
+// kernels read p.S and p.Sq otherwise) and its pad key's log-multiplicity
+// (pad false where it has no pads).
 struct BwdWin {
   long long krow0, orow0;
   int kvw, ovw, oW;
+  int S, Sq;
+  bool pad;
+  float pad_logn;
 };
 
+template <bool REM>
 __device__ __forceinline__ BwdWin bwd_window(const AttnParams& p, int wi) {
   BwdWin w;
+  w.S = p.S;
+  w.Sq = p.Sq;
+  w.pad = false;
+  w.pad_logn = 0.f;
   if (p.mode == 0) {
     w.krow0 = (long long)wi * p.S;
     w.orow0 = (long long)wi * p.Sq;
     w.kvw = w.ovw = w.oW = 0;
     return w;
   }
-  const int nwx = p.W / p.win, nwin = (p.H / p.win) * nwx;
+  const int nwx = REM ? (p.W + p.win - 1) / p.win : p.W / p.win;
+  const int nwin = (REM ? (p.H + p.win - 1) / p.win : p.H / p.win) * nwx;
   const int b = wi / nwin, r = wi - b * nwin;
   const int wy = r / nwx, wx = r - wy * nwx;
   w.krow0 = ((long long)b * p.H + wy * p.win) * p.W + wx * p.win;
   w.kvw = p.win;
+  if constexpr (REM) {   // K12's edge windows (attention.cuh, mode 1)
+    const int vh = min(p.win, p.H - wy * p.win);
+    const int vw = min(p.win, p.W - wx * p.win);
+    const int n_pad = p.win * p.win - vh * vw;
+    w.kvw = w.ovw = vw;
+    w.orow0 = w.krow0;
+    w.oW = p.W;
+    w.S = w.Sq = vh * vw;
+    w.pad = n_pad > 0;
+    w.pad_logn = n_pad > 0 ? logf((float)n_pad) : 0.f;
+    return w;
+  }
   if (!p.qpool) {
     w.orow0 = w.krow0;
     w.ovw = p.win;
@@ -93,14 +123,14 @@ __device__ __forceinline__ long long bwd_pool_row(const AttnParams& p,
 
 // rows x DP tile of queries t0.. (pooled with qpool; zero past Sq and d).
 template <typename T, int DP>
-__device__ __forceinline__ void bwd_load_q(T* dst, int rows, int t0,
+__device__ __forceinline__ void bwd_load_q(T* dst, int rows, int t0, int Sq,
                                            const AttnParams& p, const BwdWin& w,
                                            const T* qb, int tid, int nthr) {
   constexpr int LDS = DP + 8;
   for (int idx = tid; idx < rows * (DP / 8); idx += nthr) {
     const int r = idx / (DP / 8), ch = (idx - r * (DP / 8)) * 8, t = t0 + r;
     V8<T> val = v8_zero<T>();
-    if (t < p.Sq && ch < p.d) {
+    if (t < Sq && ch < p.d) {
       if (!p.qpool) {
         val = v8_load(qb + (w.krow0 + attn_rel(t, w.kvw, p.W)) * p.q_ss + ch);
       } else {
@@ -121,10 +151,11 @@ __device__ __forceinline__ void bwd_load_q(T* dst, int rows, int t0,
 }
 
 // rows x DP tile of output-layout rows (o, dO) of queries t0.., and their
-// lse and D (zero past Sq).
+// lse and D (zero past Sq; lse in rows of p.Sq).
 template <typename T, int DP>
 __device__ __forceinline__ void bwd_load_out(T* dst, float* lse_s, float* D_s,
-                                             int rows, int t0, const AttnBwdParams& bp,
+                                             int rows, int t0, int Sq,
+                                             const AttnBwdParams& bp,
                                              const BwdWin& w, int wi, int h,
                                              int nh, int tid, int nthr) {
   constexpr int LDS = DP + 8;
@@ -133,13 +164,13 @@ __device__ __forceinline__ void bwd_load_out(T* dst, float* lse_s, float* D_s,
   for (int idx = tid; idx < rows * (DP / 8); idx += nthr) {
     const int r = idx / (DP / 8), ch = (idx - r * (DP / 8)) * 8, t = t0 + r;
     V8<T> val = v8_zero<T>();
-    if (t < p.Sq && ch < p.d)
+    if (t < Sq && ch < p.d)
       val = v8_load(db + (w.orow0 + attn_rel(t, w.ovw, w.oW)) * p.c + ch);
     v8_store(dst + r * LDS + ch, val);
   }
   for (int r = tid; r < rows; r += nthr) {
     const int t = t0 + r;
-    const bool ok = t < p.Sq;
+    const bool ok = t < Sq;
     lse_s[r] = ok ? bp.lse[((long long)wi * nh + h) * p.Sq + t] : 0.f;
     D_s[r] = ok ? bp.D[(w.orow0 + attn_rel(t, w.ovw, w.oW)) * nh + h] : 0.f;
   }
@@ -167,7 +198,7 @@ __global__ void __launch_bounds__(256) attn_bwd_rowdot_kernel(
   D[i] = s;
 }
 
-template <typename T, int NDF, bool MASKED>
+template <typename T, int NDF, bool MASKED, bool REM>
 __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(AttnBwdParams bp) {
   constexpr int DP = 16 * NDF, LDS = DP + 8, NDT = 2 * NDF;
   constexpr int CH = 16 / sizeof(T);
@@ -186,14 +217,16 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(AttnBwdParams bp) {
   const int q0 = blockIdx.z * BQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q2 = (lane & 3) * 2;
-  const BwdWin w = bwd_window(p, wi);
-  const int S = p.S, Sq = p.Sq;
+  const BwdWin w = bwd_window<REM>(p, wi);
+  const int S = REM ? w.S : p.S, Sq = REM ? w.Sq : p.Sq;
+  if (REM && q0 >= Sq) return;   // an edge window's spare query tiles
   const T* qb = reinterpret_cast<const T*>(p.q) + h * p.d;
   const T* kb = reinterpret_cast<const T*>(p.k) + h * p.d;
   const T* vb = reinterpret_cast<const T*>(p.v) + h * p.d;
 
-  bwd_load_q<T, DP>(Qs, BQ, q0, p, w, qb, tid, blockDim.x);
-  bwd_load_out<T, DP>(dOs, lse_s, D_s, BQ, q0, bp, w, wi, h, nh, tid, blockDim.x);
+  bwd_load_q<T, DP>(Qs, BQ, q0, Sq, p, w, qb, tid, blockDim.x);
+  bwd_load_out<T, DP>(dOs, lse_s, D_s, BQ, q0, Sq, bp, w, wi, h, nh, tid,
+                      blockDim.x);
 
   auto load_kv = [&](int buf, int kt) {
     constexpr int NCH = DP / CH;
@@ -248,7 +281,7 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(AttnBwdParams bp) {
 
   // the pad key's term: the four lanes of a row hold its columns between
   // them, so the two dot products are lane partials summed across them
-  if constexpr (MASKED) {
+  if (MASKED || (REM && w.pad)) {
     const T* pb = reinterpret_cast<const T*>(p.pad_bias);
     const T* kp = pb + p.c + h * p.d;
     const T* vp = pb + 2 * p.c + h * p.d;
@@ -271,8 +304,8 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(AttnBwdParams bp) {
       sd += __shfl_xor_sync(0xffffffffu, sd, 1);
       sd += __shfl_xor_sync(0xffffffffu, sd, 2);
       if (t >= Sq) continue;
-      const float ds =
-          expf(sq * p.scale + p.logmult[t] - lse_s[row]) * (sd - D_s[row]);
+      const float lm = MASKED ? p.logmult[t] : w.pad_logn;
+      const float ds = expf(sq * p.scale + lm - lse_s[row]) * (sd - D_s[row]);
 #pragma unroll
       for (int f = 0; f < NDT; ++f)
 #pragma unroll
@@ -317,7 +350,7 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(AttnBwdParams bp) {
   }
 }
 
-template <typename T, int NDF, bool MASKED>
+template <typename T, int NDF, bool MASKED, bool REM>
 __global__ void __launch_bounds__(128) attn_bwd_dkv_kernel(AttnBwdParams bp) {
   constexpr int DP = 16 * NDF, LDS = DP + 8, NDT = 2 * NDF;
   extern __shared__ __align__(128) unsigned char a_smem[];
@@ -335,8 +368,9 @@ __global__ void __launch_bounds__(128) attn_bwd_dkv_kernel(AttnBwdParams bp) {
   const int k0 = blockIdx.z * BK;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q2 = (lane & 3) * 2;
-  const BwdWin w = bwd_window(p, wi);
-  const int S = p.S, Sq = p.Sq;
+  const BwdWin w = bwd_window<REM>(p, wi);
+  const int S = REM ? w.S : p.S, Sq = REM ? w.Sq : p.Sq;
+  if (REM && k0 >= S) return;    // an edge window's spare key tiles
   const T* qb = reinterpret_cast<const T*>(p.q) + h * p.d;
   const T* kb = reinterpret_cast<const T*>(p.k) + h * p.d;
   const T* vb = reinterpret_cast<const T*>(p.v) + h * p.d;
@@ -362,9 +396,9 @@ __global__ void __launch_bounds__(128) attn_bwd_dkv_kernel(AttnBwdParams bp) {
   const int nqt = (Sq + A_BKV - 1) / A_BKV;
   for (int qt = 0; qt < nqt; ++qt) {
     __syncthreads();   // the previous query tile consumed
-    bwd_load_q<T, DP>(Qs, A_BKV, qt * A_BKV, p, w, qb, tid, blockDim.x);
-    bwd_load_out<T, DP>(dOs, lse_s, D_s, A_BKV, qt * A_BKV, bp, w, wi, h, nh,
-                        tid, blockDim.x);
+    bwd_load_q<T, DP>(Qs, A_BKV, qt * A_BKV, Sq, p, w, qb, tid, blockDim.x);
+    bwd_load_out<T, DP>(dOs, lse_s, D_s, A_BKV, qt * A_BKV, Sq, bp, w, wi, h,
+                        nh, tid, blockDim.x);
     __syncthreads();
     float s[8][4], dp[8][4];
     tile_rows_dot<T, NDF>(s, Kb + warp * 16 * LDS, Qs, p.d, lane);   // (q k^T)^T
@@ -407,11 +441,15 @@ __global__ void __launch_bounds__(128) attn_bwd_dkv_kernel(AttnBwdParams bp) {
   }
 }
 
-template <typename T, int NDF, bool MASKED>
+template <typename T, int NDF, bool MASKED, bool REM>
 static cudaError_t launch_attn_bwd_t(const AttnBwdParams& bp, int n_windows,
                                      int nh, cudaStream_t stream) {
   const AttnParams& p = bp.a;
-  const long long out_rows = (long long)n_windows * p.Sq;
+  // output rows: every window's queries; with REM the grid's tokens
+  const long long nwin = (long long)((p.H + p.win - 1) / p.win)
+                         * ((p.W + p.win - 1) / p.win);
+  const long long out_rows = REM ? n_windows / nwin * p.H * p.W
+                                 : (long long)n_windows * p.Sq;
   const long long nd = out_rows * nh;
   attn_bwd_rowdot_kernel<T><<<(unsigned)((nd + 255) / 256), 256, 0, stream>>>(
       reinterpret_cast<const T*>(bp.o), reinterpret_cast<const T*>(bp.dout),
@@ -421,10 +459,10 @@ static cudaError_t launch_attn_bwd_t(const AttnBwdParams& bp, int n_windows,
 
   int warps = p.Sq >= 64 ? 4 : (p.Sq + 15) / 16;
   size_t smem = attn_bwd_smem_bytes(warps * 16, 4 * A_BKV, warps, 16 * NDF, sizeof(T));
-  e = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, NDF, MASKED>,
+  e = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, NDF, MASKED, REM>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  attn_bwd_dq_kernel<T, NDF, MASKED>
+  attn_bwd_dq_kernel<T, NDF, MASKED, REM>
       <<<dim3(n_windows, nh, (p.Sq + warps * 16 - 1) / (warps * 16)), warps * 32,
          smem, stream>>>(bp);
   e = cudaGetLastError();
@@ -432,33 +470,37 @@ static cudaError_t launch_attn_bwd_t(const AttnBwdParams& bp, int n_windows,
 
   warps = p.S >= 64 ? 4 : (p.S + 15) / 16;
   smem = attn_bwd_smem_bytes(warps * 16, 2 * A_BKV, warps, 16 * NDF, sizeof(T));
-  e = cudaFuncSetAttribute(attn_bwd_dkv_kernel<T, NDF, MASKED>,
+  e = cudaFuncSetAttribute(attn_bwd_dkv_kernel<T, NDF, MASKED, REM>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  attn_bwd_dkv_kernel<T, NDF, MASKED>
+  attn_bwd_dkv_kernel<T, NDF, MASKED, REM>
       <<<dim3(n_windows, nh, (p.S + warps * 16 - 1) / (warps * 16)), warps * 32,
          smem, stream>>>(bp);
   return cudaGetLastError();
 }
 
-template <bool MASKED = false>
+template <bool MASKED = false, bool REM = false>
 static cudaError_t launch_attn_bwd_dt(int is_bf16, const AttnBwdParams& bp,
                                       int n_windows, int nh, cudaStream_t stream) {
+  static_assert(!(MASKED && REM), "one pad-key mode at a time");
   const AttnParams& p = bp.a;
   if (p.d % 8 || p.d > 96 || nh > 65535 || p.Sq < 1 || p.S < 1
       || (MASKED ? !p.mask || !p.logmult || !p.pad_bias || p.mode != 0
                        || p.qpool || p.Sq != p.S
+          : REM  ? !p.pad_bias || p.mask || p.mode != 1 || p.qpool
+                       || p.win < 1 || p.S != p.win * p.win || p.Sq != p.S
                  : p.pad_bias || p.mask)
       || (p.S + 15) / 16 > 65535 || (p.Sq + 15) / 16 > 65535)
     return cudaErrorInvalidValue;
-  if (p.mode == 1 && (p.H % p.win || p.W % p.win || (p.qpool && p.win % 2)))
+  if (!REM && p.mode == 1
+      && (p.H % p.win || p.W % p.win || (p.qpool && p.win % 2)))
     return cudaErrorInvalidValue;
   if (is_bf16) {
-    if (p.d <= 64) return launch_attn_bwd_t<bf16, 4, MASKED>(bp, n_windows, nh, stream);
-    if (p.d <= 80) return launch_attn_bwd_t<bf16, 5, MASKED>(bp, n_windows, nh, stream);
-    return launch_attn_bwd_t<bf16, 6, MASKED>(bp, n_windows, nh, stream);
+    if (p.d <= 64) return launch_attn_bwd_t<bf16, 4, MASKED, REM>(bp, n_windows, nh, stream);
+    if (p.d <= 80) return launch_attn_bwd_t<bf16, 5, MASKED, REM>(bp, n_windows, nh, stream);
+    return launch_attn_bwd_t<bf16, 6, MASKED, REM>(bp, n_windows, nh, stream);
   }
-  if (p.d <= 64) return launch_attn_bwd_t<float, 4, MASKED>(bp, n_windows, nh, stream);
-  if (p.d <= 80) return launch_attn_bwd_t<float, 5, MASKED>(bp, n_windows, nh, stream);
-  return launch_attn_bwd_t<float, 6, MASKED>(bp, n_windows, nh, stream);
+  if (p.d <= 64) return launch_attn_bwd_t<float, 4, MASKED, REM>(bp, n_windows, nh, stream);
+  if (p.d <= 80) return launch_attn_bwd_t<float, 5, MASKED, REM>(bp, n_windows, nh, stream);
+  return launch_attn_bwd_t<float, 6, MASKED, REM>(bp, n_windows, nh, stream);
 }

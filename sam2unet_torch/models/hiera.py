@@ -30,13 +30,15 @@ package's order (sam2unet_tpu/models/hiera.py:210-466):
 SAM2UNET_DISABLE_GROUPED=1 (the JAX package's switch, same name and
 meaning) partitions and merges around each block instead, for A/Bs. The
 kernel wrappers are differentiable: the frozen blocks' backward is K5
-(strips), K7 (window groups with n_pad = 0, global blocks up to 1024
-tokens), the long form's backward over K11 (the 3600-token global blocks of
-hiera_s@960), K9 (transitions) and K2 (tails), the adapters' is K3, all per
-group inside a grouped run, and the pad-key groups and the plain transition
-go through autograd of the plain versions; where the JAX package runs a
-backward kernel not ported yet (K7's weight-gradient mode,
-`unported_train_backward`) the backward raises on the card. With adapters
+(strips), K13 (remainder strips, an eval-mode gradient), K7 (window groups
+with n_pad = 0, global blocks up to 1024 tokens), the long form's backward
+over K11 (the 3600-token global blocks of hiera_s@960), K9 (transitions)
+and K2 (tails), the adapters' is K3, all per group inside a grouped run, and
+the pad-key groups and the plain transition go through autograd of the
+plain versions. A trunk that is not frozen trains its windowed blocks
+through K7's weight-gradient mode where the JAX gate takes it (hiera_l@352
+stage 3's pad-free 16x16 groups; hiera_s's 256-token global blocks at
+256 px) and through autograd of the plain versions elsewhere. With adapters
 the trunk is frozen as in the reference (SAM2UNet.py:146-147): every
 parameter but the adapters' has requires_grad False. The drop-path rate is
 0 in every SAM2 config, so drop path is the identity. `remat=True` runs each
@@ -75,7 +77,6 @@ from sam2unet_torch.ops.fused_attention_block import (
     fused_window_block_strips_rem,
     strips_rem_supported,
     valid_group_blocks,
-    window_block_bwd_route,
 )
 from sam2unet_torch.ops.fused_mlp import fused_ln_matmul, fused_mlp
 from sam2unet_torch.ops.fused_transition import (
@@ -358,26 +359,6 @@ def _checkpointed(blk: nn.Module, x):
         return y.groups
     groups = checkpoint(run, *x.groups, use_reentrant=False)
     return out["layout"].with_groups(groups)
-
-
-def unported_train_backward(cfg: HieraConfig, size: int,
-                            frozen: bool = True) -> list[str]:
-    """The global blocks whose backward, at input `size`, the JAX package
-    runs through a kernel the port has not ported yet (K7's weight-gradient
-    mode, for a trunk that is not frozen), one line each; empty where
-    training runs on the port's kernels (hiera_l@352 and, through K11,
-    hiera_s@960, with the trunk frozen)."""
-    h = w = -(-size // 4)
-    out = []
-    for i, bk in enumerate(_block_plan(cfg)):
-        if bk["window_size"] == 0 and bk["dim"] == bk["dim_out"]:
-            route = window_block_bwd_route(h * w, bk["dim"], 0, not frozen)
-            if route not in ("K7", "K11", "plain"):
-                out.append(f"block {i}: global attention over {h * w} "
-                           f"tokens at width {bk['dim']} needs {route}")
-        if bk["q_stride"] is not None:
-            h, w = h // bk["q_stride"][0], w // bk["q_stride"][1]
-    return out
 
 
 class PatchEmbed(nn.Module):

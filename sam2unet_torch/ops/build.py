@@ -41,7 +41,8 @@ SOURCES = ("fused_mlp", "fused_attention_block", "fused_transition",
            "flash_attention", "fused_mlp_bwd", "fused_attention_block_bwd",
            "fused_transition_bwd", "flash_attention_bwd", "full_attention",
            "flash_attention_d256", "full_attention_d256",
-           "fused_attention_block_masked")
+           "fused_attention_block_masked", "fused_attention_block_wgrad",
+           "fused_attention_block_rem_bwd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -86,6 +87,13 @@ SIGNATURES = {
     "fused_attention_block_masked": {
         "k6_window_block_masked": [_I, *[_P] * 13, *[_I] * 5, _P],
         "k7_window_block_bwd_masked": [_I, *[_P] * 18, *[_I] * 5, _P],
+    },
+    # K7's weight-gradient mode and K13, libraries of their own
+    "fused_attention_block_wgrad": {
+        "k7_window_block_bwd_wgrad": [_I, *[_P] * 23, *[_I] * 5, _P],
+    },
+    "fused_attention_block_rem_bwd": {
+        "k13_window_block_strips_rem_bwd": [_I, *[_P] * 16, *[_I] * 7, _P],
     },
     "fused_transition_bwd": {
         "k9_transition_bwd": [_I, *[_P] * 19, *[_I] * 7, _P],

@@ -1,28 +1,29 @@
 """K4, K6 and K12: the Hiera attention block LN1 -> QKV -> window attention
--> proj -> +x, and its long-sequence form over K10 (backward over K11); K5
-and K7, the dx-only backward of K4 and K6. K6 and K7 also take the JAX
-package's masked mode: a whole small grid a row, with the additive window
-mask and per-query pad-key log-multiplicity of `grid_window_mask`.
-Counterpart of
+-> proj -> +x, and its long-sequence form over K10 (backward over K11); K5,
+K7 and K13, the dx-only backward of K4, K6 and K12; K7's weight-gradient
+mode, dx and every weight gradient of K6's unmasked, pad-free rows. K6 and
+K7 also take the JAX package's masked mode: a whole small grid a row, with
+the additive window mask and per-query pad-key log-multiplicity of
+`grid_window_mask`. Counterpart of
 sam2unet_tpu/ops/pallas/fused_attention_block.py (`fused_window_block` /
 `_xla_window_block`, `fused_window_block_strips` / `_xla_strips`,
 `_fused_strips_rem_fwd_impl` / `_xla_strips_rem`, `_strips_bwd`, `_bwd`);
 the kernels are csrc/fused_attention_block.cu, csrc/flash_attention.cu,
-csrc/flash_attention_bwd.cu (K11) and csrc/fused_attention_block_bwd.cu
-(K5, K7).
+csrc/flash_attention_bwd.cu (K11), csrc/fused_attention_block_bwd.cu (K5,
+K7), csrc/fused_attention_block_wgrad.cu (K7's weight-gradient mode) and
+csrc/fused_attention_block_rem_bwd.cu (K13).
 
 Weights are in torch layout: w_qkv (3c, c) with output channels ordered
 [3, heads, d], w_proj (c, c). The wrappers are differentiable. The backward
 follows the JAX package's dispatch: the dx-only kernel where the block's
 weights are frozen and the window fits its live budget (K5 for the strips,
-K7 for n_pad = 0 window rows and for masked rows), the long form's
-backward over K11 for windows past 1024 tokens, autograd through the plain
-version, recomputed, where the JAX package runs its XLA recompute (the pad
-key, windows over the budget, masked rows with weights that need
-gradients, weights that need gradients outside K7's weight-gradient
-mode), and
-an error where it runs a kernel not ported yet (K7's weight-gradient mode,
-K13).
+K13 for the remainder strips, K7 for n_pad = 0 window rows and for masked
+rows), K7's weight-gradient mode where the weights need gradients and the
+window and the gradients fit its budget, the long form's backward over K11
+for windows past 1024 tokens, and autograd through the plain version,
+recomputed, where the JAX package runs its XLA recompute (the pad key,
+windows over the budget, masked rows with weights that need gradients,
+strips with weights that need gradients).
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from sam2unet_torch.ops.flash_attention import (
     flash_attention_bwd,
     pick_stream_blocks,
 )
-from sam2unet_torch.ops.fused_mlp import MAX_LN_WIDTH
+from sam2unet_torch.ops.fused_mlp import MAX_LN_WIDTH, WGRAD_ROWS
 from sam2unet_torch.ops.windowing import (
     window_merge_valid,
     window_partition,
@@ -215,6 +216,56 @@ def strips_rem_supported(hh: int, wd: int, window: int, c: int,
         return True
     return bwd and _rem_vmem_est_jw(n_w, s_tok, c, d, window, wd, itemsize,
                                     wb) <= cap
+
+
+def strips_rem_bwd_regime(hh: int, wd: int, window: int, c: int,
+                          num_heads: int, itemsize: int = 2) -> str:
+    """Which of the JAX package's two remainder-strip backward kernels it
+    launches where `strips_rem_supported(..., bwd=True)` holds
+    (`_fused_strips_rem_bwd_impl`, fused_attention_block.py:1612-1620):
+    "K13b" (the window on the grid) where one whole strip's working set
+    passes the TPU's 13 MiB of VMEM, else "K13a". One Hopper kernel computes
+    both; the label names the launch as the JAX package would."""
+    hp, wp = _win_pad_dims(window)
+    d, n_w = c // num_heads, -(-wd // window)
+    wb = _rem_weight_bytes(num_heads, c, d, itemsize)
+    est = _rem_vmem_est(n_w, hp * wp, c, d, window, wd, itemsize, wb, True)
+    return "K13b" if est > 13 * 1024 * 1024 else "K13a"
+
+
+def strips_route(hh: int, wd: int, window: int, c: int, num_heads: int,
+                 itemsize: int = 2) -> str:
+    """The forward the JAX package runs for `fused_window_block_strips`
+    (`_fused_strips_vjp`, fused_attention_block.py:975-997): "K4" on a
+    divisible grid with a 16-aligned window whose live set fits, else
+    "K12" where `strips_rem_supported` holds, else "plain" (`_xla_strips`
+    on divisible grids, `_xla_strips_rem` on the others)."""
+    s = window * window
+    s16 = s + (-s) % 16
+    if (hh % window == 0 and wd % window == 0 and s % 16 == 0
+            and 8 * s16 * s16 + 14 * s16 * c <= LONG_SEQUENCE_BYTES):
+        return "K4"
+    if strips_rem_supported(hh, wd, window, c, num_heads, itemsize):
+        return "K12"
+    return "plain"
+
+
+def strips_bwd_route(hh: int, wd: int, window: int, c: int, num_heads: int,
+                     itemsize: int = 2, weight_grads: bool = False) -> str:
+    """The backward the JAX package runs for `fused_window_block_strips`
+    (`_strips_bwd`, fused_attention_block.py:1896-1929), whatever its
+    forward ran: with frozen weights "K5" on a divisible grid where
+    `strips_bwd_kernel` holds, else "K13a" / "K13b" where
+    `strips_rem_supported(..., bwd=True)` holds; else, and always with
+    weights that need gradients, "plain" (the XLA recompute of the form the
+    divisibility picks)."""
+    if weight_grads:
+        return "plain"
+    if hh % window == 0 and wd % window == 0 and strips_bwd_kernel(window, c):
+        return "K5"
+    if strips_rem_supported(hh, wd, window, c, num_heads, itemsize, bwd=True):
+        return strips_rem_bwd_regime(hh, wd, window, c, num_heads, itemsize)
+    return "plain"
 
 
 def long_form_kernel(s: int) -> bool:
@@ -401,11 +452,16 @@ def _window_block_backward(saved, gy, needs, num_heads, n_pad, residual,
         return (window_block_bwd(x, gy, *saved[1:], num_heads=num_heads,
                                  residual=residual, attn_mask=attn_mask,
                                  pad_logmult=pad_logmult),) + (None,) * 6
+    if route == "K7 weight-grad":
+        # the fp32 gradients in each input's own dtype, as the JAX package
+        # casts them (fused_attention_block.py:705-712)
+        grads = window_block_bwd(x, gy, *saved[1:], num_heads=num_heads,
+                                 residual=residual, weight_grads=True)
+        return tuple(g.to(t.dtype) if need else None
+                     for g, t, need in zip(grads, saved, needs))
     if route == "K11":
         return _long_window_block_backward(saved, gy, needs, num_heads,
                                            residual)
-    if route != "plain":
-        dispatch.not_ported(route)
     return _plain_backward(plain_window_block, saved, gy, needs,
                            num_heads=num_heads, n_pad=n_pad, residual=residual,
                            attn_mask=attn_mask, pad_logmult=pad_logmult)
@@ -484,19 +540,34 @@ def _grid_block(entry: str, x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
     return out
 
 
+def _strips_plain(x, *weights, num_heads: int, window: int, residual: bool):
+    """The JAX package's XLA form of the strips: `_xla_strips` on a
+    divisible grid, the valid groups with the pad key (`_xla_strips_rem`)
+    on the others."""
+    divisible = x.shape[1] % window == 0 and x.shape[2] % window == 0
+    plain = plain_strips if divisible else plain_strips_rem
+    return plain(x, *weights, num_heads, window, residual)
+
+
 def fused_window_block_strips(x: torch.Tensor, w_qkv, b_qkv, ln_w, ln_b,
                               w_proj, b_proj, num_heads: int, window: int,
                               residual: bool = True) -> torch.Tensor:
-    """K4. x: (B, H, W, c) on a window-divisible grid -> same shape.
-    Backward: K5 where the weights are frozen and `strips_bwd_kernel`
-    holds, else the plain recompute."""
+    """x: (B, H, W, c) on any grid -> same shape, the JAX function's
+    dispatch (`strips_route`): K4, K12, or the plain form of the grid. Its
+    backward, whatever the forward ran (`strips_bwd_route`): K5 or K13
+    where the weights are frozen and the gates hold, else the plain
+    recompute."""
     weights = (w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj)
+    if window <= 0:
+        raise ValueError(f"strip blocks need a window, got {window}")
     if not dispatch.use_kernel(x):
-        return plain_strips(x, *weights, num_heads, window, residual)
-    if x.shape[1] % window or x.shape[2] % window:
-        raise ValueError(f"strip kernel needs a divisible grid, got "
-                         f"{x.shape[1]}x{x.shape[2]} with window {window}")
-    return _differentiable(_strips_kernel, _strips_backward, x, weights,
+        return _strips_plain(x, *weights, num_heads=num_heads, window=window,
+                             residual=residual)
+    route = strips_route(x.shape[1], x.shape[2], window, x.shape[3],
+                         num_heads, x.dtype.itemsize)
+    fwd = {"K4": _strips_kernel, "K12": _strips_rem_kernel}.get(route,
+                                                                _strips_plain)
+    return _differentiable(fwd, _strips_backward, x, weights,
                            num_heads=num_heads, window=window,
                            residual=residual)
 
@@ -510,12 +581,17 @@ def _strips_kernel(x, *weights, num_heads: int, window: int, residual: bool):
 
 def _strips_backward(saved, gy, needs, num_heads, window, residual):
     x = saved[0]
-    if not any(needs[1:]) and strips_bwd_kernel(window, x.shape[-1]):
-        return (window_block_strips_bwd(x, gy, *saved[1:], num_heads=num_heads,
-                                        window=window, residual=residual),
-                ) + (None,) * 6
-    return _plain_backward(plain_strips, saved, gy, needs, num_heads=num_heads,
-                           window=window, residual=residual)
+    _, hh, wd, c = x.shape
+    route = strips_bwd_route(hh, wd, window, c, num_heads, x.dtype.itemsize,
+                             any(needs[1:]))
+    if route == "plain":
+        return _plain_backward(_strips_plain, saved, gy, needs,
+                               num_heads=num_heads, window=window,
+                               residual=residual)
+    bwd = window_block_strips_bwd if route == "K5" else \
+        window_block_strips_rem_bwd
+    return (bwd(x, gy, *saved[1:], num_heads=num_heads, window=window,
+                residual=residual),) + (None,) * 6
 
 
 def fused_window_block_strips_rem(x: torch.Tensor, w_qkv, b_qkv, ln_w, ln_b,
@@ -524,16 +600,15 @@ def fused_window_block_strips_rem(x: torch.Tensor, w_qkv, b_qkv, ln_w, ln_b,
     """K12. x: (B, H, W, c) on any grid -> same shape; each edge window
     attends over its tokens inside the grid plus the synthetic pad key of
     the reference's post-LN zero pads, so the result equals the
-    valid-group form. Eval only in the model. Backward: the plain recompute
-    where the weights need gradients (the JAX package's XLA recompute); for
-    frozen weights the JAX package runs K13, not ported yet, so it
-    raises."""
+    valid-group form. Eval only in the model. Backward: the JAX package's
+    `_strips_bwd` (`strips_bwd_route`), K13 for frozen weights where its
+    gate holds, else the plain recompute."""
     weights = (w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj)
     if not dispatch.use_kernel(x):
         return plain_strips_rem(x, *weights, num_heads, window, residual)
     if window <= 0:
         raise ValueError(f"remainder strip kernel needs a window, got {window}")
-    return _differentiable(_strips_rem_kernel, _strips_rem_backward, x,
+    return _differentiable(_strips_rem_kernel, _strips_backward, x,
                            weights, num_heads=num_heads, window=window,
                            residual=residual)
 
@@ -544,12 +619,6 @@ def _strips_rem_kernel(x, *weights, num_heads: int, window: int,
                       window, residual)
     dispatch.count_launch("fused_window_block_strips_rem", f"window={window}")
     return out
-
-
-def _strips_rem_backward(saved, gy, needs, **kw):
-    if not any(needs[1:]):
-        dispatch.not_ported("K13 (the remainder strips' backward)")
-    return _plain_backward(plain_strips_rem, saved, gy, needs, **kw)
 
 
 # ------------------------------------------------------------- backward
@@ -596,23 +665,34 @@ def _launch_bwd(entry, is_bf16, x, gy, weights, buf, *geometry, masks=(),
 
 def window_block_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
                      num_heads: int, residual: bool = True, attn_mask=None,
-                     pad_logmult=None) -> torch.Tensor:
+                     pad_logmult=None, weight_grads: bool = False):
     """K7: dx of `fused_window_block` on (nW, S, c) without a pad key, or in
     its masked mode (`attn_mask`, `pad_logmult`), for a cotangent gy, the
-    weights frozen; recomputed from x. Plain version: autograd through
-    `plain_window_block`."""
+    weights frozen; recomputed from x. With `weight_grads` (unmasked only),
+    K7's weight-gradient mode: (dx, dW_qkv, db_qkv, dln_w, dln_b, dW_proj,
+    db_proj), the weight gradients fp32 in the torch layouts, as
+    `_fused_window_block_bwd_impl(weight_grads=True)` returns them before
+    its cast. Plain version: autograd through `plain_window_block`, with
+    respect to x or to all seven."""
+    if weight_grads and attn_mask is not None:
+        raise ValueError("K7's weight-gradient mode takes no mask")
     if not dispatch.use_kernel(x):
-        fn = functools.partial(plain_window_block, w_qkv=w_qkv, b_qkv=b_qkv,
-                               ln_w=ln_w, ln_b=ln_b, w_proj=w_proj,
-                               b_proj=b_proj, num_heads=num_heads,
+        weights = (w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj)
+        fn = functools.partial(plain_window_block, num_heads=num_heads,
                                residual=residual, attn_mask=attn_mask,
                                pad_logmult=pad_logmult)
-        return dispatch.plain_vjp(fn, (x,), gy, (True,))[0]
+        needs = (True,) + (weight_grads,) * 6
+        grads = dispatch.plain_vjp(fn, (x, *weights), gy, needs)
+        if not weight_grads:
+            return grads[0]
+        return (grads[0],) + tuple(g.float() for g in grads[1:])
     nw, s, c = x.shape
     is_bf16, gy, weights = _block_bwd_args(x, gy, w_qkv, b_qkv, ln_w, ln_b,
                                            w_proj, b_proj, num_heads)
     buf = _bwd_buffers(x, c, num_heads, nw * s, nw * s, nw, s)
     geometry = (nw, s, c, num_heads, int(residual))
+    if weight_grads:
+        return _window_block_bwd_wgrad(is_bf16, x, gy, weights, buf, geometry)
     if attn_mask is None:
         dx = _launch_bwd("k7_window_block_bwd", is_bf16, x, gy, weights, buf,
                          *geometry)
@@ -625,6 +705,29 @@ def window_block_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
         variant = f"S={s},masked"
     dispatch.count_launch("window_block_bwd", variant)
     return dx
+
+
+def _window_block_bwd_wgrad(is_bf16, x, gy, weights, buf, geometry):
+    """K7's weight-gradient mode: the dx-only pipeline's buffers, then the
+    fp32 reductions over all rows (fused_attention_block_wgrad.cu)."""
+    nw, s, c = x.shape
+    m = nw * s
+    f32 = dict(dtype=torch.float32, device=x.device)
+    chunks = -(-m // WGRAD_ROWS)
+    ws = torch.empty(max(chunks * (3 * c * c + 3 * c), 2 * m + 2 * chunks * c),
+                     **f32)
+    grads = (torch.empty(3 * c, c, **f32), torch.empty(3 * c, **f32),
+             torch.empty(c, **f32), torch.empty(c, **f32),
+             torch.empty(c, c, **f32), torch.empty(c, **f32))
+    p = dispatch.ptr
+    err = build.library("fused_attention_block_wgrad").k7_window_block_bwd_wgrad(
+        is_bf16, p(x), p(gy), *(p(w) for w in weights),
+        *(p(buf[k]) for k in ("xn", "qkv", "o", "lse", "dout", "D", "dqkv",
+                              "dxn", "dx")),
+        p(ws), *(p(g) for g in grads), *geometry, dispatch.stream_of(x))
+    build.check(err, "k7_window_block_bwd_wgrad")
+    dispatch.count_launch("window_block_bwd", f"S={s},wgrad")
+    return (buf["dx"],) + grads
 
 
 def window_block_strips_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
@@ -650,4 +753,36 @@ def window_block_strips_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
     dx = _launch_bwd("k5_window_block_strips_bwd", is_bf16, x, gy, weights,
                      buf, b, hh, wd, c, num_heads, window, int(residual))
     dispatch.count_launch("window_block_strips_bwd", f"window={window}")
+    return dx
+
+
+def window_block_strips_rem_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj,
+                                b_proj, num_heads: int, window: int,
+                                residual: bool = True) -> torch.Tensor:
+    """K13: dx of `fused_window_block_strips_rem` (K12) on (B, H, W, c), any
+    grid, for a cotangent gy, the weights frozen; recomputed from x. Counted
+    under the JAX package's kernel for the geometry (`strips_rem_bwd_regime`:
+    K13a or K13b). Plain version: autograd through `plain_strips_rem`."""
+    if not dispatch.use_kernel(x):
+        fn = functools.partial(plain_strips_rem, w_qkv=w_qkv, b_qkv=b_qkv,
+                               ln_w=ln_w, ln_b=ln_b, w_proj=w_proj,
+                               b_proj=b_proj, num_heads=num_heads,
+                               window=window, residual=residual)
+        return dispatch.plain_vjp(fn, (x,), gy, (True,))[0]
+    b, hh, wd, c = x.shape
+    if window <= 0:
+        raise ValueError(f"remainder strip backward needs a window, got "
+                         f"{window}")
+    is_bf16, gy, weights = _block_bwd_args(x, gy, w_qkv, b_qkv, ln_w, ln_b,
+                                           w_proj, b_proj, num_heads)
+    windows = b * -(-hh // window) * -(-wd // window)
+    m = b * hh * wd
+    buf = _bwd_buffers(x, c, num_heads, m, m, windows, window * window)
+    dx = _launch_bwd("k13_window_block_strips_rem_bwd", is_bf16, x, gy,
+                     weights, buf, b, hh, wd, c, num_heads, window,
+                     int(residual), lib="fused_attention_block_rem_bwd")
+    regime = strips_rem_bwd_regime(hh, wd, window, c, num_heads,
+                                   x.dtype.itemsize)
+    dispatch.count_launch("window_block_strips_rem_bwd",
+                          f"window={window},{regime}")
     return dx

@@ -47,6 +47,7 @@ ENTRY_WRAPPER = {
     "k6_window_block_masked": "fused_window_block",
     "k7_window_block_bwd": "window_block_bwd",
     "k7_window_block_bwd_masked": "window_block_bwd",
+    "k7_window_block_bwd_wgrad": "window_block_bwd",
     "k8_transition": "fused_transition_block",
     "k9_transition_bwd": "transition_bwd",
     "k10_flash_attention": "flash_attention",
@@ -55,6 +56,7 @@ ENTRY_WRAPPER = {
     "k11_flash_attention_bwd_dq": "flash_attention_bwd_dq",
     "k11_flash_attention_bwd_dkv": "flash_attention_bwd_dkv",
     "k12_window_block_strips_rem": "fused_window_block_strips_rem",
+    "k13_window_block_strips_rem_bwd": "window_block_strips_rem_bwd",
     "k14_full_attention": "full_attention",
     "k14_full_attention_d256": "full_attention",
     "k15_ln_matmul": "fused_ln_matmul",

@@ -19,6 +19,7 @@ holds the Pallas kernels to (sums in another order, no other difference).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import jax
@@ -767,25 +768,48 @@ def _zeros_block(nw, s, c):
 
 
 @pytest.mark.parametrize("case", ["K7 weight-grad", "K13"])
-def test_backward_raises_where_the_jax_package_runs_an_unported_kernel(case):
-    """The backward nodes the card's wrappers record: where the JAX package
-    runs a kernel the port has not ported, they raise naming the ROADMAP.md
-    item, and never recompute through the plain version instead."""
+def test_backward_runs_the_route_where_the_jax_package_runs_the_new_kernels(
+        monkeypatch, case):
+    """The backward nodes the card's wrappers record, where the JAX package
+    runs K7's weight-gradient mode (a trainable pad-free window block) or
+    K13 (a frozen remainder-strip block): they call that kernel's wrapper
+    (on the CPU its plain version) and return its gradients, one for every
+    input that needs one and None for the rest."""
+    calls = []
+
+    def spied(fn):
+        def call(*a, **k):
+            calls.append(k.get("weight_grads", False))
+            return fn(*a, **k)
+        return call
+
+    mk = _mk(np.random.default_rng(41))
+    _, pa = _block_weights(mk, 8)
     if case == "K7 weight-grad":
-        saved = _zeros_block(1, 16, 24)
-        call = lambda: port_fab._window_block_backward(  # noqa: E731
-            saved, torch.zeros(1, 16, 24), (True,) * 7, num_heads=1, n_pad=0,
-            residual=True)
-        match = "weight-grad.*queue 2"
-    elif case == "K13":
-        x, *w = _zeros_block(1, 12, 8)
-        saved = (x.reshape(1, 3, 4, 8), *w)
-        call = lambda: port_fab._strips_rem_backward(  # noqa: E731
-            saved, saved[0], (True,) + (False,) * 6, num_heads=1, window=3,
-            residual=True)
-        match = "K13.*queue 2"
-    with pytest.raises(NotImplementedError, match=match):
-        call()
+        monkeypatch.setattr(port_fab, "window_block_bwd",
+                            spied(port_fab.window_block_bwd))
+        x, gy = _t(mk(1, 16, 8)), _t(mk(1, 16, 8))
+        needs = (False,) + (True,) * 6
+        got = port_fab._window_block_backward(
+            (x, *pa), gy, needs, num_heads=1, n_pad=0, residual=True)
+        fn = functools.partial(port_fab.plain_window_block, num_heads=1)
+        assert calls == [True]
+    else:
+        monkeypatch.setattr(port_fab, "window_block_strips_rem_bwd",
+                            spied(port_fab.window_block_strips_rem_bwd))
+        x, gy = _t(mk(1, 4, 13, 8)), _t(mk(1, 4, 13, 8))
+        needs = (True,) + (False,) * 6
+        got = port_fab._strips_backward((x, *pa), gy, needs, num_heads=1,
+                                        window=3, residual=True)
+        fn = functools.partial(port_fab.plain_strips_rem, num_heads=1,
+                               window=3)
+        assert calls == [False]
+    want = dispatch.plain_vjp(fn, (x, *pa), gy, needs)
+    assert [g is None for g in got] == [not n for n in needs]
+    for g, w in zip(got, want):
+        if w is not None:
+            np.testing.assert_allclose(g.detach().numpy(), w.detach().numpy(),
+                                       rtol=2e-5, atol=2e-5)
 
 
 def test_backward_takes_the_plain_recompute_where_the_jax_package_does():

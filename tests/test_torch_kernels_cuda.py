@@ -17,10 +17,13 @@ memory attention's under the "pallas" backend); K11 against
 lengths, strided views, and through autograd and the long block's
 backward; K15 and K16 (LN -> x@W, its q / k / v split), K2 without LN or
 the residual, the masked whole-grid K6 / K7 (also against the valid-group
-route), and the fp32 weight gate's plain route. Tolerances: max|kernel -
+route), and the fp32 weight gate's plain route; K7's weight-gradient mode
+(dx and the six weight gradients) at S 16 to 256 and widths 144 to 576,
+K13 at hiera_s@960 / 1024's remainder grids and 12 x 18 window 5 without
+the residual, and autograd through each (a trainable window block; the
+frozen remainder strips through both wrappers). Tolerances: max|kernel -
 plain| <= 2e-2 * max|plain| in bf16, 1e-4 in fp32 (TF32 off), for each
-output (K9 in bf16: see K9_NEAR_TIE_SHARE). The backward of a block whose JAX backward is a kernel
-not ported yet (K7's weight-gradient mode, K13) raises on the card.
+output (K9 in bf16: see K9_NEAR_TIE_SHARE).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from sam2unet_torch.ops.fused_attention_block import (
     fused_window_block_strips_rem,
     window_block_bwd,
     window_block_strips_bwd,
+    window_block_strips_rem_bwd,
 )
 from sam2unet_torch.ops.fused_mlp import adapter_bwd, fused_mlp, mlp_bwd_dx
 from sam2unet_torch.ops.fused_transition import (
@@ -489,24 +493,86 @@ def test_long_window_block_backward_matches_plain(gen, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["K7 weight-grad", "K13"])
-def test_backward_raises_where_the_jax_package_runs_an_unported_kernel(gen, case):
-    """A trainable 64-token window block trains through K7's weight-gradient
-    mode in the JAX package, a frozen remainder-strip block through K13; the
-    port has ported neither, so the backward fails loudly instead of
-    recomputing through the plain version."""
-    dtype = torch.bfloat16
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [16, 64, 196, 256])
+@pytest.mark.parametrize("c,heads", [(144, 2), (384, 4), (576, 8)])
+def test_k7_weight_gradient_mode_matches_plain(gen, dtype, s, c, heads):
+    """K7's weight-gradient mode: dx and all six weight gradients (fp32)
+    against autograd through the plain version, one launch."""
+    x, gy = _rnd(gen, dtype, 3, s, c), _rnd(gen, dtype, 3, s, c)
+    w = _attn_weights(gen, dtype, c, c)
+    _compare(lambda: window_block_bwd(x, gy, *w, num_heads=heads,
+                                      weight_grads=True), dtype)
+    assert dict(dispatch.variants) == {("window_block_bwd", f"S={s},wgrad"): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_trainable_window_block_trains_through_k7_weight_gradients(gen, dtype):
+    """Autograd through `fused_window_block` with trainable fp32 master
+    weights: K6 forward, K7's weight-gradient mode backward, the gradients
+    in each weight's own dtype."""
+    x, gy = _rnd(gen, dtype, 2, 256, 576), _rnd(gen, dtype, 2, 256, 576)
+    w = [t.float().requires_grad_() for t in _attn_weights(gen, dtype, 576, 576)]
+
+    def call():
+        xx = x.detach().requires_grad_()
+        return torch.autograd.grad(fused_window_block(xx, *w, num_heads=8),
+                                   [xx, *w], gy)
+
+    _compare(call, dtype, launches=2)
+    assert dispatch.variants[("window_block_bwd", "S=256,wgrad")] == 1
+    assert [g.dtype for g in call()] == [dtype] + [torch.float32] * 6
+
+
+# (batch, H, W, c, heads, window, residual, the JAX package's kernel):
+# hiera_s@960 / 1024's stage 3 and 4 grids at batch 1, and the JAX test's
+# 12 x 18 window 5 without the residual
+K13_SHAPES = [(1, 60, 60, 384, 4, 14, True, "K13b"),
+              (1, 64, 64, 384, 4, 14, True, "K13b"),
+              (1, 30, 30, 768, 8, 7, True, "K13a"),
+              (1, 32, 32, 768, 8, 7, True, "K13a"),
+              (2, 12, 18, 144, 2, 5, False, "K13a")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("geom", K13_SHAPES)
+def test_k13_kernel_matches_plain(gen, dtype, geom):
+    """K13: dx of K12 for a cotangent, the weights frozen, against autograd
+    through the plain version; counted under the JAX package's kernel for
+    the geometry in bf16."""
+    b, h, w_, c, heads, window, residual, kernel = geom
+    x, gy = _rnd(gen, dtype, b, h, w_, c), _rnd(gen, dtype, b, h, w_, c)
+    w = _attn_weights(gen, dtype, c, c)
+    _compare(lambda: window_block_strips_rem_bwd(
+        x, gy, *w, num_heads=heads, window=window, residual=residual), dtype)
+    (wrapper, variant), = dispatch.variants
+    assert wrapper == "window_block_strips_rem_bwd"
+    if dtype == torch.bfloat16:
+        assert variant == f"window={window},{kernel}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("fn", ["strips", "strips_rem"])
+def test_frozen_remainder_strips_train_through_k13(gen, dtype, fn):
+    """Autograd through the remainder strips with frozen weights: the
+    forward K12 (both wrappers at 12 x 18 window 5, 4 window columns), the
+    backward K13."""
+    x, gy = _rnd(gen, dtype, 2, 12, 18, 144), _rnd(gen, dtype, 2, 12, 18, 144)
     w = _attn_weights(gen, dtype, 144, 144)
-    if case == "K7 weight-grad":
-        x = _rnd(gen, dtype, 2, 64, 144).requires_grad_()
-        y = fused_window_block(x, *[t.requires_grad_() for t in w], num_heads=2)
-        match = "weight-grad.*ROADMAP.md queue 2"
-    else:
-        x = _rnd(gen, dtype, 1, 12, 18, 144).requires_grad_()
-        y = fused_window_block_strips_rem(x, *w, num_heads=2, window=5)
-        match = "K13.*ROADMAP.md queue 2"
-    with pytest.raises(NotImplementedError, match=match):
-        y.sum().backward()
+    wrapper = (fused_window_block_strips if fn == "strips"
+               else fused_window_block_strips_rem)
+
+    def call():
+        xx = x.detach().requires_grad_()
+        y = wrapper(xx, *w, num_heads=2, window=5)
+        return (y,) + torch.autograd.grad(y, xx, gy)
+
+    _compare(call, dtype, launches=2)
+    assert dispatch.launches["fused_window_block_strips_rem"] == 1
+    assert dispatch.launches["window_block_strips_rem_bwd"] == 1
 
 
 # ------------------------------------------------------------------ K14

@@ -180,29 +180,32 @@ def test_hiera_l_352_routes_every_block(train):
 
 def test_hiera_s_960_trains_on_the_ported_kernels():
     """The three 3600-token global blocks of hiera_s@960 take the long form
-    forward and, in training, its backward over K11, so with the trunk
-    frozen no block of hiera_s@960 or hiera_l@352 waits for a kernel:
-    `unported_train_backward` is empty (and the train CLI runs its defaults
-    on the card)."""
-    assert port_hiera.unported_train_backward(PORT_HIERA_S, SIZE) == []
-    assert port_hiera.unported_train_backward(PORT_HIERA_L, 352) == []
+    forward and, in training, its backward over K11, frozen or not (the
+    train CLI runs its defaults on the card)."""
     blocks = port_hiera._block_plan(PORT_HIERA_S)
     assert [i for i, bk in enumerate(blocks) if bk["window_size"] == 0] == [7, 10, 13]
     assert window_block_bwd_route(3600, 384, 0, False) == "K11"
+    assert window_block_bwd_route(3600, 384, 0, True) == "K11"
 
 
-def test_a_trainable_global_block_still_needs_k7_weight_gradients():
-    """A trunk that is not frozen: hiera_s at 256 has 256-token global
-    blocks at width 384, which the JAX package differentiates through K7's
-    weight-gradient mode. The port has not ported it, and the guard names
-    each block; at 960 the same blocks take the long form (K11) either way."""
-    gaps = port_hiera.unported_train_backward(PORT_HIERA_S, 256, frozen=False)
-    assert [g.split(":")[0] for g in gaps] == ["block 7", "block 10", "block 13"]
-    assert all("256 tokens" in g and g.endswith("needs K7 weight-grad")
-               for g in gaps)
-    assert port_hiera.unported_train_backward(PORT_HIERA_S, 256) == []
-    assert port_hiera.unported_train_backward(PORT_HIERA_S, SIZE,
-                                              frozen=False) == []
+def test_a_trainable_global_block_takes_k7_weight_gradients():
+    """A trunk that is not frozen: hiera_s at 256 px has 256-token global
+    blocks (7, 10 and 13) at width 384, which the JAX package and the port
+    differentiate through K7's weight-gradient mode; frozen, the same
+    blocks take the dx-only K7."""
+    blocks = port_hiera._block_plan(PORT_HIERA_S)
+    h = 256 // 4
+    glob = []
+    for i, bk in enumerate(blocks):
+        if bk["window_size"] == 0 and bk["dim"] == bk["dim_out"]:
+            glob.append(i)
+            assert h * h == 256 and bk["dim"] == 384
+            assert window_block_bwd_route(h * h, bk["dim"], 0,
+                                          True) == "K7 weight-grad"
+            assert window_block_bwd_route(h * h, bk["dim"], 0, False) == "K7"
+        if bk["q_stride"] is not None:
+            h //= bk["q_stride"][0]
+    assert glob == [7, 10, 13]
 
 
 def test_training_routes_need_the_frozen_trunk():

@@ -40,6 +40,7 @@ from sam2unet_torch.configs import HieraConfig as PortHieraConfig
 from sam2unet_torch.configs_yaml import YAML_DIR
 from sam2unet_torch.interop.from_jax import jax_to_state_dict
 from sam2unet_torch.models.sam2_base import SAM2Config as PortSAM2Config
+from sam2unet_torch.ops.fused_attention_block import window_block_bwd_route
 from sam2unet_torch.predictors.image_predictor import SAM2ImagePredictor
 from sam2unet_torch.predictors.transforms import SAM2Transforms
 from sam2unet_tpu.build_sam import build_sam2
@@ -442,15 +443,18 @@ def test_sam2_hiera_t_routes_every_block_like_the_jax_package(size):
 
 def test_trunk_without_adapters_is_sam2s():
     """`Hiera(use_adapters=False)`: plain blocks under `blocks.N.*`, nothing
-    frozen; a global block of such a trunk at 256 px needs K7's
-    weight-gradient mode in training, which the port names."""
+    frozen; the global blocks of such a trunk at 256 px (7, 10 and 13: 256
+    tokens at width 384) train through K7's weight-gradient mode."""
     trunk = port_hiera.Hiera(PORT_HIERA_TEST)
     keys = list(trunk.state_dict())
     assert "blocks.0.attn.qkv.weight" in keys
     assert not any("prompt_learn" in k or ".block." in k for k in keys)
     assert all(p.requires_grad for p in trunk.parameters())
-    gaps = port_hiera.unported_train_backward(PORT_HIERA_S, 256, frozen=False)
-    assert [g.split(":")[0] for g in gaps] == ["block 7", "block 10", "block 13"]
+    plan = port_hiera._block_plan(PORT_HIERA_S)
+    assert [i for i, bk in enumerate(plan) if bk["window_size"] == 0] == [
+        7, 10, 13]
+    assert all(plan[i]["dim"] == 384 for i in (7, 10, 13))
+    assert window_block_bwd_route(256, 384, 0, True) == "K7 weight-grad"
 
 
 # ------------------------------------------------- build_sam2, transforms

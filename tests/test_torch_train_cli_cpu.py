@@ -149,26 +149,23 @@ def test_the_train_cli_defaults_to_the_card():
             train_cli.main(args)
 
 
-def test_the_train_cli_accepts_its_defaults_on_the_card(monkeypatch):
-    """Its defaults, hiera_s@960, train through K11 on the card, so the gate
-    that guards kernels not ported yet lets them pass (the gate function is
-    tested, not a card); a geometry the guard names still exits with the
-    ROADMAP.md item."""
+def test_the_train_cli_defaults_parse_and_build_without_a_gate():
+    """Its defaults, hiera_s@960 at batch 16, parse and build on the CPU;
+    no gate stands between them and the card (every backward the trunk
+    can take is ported), and the trainable set is the adapters, neck and
+    decoder."""
     args = train_cli.build_parser().parse_args(
         ["--save_path", "a", "--train_image_path", "b", "--train_mask_path", "c",
          "--test_image_path", "d", "--test_gt_path", "e"])
     assert (args.model_cfg, args.size, args.batch_size) == ("sam2_hiera_s", 960, 16)
-    cuda = torch.device("cuda")
-    assert train_cli.check_ported(args.model_cfg, args.size, cuda) is None
-    assert train_cli.check_ported("sam2_hiera_l", 352, cuda) is None
-    monkeypatch.setattr(train_cli, "unported_train_backward",
-                        lambda cfg, size: ["block 7: needs K7 weight-grad"])
-    assert train_cli.check_ported(args.model_cfg, args.size,
-                                  torch.device("cpu")) is None
-    with pytest.raises(SystemExit) as e:
-        train_cli.check_ported(args.model_cfg, args.size, cuda)
-    assert "ROADMAP.md queue 2" in str(e.value.code)
-    assert "needs K7 weight-grad" in str(e.value.code)
+    assert not hasattr(train_cli, "check_ported")
+    model = build_model(args.model_cfg, torch.device("cpu"))
+    assert model.encoder.cfg.embed_dim == 96
+    trainable = {n.split(".")[0] for n, p in model.named_parameters()
+                 if p.requires_grad}
+    assert "encoder" in trainable and "rfb1" in trainable
+    assert all("prompt_learn" in n for n, p in model.encoder.named_parameters()
+               if p.requires_grad)
 
 
 @pytest.fixture(scope="module")

@@ -38,7 +38,7 @@ def test_every_port_source_matches_a_package_data_glob():
     globs = _package_data()
     files = sorted(p.relative_to(REPO / "sam2unet_torch").as_posix()
                    for p in CSRC.iterdir() if p.is_file())
-    assert len(files) == 22, files
+    assert len(files) == 24, files
     loose = [f for f in files if not any(fnmatch.fnmatch(f, g) for g in globs)]
     assert not loose, f"not shipped in the wheel: {loose}"
 
