@@ -16,7 +16,9 @@ JAX package's train state layout); the multi-device dry run
 JAX package's kernel entry points that no model calls (K15, K16, K2's
 other modes, the masked whole-grid K6 / K7) at full width; and the backward
 modes of K7 and K12 that a trainable trunk and an eval-mode gradient reach
-(K7's weight-gradient mode, K13a / K13b).
+(K7's weight-gradient mode, K13a / K13b); and every head dim the JAX
+attention kernels take (the window family at its kernel tests' head dim 12,
+K10 / K11 / K14 at 12, 128, 264, K11 at the video memory attention's 256).
 
     python3 chip_smoke.py            # every phase, as the acceptance run does
     python3 chip_smoke.py --phases build,kernels --batch 2 --batch960 2 \
@@ -33,6 +35,7 @@ modes of K7 and K12 that a trainable trunk and an eval-mode gradient reach
     python3 chip_smoke.py --paths s352mc           # dryrun_multichip(4)
     python3 chip_smoke.py --paths opsapi           # the kernel entry points
     python3 chip_smoke.py --paths bwdmodes         # K7 weight-grad, K13
+    python3 chip_smoke.py --paths headdims         # any head dim
 
 Phases, one line each, for each path of --paths (l352, s960, then the
 training paths l352train and s960train, listed after these):
@@ -285,6 +288,24 @@ The backward-mode path bwdmodes (seeded random weights):
      loss's gradient with respect to the trainable set through the frozen
      trunk, the same way; launches per backward (K13b 7 on the 60x60 w14
      blocks, K13a 1 on the 30x30 w7 block, beside K5, K9, K11, K2, K3).
+The head-dim path headdims (seeded random weights; the kernels of
+csrc/attention_any*.cu, which take every head dim the JAX kernels take):
+  2. each window-family mode at the JAX kernel tests' head dim 12 (c 24
+     over 2 heads, the transition 24 -> 48 over 4): K4 and K5 on 16x16
+     w8, K12 and K13 on 30x30 w8, K6 with and without the pad key, K7,
+     the masked K6 / K7 on 12x12 w8, K7's weight-gradient mode, K8 and K9;
+     K10 (o and lse) and K11 under autograd (`flash_attention`: K10, then
+     the delta, dq and dk/dv passes) at (2, 320, 2, d) for d 12, 128,
+     264, K11 at the video memory attention's (2, 4096, 1, 256); K14 over
+     49 -> 196 tokens at those d; each against its plain version in bf16
+     and fp32, each call's launches the JAX route's. Timed (every bf16
+     shape): K6 and K7 at 32 x 256 x 576 over 48, 4, 2 heads; K10 and the
+     whole K11 at (4, 3600, ., .) with c 384 as 32 x 12, 3 x 128, 1 x 384;
+     K14 at (400, 49 -> 196) with c 768 as 64 x 12, 6 x 128, 2 x 384; K11
+     at (2, 4096, 1, 256); SDPA (its backward for K11) beside them.
+  3. one bf16 call of each of those shapes (`headdims_main_phase`), the
+     counters at 0 just before and read just after: the run's launches by
+     shape against the launches each shape names.
 The throughput phase of l352, l352train and s960train also times the step
 with the persistent window groups and per block (SAM2UNET_DISABLE_GROUPED),
 alternating, for the record.
@@ -630,6 +651,16 @@ PATHS["bwdmodes"] = dict(
                   "flash_attention_bwd_delta": 3,
                   "flash_attention_bwd_dq": 3,
                   "flash_attention_bwd_dkv": 3})
+PATHS["headdims"] = dict(
+    # every head dim the JAX attention kernels take, through the functions
+    # the JAX package ships and its tests call: its kernel tests'
+    # window-family geometries at head dim 12 (c 24 over 2 heads; the
+    # transition 24 -> 48 over 4), `flash_attention` under autograd at the
+    # video memory attention's (2, 4096, 1, 256) and at head dims 12, 128
+    # and 264, `full_attention` over 49 -> 196 tokens (K14) at those d; the
+    # main phase runs the kernel phase's shapes once (`headdims_main_phase`)
+    label="head dims", headdims=True, batch=1, fp32_listed=True,
+    time_each=True)
 BATCH_FLAG = {"l352": "batch", "opsapi": "batch", "s960": "batch960",
               "l352train": "batch_train",
               "s960train": "batch_train960"}
@@ -838,6 +869,30 @@ def make_case(kind: str, dtype, gen, **g):
         if kind == "flash":
             nbytes += 4 * b * nh * sq
         return call, flops, nbytes, library
+
+    if kind == "flash_grad":
+        # `flash_attention` under autograd, as a user differentiates it: K10
+        # (o and lse), then K11's delta, dq and dk/dv passes; q/k/v the
+        # channel blocks of one QKV buffer, the gradient its dqkv
+        b, sq, nh, d = g["batch"], g["S"], g["heads"], g["d"]
+        qkv = rnd(b, sq, 3, nh, d).requires_grad_(True)
+        dout = rnd(b, sq, nh, d)
+
+        def call():
+            o = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+            return (o.detach(), *torch.autograd.grad(o, qkv, dout))
+
+        def library():
+            # SDPA's forward and backward on the same buffer
+            leaves = qkv.detach().requires_grad_(True)
+            out = F.scaled_dot_product_attention(
+                *(leaves[:, :, i].transpose(1, 2) for i in range(3)))
+            return torch.autograd.grad(out, leaves, dout.transpose(1, 2))
+        es, pairs, n = qkv.element_size(), b * nh * sq * sq, b * sq * nh * d
+        # K10 (4 pairs d) and K11 (14 pairs d); q, k, v, dO read, o, lse,
+        # dq, dk, dv written
+        return (call, 18 * pairs * d, 9 * n * es + 4 * b * nh * sq * 2,
+                library)
 
     if kind.startswith("flash_bwd"):
         # K11 over K10's interface. With one length, q/k/v are the channel
@@ -1070,6 +1125,8 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
         return opsapi_kernel_specs(b, mlp, fab, src_mlp_bwd)
     if PATHS[path].get("bwdmodes"):
         return bwdmodes_kernel_specs(b, fab)
+    if PATHS[path].get("headdims"):
+        return headdims_kernel_specs(fab)
     if PATHS[path].get("train"):
         fa = "sam2unet_tpu/ops/pallas/flash_attention.py"
         src_k11 = "sam2unet_torch/csrc/flash_attention_bwd.cu"
@@ -1538,6 +1595,141 @@ def bwdmodes_kernel_specs(b: int, fab: str) -> list[tuple]:
                                 and v.endswith(",K13a")), k13a, 0)]
 
 
+# head dims of the flash family held at small lengths: the JAX kernel
+# tests' 12, and 128 and 264 (one and five 64-wide chunks past 96)
+HEADDIMS_SMALL = (12, 128, 264)
+
+
+def headdims_kernel_specs(fab: str) -> list[tuple]:
+    """The attention kernels at head dims the 16-byte-vector instances do not
+    take (csrc/attention_any*.cu): each window-family mode at the JAX kernel
+    tests' head dim 12 (c 24 over 2 heads, the transition 24 -> 48 over 4),
+    K10 / K11 / K14 at 12, 128 and 264, K11 under autograd at the video
+    memory attention's (2, 4096, 1, 256); and timed rows at the tokens and
+    width of existing rows with only the head count changed: K6 / K7 at
+    32 x 256 x 576 over 48, 4 and 2 heads (d 12, 144, 288), K10 / K11 at
+    (4, 3600, ., .) with c 384 as 32 x 12, 3 x 128 and 1 x 384 (batch 4:
+    the plain version's fp32 scores over 32 heads at batch 16 would not fit
+    the card), K14 at (400, 49 -> 196) with c 768 as 64 x 12, 6 x 128, 2 x
+    384. Each shape names its launches (`expect`); `f32` its fp32 run."""
+    from sam2unet_torch.ops.fused_attention_block import strips_rem_bwd_regime
+
+    fa = "sam2unet_tpu/ops/pallas/flash_attention.py"
+    src_any = "sam2unet_torch/csrc/attention_any.cu"
+    src_bwd = "sam2unet_torch/csrc/attention_any_bwd.cu"
+    src_pad = "sam2unet_torch/csrc/attention_any_bwd_pad.cu"
+    f32 = dict(f32={})
+
+    def flash(b, s, nh, d, **more):
+        return dict(batch=b, S=s, heads=nh, d=d, **more)
+
+    k10 = [flash(2, 320, 2, d, **f32) for d in HEADDIMS_SMALL] + [
+        flash(4, 3600, nh, d, f32=dict(batch=1)) for nh, d in ((32, 12), (3, 128),
+                                                              (1, 384))]
+    for g in k10:
+        g["expect"] = ("flash_attention", f"S={g['S']},d={g['d']}")
+    k11 = [flash(2, 4096, 1, 256, f32=dict(batch=1))] + [
+        flash(2, 320, 2, d, **f32) for d in HEADDIMS_SMALL]
+    for g in k11:
+        s = f"S={g['S']}"
+        g["expect"] = {("flash_attention", f"{s},d={g['d']}"): 1,
+                       ("flash_attention_bwd_delta", s): 1,
+                       ("flash_attention_bwd_dq", s): 1,
+                       ("flash_attention_bwd_dkv", s): 1}
+    k11_timed = [flash(4, 3600, nh, d) for nh, d in ((32, 12), (3, 128), (1, 384))] + [
+        flash(2, 4096, 1, 256)]
+    for g in k11_timed:
+        s = f"S={g['S']}"
+        g["expect"] = {("flash_attention_bwd_delta", s): 1,
+                       ("flash_attention_bwd_dq", s): 1,
+                       ("flash_attention_bwd_dkv", s): 1}
+    k14 = [flash(2, 49, 2, d, Sk=196, **f32) for d in HEADDIMS_SMALL] + [
+        flash(400, 49, nh, d, Sk=196, f32=dict(batch=8))
+        for nh, d in ((64, 12), (6, 128), (2, 384))]
+    for g in k14:
+        g["expect"] = ("full_attention", f"Sq=49,Sk=196,d={g['d']}")
+    c24 = dict(c=24, heads=2)
+    k6 = [dict(windows=4, S=64, **c24, **f32),
+          dict(windows=4, S=64, n_pad=16, **c24, **f32)] + [
+        dict(windows=32, S=256, c=576, heads=nh, f32=dict(windows=2))
+        for nh in (48, 4, 2)]
+    for g in k6:
+        g["expect"] = ("fused_window_block", f"S={g['S']},n_pad={g.get('n_pad', 0)}")
+    k7 = [dict(windows=4, S=64, **c24, **f32)] + [
+        dict(windows=32, S=256, c=576, heads=nh, f32=dict(windows=2))
+        for nh in (48, 4, 2)]
+    for g in k7:
+        g["expect"] = ("window_block_bwd", f"S={g['S']}")
+    masked = [dict(batch=2, grid=12, window=8, **c24, **f32)]
+    wgrad = [dict(windows=4, S=64, **c24, **f32,
+                  expect=("window_block_bwd", "S=64,wgrad"))]
+    strips = [dict(batch=2, grid=16, window=8, **c24, **f32)]
+    rem = [dict(batch=2, grid=30, window=8, **c24, **f32)]
+    regime = strips_rem_bwd_regime(30, 30, 8, 24, 2, 2)
+    rem_bwd = [dict(g, expect=("window_block_strips_rem_bwd", f"window=8,{regime}"),
+                    f32=dict(expect=("window_block_strips_rem_bwd", "window=8,"
+                                     + strips_rem_bwd_regime(30, 30, 8, 24, 2, 4))))
+               for g in rem]
+    tra = [dict(batch=2, grid=16, window=8, cin=24, c=48, heads=4, **f32)]
+    src_tr = "sam2unet_tpu/ops/pallas/fused_transition.py"
+
+    def sel(wrapper, *tags):
+        return lambda w, v: w == wrapper and all(t in v for t in tags)
+
+    def sel_d(wrapper):
+        # the head dims these kernels hold (K10 at 256 has its own entry)
+        return lambda w, v: w == wrapper and not v.endswith(",d=256")
+    return [
+        ("K10 flash_attention (any head dim)", "flash", f"{fa}:190", src_any,
+         sel_d("flash_attention"), k10, 3),
+        ("K10 flash_attention (head dim 256, under autograd)", "flash",
+         f"{fa}:190", "sam2unet_torch/csrc/flash_attention_d256.cu",
+         sel("flash_attention", "d=256"),
+         [flash(2, 4096, 1, 256, f32=dict(batch=1),
+                expect=("flash_attention", "S=4096,d=256"))], 0),
+        ("K11 flash_attention_bwd (any head dim, under autograd)", "flash_grad",
+         f"{fa}:314", src_bwd,
+         lambda w, v: w.startswith("flash_attention_bwd"), k11, 0),
+        ("K11 flash_attention_bwd (any head dim, timed)", "flash_bwd", f"{fa}:314",
+         src_bwd, lambda w, v: w.startswith("flash_attention_bwd"), k11_timed, 3),
+        ("K14 full_attention (any head dim)", "full", f"{fa}:93", src_any,
+         sel_d("full_attention"), k14, 3),
+        ("K4 fused_window_block_strips (head dim 12)", "strips", f"{fab}:1021",
+         src_any, sel("fused_window_block_strips"),
+         [dict(g, expect=("fused_window_block_strips", "window=8")) for g in strips],
+         0),
+        ("K12 fused_window_block_strips_rem (head dim 12)", "strips_rem",
+         f"{fab}:1566", src_any, sel("fused_window_block_strips_rem"),
+         [dict(g, expect=("fused_window_block_strips_rem", "window=8")) for g in rem],
+         0),
+        ("K5 window_block_strips_bwd (head dim 12)", "strips_bwd", f"{fab}:1082",
+         src_bwd, sel("window_block_strips_bwd"),
+         [dict(g, expect=("window_block_strips_bwd", "window=8")) for g in strips],
+         0),
+        ("K13 window_block_strips_rem_bwd (head dim 12)", "strips_rem_bwd",
+         f"{fab}:{1843 if regime == 'K13b' else 1651}", src_pad,
+         sel("window_block_strips_rem_bwd"), rem_bwd, 0),
+        ("K6 fused_window_block (any head dim)", "window", f"{fab}:354", src_any,
+         lambda w, v: w == "fused_window_block" and ",n_pad=" in v, k6, 2),
+        ("K6 fused_window_block (masked, head dim 12)", "window_masked",
+         f"{fab}:354", src_any, sel("fused_window_block", ",masked"),
+         [dict(g, expect=("fused_window_block", "S=144,masked")) for g in masked],
+         0),
+        ("K7 window_block_bwd (any head dim)", "window_bwd", f"{fab}:669", src_bwd,
+         lambda w, v: w == "window_block_bwd" and "," not in v, k7, 1),
+        ("K7 window_block_bwd (masked, head dim 12)", "window_masked_bwd",
+         f"{fab}:669", src_pad, sel("window_block_bwd", ",masked"),
+         [dict(g, expect=("window_block_bwd", "S=144,masked")) for g in masked], 0),
+        ("K7 window_block_bwd (weight-grad, head dim 12)", "window_wgrad",
+         f"{fab}:669", src_bwd, sel("window_block_bwd", ",wgrad"), wgrad, 0),
+        ("K8 fused_transition_block (head dim 12)", "transition", f"{src_tr}:256",
+         src_any, sel("fused_transition_block"),
+         [dict(g, expect=("fused_transition_block", "window=8")) for g in tra], 0),
+        ("K9 transition_bwd (head dim 12)", "transition_bwd", f"{src_tr}:483",
+         src_bwd, sel("transition_bwd"),
+         [dict(g, expect=("transition_bwd", "window=8")) for g in tra], 0)]
+
+
 def plain_route(kind: str, g: dict, dtype) -> bool:
     """Whether the call takes the plain version by the JAX route: fp32 past
     the weight gate (`f32_weights_overflow`, the JAX package's
@@ -1601,10 +1793,12 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
     def expected_launch(name, g, dtype):
         # one launch of the JAX route's kernel per call, where the shape
         # names it (`compare` reset the counters before the kernel call)
-        if "expect" in g and dict(dispatch.variants) != {g["expect"]: 1}:
+        want = g.get("expect")
+        if isinstance(want, tuple):
+            want = {want: 1}
+        if want is not None and dict(dispatch.variants) != want:
             fail(f"{name} {dtype} at {g}: launched "
-                 f"{dict(dispatch.variants)}, the JAX route is one "
-                 f"{g['expect']}")
+                 f"{dict(dispatch.variants)}, the JAX route is {want}")
 
     for name, kind, replaces, source, select, shapes, timed in kernel_specs(
             path, batch):
@@ -4754,13 +4948,51 @@ def bwdmodes_main_phase(path: str) -> dict:
     return dict(seen)
 
 
+def headdims_main_phase(path: str) -> dict:
+    """The main path of headdims: one bf16 call of every shape of the
+    kernel phase (`headdims_kernel_specs`, each built by `make_case` through
+    the functions a user calls, the backwards under autograd or through
+    their wrappers), the counters set to 0 just before the calls and read
+    just after, held against the launches the shapes name (`expect`). The
+    kernel phase holds each call against its plain version. Returns the
+    run's variants."""
+    import torch
+
+    from sam2unet_torch.ops import dispatch
+
+    label = PATHS[path]["label"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(16)
+    calls, want = [], collections.Counter()
+    for _name, kind, _r, _s, _sel, shapes, _t in kernel_specs(path, 1):
+        for g in shapes:
+            calls.append(make_case(kind, torch.bfloat16, gen, **g)[0])
+            e = g["expect"]
+            want.update({e: 1} if isinstance(e, tuple) else e)
+    t0 = time.perf_counter()
+    dispatch.reset_launches()
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    got = dict(dispatch.variants)
+    print(f"[main] {label}: {len(calls)} calls, launches "
+          f"{ {f'{w}[{v}]': n for (w, v), n in sorted(got.items())} } "
+          f"({time.perf_counter() - t0:.2f} s host clock)", flush=True)
+    if got != dict(want):
+        fail(f"{label}: the run launched {got}, its shapes name {dict(want)}")
+    del calls
+    torch.cuda.empty_cache()
+    return got
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="build,kernels,main,throughput")
     ap.add_argument("--paths",
                     default="l352,s960,l352train,s960train,s1024sam2,"
                             "s1024video,t512video,t1024amg,s960cli,s960deploy,"
-                            "s960interop,s960dp,s352mc,opsapi,bwdmodes")
+                            "s960interop,s960dp,s352mc,opsapi,bwdmodes,"
+                            "headdims")
     ap.add_argument("--batch", type=int, default=32,
                     help="kernel, throughput and profile batch at hiera_l@352")
     ap.add_argument("--batch960", type=int, default=16,
@@ -4845,6 +5077,8 @@ def main() -> None:
                         variants[path] = opsapi_main_phase(path, batch)
                     elif PATHS[path].get("bwdmodes"):
                         variants[path] = bwdmodes_main_phase(path)
+                    elif PATHS[path].get("headdims"):
+                        variants[path] = headdims_main_phase(path)
                     elif PATHS[path].get("interop"):
                         variants[path] = interop_main_phase(path, Path(tmp), card,
                                                             rates)
@@ -4857,7 +5091,8 @@ def main() -> None:
                 if ("held_by" in PATHS[path] or PATHS[path].get("deploy")
                         or PATHS[path].get("multichip")
                         or PATHS[path].get("opsapi")
-                        or PATHS[path].get("bwdmodes")):
+                        or PATHS[path].get("bwdmodes")
+                        or PATHS[path].get("headdims")):
                     continue   # their times and A/Bs are the main phase's
                 if "throughput" in phases and PATHS[path].get("video"):
                     video_throughput_phase(path, card)

@@ -45,6 +45,12 @@
 //         accumulators become the P operand in registers, rounded to bf16.
 //   fp32: the same loop with CUDA-core dot products in the same register
 //         layout and P staged through shared memory (comparison path).
+// These instances (head dims 56-96 in practice, NDF 4 / 5 / 6) load 16-byte
+// vectors: d % 8 == 0, every stride a multiple of 8 elements and 16-byte
+// aligned bases (`attn_vec_ok`). Every other head dim and view goes to
+// attention_any.cu's kernels (`attn_any_fwd`, a library of its own loaded
+// before this one), which read element by element and split a head dim
+// above 64 into 64-wide chunks.
 #pragma once
 
 #include <type_traits>
@@ -69,6 +75,23 @@ struct AttnParams {
   int qpool;
   float scale;
 };
+
+// attention_any.cu: `form` 0 as launch_attn_dt<false>, 1 as <true> (masked),
+// 2 as full_attention.cu's K14 (rows mode, no pad key, no lse), at any head
+// dim and any element strides.
+extern "C" int attn_any_fwd(int is_bf16, int form, const AttnParams* p,
+                            int n_windows, int n_heads, cudaStream_t stream);
+
+// The head dims of the 16-byte-vector instances (NDF 4, 5, 6).
+inline bool attn_vec_head_dim(int d) { return d >= 8 && d <= 96; }
+
+// Whether those instances can read q / k / v and write the output rows.
+inline bool attn_vec_ok(const AttnParams& p) {
+  return attn_vec_head_dim(p.d)
+         && views_vec16(p.d, {p.q_sb, p.q_ss, p.q_sh, p.kv_sb, p.kv_ss, p.kv_sh,
+                              (long long)p.c},
+                        {p.q, p.k, p.v, p.out});
+}
 
 // q / k / v of a qkv buffer (rows of 3c, [q | k | v]); mode-0 windows of S
 // consecutive rows.
@@ -400,8 +423,11 @@ static cudaError_t launch_attn_t(const AttnParams& p, int n_windows,
 template <typename T, bool MASKED>
 static cudaError_t launch_attn(const AttnParams& p, int n_windows, int n_heads,
                                cudaStream_t stream) {
+  if (!attn_vec_ok(p))
+    return (cudaError_t)attn_any_fwd(std::is_same<T, bf16>::value, MASKED ? 1 : 0,
+                                     &p, n_windows, n_heads, stream);
   // head dims of the SAM2 trunks: 56 (b+), 72 (l), 96 (t, s)
-  if (p.d % 8 || p.d > 96 || n_heads > 65535 || p.Sq < 1 || p.S < 1
+  if (n_heads > 65535 || p.Sq < 1 || p.S < 1
       || (p.Sq + 63) / 64 > 65535
       || (MASKED ? !p.mask || !p.logmult || !p.pad_bias || p.mode != 0
                        || p.qpool || p.Sq != p.S

@@ -39,9 +39,13 @@
 // term, dS_pad b_k with dS_pad = P_pad (dO.b_v - D), P_pad = exp(logit -
 // lse) (D = rowsum(dO o) already holds the pad key's share of o), added in
 // fp32 as the Pallas kernel adds it (fused_attention_block.py:521-522).
+// These instances take d % 8 == 0 up to 96; every other head dim goes to
+// attention_any_bwd.cu / attention_any_bwd_pad.cu (attention_any.cuh), with
+// the packed buffers described as strided views.
 #pragma once
 
 #include "attention.cuh"
+#include "attention_any.cuh"
 #include "attention_bwd_tiles.cuh"
 
 static_assert(BWD_TILE == A_BKV, "the backward tiles are the forward's key tiles");
@@ -479,12 +483,47 @@ static cudaError_t launch_attn_bwd_t(const AttnBwdParams& bp, int n_windows,
   return cudaGetLastError();
 }
 
+// The same passes at any head dim (attention_any_bwd.cuh): the qkv and
+// dqkv buffers' channel blocks and the output rows as strided views.
+template <bool MASKED, bool REM>
+static cudaError_t launch_attn_bwd_any(int is_bf16, const AttnBwdParams& bp,
+                                       int n_windows, int nh, cudaStream_t stream) {
+  const AttnParams& p = bp.a;
+  const long long c = p.c, d = p.d;
+  const size_t es = is_bf16 ? sizeof(bf16) : sizeof(float);
+  AnyBwdParams a = {};
+  a.a = p;
+  a.o = bp.o; a.o_sb = p.Sq * c; a.o_ss = c; a.o_sh = d;
+  a.dout = bp.dout; a.do_sb = p.Sq * c; a.do_ss = c; a.do_sh = d;
+  a.lse = bp.lse;
+  a.D = bp.D; a.D_sb = (long long)p.Sq * nh; a.D_ss = nh; a.D_sh = 1;
+  char* g = static_cast<char*>(bp.dqkv);
+  a.dq = g; a.dk = g + c * es; a.dv = g + 2 * c * es;
+  a.dq_sb = a.dkv_sb = p.S * bp.ld;
+  a.dq_ss = a.dkv_ss = bp.ld;
+  a.dq_sh = a.dkv_sh = d;
+  // the delta pass: each window's Sq output rows (rows mode), or the
+  // output grid's rows (grid mode; with REM the whole token grid's)
+  const long long nwin = (long long)((p.H + p.win - 1) / p.win)
+                         * ((p.W + p.win - 1) / p.win);
+  const long long out_rows = REM ? n_windows / nwin * p.H * p.W
+                                 : (long long)n_windows * p.Sq;
+  int err = p.mode == 0
+                ? attn_any_bwd_delta(is_bf16, &a, n_windows, p.Sq, nh, stream)
+                : attn_any_bwd_delta(is_bf16, &a, 1, out_rows, nh, stream);
+  for (int dkv = 0; dkv < 2 && !err; ++dkv)
+    err = MASKED || REM
+              ? attn_any_bwd_pad(is_bf16, MASKED, dkv, &a, n_windows, nh, stream)
+              : attn_any_bwd(is_bf16, dkv, &a, n_windows, nh, stream);
+  return (cudaError_t)err;
+}
+
 template <bool MASKED = false, bool REM = false>
 static cudaError_t launch_attn_bwd_dt(int is_bf16, const AttnBwdParams& bp,
                                       int n_windows, int nh, cudaStream_t stream) {
   static_assert(!(MASKED && REM), "one pad-key mode at a time");
   const AttnParams& p = bp.a;
-  if (p.d % 8 || p.d > 96 || nh > 65535 || p.Sq < 1 || p.S < 1
+  if (p.d < 1 || nh > 65535 || p.Sq < 1 || p.S < 1
       || (MASKED ? !p.mask || !p.logmult || !p.pad_bias || p.mode != 0
                        || p.qpool || p.Sq != p.S
           : REM  ? !p.pad_bias || p.mask || p.mode != 1 || p.qpool
@@ -495,6 +534,8 @@ static cudaError_t launch_attn_bwd_dt(int is_bf16, const AttnBwdParams& bp,
   if (!REM && p.mode == 1
       && (p.H % p.win || p.W % p.win || (p.qpool && p.win % 2)))
     return cudaErrorInvalidValue;
+  if (p.d % 8 || p.d > 96)
+    return launch_attn_bwd_any<MASKED, REM>(is_bf16, bp, n_windows, nh, stream);
   if (is_bf16) {
     if (p.d <= 64) return launch_attn_bwd_t<bf16, 4, MASKED, REM>(bp, n_windows, nh, stream);
     if (p.d <= 80) return launch_attn_bwd_t<bf16, 5, MASKED, REM>(bp, n_windows, nh, stream);

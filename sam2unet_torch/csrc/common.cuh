@@ -9,6 +9,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -18,6 +20,18 @@ template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
   return __float2bfloat16(v);  // round to nearest even
+}
+
+// Whether 16-byte vectors reach every head row of these views: d and every
+// stride a multiple of 8 elements, every base 16-byte aligned.
+inline bool views_vec16(int d, std::initializer_list<long long> strides,
+                        std::initializer_list<const void*> bases) {
+  if (d % 8) return false;
+  for (long long s : strides)
+    if (s % 8) return false;
+  for (const void* b : bases)
+    if (reinterpret_cast<uintptr_t>(b) % 16) return false;
+  return true;
 }
 
 // Round an fp32 value to the precision of T (identity for float).

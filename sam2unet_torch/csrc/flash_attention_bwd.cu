@@ -35,8 +35,13 @@
 // layout for fp32). No atomics: each output row belongs to one block. The
 // TPU kernels need block sizes that divide S (_pick_stream_blocks); here the
 // ragged last tile of keys and of queries is zero-filled and masked, so any
-// S_q and S_k work.
+// S_q and S_k work. These kernels take d % 8 == 0 up to 96 at strides in
+// multiples of 8 elements and 16-byte aligned bases (`flash_bwd_vec`); every
+// other head dim or view (K11 at the video memory attention's 256 among
+// them) runs the same three passes in attention_any_bwd.cu
+// (attention_any.cuh), one launch each.
 
+#include "attention_any.cuh"
 #include "attention_bwd_tiles.cuh"
 
 struct FlashBwdParams {
@@ -289,9 +294,39 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_kernel(FlashBwdParams p) {
 }
 
 static bool flash_bwd_valid(const FlashBwdParams& p, int B, int nh) {
-  return p.d % 8 == 0 && p.d >= 8 && p.d <= 96 && B >= 1 && nh >= 1
-         && nh <= 65535 && p.Sq >= 1 && p.Sk >= 1
-         && (p.Sq + 15) / 16 <= 65535 && (p.Sk + 15) / 16 <= 65535;
+  return p.d >= 1 && B >= 1 && nh >= 1 && nh <= 65535 && p.Sq >= 1
+         && p.Sk >= 1 && (p.Sq + 15) / 16 <= 65535 && (p.Sk + 15) / 16 <= 65535;
+}
+
+// Whether these kernels' 16-byte loads (and 4- or 8-byte stores) reach
+// every view.
+static bool flash_bwd_vec(const FlashBwdParams& p) {
+  return attn_vec_head_dim(p.d)
+         && views_vec16(p.d, {p.q_sb, p.q_ss, p.q_sh, p.kv_sb, p.kv_ss, p.kv_sh,
+                              p.do_sb, p.do_ss, p.do_sh, p.o_sb, p.o_ss, p.o_sh,
+                              p.dq_sb, p.dq_ss, p.dq_sh, p.dkv_sb, p.dkv_ss,
+                              p.dkv_sh},
+                        {p.q, p.k, p.v, p.dout, p.o, p.dq, p.dk, p.dv});
+}
+
+// The views as attention_any_bwd.cu takes them: rows mode, one window per
+// batch entry; D and the lse (B * heads, Sq).
+static AnyBwdParams flash_bwd_any(const FlashBwdParams& p, int nh) {
+  AnyBwdParams a = {};
+  AttnParams& ap = a.a;
+  ap.q = p.q; ap.k = p.k; ap.v = p.v;
+  ap.q_sb = p.q_sb; ap.q_ss = p.q_ss; ap.q_sh = p.q_sh;
+  ap.kv_sb = p.kv_sb; ap.kv_ss = p.kv_ss; ap.kv_sh = p.kv_sh;
+  ap.c = nh * p.d; ap.d = p.d; ap.mode = 0; ap.S = p.Sk; ap.Sq = p.Sq;
+  ap.scale = p.scale;
+  a.o = p.o; a.o_sb = p.o_sb; a.o_ss = p.o_ss; a.o_sh = p.o_sh;
+  a.dout = p.dout; a.do_sb = p.do_sb; a.do_ss = p.do_ss; a.do_sh = p.do_sh;
+  a.lse = p.lse;
+  a.D = p.D; a.D_sb = (long long)nh * p.Sq; a.D_ss = 1; a.D_sh = p.Sq;
+  a.dq = p.dq; a.dq_sb = p.dq_sb; a.dq_ss = p.dq_ss; a.dq_sh = p.dq_sh;
+  a.dk = p.dk; a.dv = p.dv;
+  a.dkv_sb = p.dkv_sb; a.dkv_ss = p.dkv_ss; a.dkv_sh = p.dkv_sh;
+  return a;
 }
 
 template <typename T, int NDF>
@@ -331,6 +366,11 @@ template <typename T>
 static cudaError_t launch_flash_bwd(bool dkv, const FlashBwdParams& p, int B,
                                     int nh, cudaStream_t stream) {
   if (!flash_bwd_valid(p, B, nh)) return cudaErrorInvalidValue;
+  if (!flash_bwd_vec(p)) {
+    const AnyBwdParams a = flash_bwd_any(p, nh);
+    return (cudaError_t)attn_any_bwd(std::is_same<T, bf16>::value, dkv, &a, B, nh,
+                                     stream);
+  }
   if (p.d <= 64)
     return dkv ? launch_flash_bwd_dkv_t<T, 4>(p, B, nh, stream)
                : launch_flash_bwd_dq_t<T, 4>(p, B, nh, stream);
@@ -353,9 +393,13 @@ extern "C" int k11_flash_attention_bwd_delta(
   p.do_sb = do_sb; p.do_ss = do_ss; p.do_sh = do_sh;
   p.Sq = Sq; p.Sk = 1; p.d = d;
   if (!flash_bwd_valid(p, B, nh)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (!flash_bwd_vec(p)) {
+    const AnyBwdParams a = flash_bwd_any(p, nh);
+    return attn_any_bwd_delta(is_bf16, &a, B, Sq, nh, s);
+  }
   const long long n = (long long)B * Sq * nh;
   const unsigned blocks = (unsigned)((n + 255) / 256);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16)
     flash_bwd_delta_kernel<bf16><<<blocks, 256, 0, s>>>(p, n, nh);
   else

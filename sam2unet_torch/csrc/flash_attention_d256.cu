@@ -252,8 +252,9 @@ extern "C" int k10_flash_attention_d256(
     long long q_ss, long long q_sh, long long kv_sb, long long kv_ss,
     long long kv_sh, float scale, void* stream) {
   if (d != D || B < 1 || Sq < 1 || Sk < 1 || nh > 65535
-      || (Sq + BQ - 1) / BQ > 65535)
-    return (int)cudaErrorInvalidValue;
+      || (Sq + BQ - 1) / BQ > 65535
+      || !views_vec16(d, {q_sb, q_ss, q_sh, kv_sb, kv_ss, kv_sh}, {q, k, v, o}))
+    return (int)cudaErrorInvalidValue;   // 16-byte loads: aligned views only
   const D256Params p = {q, k, v, o, lse, q_sb, q_ss, q_sh, kv_sb, kv_ss,
                         kv_sh, Sq, Sk, scale};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);

@@ -31,11 +31,15 @@
 // so no division of the output is left at the end. The key tile is 64
 // tokens, or 16 when the row has at most 16 keys (the mask decoder's 6-16
 // prompt tokens), so a short key row does not pay for a 64-key tile of
-// padding; the ragged last tile is zero-filled and masked.
+// padding; the ragged last tile is zero-filled and masked. These instances
+// take d % 8 == 0 up to 96 at strides in multiples of 8 elements and
+// 16-byte aligned bases; every other head dim or view runs the same two
+// passes in attention_any.cu's form 2 (`attn_any_fwd`: 64-wide head-dim
+// chunks, element loads).
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "attention.cuh"
 
 struct FullParams {
   const void *q, *k, *v;
@@ -289,9 +293,21 @@ static cudaError_t launch_full_bkv(const FullParams& p, int B,
 
 template <typename T>
 static cudaError_t launch_full(const FullParams& p, int B, cudaStream_t stream) {
-  if (p.d < 8 || p.d % 8 || p.d > 96 || p.Sq < 1 || p.Sk < 1 || p.Sk > 1024
+  if (p.d < 1 || p.Sq < 1 || p.Sk < 1 || p.Sk > 1024
       || B < 1 || p.nh < 1 || p.nh > 65535 || (p.Sq + 63) / 64 > 65535)
     return cudaErrorInvalidValue;
+  if (!attn_vec_head_dim(p.d)
+      || !views_vec16(p.d, {p.q_sb, p.q_ss, p.q_sh, p.kv_sb, p.kv_ss, p.kv_sh},
+                      {p.q, p.k, p.v, p.out})) {   // rows mode, a window per entry
+    AttnParams ap = {};
+    ap.q = p.q; ap.k = p.k; ap.v = p.v; ap.out = p.out;
+    ap.q_sb = p.q_sb; ap.q_ss = p.q_ss; ap.q_sh = p.q_sh;
+    ap.kv_sb = p.kv_sb; ap.kv_ss = p.kv_ss; ap.kv_sh = p.kv_sh;
+    ap.c = p.nh * p.d; ap.d = p.d; ap.mode = 0; ap.S = p.Sk; ap.Sq = p.Sq;
+    ap.scale = p.scale;
+    return (cudaError_t)attn_any_fwd(std::is_same<T, bf16>::value, 2, &ap, B,
+                                     p.nh, stream);
+  }
   return p.Sk <= 16 ? launch_full_bkv<T, 16>(p, B, stream)
                     : launch_full_bkv<T, 64>(p, B, stream);
 }

@@ -2,9 +2,16 @@
 first use, and load them with ctypes.
 
 Each `csrc/*.cu` becomes one shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds). All sources compile in
-parallel, one nvcc process each, into `build/torch_kernels/<hash>/` at the
-repository root; the hash covers every source, header and flag, so an
+(no PyTorch headers, so a build takes seconds). The attention kernels at
+any head dim (`SHARED_SOURCES`) are called by the other libraries' entry
+points, every caller alike (`attn_any_fwd`, `attn_any_bwd`, ...), which
+leave those symbols undefined: they load first, with their symbols global,
+so each of their instances is compiled once. Their backward is two sources
+only so that it builds in parallel: one of them alone would be the slowest
+source of the build (on an 8-core H100 host, ~100 s and ~157 s of nvcc in
+parallel, against ~178 s for the slowest other source). All sources
+compile in parallel, one nvcc process each,
+into `build/torch_kernels/<hash>/` at the repository root; the hash covers every source, header and flag, so an
 edited source rebuilds and an unchanged one is reused. The sources ship in
 the wheel (package data, `sam2unet_torch/csrc/`). Outputs go to `build/`
 beside the package's parent directory (the repository root in a checkout)
@@ -37,8 +44,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
-SOURCES = ("fused_mlp", "fused_attention_block", "fused_transition",
-           "flash_attention", "fused_mlp_bwd", "fused_attention_block_bwd",
+# csrc/attention_any.cuh's entry points, which the other libraries call
+SHARED_SOURCES = ("attention_any", "attention_any_bwd",
+                  "attention_any_bwd_pad")
+SOURCES = (*SHARED_SOURCES, "fused_mlp", "fused_attention_block",
+           "fused_transition", "flash_attention", "fused_mlp_bwd",
+           "fused_attention_block_bwd",
            "fused_transition_bwd", "flash_attention_bwd", "full_attention",
            "flash_attention_d256", "full_attention_d256",
            "fused_attention_block_masked", "fused_attention_block_wgrad",
@@ -51,6 +62,7 @@ _K10 = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
         ctypes.c_float, _P]
 _K14 = [_I, *[_P] * 4, *[_I] * 5, *[_L] * 6, ctypes.c_float, _P]
 SIGNATURES = {
+    **{name: {} for name in SHARED_SOURCES},
     "fused_mlp": {
         "k1_fused_mlp": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _L, _I, _I, _I, _I, _I, _P],
@@ -202,7 +214,10 @@ def library(name: str) -> types.SimpleNamespace:
         if name not in _libs:
             out = build_all()
             for src in SOURCES:
-                lib = ctypes.CDLL(str(out / f"lib{src}.so"))
+                lib = ctypes.CDLL(str(out / f"lib{src}.so"),
+                                  mode=(ctypes.RTLD_GLOBAL
+                                        if src in SHARED_SOURCES
+                                        else ctypes.RTLD_LOCAL))
                 entries = {}
                 for fn, argtypes in SIGNATURES[src].items():
                     getattr(lib, fn).argtypes = argtypes

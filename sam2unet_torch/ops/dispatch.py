@@ -13,9 +13,7 @@ wrapper raises.
 `with_backward` makes a kernel launch one autograd node that saves only its
 inputs and recomputes in its backward, as the JAX package's custom VJPs
 do; `plain_vjp` is the backward through the plain version, for the cases
-the JAX package also sends to its reference recompute. Where the JAX
-package's backward runs a kernel the port has not ported yet, the backward
-raises (`not_ported`).
+the JAX package also sends to its reference recompute.
 """
 
 from __future__ import annotations
@@ -101,15 +99,6 @@ def needs_grad(*tensors: torch.Tensor | None) -> bool:
     """True when autograd records and one of `tensors` requires a gradient."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
-
-
-def not_ported(kernel: str, what: str = "this backward"):
-    """Raise where the JAX package runs a kernel the port does not have yet
-    (ROADMAP.md queue 2): the plain version is not a stand-in for it on the
-    card."""
-    raise NotImplementedError(
-        f"the JAX package runs {kernel} for {what}, and sam2unet_torch has "
-        "not ported it yet (ROADMAP.md queue 2, TPU kernels still to port)")
 
 
 class _KernelFunction(torch.autograd.Function):

@@ -3,14 +3,17 @@ lse, and its backward; K14: attention over the whole key row (at most 1024
 keys); and `dispatch_attention`, which picks among them. Counterpart of
 sam2unet_tpu/ops/pallas/flash_attention.py (`_stream_fwd_impl`,
 `_stream_bwd_impl`, `_fused_full`, `_dispatch_fwd`, oracle
-`_xla_attention`); the kernels are csrc/flash_attention.cu (K10 at head
-dims up to 96), csrc/flash_attention_d256.cu (K10 at head dim 256, the
-video memory attention's), csrc/flash_attention_bwd.cu (K11: the delta
-pass, the dq pass and the dk/dv pass), csrc/full_attention.cu (K14 at head
-dims up to 96) and csrc/full_attention_d256.cu (K14 at head dim 256, the
-memory attention's over a 512-px frame under the "pallas" backend). Other
-head dims raise on the card, and so does K11 at head dim 256 (ROADMAP.md
-queue 2); on the CPU the plain versions take any.
+`_xla_attention`); the kernels are csrc/flash_attention.cu (K10),
+csrc/flash_attention_d256.cu (K10 at head dim 256, the video memory
+attention's), csrc/flash_attention_bwd.cu (K11: the delta pass, the dq
+pass and the dk/dv pass), csrc/full_attention.cu (K14) and
+csrc/full_attention_d256.cu (K14 at head dim 256, the memory attention's
+over a 512-px frame under the "pallas" backend). They take any head dim,
+as the JAX kernels do: d % 8 == 0 up to 96, and the forwards at 256, at
+views that allow 16-byte vectors (`_vec16`) run the vector instances,
+every other head dim or view the chunked, element-loading kernels of
+csrc/attention_any*.cu (K11 at head dim 256 among them); on the CPU the
+plain versions take any.
 
 q, k and v may be strided views, as the long global-attention blocks pass
 them (channel slices of the QKV output, rows of 3c): the kernels read them
@@ -30,9 +33,8 @@ import torch
 from sam2unet_torch.ops import build, dispatch
 from sam2unet_torch.ops.attention import MAX_FULL_SEQ, einsum_attention
 
-MAX_HEAD_DIM = 96  # attention.cuh instantiates head dims up to 6 x 16
 WIDE_HEAD_DIM = 256   # flash_attention_d256.cu, full_attention_d256.cu:
-                      # the forwards of K10 and K14
+                      # the forwards of K10 and K14 at aligned views
 
 
 def plain_flash_attention(q, k, v, scale: float | None = None,
@@ -99,21 +101,27 @@ def plain_flash_attention_bwd(q, k, v, o, lse, dout,
 
 
 def _check_view(t: torch.Tensor, what: str) -> None:
+    """The kernels read a view element by element where its strides or base
+    do not allow 16-byte vectors, so any strides do; d must be contiguous."""
     if t.dim() != 4 or t.stride(-1) != 1:
         raise ValueError(f"flash_attention: {what} must be (B, S, heads, d) "
                          "with unit stride over d")
-    if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
-        raise ValueError(f"flash_attention: {what} needs a 16-byte aligned "
-                         "base and strides that are multiples of 8 elements")
 
 
-def _check_args(q, k, v, *, wide: bool = False,
-                **more) -> tuple[int, int, int, int, int]:
+def _vec16(*views: torch.Tensor) -> bool:
+    """Whether 16-byte vectors reach every head row of these views (the C
+    side's `views_vec16`): each base 16-byte aligned, each stride a multiple
+    of 8 elements. The d256 forwards read only such views."""
+    return all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+               for t in views)
+
+
+def _check_args(q, k, v, **more) -> tuple[int, int, int, int, int]:
     """What K10, K11 and K14 take: q (B, Sq, heads, d), k and v (B, Sk,
     heads, d) with the same strides, `more` tensors shaped like q or like k
-    (by name: dk, dv like k), bf16 or fp32, one device, d % 8 == 0 and
-    d <= MAX_HEAD_DIM (or, with `wide`, the forwards' d == WIDE_HEAD_DIM),
-    every view addressable (`_check_view`). Returns (B, Sq, Sk, heads, d)."""
+    (by name: dk, dv like k), bf16 or fp32, one device, any head dim, every
+    view with unit stride over d (`_check_view`). Returns (B, Sq, Sk,
+    heads, d)."""
     b, sq, nh, d = q.shape
     sk = k.shape[1]
     if k.shape != (b, sk, nh, d) or v.shape != k.shape:
@@ -133,12 +141,6 @@ def _check_args(q, k, v, *, wide: bool = False,
             raise ValueError(f"flash_attention: {what} is on {t.device}, q on "
                              f"{q.device}")
         _check_view(t, what)
-    if d % 8 or (d > MAX_HEAD_DIM and not (wide and d == WIDE_HEAD_DIM)):
-        also = f", and the forwards at {WIDE_HEAD_DIM}" if wide else ""
-        raise ValueError(
-            f"the attention kernels take head dims % 8 == 0 up to "
-            f"{MAX_HEAD_DIM}{also}, not {d} (ROADMAP.md queue 2, TPU kernels "
-            "still to port)")
     return b, sq, sk, nh, d
 
 
@@ -153,11 +155,11 @@ def _check_rows(t: torch.Tensor, what: str, q: torch.Tensor) -> None:
 
 def _flash_attention_kernel(q, k, v, scale: float):
     """K10 on the card: (o, lse)."""
-    b, sq, sk, nh, d = _check_args(q, k, v, wide=True)
+    b, sq, sk, nh, d = _check_args(q, k, v)
     o = torch.empty((b, sq, nh, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * nh, sq), dtype=torch.float32, device=q.device)
     p = dispatch.ptr
-    if d == WIDE_HEAD_DIM:
+    if d == WIDE_HEAD_DIM and _vec16(q, k, v):
         fn = build.library("flash_attention_d256").k10_flash_attention_d256
     else:
         fn = build.library("flash_attention").k10_flash_attention
@@ -283,11 +285,7 @@ def flash_attention_bwd(q, k, v, o, lse, dout, scale: float | None = None,
     `_dkv`); this function launches nothing itself.
     `out` names three views to write them into (the channel blocks of one
     dqkv buffer in the long attention block). Plain version:
-    `plain_flash_attention_bwd`. At head dim 256 the card raises: K11 is
-    ported up to MAX_HEAD_DIM."""
-    if dispatch.use_kernel(q) and q.shape[-1] > MAX_HEAD_DIM:
-        dispatch.not_ported(f"K11 at head dim {q.shape[-1]}",
-                            "the streaming attention's backward")
+    `plain_flash_attention_bwd`."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     dq_out, dkv_out = (None, None) if out is None else (out[0], tuple(out[1:]))
@@ -328,13 +326,13 @@ def plain_full_attention(q, k, v, scale: float | None = None):
 
 
 def _full_attention_kernel(q, k, v, scale: float):
-    b, sq, sk, nh, d = _check_args(q, k, v, wide=True)
+    b, sq, sk, nh, d = _check_args(q, k, v)
     if sk > MAX_FULL_SEQ:
         raise ValueError(f"full_attention takes at most {MAX_FULL_SEQ} keys, "
                          f"got {sk}")
     o = torch.empty((b, sq, nh, d), dtype=q.dtype, device=q.device)
     p = dispatch.ptr
-    if d == WIDE_HEAD_DIM:
+    if d == WIDE_HEAD_DIM and _vec16(q, k, v):
         fn = build.library("full_attention_d256").k14_full_attention_d256
     else:
         fn = build.library("full_attention").k14_full_attention
@@ -367,10 +365,8 @@ def plain_full_attention_bwd(q, k, v, g, scale: float | None = None):
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float | None = None) -> torch.Tensor:
     """K14: softmax(q k^T * scale) v over (B, S, heads, d), at most 1024
-    keys, head dims up to 96 or 256, o (B, Sq, heads, d) in q's dtype. q,
-    k and v may be strided views (unit stride over d, 16-byte aligned,
-    strides multiples of 8 elements),
-    read where they lie. Differentiable: the backward is
+    keys, any head dim, o (B, Sq, heads, d) in q's dtype. q, k and v may
+    be strided views (unit stride over d), read where they lie. Differentiable: the backward is
     `plain_full_attention_bwd`, the JAX package's einsum recompute in this
     regime, on the card and on CPU tensors alike."""
     if scale is None:

@@ -72,7 +72,10 @@ def test_port_package_has_the_expected_modules():
                 "fused_transition.cu", "flash_attention.cu",
                 "attention_bwd.cuh", "attention_bwd_tiles.cuh",
                 "flash_attention_bwd.cu", "full_attention.cu",
-                "flash_attention_d256.cu", "full_attention_d256.cu", "ccl.cc",
+                "flash_attention_d256.cu", "full_attention_d256.cu",
+                "attention_any.cu", "attention_any_bwd.cu",
+                "attention_any_bwd_pad.cu", "attention_any.cuh",
+                "attention_any_fwd.cuh", "attention_any_bwd.cuh", "ccl.cc",
                 "dataload.cc"):
         assert (ROOT / "sam2unet_torch" / "csrc" / src).is_file()
     # the port's own ONNX schema and its committed protoc bindings

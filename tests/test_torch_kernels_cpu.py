@@ -368,20 +368,20 @@ def test_flash_attention_is_differentiable_on_the_cpu():
         np.testing.assert_allclose(a.numpy(), w.numpy(), **TOL)
 
 
-@pytest.mark.parametrize("case", ["head dim 12", "odd token stride",
+@pytest.mark.parametrize("case", ["head dims differ", "3-D q",
                                   "strided channels", "k and v differ",
                                   "dk shaped like q", "fp64"])
 def test_flash_argument_checks_refuse_what_the_kernels_cannot_address(case):
-    """The checks the card's K10 and K11 wrappers run before a launch
-    (16-byte vector loads: aligned bases, strides in multiples of 8
-    elements, unit stride over d, d % 8 == 0 and <= 96)."""
+    """The checks the card's K10, K11 and K14 wrappers run before a launch:
+    (B, S, heads, d) views with unit stride over d, q, k and v agreeing,
+    k and v of one stride, bf16 or fp32 (any head dim and any other stride:
+    `test_flash_argument_checks_take_any_head_dim_and_stride`)."""
     z = torch.zeros
     q, k, v, more, err = z(1, 32, 2, 16), z(1, 48, 2, 16), z(1, 48, 2, 16), {}, ValueError
-    if case == "head dim 12":
-        q, k, v = z(1, 32, 2, 12), z(1, 48, 2, 12), z(1, 48, 2, 12)
-    elif case == "odd token stride":
-        q = z(1, 32, 36)[:, :, :32].reshape(1, 32, 2, 16)
-        assert q.stride(1) == 36
+    if case == "head dims differ":
+        k, v = z(1, 48, 2, 12), z(1, 48, 2, 12)
+    elif case == "3-D q":
+        more = dict(dout=z(1, 32, 32))
     elif case == "strided channels":
         q = z(1, 32, 2, 32)[..., ::2]
     elif case == "k and v differ":
@@ -394,6 +394,21 @@ def test_flash_argument_checks_refuse_what_the_kernels_cannot_address(case):
         _check_args(q, k, v, **more)
     assert _check_args(z(1, 32, 2, 16), z(1, 48, 2, 16), z(1, 48, 2, 16),
                        dk=z(1, 48, 2, 16)) == (1, 32, 48, 2, 16)
+
+
+@pytest.mark.parametrize("case", ["head dim 12", "odd token stride"])
+def test_flash_argument_checks_take_any_head_dim_and_stride(case):
+    """What the checks refused before the element-loading kernels
+    (csrc/attention_any*.cu): a head dim that is no multiple of 8, a token
+    stride that is no multiple of 8 elements."""
+    z = torch.zeros
+    q, k, v = z(1, 32, 2, 16), z(1, 48, 2, 16), z(1, 48, 2, 16)
+    if case == "head dim 12":
+        q, k, v = z(1, 32, 2, 12), z(1, 48, 2, 12), z(1, 48, 2, 12)
+    else:
+        q = z(1, 32, 36)[:, :, :32].reshape(1, 32, 2, 16)
+        assert q.stride(1) == 36
+    assert _check_args(q, k, v, dout=q) == (1, 32, 48, 2, q.shape[-1])
 
 
 def test_long_window_block_backward_matches_jax_vjp():

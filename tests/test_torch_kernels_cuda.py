@@ -21,7 +21,10 @@ route), and the fp32 weight gate's plain route; K7's weight-gradient mode
 (dx and the six weight gradients) at S 16 to 256 and widths 144 to 576,
 K13 at hiera_s@960 / 1024's remainder grids and 12 x 18 window 5 without
 the residual, and autograd through each (a trainable window block; the
-frozen remainder strips through both wrappers). Tolerances: max|kernel -
+frozen remainder strips through both wrappers); the head dims past the
+16-byte-vector instances (csrc/attention_any*.cu): each window-family mode
+at head dim 12, K10 / K11 / K14 at 12, 13, 44, 130, 264, K11 at 256,
+views at any stride. Tolerances: max|kernel -
 plain| <= 2e-2 * max|plain| in bf16, 1e-4 in fp32 (TF32 off), for each
 output (K9 in bf16: see K9_NEAR_TIE_SHARE).
 """
@@ -226,28 +229,148 @@ def test_k14_kernel_at_head_dim_256(gen, dtype, b, sq, sk):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["head dim 128", "head dim 264", "K14 at 128",
                                   "K11 at 256"])
-def test_head_dims_the_port_does_not_instantiate_raise(gen, case):
-    """Head dims without a kernel instance raise on the card, naming ROADMAP
-    queue 2 (K10 and K14 have 256 besides up to 96; K11 only up to 96), and
-    the backward of K10 at 256 raises rather than recompute through the
-    plain version."""
+def test_head_dims_past_the_vector_instances_match_plain(gen, case):
+    """Head dims past the 16-byte-vector instances (csrc/attention_any*.cu):
+    K10 at 128 and 264, K14 at 128, and K10 at 256 under autograd, whose
+    backward is K11 at 256 (its delta, dq and dk/dv passes), each against
+    its plain version; the variant names d."""
     from sam2unet_torch.ops.flash_attention import full_attention
 
     d = {"head dim 128": 128, "head dim 264": 264, "K14 at 128": 128}.get(
         case, 256)
-    q = _rnd(gen, torch.bfloat16, 1, 2048, 1, d)
-    if case == "K14 at 128":
-        with pytest.raises(ValueError, match="queue 2"):
-            full_attention(q[:, :64], q[:, :64], q[:, :64])
-    elif case == "K11 at 256":
-        q.requires_grad_(True)
-        o = flash_attention(q, q, q)
-        with pytest.raises(NotImplementedError, match="K11 at head dim 256.*"
-                                                      "queue 2"):
-            o.sum().backward()
+    for dtype in DTYPES:
+        q = _rnd(gen, dtype, 1, 2048, 1, d)
+        if case == "K14 at 128":
+            _compare(lambda: full_attention(q[:, :64], q[:, :64], q[:, :64]),
+                     dtype)
+            assert dispatch.variants == {("full_attention", "Sq=64,Sk=64,d=128"): 1}
+        elif case == "K11 at 256":
+            q.requires_grad_(True)
+            g = _rnd(gen, dtype, 1, 2048, 1, d)
+
+            def call():
+                o = flash_attention(q, q * 0.5, q)
+                return torch.autograd.grad(o, q, g)[0]
+            _compare(call, dtype, launches=4)
+            assert dispatch.launches["flash_attention_bwd_dkv"] == 1
+        else:
+            _compare(lambda: flash_attention(q, q, q, return_lse=True), dtype)
+            assert dispatch.variants == {("flash_attention", f"S=2048,d={d}"): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("view", ["odd token stride", "offset base"])
+def test_head_dim_256_at_views_without_16_byte_vectors(gen, dtype, view):
+    """K10 (o and lse, and under autograd with K11) and K14 at head dim 256
+    on views the d256 forwards' 16-byte loads cannot read: a token stride of
+    3 * 256 + 4 elements, or a base one element past an aligned one. They
+    run the element-loading kernels; against the plain versions."""
+    from sam2unet_torch.ops.flash_attention import full_attention
+
+    if view == "odd token stride":
+        buf = _rnd(gen, dtype, 2, 300, 3 * 256 + 4)[..., :3 * 256]
     else:
-        with pytest.raises(ValueError, match="queue 2"):
-            flash_attention(q, q, q)
+        buf = _rnd(gen, dtype, 2 * 300 * 3 * 256 + 1)[1:]
+    qkv = buf.reshape(2, 300, 3, 1, 256).requires_grad_(True)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert q.stride(1) % 8 or q.data_ptr() % 16
+    _compare(lambda: flash_attention(q.detach(), k.detach(), v.detach(),
+                                     return_lse=True), dtype)
+    assert dispatch.variants == {("flash_attention", "S=300,d=256"): 1}
+    g = _rnd(gen, dtype, 2, 300, 1, 256)
+
+    def grad():
+        o = flash_attention(q, k, v)
+        return torch.autograd.grad(o, qkv, g)[0]
+    _compare(grad, dtype, launches=4)
+    _compare(lambda: full_attention(q.detach()[:, :49], k.detach()[:, :196],
+                                    v.detach()[:, :196]), dtype)
+    assert dispatch.variants == {("full_attention", "Sq=49,Sk=196,d=256"): 1}
+
+
+# head dims the vector instances do not take: the JAX kernel tests' 12, an
+# odd 13 (2-byte rows), 44 (one chunk, element loads), 130 (three chunks,
+# the last ragged) and 264
+ANY_HEAD_DIMS = [12, 13, 44, 130, 264]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", ANY_HEAD_DIMS)
+def test_flash_family_at_any_head_dim(gen, dtype, d):
+    """K10 (o and lse) on strided views of one QKV buffer and on cross
+    lengths, K11 through autograd (one launch each of K10, the delta, the
+    dq and the dk/dv pass), K14 over 49 -> 196 keys, each against its plain
+    version."""
+    from sam2unet_torch.ops.flash_attention import full_attention
+
+    qkv = _rnd(gen, dtype, 2, 300, 3, 2, d).requires_grad_(True)
+    g = _rnd(gen, dtype, 2, 300, 2, d)
+    _compare(lambda: flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                                     return_lse=True), dtype)
+    q = _rnd(gen, dtype, 2, 77, 2, d)
+    _compare(lambda: flash_attention(q, qkv[:, :, 1].detach(),
+                                     qkv[:, :, 2].detach(), return_lse=True),
+             dtype)
+
+    def grad():
+        o = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        return torch.autograd.grad(o, qkv, g)[0]
+    _compare(grad, dtype, launches=4)
+    kv = _rnd(gen, dtype, 2, 196, 2, 2, d)
+    _compare(lambda: full_attention(q[:, :49], kv[:, :, 0], kv[:, :, 1]), dtype)
+    assert dispatch.variants == {("full_attention", f"Sq=49,Sk=196,d={d}"): 1}
+
+
+# each window-family mode at the JAX kernel tests' head dim 12: c 24 over
+# 2 heads, the transition 24 -> 48 over 4 (tests/test_fused_ops.py)
+WINDOW_MODES = ["K4", "K5", "K6", "K6 pad key", "K6 masked", "K7", "K7 masked",
+                "K7 weight-grad", "K8", "K9", "K12", "K13"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", WINDOW_MODES)
+def test_window_family_at_head_dim_12(gen, dtype, mode):
+    """Each window-family kernel's mode at head dim 12 against its plain
+    version, one launch of its wrapper; the backward kernels against
+    autograd through the plain forward."""
+    from sam2unet_torch.ops.windowing import grid_window_mask
+
+    w = _attn_weights(gen, dtype, 24, 24)
+    kw = dict(num_heads=2)
+    if mode in ("K4", "K5", "K12", "K13"):
+        grid = 16 if mode in ("K4", "K5") else 30
+        x, gy = (_rnd(gen, dtype, 2, grid, grid, 24) for _ in range(2))
+        call = {"K4": lambda: fused_window_block_strips(x, *w, window=8, **kw),
+                "K12": lambda: fused_window_block_strips_rem(x, *w, window=8, **kw),
+                "K5": lambda: window_block_strips_bwd(x, gy, *w, window=8, **kw),
+                "K13": lambda: window_block_strips_rem_bwd(x, gy, *w, window=8,
+                                                           **kw)}[mode]
+    elif mode in ("K8", "K9"):
+        x = _rnd(gen, dtype, 2, 16, 16, 24)
+        gy = _rnd(gen, dtype, 2, 8, 8, 48)
+        wt = _attn_weights(gen, dtype, 24, 48)
+        ws, bs = _lin(gen, dtype, 48, 24)
+        kw = dict(num_heads=4, window=8)
+        call = ((lambda: fused_transition_block(x, *wt, ws, bs, **kw))
+                if mode == "K8" else
+                (lambda: transition_bwd(x, gy, *wt, ws, bs, **kw)))
+    else:
+        s = 144 if "masked" in mode else 64
+        x, gy = (_rnd(gen, dtype, 4, s, 24) for _ in range(2))
+        if "masked" in mode:
+            mask, lm = (torch.from_numpy(a).cuda()
+                        for a in grid_window_mask(12, 12, 8))
+            kw.update(attn_mask=mask, pad_logmult=lm)
+        if mode == "K6 pad key":
+            kw.update(n_pad=16)
+        if mode == "K7 weight-grad":
+            kw.update(weight_grads=True)
+        call = ((lambda: fused_window_block(x, *w, **kw)) if mode.startswith("K6")
+                else (lambda: window_block_bwd(x, gy, *w, **kw)))
+    _compare(call, dtype, near_ties=mode == "K9" and dtype == torch.bfloat16)
 
 
 def _k11_inputs(gen, dtype, b, sq, sk, nh, d):
@@ -306,12 +429,24 @@ def test_k11_passes_match_plain_one_by_one(gen, dtype):
 @pytest.mark.cuda
 def test_k11_refuses_views_it_cannot_address(gen):
     q, k, v, o, lse, g, _ = _k11_inputs(gen, torch.bfloat16, 1, 64, 64, 2, 96)
-    odd = torch.empty(1, 64, 2, 100, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="strides that are multiples of 8"):
+    wide = torch.empty(1, 64, 2, 192, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="unit stride over d"):
         flash_attention_bwd(q, k, v, o, lse, g,
-                            out=(odd[..., :96], odd[..., :96], odd[..., :96]))
+                            out=(wide[..., ::2], wide[..., ::2], wide[..., ::2]))
     with pytest.raises(ValueError, match="lse must be contiguous fp32"):
         flash_attention_bwd(q, k, v, o, lse.t().contiguous().t(), g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k11_writes_views_at_any_stride(gen, dtype):
+    """dq, dk and dv written into views whose head stride (100 elements) is
+    no multiple of 8: the element-loading passes take them."""
+    q, k, v, o, lse, g, _ = _k11_inputs(gen, dtype, 1, 64, 64, 2, 96)
+    odd = torch.empty(1, 64, 3, 2, 100, dtype=dtype, device="cuda")
+    outs = tuple(odd[:, :, i, :, :96] for i in range(3))
+    _compare(lambda: flash_attention_bwd(q, k, v, o, lse, g, out=outs), dtype,
+             launches=3)
 
 
 @pytest.mark.cuda
@@ -643,8 +778,8 @@ def test_k14_is_differentiable_through_the_plain_version(gen):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["1025 keys", "head dim 12", "head dim 104",
-                                  "odd token stride", "mixed dtypes"])
+@pytest.mark.parametrize("case", ["1025 keys", "strided channels",
+                                  "mixed dtypes"])
 def test_k14_refuses_what_it_cannot_take(gen, case):
     from sam2unet_torch.ops.flash_attention import full_attention
 
@@ -652,17 +787,34 @@ def test_k14_refuses_what_it_cannot_take(gen, case):
     k = v = q
     if case == "1025 keys":
         k = v = _rnd(gen, torch.bfloat16, 1, 1025, 2, 16)
-    elif case == "head dim 12":
-        q = k = v = _rnd(gen, torch.bfloat16, 1, 8, 2, 12)
-    elif case == "head dim 104":
-        q = k = v = _rnd(gen, torch.bfloat16, 1, 8, 1, 104)
-    elif case == "odd token stride":
-        k = v = _rnd(gen, torch.bfloat16, 1, 8, 2 * 16 + 4)[..., :32].reshape(
-            1, 8, 2, 16)
+    elif case == "strided channels":
+        k = v = _rnd(gen, torch.bfloat16, 1, 8, 2, 32)[..., ::2]
     else:
         k = v = q.float()
     with pytest.raises((ValueError, TypeError)):
         full_attention(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ["head dim 12", "head dim 104",
+                                  "odd token stride"])
+def test_k14_takes_any_head_dim_and_stride(gen, dtype, case):
+    """What K14 refused before the element-loading kernels: head dims 12
+    and 104, a token stride that is no multiple of 8; against the plain
+    version."""
+    from sam2unet_torch.ops.flash_attention import full_attention
+
+    q = _rnd(gen, dtype, 1, 8, 2, 16)
+    k = v = q
+    if case == "head dim 12":
+        q = k = v = _rnd(gen, dtype, 1, 8, 2, 12)
+    elif case == "head dim 104":
+        q = k = v = _rnd(gen, dtype, 1, 8, 1, 104)
+    else:
+        k = v = _rnd(gen, dtype, 1, 8, 2 * 16 + 4)[..., :32].reshape(1, 8, 2, 16)
+        assert k.stride(1) == 36
+    _compare(lambda: full_attention(q, k, v), dtype)
 
 
 @pytest.mark.cuda
