@@ -18,7 +18,9 @@ other modes, the masked whole-grid K6 / K7) at full width; and the backward
 modes of K7 and K12 that a trainable trunk and an eval-mode gradient reach
 (K7's weight-gradient mode, K13a / K13b); and every head dim the JAX
 attention kernels take (the window family at its kernel tests' head dim 12,
-K10 / K11 / K14 at 12, 128, 264, K11 at the video memory attention's 256).
+K10 / K11 / K14 at 12, 128, 264, K11 at the video memory attention's 256);
+and every width its MLP, LN-matmul and window kernels take (widths that are
+not a multiple of 8, LN rows past 2048).
 
     python3 chip_smoke.py            # every phase, as the acceptance run does
     python3 chip_smoke.py --phases build,kernels --batch 2 --batch960 2 \
@@ -36,6 +38,7 @@ K10 / K11 / K14 at 12, 128, 264, K11 at the video memory attention's 256).
     python3 chip_smoke.py --paths opsapi           # the kernel entry points
     python3 chip_smoke.py --paths bwdmodes         # K7 weight-grad, K13
     python3 chip_smoke.py --paths headdims         # any head dim
+    python3 chip_smoke.py --paths widths           # any width
 
 Phases, one line each, for each path of --paths (l352, s960, then the
 training paths l352train and s960train, listed after these):
@@ -306,6 +309,23 @@ csrc/attention_any*.cu, which take every head dim the JAX kernels take):
   3. one bf16 call of each of those shapes (`headdims_main_phase`), the
      counters at 0 just before and read just after: the run's launches by
      shape against the launches each shape names.
+The width path widths (seeded random weights; the LN and GEMM passes of
+csrc/gemm_any.cu, which take every width the JAX kernels take):
+  2. K1 in its JAX modes, K2 and K3 at C 12, 13, 20 and 2056, `fused_mlp`
+     under autograd (K1, then K2 or K3); K15 / K16 at the JAX test's 80 x
+     12 -> 36, K15 at 13 -> 20 and 2060 -> 24, K16 under autograd; K6 / K7
+     in every mode at c 26, 20 and 2064 on (2 windows, 16 tokens); K4 / K5
+     and K12 / K13 at c 26; K8 / K9 at 20 -> 40, 2056 -> 48 and 20 -> 27;
+     each against its plain version in bf16 and fp32, each call's
+     launches the JAX route's. Timed (every bf16 shape): K1 at 15488 x 572
+     and 576 (hidden 4c) and 4096 x 2056 (hidden 8224), K15 / K16 at 572
+     -> 1716 and 576 -> 1728, K2 / K3 at 7744 x 572 and 576, K6 / K7 at 32
+     x 256 x 580 and 576 over 4 heads, K8 at (32, 88, 88, 148) -> 296 and
+     144 -> 288 over 2 heads (and over 4).
+  3. one bf16 call of each of those shapes (`widths_main_phase`) and its
+     launches by shape; torch.profiler over one ragged call of each
+     family (gemm_any's kernels present) and one hiera_l@352 forward at
+     batch 1 (none present).
 The throughput phase of l352, l352train and s960train also times the step
 with the persistent window groups and per block (SAM2UNET_DISABLE_GROUPED),
 alternating, for the record.
@@ -661,6 +681,16 @@ PATHS["headdims"] = dict(
     # main phase runs the kernel phase's shapes once (`headdims_main_phase`)
     label="head dims", headdims=True, batch=1, fp32_listed=True,
     time_each=True)
+PATHS["widths"] = dict(
+    # every width the JAX MLP, LN-matmul and window kernels take, through the
+    # functions the JAX package ships and its tests call: K1 / K2 / K3 / K15
+    # / K16 and the window, strip, remainder and transition blocks at widths
+    # that are not a multiple of 8 and LN rows past 2048 (csrc/gemm_any.cu;
+    # `widths_kernel_specs`); the main phase runs the kernel phase's shapes
+    # once (`widths_main_phase`), then shows the gemm_any kernels in a
+    # profile of one ragged call of each family and none in one of
+    # hiera_l@352's forward
+    label="widths", widths=True, batch=1, fp32_listed=True, time_each=True)
 BATCH_FLAG = {"l352": "batch", "opsapi": "batch", "s960": "batch960",
               "l352train": "batch_train",
               "s960train": "batch_train960"}
@@ -748,9 +778,9 @@ def make_case(kind: str, dtype, gen, **g):
 
     if kind in ("mlp_tail", "mlp_adapter"):
         # the tail: LN and the residual unless g says otherwise (the frozen
-        # `fused_mlp`'s other modes)
+        # `fused_mlp`'s other modes); the hidden width 4c or 32 unless given
         m, c = g["tokens"], g["c"]
-        hd = 4 * c if kind == "mlp_tail" else 32
+        hd = g.get("hidden", 4 * c if kind == "mlp_tail" else 32)
         ln, res = g.get("ln", True), g.get("residual", True)
         x = rnd(m, c)
         w1, b1 = lin(hd, c)
@@ -769,14 +799,76 @@ def make_case(kind: str, dtype, gen, **g):
 
     if kind in ("ln_matmul", "ln_qkv"):
         # K15 / K16 on a (tokens, c) row block, W the (3c, c) QKV weight
+        # unless its rows `n` are given
         m, c, add_bias = g["tokens"], g["c"], g["add_bias"]
+        n = g.get("n", 3 * c)
         x = rnd(m, c)
-        w, b = lin(3 * c, c)
+        w, b = lin(n, c)
         lw, lb = rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1)
         fn = fused_ln_qkv if kind == "ln_qkv" else fused_ln_matmul
         call = lambda: fn(x, w, b, lw, lb, add_bias)
-        nel = m * c + 3 * c * c + 3 * c * add_bias + 2 * c + 3 * m * c
-        return call, 6 * m * c * c, nel * x.element_size(), None
+        nel = m * c + n * c + n * add_bias + 2 * c + m * n
+        return call, 2 * m * c * n, nel * x.element_size(), None
+
+    if kind == "mlp_grad":
+        # `fused_mlp` under autograd as the JAX tests differentiate it: the
+        # frozen tail or MLP with x trainable (K1, then K2), the adapter
+        # with every weight trainable (K1, then K3); dx and the weights'
+        # gradients, with the output
+        m, c, hd, mode = g["tokens"], g["c"], g["hidden"], g["mode"]
+        x, gy = rnd(m, c), rnd(m, c)
+        w1, b1 = lin(hd, c)
+        w2, b2 = lin(c, hd)
+        kw = {"ln tail": dict(residual=True, ln_w=rnd(c, scale=0.1, shift=1.0),
+                              ln_b=rnd(c, scale=0.1)),
+              "adapter": dict(residual=True, gelu_out=True),
+              "no ln, no residual": {}}[mode]
+
+        def call():
+            leaves = [t.detach().requires_grad_(i == 0 or mode == "adapter")
+                      for i, t in enumerate((x, w1, b1, w2, b2))]
+            y = fused_mlp(*leaves, **kw)
+            wrt = [t for t in leaves if t.requires_grad]
+            return (y.detach(), *torch.autograd.grad(y, wrt, gy))
+        # the forward's two products, then K2's three or K3's six; x, gy and
+        # the weights read, y and dx (and K3's fp32 weight gradients) written
+        es, adapter = x.element_size(), mode == "adapter"
+        flops = (16 if adapter else 10) * m * c * hd
+        nbytes = (4 * m * c + 2 * c * hd + hd + c) * es + adapter * 4 * (
+            2 * c * hd + hd + c)
+        return call, flops, nbytes, None
+
+    if kind == "ln_qkv_grad":
+        # `fused_ln_qkv` under autograd with x and W trainable, as the JAX
+        # test differentiates it: K16, then the plain recompute's backward
+        m, c, n = g["tokens"], g["c"], g["n"]
+        x, w_b = rnd(m, c), lin(n, c)
+        lw, lb = rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1)
+        gq = [rnd(m, n // 3) for _ in range(3)]
+
+        def call():
+            xx, ww = (t.detach().requires_grad_(True) for t in (x, w_b[0]))
+            q, k, v = fused_ln_qkv(xx, ww, w_b[1], lw, lb)
+            grads = torch.autograd.grad((q, k, v), (xx, ww), gq)
+            return (q.detach(), k.detach(), v.detach(), *grads)
+        return call, 6 * m * c * n, (3 * m * c + 2 * m * n + 2 * n * c) * x.element_size(), None
+
+    if kind == "window_grad":
+        # `fused_window_block` under autograd with frozen weights: K6, then
+        # K7's dx-only backward
+        nw, s_, c, nh = g["windows"], g["S"], g["c"], g["heads"]
+        lw, lb = rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1)
+        wq, bq = lin(3 * c, c)
+        wp, bp = lin(c, c)
+        x, gy = rnd(nw, s_, c), rnd(nw, s_, c)
+
+        def call():
+            xx = x.detach().requires_grad_(True)
+            y = fused_window_block(xx, wq, bq, lw, lb, wp, bp, num_heads=nh)
+            return (y.detach(), *torch.autograd.grad(y, xx, gy))
+        m, pairs = nw * s_, nw * s_ * s_
+        flops = 3 * (2 * m * c * 3 * c + 4 * pairs * c + 2 * m * c * c)
+        return call, flops, (4 * m * c + 4 * c * c) * x.element_size(), None
 
     if kind in ("window_masked", "window_masked_bwd"):
         # the masked whole-grid mode: one row per image of grid x grid
@@ -991,7 +1083,7 @@ def make_case(kind: str, dtype, gen, **g):
     # gy; operations count the recomputed forward the kernel needs
     if kind in ("mlp_tail_bwd", "mlp_adapter_bwd"):
         m, c = g["tokens"], g["c"]
-        hd = 4 * c if kind == "mlp_tail_bwd" else 32
+        hd = g.get("hidden", 4 * c if kind == "mlp_tail_bwd" else 32)
         x, gy = rnd(m, c), rnd(m, c)
         w1, b1 = lin(hd, c)
         w2, b2 = lin(c, hd)
@@ -1127,6 +1219,8 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
         return bwdmodes_kernel_specs(b, fab)
     if PATHS[path].get("headdims"):
         return headdims_kernel_specs(fab)
+    if PATHS[path].get("widths"):
+        return widths_kernel_specs(fab)
     if PATHS[path].get("train"):
         fa = "sam2unet_tpu/ops/pallas/flash_attention.py"
         src_k11 = "sam2unet_torch/csrc/flash_attention_bwd.cu"
@@ -1730,6 +1824,168 @@ def headdims_kernel_specs(fab: str) -> list[tuple]:
          [dict(g, expect=("transition_bwd", "window=8")) for g in tra], 0)]
 
 
+# the widths of K1 / K2 / K3 (C, hidden) and of the window block (c, heads)
+WIDTHS_MLP = ((12, 8), (13, 26), (20, 32), (2056, 64))
+WIDTHS_BLOCK = ((26, 2), (20, 4), (2064, 8))
+
+
+def widths_kernel_specs(fab: str) -> list[tuple]:
+    """The LN and GEMM passes at widths the 16-byte-vector instances do not
+    take (csrc/gemm_any.cu): K1 in the JAX package's modes (the LN tail,
+    the adapter, neither LN nor the residual), K2 in the tail's and the
+    no-LN modes and K3 at C 12, 13, 20 and 2056 (hidden 8, 26, 32, 64; K3's
+    adapter 32 at 2056), `fused_mlp` under autograd at each (K1, then K2 or
+    K3); K15 / K16 at the JAX test's 80 x 12 -> 36 with and without the
+    bias, K15 at 13 -> 20 and 2060 -> 24, K16 under autograd; K6 / K7 in
+    every mode (n_pad 0 and 5, masked on a 4 x 4 grid window 3, the
+    weight-gradient mode, K6 then K7 under autograd) on (2 windows, 16
+    tokens) at c 26 over 2 heads, 20 over 4, 2064 over 8; K4 / K5 on (2,
+    16, 16, 26) w8 and K12 / K13 on (2, 30, 30, 26) w8, 2 heads; K8 / K9 at
+    (2, 16, 16, 20) -> 40 w8 over 4 heads, (1, 8, 8, 2056) -> 48 w4 over 4
+    and an odd cout, (2, 8, 8, 20) -> 27 w4 over 3. Timed rows, each beside
+    the aligned row it pairs with: K1's tail at 15488 x 572 (hidden 2288)
+    against 15488 x 576, K1 at 4096 x 2056 (hidden 8224, LN past 2048), K15
+    / K16 at 15488 x 572 -> 1716 against 576 -> 1728, K2 at 7744 x 572
+    against 576, K3 at 7744 x 572 (hidden 32) against 576, K6 / K7 at 32 x
+    256 x 580 over 4 heads against 576, K8 at (32, 88, 88, 148) -> 296 w8
+    over 2 heads against 144 -> 288 over 2 heads and over hiera_l@352's 4.
+    Each shape names its launches
+    (`expect`); `f32` its fp32 run; `as_kind` a kind other than its
+    entry's."""
+    from sam2unet_torch.ops.fused_attention_block import strips_rem_bwd_regime
+
+    fmlp = "sam2unet_tpu/ops/pallas/fused_mlp.py"
+    src_tr = "sam2unet_tpu/ops/pallas/fused_transition.py"
+    src = "sam2unet_torch/csrc/gemm_any.cu"
+    f32 = dict(f32={})
+
+    def mlp_variant(c, ln, res):
+        return f"C={c}" + ("" if ln else ",no_ln") + ("" if res else ",no_residual")
+
+    k1, k2, k3 = [], [], []
+    for c, hd in WIDTHS_MLP:
+        base = dict(tokens=150, c=c, hidden=hd, **f32)
+        k1 += [dict(base, expect=("fused_mlp", "ln")),
+               dict(base, ln=False, residual=False, expect=("fused_mlp", "no_ln")),
+               dict(base, as_kind="mlp_adapter", expect=("fused_mlp", "no_ln"))]
+        k2 += [dict(base, expect=("mlp_bwd_dx", mlp_variant(c, True, True))),
+               dict(base, ln=False, residual=False,
+                    expect=("mlp_bwd_dx", mlp_variant(c, False, False)))]
+        k2 += [dict(base, as_kind="mlp_grad", mode=mode,
+                    expect={("fused_mlp", v): 1,
+                            ("mlp_bwd_dx", mlp_variant(c, mode == "ln tail",
+                                                       mode == "ln tail")): 1})
+               for mode, v in (("ln tail", "ln"), ("no ln, no residual", "no_ln"))]
+        ha = 32 if c > 2048 else hd
+        k3 += [dict(base, hidden=ha, expect=("adapter_bwd", f"C={c}")),
+               dict(base, hidden=ha, as_kind="mlp_grad", mode="adapter",
+                    expect={("fused_mlp", "no_ln"): 1, ("adapter_bwd", f"C={c}"): 1})]
+    k1 += [dict(tokens=15488, c=576, hidden=2304, expect=("fused_mlp", "ln")),
+           dict(tokens=4096, c=2056, hidden=8224, expect=("fused_mlp", "ln")),
+           dict(tokens=15488, c=572, hidden=2288, expect=("fused_mlp", "ln"))]
+    k2 += [dict(tokens=7744, c=c, hidden=4 * c,
+                expect=("mlp_bwd_dx", mlp_variant(c, True, True)))
+           for c in (576, 572)]
+    k3 += [dict(tokens=7744, c=c, hidden=32, expect=("adapter_bwd", f"C={c}"))
+           for c in (576, 572)]
+
+    def lm(c, n, add_bias=True, tokens=80, **more):
+        return dict(tokens=tokens, c=c, n=n, add_bias=add_bias, **more)
+    k15 = [lm(12, 36, ab, **f32) for ab in (True, False)] + [
+        lm(13, 20, **f32), lm(2060, 24, **f32),
+        lm(576, 1728, tokens=15488), lm(572, 1716, tokens=15488)]
+    for g in k15:
+        g["expect"] = ("fused_ln_matmul", f"C={g['c']},N={g['n']}")
+    k16 = [lm(12, 36, ab, **f32) for ab in (True, False)] + [
+        lm(12, 36, as_kind="ln_qkv_grad", **f32),
+        lm(576, 1728, tokens=15488), lm(572, 1716, tokens=15488)]
+    for g in k16:
+        g["expect"] = ("fused_ln_qkv", f"C={g['c']},N={g['n']}")
+
+    k6, k7 = [], []
+    for c, nh in WIDTHS_BLOCK:
+        win = dict(windows=2, S=16, c=c, heads=nh, **f32)
+        masked = dict(batch=2, grid=4, window=3, c=c, heads=nh, **f32)
+        k6 += [dict(win, n_pad=n_pad, expect=("fused_window_block",
+                                              f"S=16,n_pad={n_pad}"))
+               for n_pad in (0, 5)]
+        k6 += [dict(masked, as_kind="window_masked",
+                    expect=("fused_window_block", "S=16,masked"))]
+        k7 += [dict(win, expect=("window_block_bwd", "S=16")),
+               dict(masked, as_kind="window_masked_bwd",
+                    expect=("window_block_bwd", "S=16,masked")),
+               dict(win, as_kind="window_wgrad",
+                    expect=("window_block_bwd", "S=16,wgrad")),
+               dict(win, as_kind="window_grad",
+                    expect={("fused_window_block", "S=16,n_pad=0"): 1,
+                            ("window_block_bwd", "S=16"): 1})]
+    for c in (576, 580):
+        k6.append(dict(windows=32, S=256, c=c, heads=4,
+                       expect=("fused_window_block", "S=256,n_pad=0")))
+        k7.append(dict(windows=32, S=256, c=c, heads=4,
+                       expect=("window_block_bwd", "S=256")))
+    c26 = dict(c=26, heads=2, **f32)
+    strips = [dict(batch=2, grid=16, window=8, **c26)]
+    rem = dict(batch=2, grid=30, window=8, **c26)
+    rem_bwd = [dict(rem, expect=("window_block_strips_rem_bwd", "window=8,"
+                                 + strips_rem_bwd_regime(30, 30, 8, 26, 2, 2)),
+                    f32=dict(expect=("window_block_strips_rem_bwd", "window=8,"
+                                     + strips_rem_bwd_regime(30, 30, 8, 26, 2, 4))))]
+    tra = [dict(batch=2, grid=16, window=8, cin=20, c=40, heads=4),
+           dict(batch=1, grid=8, window=4, cin=2056, c=48, heads=4),
+           dict(batch=2, grid=8, window=4, cin=20, c=27, heads=3)]
+    k8 = [dict(g, f32={}, expect=("fused_transition_block", f"window={g['window']}"))
+          for g in tra] + [
+        dict(batch=32, grid=88, window=8, cin=cin, c=2 * cin, heads=nh,
+             expect=("fused_transition_block", "window=8"))
+        for cin, nh in ((144, 4), (144, 2), (148, 2))]
+    k9 = [dict(g, f32=dict(no_near_ties=True),
+               expect=("transition_bwd", f"window={g['window']}")) for g in tra]
+
+    def sel(wrapper, *tags):
+        return lambda w, v: w == wrapper and all(t in v for t in tags)
+    return [
+        ("K1 fused_mlp (any width)", "mlp_tail", f"{fmlp}:135", src,
+         sel("fused_mlp"), k1, len(k1) - 1),
+        ("K2 mlp_bwd_dx (any width)", "mlp_tail_bwd", f"{fmlp}:432", src,
+         sel("mlp_bwd_dx"), k2, len(k2) - 1),
+        ("K3 adapter_bwd (any width)", "mlp_adapter_bwd", f"{fmlp}:551", src,
+         sel("adapter_bwd"), k3, len(k3) - 1),
+        ("K15 fused_ln_matmul (any width)", "ln_matmul", f"{fmlp}:208", src,
+         sel("fused_ln_matmul"), k15, len(k15) - 1),
+        ("K16 fused_ln_qkv (any width)", "ln_qkv", f"{fmlp}:279", src,
+         sel("fused_ln_qkv"), k16, len(k16) - 1),
+        ("K6 fused_window_block (any width)", "window", f"{fab}:354", src,
+         sel("fused_window_block"), k6, len(k6) - 1),
+        ("K7 window_block_bwd (any width)", "window_bwd", f"{fab}:669", src,
+         sel("window_block_bwd"), k7, len(k7) - 1),
+        ("K4 fused_window_block_strips (any width)", "strips", f"{fab}:1021",
+         src, sel("fused_window_block_strips"),
+         [dict(g, expect=("fused_window_block_strips", "window=8")) for g in strips],
+         0),
+        ("K5 window_block_strips_bwd (any width)", "strips_bwd", f"{fab}:1082",
+         src, sel("window_block_strips_bwd"),
+         [dict(g, expect=("window_block_strips_bwd", "window=8")) for g in strips],
+         0),
+        ("K12 fused_window_block_strips_rem (any width)", "strips_rem",
+         f"{fab}:1566", src, sel("fused_window_block_strips_rem"),
+         [dict(rem, expect=("fused_window_block_strips_rem", "window=8"))], 0),
+        ("K13 window_block_strips_rem_bwd (any width)", "strips_rem_bwd",
+         f"{fab}:{1843 if 'K13b' in rem_bwd[0]['expect'][1] else 1651}", src,
+         sel("window_block_strips_rem_bwd"), rem_bwd, 0),
+        ("K8 fused_transition_block (any width)", "transition", f"{src_tr}:256",
+         src, sel("fused_transition_block"), k8, len(k8) - 1),
+        ("K9 transition_bwd (any width)", "transition_bwd", f"{src_tr}:483",
+         src, sel("transition_bwd"), k9, 0)]
+
+
+def shape_case(kind: str, g: dict, dtype, gen):
+    """`make_case` for shape g of an entry of `kind`, at the shape's own kind
+    (`as_kind`) where an entry holds shapes of several."""
+    g = dict(g)
+    return make_case(g.pop("as_kind", kind), dtype, gen, **g)
+
+
 def plain_route(kind: str, g: dict, dtype) -> bool:
     """Whether the call takes the plain version by the JAX route: fp32 past
     the weight gate (`f32_weights_overflow`, the JAX package's
@@ -1740,9 +1996,10 @@ def plain_route(kind: str, g: dict, dtype) -> bool:
     from sam2unet_torch.ops.fused_mlp import f32_weights_overflow
 
     c = g.get("c", 0)
-    shapes = {"mlp_tail": [(4 * c, c), (c, 4 * c)],
-              "mlp_adapter": [(32, c), (c, 32)],
-              "ln_matmul": [(3 * c, c)], "ln_qkv": [(3 * c, c)]}.get(kind)
+    hd = g.get("hidden", 4 * c if kind == "mlp_tail" else 32)
+    n = g.get("n", 3 * c)
+    shapes = {"mlp_tail": [(hd, c), (c, hd)], "mlp_adapter": [(hd, c), (c, hd)],
+              "ln_matmul": [(n, c)], "ln_qkv": [(n, c)]}.get(kind)
     return shapes is not None and f32_weights_overflow(
         torch.empty(0, c, dtype=dtype),
         *(torch.empty(sh, device="meta") for sh in shapes))
@@ -1804,8 +2061,8 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
             path, batch):
         worst_abs = worst_rel = 0.0
         for i, g in enumerate(shapes):
-            call, flops, nbytes, library = make_case(kind, torch.bfloat16, gen,
-                                                     **g)
+            call, flops, nbytes, library = shape_case(kind, g, torch.bfloat16,
+                                                      gen)
             err, rel, share, launched = compare(call, BF16_REL_TOL)
             if not launched:
                 fail(f"{name} launched nothing in bf16 at {g}")
@@ -1862,9 +2119,9 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
             runs = every if spec.get("fp32") else [g]
         for g in runs:
             err, rel, share, launched = compare(
-                make_case(kind, torch.float32, gen, **g)[0], FP32_REL_TOL)
+                shape_case(kind, g, torch.float32, gen)[0], FP32_REL_TOL)
             expected_launch(name, g, "fp32")
-            plain = plain_route(kind, g, torch.float32)
+            plain = plain_route(g.get("as_kind", kind), g, torch.float32)
             ok = share == 0.0 and bool(launched) != plain
             print(f"[kernel] {name} {label} fp32 {g}: max_abs_err {err:.4g} "
                   f"max_rel_err {rel:.4g} (tol {FP32_REL_TOL})"
@@ -4966,7 +5223,7 @@ def headdims_main_phase(path: str) -> dict:
     calls, want = [], collections.Counter()
     for _name, kind, _r, _s, _sel, shapes, _t in kernel_specs(path, 1):
         for g in shapes:
-            calls.append(make_case(kind, torch.bfloat16, gen, **g)[0])
+            calls.append(shape_case(kind, g, torch.bfloat16, gen)[0])
             e = g["expect"]
             want.update({e: 1} if isinstance(e, tuple) else e)
     t0 = time.perf_counter()
@@ -4985,6 +5242,120 @@ def headdims_main_phase(path: str) -> dict:
     return got
 
 
+def device_kernel_ms(call) -> dict[str, float]:
+    """Device time (ms) by kernel name of one call (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    ms: dict[str, float] = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms[e.name] += e.time_range.elapsed_us() / 1e3
+    if not ms:
+        fail("the profiler recorded no device kernel")
+    return dict(ms)
+
+
+def widths_profile_worker(spec: dict) -> dict:
+    """The profiles of the widths path, in a process of its own (a profiler
+    that no earlier path of the run has used; in the whole run's process a
+    later profile recorded no device kernel): one ragged call of each
+    family, each timed row (ragged and aligned), one hiera_l@352 forward at
+    batch 1. Returns the lines to print and what failed."""
+    import torch
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(17)
+    lines, faults = [], []
+    for name, kind, _r, _s, _sel, shapes, _t in kernel_specs("widths", 1):
+        call = shape_case(kind, shapes[0], torch.bfloat16, gen)[0]
+        call()
+        ragged = sorted(n for n in device_kernel_ms(call) if "gany_" in n)
+        lines.append(f"profile of {name} at {shapes[0]}: gemm_any kernels "
+                     f"{[n[:60] for n in ragged]}")
+        if not ragged:
+            faults.append(f"{name} at {shapes[0]} launched no gemm_any kernel")
+        # where the timed rows' time goes, ragged and aligned
+        for g in shapes:
+            if g.get("tokens", 0) > 1000 or g.get("batch", 0) >= 32 or (
+                    g.get("windows", 0) >= 32):
+                call = shape_case(kind, g, torch.bfloat16, gen)[0]
+                call()
+                ms = device_kernel_ms(call)
+                top = sorted(ms.items(), key=lambda kv: -kv[1])[:4]
+                lines.append(
+                    f"device ms of {name} at "
+                    f"{ {k: v for k, v in g.items() if k != 'expect'} }: total "
+                    f"{sum(ms.values()):.4f}, gemm_any "
+                    f"{sum(v for n, v in ms.items() if 'gany_' in n):.4f}; top "
+                    f"{[(n[:40], round(v, 4)) for n, v in top]}")
+    model, x = _model_and_input("l352", 1)
+    with torch.inference_mode():
+        model(x)
+        names = device_kernel_ms(lambda: model(x))
+    ragged = sorted(n for n in names if "gany_" in n)
+    lines.append(f"profile of one hiera_l@352 forward (bf16, batch 1): "
+                 f"{len(names)} device kernels, gemm_any kernels {ragged}")
+    if ragged:
+        faults.append(f"hiera_l@352's forward launched gemm_any kernels: {ragged}")
+    return dict(lines=lines, faults=faults)
+
+
+DP_WORKERS["widths_profile"] = widths_profile_worker
+
+
+def widths_main_phase(path: str, tmp: Path) -> dict:
+    """The main path of widths: one bf16 call of every shape of the kernel
+    phase (`widths_kernel_specs`, each built by `make_case` through the
+    functions a user calls, the backwards under autograd or through their
+    wrappers), the counters set to 0 just before the calls and read just
+    after, held against the launches the shapes name (`expect`). Then, in a
+    process of its own (`widths_profile_worker`), torch.profiler over one
+    ragged call of each family: each launches a kernel of csrc/gemm_any.cu
+    (`gany_`); over each timed row, ragged and aligned (device ms by
+    kernel: where a ragged row's time goes); and over one hiera_l@352
+    forward (batch 1), which launches none. The kernel phase holds each
+    call against its plain version. Returns the run's variants."""
+    import torch
+
+    from sam2unet_torch.ops import dispatch
+
+    label = PATHS[path]["label"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(17)
+    calls, want = [], collections.Counter()
+    for _name, kind, _r, _s, _sel, shapes, _t in kernel_specs(path, 1):
+        for g in shapes:
+            calls.append(shape_case(kind, g, torch.bfloat16, gen)[0])
+            e = g["expect"]
+            want.update({e: 1} if isinstance(e, tuple) else e)
+    t0 = time.perf_counter()
+    dispatch.reset_launches()
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    got = dict(dispatch.variants)
+    print(f"[main] {label}: {len(calls)} calls, launches "
+          f"{ {f'{w}[{v}]': n for (w, v), n in sorted(got.items())} } "
+          f"({time.perf_counter() - t0:.2f} s host clock)", flush=True)
+    if got != dict(want):
+        fail(f"{label}: the run launched {got}, its shapes name {dict(want)}")
+    del calls
+    torch.cuda.empty_cache()
+    (result,), wall = _torchrun(1, "widths_profile", {}, tmp, timeout=300)
+    for line in result["lines"]:
+        print(f"[main] {label} {line}", flush=True)
+    print(f"[main] {label} profiles: {wall:.1f} s in a process of their own",
+          flush=True)
+    if result["faults"]:
+        fail("; ".join(result["faults"]))
+    return got
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="build,kernels,main,throughput")
@@ -4992,7 +5363,7 @@ def main() -> None:
                     default="l352,s960,l352train,s960train,s1024sam2,"
                             "s1024video,t512video,t1024amg,s960cli,s960deploy,"
                             "s960interop,s960dp,s352mc,opsapi,bwdmodes,"
-                            "headdims")
+                            "headdims,widths")
     ap.add_argument("--batch", type=int, default=32,
                     help="kernel, throughput and profile batch at hiera_l@352")
     ap.add_argument("--batch960", type=int, default=16,
@@ -5008,7 +5379,8 @@ def main() -> None:
     ap.add_argument("--step_report", default="",
                     help="JSON file for that comparison's per-leaf gaps")
     ap.add_argument("--dp_worker", choices=sorted(DP_WORKERS),
-                    help="(internal) run one rank of s960dp or s352mc")
+                    help="(internal) run one rank of s960dp or s352mc, or "
+                         "widths' profiles")
     ap.add_argument("--dp_spec", default="", help="(internal) its inputs")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -5079,6 +5451,8 @@ def main() -> None:
                         variants[path] = bwdmodes_main_phase(path)
                     elif PATHS[path].get("headdims"):
                         variants[path] = headdims_main_phase(path)
+                    elif PATHS[path].get("widths"):
+                        variants[path] = widths_main_phase(path, Path(tmp))
                     elif PATHS[path].get("interop"):
                         variants[path] = interop_main_phase(path, Path(tmp), card,
                                                             rates)
@@ -5092,7 +5466,8 @@ def main() -> None:
                         or PATHS[path].get("multichip")
                         or PATHS[path].get("opsapi")
                         or PATHS[path].get("bwdmodes")
-                        or PATHS[path].get("headdims")):
+                        or PATHS[path].get("headdims")
+                        or PATHS[path].get("widths")):
                     continue   # their times and A/Bs are the main phase's
                 if "throughput" in phases and PATHS[path].get("video"):
                     video_throughput_phase(path, card)

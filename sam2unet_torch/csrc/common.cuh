@@ -44,6 +44,12 @@ __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
 }
 
+// GELU's derivative, Phi(v) + v phi(v).
+__device__ __forceinline__ float dgelu_erf(float v) {
+  return 0.5f * (1.0f + erff(v * 0.70710678118654752f))
+         + v * 0.39894228040143268f * expf(-0.5f * v * v);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -24,8 +24,10 @@
 // same from run to run): dW_proj = gy^T o with db_proj = sum gy, dW_qkv =
 // dqkv^T LN(x) with db_qkv = sum dqkv, and a pass of its own for LN's
 // parameters, dln_w = sum dLN(x) * xhat and dln_b = sum dLN(x), xhat from
-// row statistics recomputed from x. A translation unit of its own, so that
-// the other kernels' builds (and their register counts) stay as they were.
+// row statistics recomputed from x (at widths that are not a multiple of 8
+// or past 2048, gemm_any.cu's statistics pass; the column sums read element
+// by element at any width). A translation unit of its own, so that the
+// other kernels' builds (and their register counts) stay as they were.
 
 #include "attention_block_bwd.cuh"
 
@@ -102,8 +104,14 @@ static cudaError_t launch_ln_wgrad(const void* x, const void* dy, float* dw,
   float* rs = mu + M;
   float* part_w = rs + M;
   float* part_b = part_w + chunks * K;
-  ln_stats_kernel<T><<<(unsigned)((M + 7) / 8), 256, 0, s>>>(
-      reinterpret_cast<const T*>(x), mu, rs, M, K);
+  if (ln_vec16(K, {x})) {
+    ln_stats_kernel<T><<<(unsigned)((M + 7) / 8), 256, 0, s>>>(
+        reinterpret_cast<const T*>(x), mu, rs, M, K);
+  } else {   // any other width or base: gemm_any.cu
+    const cudaError_t e = (cudaError_t)gany_ln_stats(
+        std::is_same<T, bf16>::value, x, mu, rs, M, K, s);
+    if (e != cudaSuccess) return e;
+  }
   ln_wgrad_partial_kernel<T>
       <<<dim3((K + 255) / 256, (unsigned)chunks), 256, 0, s>>>(
           reinterpret_cast<const T*>(x), reinterpret_cast<const T*>(dy), mu,
@@ -128,7 +136,6 @@ extern "C" int k7_window_block_bwd_wgrad(
     int c, int nh, int residual, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const long long M = (long long)nW * S;
-  if (c % 8 || c > 32 * LN_MAXV * 8) return (int)cudaErrorInvalidValue;
   AttnParams ap = {};
   attn_on_qkv(ap, is_bf16, qkv, c, nh, S);
   ap.mode = 0; ap.S = S; ap.Sq = S;

@@ -19,8 +19,11 @@
 // fetched with ldmatrix, products on mma.sync.m16n8k16 (bf16 in, fp32
 // accumulate). The epilogue runs on the accumulator registers: bias, GELU
 // and residual per element pair, paired bf16 stores. K and M edges are
-// zero-filled by the copies; N % 8 == 0 and K % 8 == 0 are the wrapper's
-// checks.
+// zero-filled by the copies. These instances take N, K and lda multiples of
+// 8 from 16-byte aligned A and W, and even ldc, ldr and split (`gemm_vec16`);
+// the launchers send every other width, stride or base to gemm_any.cu's
+// kernels (`gany_gemm`, `gany_ln` past 2048 columns too), so these build
+// and run exactly as before.
 //
 // fp32 GEMM (the comparison path): the same tiling on CUDA-core FMAs, each
 // thread an 8x8 sub-tile.
@@ -33,20 +36,7 @@
 #pragma once
 
 #include "common.cuh"
-
-struct GemmParams {
-  const void* A; long long lda;         // M x K activations
-  const void* W;                        // N x K weight (torch Linear layout)
-  const void* bias;                     // N, or null
-  const void* R; long long ldr;         // residual, or null
-  int res_pool;                         // 1: R is (B, 2*ph, 2*pw, ldr), 2x2 max
-  int ph, pw;                           // pooled grid of C's rows (res_pool)
-  void* C; long long ldc;
-  void* C1; void* C2;                   // with split: column blocks 1 and 2
-  int split;                            // 0, or the columns of each block
-  long long M; int N; int K;
-  int act;                              // 1: exact GELU after the bias
-};
+#include "gemm_any.cuh"
 
 // ------------------------------------------------------------------ LN
 
@@ -102,7 +92,6 @@ __global__ void __launch_bounds__(256) ln_rows_kernel(
 template <typename T>
 static cudaError_t launch_ln(const void* x, const void* w, const void* b,
                              void* y, long long M, int K, cudaStream_t stream) {
-  if (K % 8 || K > 32 * LN_MAXV * 8) return cudaErrorInvalidValue;
   const long long blocks = (M + 7) / 8;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   ln_rows_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
@@ -111,9 +100,17 @@ static cudaError_t launch_ln(const void* x, const void* w, const void* b,
   return cudaGetLastError();
 }
 
+// Whether ln_rows_kernel takes these rows: K % 8 == 0, K <= 2048 and every
+// base 16-byte aligned.
+inline bool ln_vec16(int K, std::initializer_list<const void*> bases) {
+  return K <= 32 * LN_MAXV * 8 && views_vec16(K, {}, bases);
+}
+
 static cudaError_t launch_ln_dt(int is_bf16, const void* x, const void* w,
                                 const void* b, void* y, long long M, int K,
                                 cudaStream_t stream) {
+  if (!ln_vec16(K, {x, w, b, y}))
+    return (cudaError_t)gany_ln(is_bf16, x, w, b, y, M, K, stream);
   return is_bf16 ? launch_ln<bf16>(x, w, b, y, M, K, stream)
                  : launch_ln<float>(x, w, b, y, M, K, stream);
 }
@@ -335,12 +332,35 @@ __global__ void __launch_bounds__(G_THREADS) gemm_f32_kernel(GemmParams p) {
 
 // ------------------------------------------------------------- launches
 
+inline bool aligned_to(const void* p, unsigned bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// Whether the instances above take this product (with `b`, gemm_bwd.cuh's):
+// the 16-byte tile copies need K, lda (and N for the row-major B operand)
+// multiples of 8 and A, W 16-byte aligned; the epilogue's element pairs need
+// N, ldc, ldr, ldpre, ldh and split even and their bases aligned to a pair.
+inline bool gemm_vec16(const GemmParams& p, size_t es,
+                       const GemmBwd* b = nullptr) {
+  const unsigned pair = 2 * (unsigned)es;
+  bool ok = p.N % 8 == 0 && views_vec16(p.K, {p.lda}, {p.A, p.W})
+            && p.ldc % 2 == 0 && p.split % 2 == 0 && (!p.R || p.ldr % 2 == 0)
+            && aligned_to(p.bias, pair) && aligned_to(p.R, pair)
+            && aligned_to(p.C, pair) && aligned_to(p.C1, pair)
+            && aligned_to(p.C2, pair);
+  if (b && b->pre) ok = ok && b->ldpre % 2 == 0 && aligned_to(b->pre, 8);
+  if (b && b->dgelu)
+    ok = ok && b->ldh % 2 == 0 && aligned_to(b->H, b->h_f32 ? 8 : pair);
+  return ok;
+}
+
 template <bool SPLIT = false>
 static cudaError_t launch_gemm_dt(int is_bf16, const GemmParams& p,
                                   cudaStream_t stream) {
-  if (p.N % 8 || p.K % 8
-      || (SPLIT ? p.split < 2 || p.split % 2 || p.N != 3 * p.split : p.split))
+  if (SPLIT ? p.split < 1 || p.N != 3 * p.split : p.split)
     return cudaErrorInvalidValue;
+  if (!gemm_vec16(p, is_bf16 ? sizeof(bf16) : sizeof(float)))
+    return (cudaError_t)gany_gemm(is_bf16, &p, nullptr, stream);
   const long long mt = (p.M + G_BM - 1) / G_BM;
   if (mt > 65535) return cudaErrorInvalidConfiguration;
   const dim3 grid((p.N + G_BN - 1) / G_BN, (unsigned)mt);

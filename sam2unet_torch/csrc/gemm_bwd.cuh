@@ -17,27 +17,14 @@
 // cp.async ring, mma.sync bf16; CUDA-core fp32) with the options above. It
 // is a kernel of its own, built only into the backward's libraries: grown
 // into the forward GEMM, these options made the forward slower on the H100
-// (PERF.md, PR 3), so the forward's kernels stay as they were.
+// (PERF.md, PR 3), so the forward's kernels stay as they were. As in
+// gemm.cuh, the launchers send every width, stride or base these instances
+// do not take (`gemm_vec16`, `ln_vec16`) to gemm_any.cu.
 #pragma once
 
 #include "gemm.cuh"
 
-// GELU's derivative, Phi(v) + v phi(v).
-__device__ __forceinline__ float dgelu_erf(float v) {
-  return 0.5f * (1.0f + erff(v * 0.70710678118654752f))
-         + v * 0.39894228040143268f * expf(-0.5f * v * v);
-}
-
-struct GemmBwd {
-  int nn;                               // 1: W is the K x N row-major B operand
-  float* pre; long long ldpre;          // fp32 value after the bias, or null
-  int dgelu;                            // 1: v *= gelu'(H); 2: v = H * gelu'(v)
-  const void* H; long long ldh;         // dgelu operand (fp32 if h_f32, else T)
-  int h_f32;
-};
-
-// GemmParams (res_pool unused) and the backward's options.
-struct GemmBwdArgs : GemmParams { GemmBwd b; };
+// GemmBwd and GemmBwdArgs: gemm_any.cuh.
 
 // Columns n and n + 1 of row m (n even; N even, so both are in range).
 template <typename T>
@@ -266,7 +253,9 @@ static cudaError_t launch_gemm_bwd_k(K kernel, size_t smem, dim3 grid,
 
 static cudaError_t launch_gemm_bwd_dt(int is_bf16, const GemmParams& p,
                                       const GemmBwd& b, cudaStream_t stream) {
-  if (p.N % 8 || p.K % 8 || p.res_pool || p.split) return cudaErrorInvalidValue;
+  if (p.res_pool || p.split) return cudaErrorInvalidValue;
+  if (!gemm_vec16(p, is_bf16 ? sizeof(bf16) : sizeof(float), &b))
+    return (cudaError_t)gany_gemm(is_bf16, &p, &b, stream);
   const long long mt = (p.M + G_BM - 1) / G_BM;
   if (mt > 65535) return cudaErrorInvalidConfiguration;
   const dim3 grid((p.N + G_BN - 1) / G_BN, (unsigned)mt);
@@ -356,7 +345,8 @@ __global__ void __launch_bounds__(256) ln_bwd_rows_kernel(
 static cudaError_t launch_ln_bwd_dt(int is_bf16, const void* x, const void* w,
                                     const void* dy, const void* gy, void* dx,
                                     long long M, int K, cudaStream_t stream) {
-  if (K % 8 || K > 32 * LN_MAXV * 8) return cudaErrorInvalidValue;
+  if (!ln_vec16(K, {x, w, dy, gy, dx}))
+    return (cudaError_t)gany_ln_bwd(is_bf16, x, w, dy, gy, dx, M, K, stream);
   const long long blocks = (M + 7) / 8;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   if (is_bf16)

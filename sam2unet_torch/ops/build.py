@@ -2,11 +2,12 @@
 first use, and load them with ctypes.
 
 Each `csrc/*.cu` becomes one shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds). The attention kernels at
-any head dim (`SHARED_SOURCES`) are called by the other libraries' entry
-points, every caller alike (`attn_any_fwd`, `attn_any_bwd`, ...), which
-leave those symbols undefined: they load first, with their symbols global,
-so each of their instances is compiled once. Their backward is two sources
+(no PyTorch headers, so a build takes seconds). The LN and GEMM passes at
+any width and the attention kernels at any head dim (`SHARED_SOURCES`) are
+called by the other libraries' entry points, every caller alike
+(`gany_gemm`, `attn_any_fwd`, `attn_any_bwd`, ...), which leave those
+symbols undefined: they load first, with their symbols global, so each of
+their instances is compiled once. Their backward is two sources
 only so that it builds in parallel: one of them alone would be the slowest
 source of the build (on an 8-core H100 host, ~100 s and ~157 s of nvcc in
 parallel, against ~178 s for the slowest other source). All sources
@@ -44,8 +45,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
-# csrc/attention_any.cuh's entry points, which the other libraries call
-SHARED_SOURCES = ("attention_any", "attention_any_bwd",
+# csrc/gemm_any.cuh's and csrc/attention_any.cuh's entry points, which the
+# other libraries call
+SHARED_SOURCES = ("gemm_any", "attention_any", "attention_any_bwd",
                   "attention_any_bwd_pad")
 SOURCES = (*SHARED_SOURCES, "fused_mlp", "fused_attention_block",
            "fused_transition", "flash_attention", "fused_mlp_bwd",

@@ -47,7 +47,7 @@ from sam2unet_torch.ops.flash_attention import (
     flash_attention_bwd,
     pick_stream_blocks,
 )
-from sam2unet_torch.ops.fused_mlp import MAX_LN_WIDTH, WGRAD_ROWS
+from sam2unet_torch.ops.fused_mlp import WGRAD_ROWS
 from sam2unet_torch.ops.windowing import (
     window_merge_valid,
     window_partition,
@@ -325,10 +325,6 @@ def _check_block(x, c, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj, num_heads):
     if c % num_heads:
         raise ValueError(f"attention block: c={c} is not a multiple of "
                          f"heads={num_heads}")
-    if c % 8 or c > MAX_LN_WIDTH:   # the LN pass and the GEMM; any head dim
-        raise ValueError(f"attention block kernels take c % 8 == 0 and c <= "
-                         f"{MAX_LN_WIDTH}, got c={c} (ROADMAP.md queue 2 item "
-                         "4, widths still to port)")
     return is_bf16
 
 

@@ -14,7 +14,9 @@ kernels compute in x's dtype: fp32 master weights (the trainable adapters
 under bf16) are cast to it, and K3's weight gradients come back in fp32.
 fp32 calls with more than 12 MiB of weights take the plain versions, as
 the JAX package's gate sends them to its XLA forms (`f32_weights_overflow`);
-a bf16 call always launches.
+a bf16 call always launches. The kernels take any width C, hidden, Cout
+and N and any LN width (csrc/gemm_any.cu past the 16-byte-vector
+instances), as the JAX kernels do.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ import torch
 from sam2unet_torch.nn.layers import gelu, layer_norm_plain, linear_f32
 from sam2unet_torch.ops import build, dispatch
 
-MAX_LN_WIDTH = 2048  # gemm.cuh LN_MAXV * 256
 ADAPTER_MAX_HIDDEN = 128  # K3's hidden width limit (fused_mlp.py:611)
 WGRAD_ROWS = 256  # gemm.cuh WG_ROWS: tokens per weight-gradient partial
 F32_WEIGHT_BYTES = 12 * 1024 * 1024  # the fp32 weight gate (fused_mlp.py:90)
@@ -68,10 +69,6 @@ def _check_mlp(x, w1, b1, w2, b2, ln_w, ln_b, residual):
         raise ValueError("fused_mlp: LN needs weight and bias of shape (C,)")
     if residual and cout != c:
         raise ValueError("fused_mlp: the residual needs Cout == C")
-    if c % 8 or hd % 8 or cout % 8:
-        raise ValueError("fused_mlp kernel needs C, hidden, Cout % 8 == 0")
-    if ln_w is not None and c > MAX_LN_WIDTH:
-        raise ValueError(f"fused_mlp kernel's LayerNorm takes C <= {MAX_LN_WIDTH}")
     return c, hd, cout
 
 
@@ -220,9 +217,9 @@ def _ln_matmul_kernel(x, w, b, ln_w, ln_b, add_bias: bool, split: bool):
     if (w.shape != (n, c) or (b is not None and b.shape != (n,))
             or ln_w.shape != (c,) or ln_b.shape != (c,)):
         raise ValueError("fused_ln_matmul: weight shapes do not match x")
-    if c % 8 or n % (24 if split else 8) or c > MAX_LN_WIDTH:
-        raise ValueError(f"fused_ln_matmul kernel needs C % 8 == 0, C <= "
-                         f"{MAX_LN_WIDTH} and its outputs' widths % 8 == 0")
+    if split and n % 3:
+        raise ValueError(f"fused_ln_qkv: W's {n} rows do not split into q, k "
+                         "and v")
     m = x.numel() // c
     xn = torch.empty_like(x)
     p, lib = dispatch.ptr, build.library("fused_mlp")

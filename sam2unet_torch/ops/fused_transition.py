@@ -21,7 +21,6 @@ import torch
 from sam2unet_torch.nn.layers import layer_norm_plain, linear_f32
 from sam2unet_torch.ops import build, dispatch
 from sam2unet_torch.ops.attention import einsum_attention
-from sam2unet_torch.ops.fused_mlp import MAX_LN_WIDTH
 from sam2unet_torch.ops.pooling import max_pool2d
 from sam2unet_torch.ops.windowing import window_partition, window_unpartition
 
@@ -78,10 +77,6 @@ def _check_transition(x, window, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
     if cout % num_heads:
         raise ValueError(f"transition: cout={cout} is not a multiple of "
                          f"heads={num_heads}")
-    if cin % 8 or cout % 8 or cin > MAX_LN_WIDTH:   # LN and GEMM; any head dim
-        raise ValueError(f"transition kernel takes cin, cout % 8 == 0 and cin "
-                         f"<= {MAX_LN_WIDTH}, got cin={cin}, cout={cout} "
-                         "(ROADMAP.md queue 2 item 4, widths still to port)")
     return is_bf16, cout
 
 

@@ -8,10 +8,12 @@ kernels in interpret mode (`_stream_fwd_impl`, `_stream_bwd_impl`), the body
 of the full-row kernel (`_kernel`, which `_fused_full` launches) and
 `jax.vjp` of the JAX `flash_attention`, at head dims 12 (the JAX kernel
 tests' window family), 128, 256 (the video memory attention's) and 264.
-Then the wrapper checks: any head dim and any stride pass, what the width
-gates (ROADMAP queue 2 item 4) still refuse does not. The window family at
-head dim 12 is held against the JAX package in tests/test_torch_kernels_cpu.py
-(its geometries are the JAX tests' c 24 over 2 heads); the kernels
+Then the wrapper checks: any head dim, any stride and any width pass (the
+widths once refused reach their entry point; csrc/gemm_any.cu takes them
+on the card), a head count that does not divide c does not. The window
+family at head dim 12 is held against the JAX package in
+tests/test_torch_kernels_cpu.py (its geometries are the JAX tests' c 24
+over 2 heads); the kernels
 themselves against their plain versions on the card in
 tests/test_torch_kernels_cuda.py and chip_smoke.py's `headdims` path.
 
@@ -39,9 +41,14 @@ from sam2unet_torch.ops.flash_attention import (
     flash_attention_bwd,
     full_attention,
 )
-from sam2unet_torch.ops.fused_attention_block import _check_block
-from sam2unet_torch.ops.fused_mlp import MAX_LN_WIDTH
-from sam2unet_torch.ops.fused_transition import _check_transition
+from sam2unet_torch.ops.fused_attention_block import (
+    _check_block,
+    _window_block_kernel,
+)
+from sam2unet_torch.ops.fused_transition import (
+    _check_transition,
+    _transition_kernel,
+)
 
 FWD_TOL = dict(rtol=2e-5, atol=2e-5)
 BWD_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -161,7 +168,7 @@ def test_wrapper_checks_take_any_head_dim(d):
     assert _check_args(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]) == (
         1, 32, 32, 2, d)
     _check_view(z(2, 5, 3, d)[:, 1:], "q")
-    nh = 8 if d % 8 else 1   # a width the LN pass and the GEMM take
+    nh = 8 if d % 8 else 1
     c = nh * d
     ln = (z(c), z(c))
     assert _check_block(z(2, 16, c), c, z(3 * c, c), z(3 * c), *ln, z(c, c),
@@ -177,23 +184,41 @@ def test_wrapper_checks_take_any_head_dim(d):
                                   "transition cin not a multiple of 8",
                                   "transition wider than the LN pass",
                                   "heads do not divide c"])
-def test_wrapper_checks_refuse_the_widths_still_to_port(case):
-    """What stays refused is a width (ROADMAP queue 2 item 4: the LN pass
-    and the GEMM), never a head dim."""
+def test_wrapper_checks_refuse_the_widths_still_to_port(monkeypatch, case):
+    """The four widths the LN pass and the GEMM once refused now pass the
+    checks and reach their entry point with the ragged sizes (the LN and
+    GEMM passes take any width: csrc/gemm_any.cu); what stays refused is a
+    head count that does not divide c. No launch: the libraries are
+    recorders."""
     z = torch.zeros
-    if case.startswith("block") or case.startswith("heads"):
-        c, nh = {"block wider than the LN pass": (MAX_LN_WIDTH + 8, 8),
-                 "block width not a multiple of 8": (26, 2),
-                 "heads do not divide c": (24, 5)}[case]
-        with pytest.raises(ValueError, match="item 4" if nh != 5 else "heads"):
-            _check_block(z(1, 4, c), c, z(3 * c, c), z(3 * c), z(c), z(c),
-                         z(c, c), z(c), nh)
+    if case == "heads do not divide c":
+        with pytest.raises(ValueError, match="heads"):
+            _check_block(z(1, 4, 24), 24, z(72, 24), z(72), z(24), z(24),
+                         z(24, 24), z(24), 5)
         return
-    cin = 20 if "multiple" in case else MAX_LN_WIDTH + 8
+    seen, calls = [], []
+    monkeypatch.setattr(build, "library",
+                        lambda name: _Recorder(name, seen, calls))
+    monkeypatch.setattr(dispatch, "stream_of", lambda t: 0)
+    if case.startswith("block"):
+        c, nh = {"block wider than the LN pass": (2056, 8),
+                 "block width not a multiple of 8": (26, 2)}[case]
+        ln = (z(c), z(c))
+        assert _check_block(z(1, 4, c), c, z(3 * c, c), z(3 * c), *ln,
+                            z(c, c), z(c), nh) == 0
+        _window_block_kernel(z(1, 4, c), z(3 * c, c), z(3 * c), *ln, z(c, c),
+                             z(c), nh, 0, True)
+        assert seen == [("fused_attention_block", "k6_window_block")]
+        assert calls[0][1][-7:-3] == (1, 4, c, nh)
+        return
+    cin = 20 if "multiple" in case else 2056
     c = 48
-    with pytest.raises(ValueError, match="item 4"):
-        _check_transition(z(1, 8, 8, cin), 4, z(3 * c, cin), z(3 * c), z(cin),
-                          z(cin), z(c, c), z(c), z(c, cin), z(c), 4)
+    args = (z(1, 8, 8, cin), z(3 * c, cin), z(3 * c), z(cin), z(cin), z(c, c),
+            z(c), z(c, cin), z(c))
+    assert _check_transition(args[0], 4, *args[1:], 4) == (0, c)
+    _transition_kernel(*args, 4, 4)
+    assert seen == [("fused_transition", "k8_transition")]
+    assert calls[0][1][-8:-1] == (1, 8, 8, cin, c, 4, 4)
 
 
 def test_nothing_raises_for_a_kernel_not_ported():
@@ -208,14 +233,17 @@ def test_nothing_raises_for_a_kernel_not_ported():
 
 
 class _Recorder:
-    """A kernel library that launches nothing and names its entry points."""
+    """A kernel library that launches nothing and names its entry points
+    (and, given `calls`, records each call's arguments)."""
 
-    def __init__(self, name, seen):
-        self.name, self.seen = name, seen
+    def __init__(self, name, seen, calls=None):
+        self.name, self.seen, self.calls = name, seen, calls
 
     def __getattr__(self, entry):
         def launch(*args):
             self.seen.append((self.name, entry))
+            if self.calls is not None:
+                self.calls.append((entry, args))
             return 0
         return launch
 

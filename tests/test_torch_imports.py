@@ -75,8 +75,8 @@ def test_port_package_has_the_expected_modules():
                 "flash_attention_d256.cu", "full_attention_d256.cu",
                 "attention_any.cu", "attention_any_bwd.cu",
                 "attention_any_bwd_pad.cu", "attention_any.cuh",
-                "attention_any_fwd.cuh", "attention_any_bwd.cuh", "ccl.cc",
-                "dataload.cc"):
+                "attention_any_fwd.cuh", "attention_any_bwd.cuh",
+                "gemm_any.cu", "gemm_any.cuh", "ccl.cc", "dataload.cc"):
         assert (ROOT / "sam2unet_torch" / "csrc" / src).is_file()
     # the port's own ONNX schema and its committed protoc bindings
     assert (ROOT / "sam2unet_torch" / "interop" / "onnx_compat"

@@ -24,9 +24,13 @@ the residual, and autograd through each (a trainable window block; the
 frozen remainder strips through both wrappers); the head dims past the
 16-byte-vector instances (csrc/attention_any*.cu): each window-family mode
 at head dim 12, K10 / K11 / K14 at 12, 13, 44, 130, 264, K11 at 256,
-views at any stride. Tolerances: max|kernel -
-plain| <= 2e-2 * max|plain| in bf16, 1e-4 in fp32 (TF32 off), for each
-output (K9 in bf16: see K9_NEAR_TIE_SHARE).
+views at any stride; the widths past the 16-byte-vector LN and GEMM
+instances (csrc/gemm_any.cu): K1 / K2 / K3 at C 12, 13, 20 and 2056, K15 /
+K16 at the JAX test's 12 -> 36, 13 -> 20, 2060 -> 24 and 572 -> 1716,
+K6 / K7 in every mode at c 26, 20 and 2064, the strips and remainder
+strips at c 26, K8 / K9 at 20 -> 40, 2056 -> 48 and an odd cout.
+Tolerances: max|kernel - plain| <= 2e-2 * max|plain| in bf16, 1e-4 in
+fp32 (TF32 off), for each output (K9 in bf16: see K9_NEAR_TIE_SHARE).
 """
 
 from __future__ import annotations
@@ -926,3 +930,160 @@ def test_masked_k6_k7_match_plain(gen, dtype, grid, window, c, heads):
                                 num_heads=heads, window=window)
     err = (masked.reshape(groups.shape) - groups.float()).abs().max().item()
     assert err <= REL_TOL[dtype] * groups.float().abs().max().item()
+
+
+# --------------------------------------------------------- any width
+# The widths the JAX MLP, LN-matmul and window kernels take past the
+# 16-byte-vector instances (csrc/gemm_any.cu): not a multiple of 8 (the
+# tiles copied 1, 2, 4 or 8 elements at a time as the rows allow), LN rows
+# past 2048.
+
+MLP_WIDTHS = [(12, 8), (13, 26), (20, 32), (2056, 64)]
+BLOCK_WIDTHS = [(26, 2), (20, 4), (2064, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,n,add_bias", [
+    ((5, 4, 4, 12), 36, True), ((5, 4, 4, 12), 36, False),
+    ((3, 50, 13), 20, True), ((3, 50, 2060), 24, True),
+    ((3, 50, 572), 1716, True)])
+def test_k15_k16_at_any_width(gen, dtype, shape, n, add_bias):
+    """K15 and K16 at the JAX test's C 12 -> 36 with and without the bias,
+    K15 at C 13 -> 20 and at an LN row past 2048 (C 2060 -> 24), both at C
+    572 -> 1716 (the timed ragged row's width)."""
+    from sam2unet_torch.ops.fused_mlp import fused_ln_matmul, fused_ln_qkv
+
+    c = shape[-1]
+    x = _rnd(gen, dtype, *shape)
+    w, b = _lin(gen, dtype, n, c)
+    lw, lb = _rnd(gen, dtype, c, scale=0.1, shift=1.0), _rnd(gen, dtype, c, scale=0.1)
+    _compare(lambda: fused_ln_matmul(x, w, b, lw, lb, add_bias), dtype)
+    if n % 3 == 0:
+        _compare(lambda: fused_ln_qkv(x, w, b, lw, lb, add_bias), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["ln tail", "adapter", "no ln, no residual"])
+@pytest.mark.parametrize("c,hidden", MLP_WIDTHS)
+def test_k1_at_any_width(gen, dtype, c, hidden, mode):
+    """K1 in each of the JAX package's modes at C 12 / 13 / 20 / 2056."""
+    x = _rnd(gen, dtype, 3, 50, c)
+    w1, b1 = _lin(gen, dtype, hidden, c)
+    w2, b2 = _lin(gen, dtype, c, hidden)
+    kw = {"ln tail": dict(residual=True,
+                          ln_w=_rnd(gen, dtype, c, scale=0.1, shift=1.0),
+                          ln_b=_rnd(gen, dtype, c, scale=0.1)),
+          "adapter": dict(residual=True, gelu_out=True),
+          "no ln, no residual": {}}[mode]
+    _compare(lambda: fused_mlp(x, w1, b1, w2, b2, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ln", [True, False], ids=["ln tail", "no ln, no residual"])
+@pytest.mark.parametrize("c,hidden", MLP_WIDTHS)
+def test_k2_at_any_width(gen, dtype, c, hidden, ln):
+    """K2 directly and as the backward of a frozen `fused_mlp`."""
+    x, gy = _rnd(gen, dtype, 3, 50, c), _rnd(gen, dtype, 3, 50, c)
+    w1, b1 = _lin(gen, dtype, hidden, c)
+    w2, b2 = _lin(gen, dtype, c, hidden)
+    kw = dict(ln_w=_rnd(gen, dtype, c, scale=0.1, shift=1.0),
+              ln_b=_rnd(gen, dtype, c, scale=0.1)) if ln else {}
+    _compare(lambda: mlp_bwd_dx(x, gy, w1, b1, w2, b2, residual=ln, **kw), dtype)
+
+    def call():
+        xx = x.detach().requires_grad_()
+        y = fused_mlp(xx, w1, b1, w2, b2, residual=ln, **kw)
+        return torch.autograd.grad(y, xx, gy)[0]
+
+    _compare(call, dtype, launches=2)
+    assert dispatch.launches["mlp_bwd_dx"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,hidden", MLP_WIDTHS[:3] + [(2056, 32)])
+def test_k3_at_any_width(gen, dtype, c, hidden):
+    """K3's dx and fp32 weight gradients, directly and through autograd of
+    the trainable adapter."""
+    x, gy = _rnd(gen, dtype, 3, 50, c), _rnd(gen, dtype, 3, 50, c)
+    w1, b1 = _lin(gen, dtype, hidden, c)
+    w2, b2 = _lin(gen, dtype, c, hidden)
+    _compare(lambda: adapter_bwd(x, gy, w1, b1, w2, b2), dtype)
+
+    def call():
+        leaves = [t.detach().requires_grad_() for t in (x, w1, b1, w2, b2)]
+        y = fused_mlp(*leaves, residual=True, gelu_out=True)
+        return torch.autograd.grad(y, leaves, gy)
+
+    _compare(call, dtype, launches=2)
+    assert dispatch.launches["adapter_bwd"] == 1
+
+
+BLOCK_MODES = ["K6", "K6 pad key", "K6 masked", "K7", "K7 masked",
+               "K7 weight-grad"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", BLOCK_MODES)
+@pytest.mark.parametrize("c,heads", BLOCK_WIDTHS)
+def test_window_block_at_any_width(gen, dtype, c, heads, mode):
+    """K6 / K7 in every mode on (2 windows, 16 tokens) at c 26 over 2 heads,
+    20 over 4 and 2064 over 8 (the masked mode: a 4 x 4 grid, window 3)."""
+    from sam2unet_torch.ops.windowing import grid_window_mask
+
+    w = _attn_weights(gen, dtype, c, c)
+    x, gy = (_rnd(gen, dtype, 2, 16, c) for _ in range(2))
+    kw = dict(num_heads=heads)
+    if "masked" in mode:
+        mask, lm = (torch.from_numpy(a).cuda() for a in grid_window_mask(4, 4, 3))
+        kw.update(attn_mask=mask, pad_logmult=lm)
+    if mode == "K6 pad key":
+        kw.update(n_pad=5)
+    if mode == "K7 weight-grad":
+        kw.update(weight_grads=True)
+    call = ((lambda: fused_window_block(x, *w, **kw)) if mode.startswith("K6")
+            else (lambda: window_block_bwd(x, gy, *w, **kw)))
+    _compare(call, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["K4", "K5", "K12", "K13"])
+def test_strips_at_any_width(gen, dtype, mode):
+    """K4 / K5 on (2, 16, 16, 26) window 8, K12 / K13 on (2, 30, 30, 26)
+    window 8, 2 heads."""
+    w = _attn_weights(gen, dtype, 26, 26)
+    grid = 16 if mode in ("K4", "K5") else 30
+    x, gy = (_rnd(gen, dtype, 2, grid, grid, 26) for _ in range(2))
+    kw = dict(num_heads=2, window=8)
+    call = {"K4": lambda: fused_window_block_strips(x, *w, **kw),
+            "K12": lambda: fused_window_block_strips_rem(x, *w, **kw),
+            "K5": lambda: window_block_strips_bwd(x, gy, *w, **kw),
+            "K13": lambda: window_block_strips_rem_bwd(x, gy, *w, **kw)}[mode]
+    _compare(call, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["K8", "K9"])
+@pytest.mark.parametrize("geom", [(2, 16, 20, 40, 4, 8), (1, 8, 2056, 48, 4, 4),
+                                  (2, 8, 20, 27, 3, 4)])
+def test_transition_at_any_width(gen, dtype, mode, geom):
+    """K8 / K9 at (2, 16, 16, 20) -> 40 window 8 over 4 heads, an LN row
+    past 2048 ((1, 8, 8, 2056) -> 48 window 4), and an odd cout (20 -> 27
+    over 3 heads: the shortcut's 2x2 max-pool backward one channel a
+    thread)."""
+    b, hh, cin, cout, heads, window = geom
+    x = _rnd(gen, dtype, b, hh, hh, cin)
+    gy = _rnd(gen, dtype, b, hh // 2, hh // 2, cout)
+    wt = _attn_weights(gen, dtype, cin, cout)
+    ws, bs = _lin(gen, dtype, cout, cin)
+    kw = dict(num_heads=heads, window=window)
+    call = ((lambda: fused_transition_block(x, *wt, ws, bs, **kw))
+            if mode == "K8" else
+            (lambda: transition_bwd(x, gy, *wt, ws, bs, **kw)))
+    _compare(call, dtype, near_ties=mode == "K9" and dtype == torch.bfloat16)
