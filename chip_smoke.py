@@ -18,7 +18,8 @@ other modes, the masked whole-grid K6 / K7) at full width; and the backward
 modes of K7 and K12 that a trainable trunk and an eval-mode gradient reach
 (K7's weight-gradient mode, K13a / K13b); and every head dim the JAX
 attention kernels take (the window family at its kernel tests' head dim 12,
-K10 / K11 / K14 at 12, 128, 264, K11 at the video memory attention's 256);
+K10 / K11 / K14 at 12, 128, 264, K11 at the video memory attention's 256,
+K11's bf16 passes on the Hopper kernels at head dims 56-256);
 and every width its MLP, LN-matmul and window kernels take (widths that are
 not a multiple of 8, LN rows past 2048).
 
@@ -67,9 +68,11 @@ bf16 over fp32 master parameters, the trunk frozen:
      the valid groups, K6 at head dim 96 with and without the pad key, and
      K11: the delta pass, the dq pass, the dk/dv pass and the three
      together, on strided views of one (rows, 3c) buffer at (16, 3600, 4,
-     96) and on a pair of ragged lengths, against
-     `plain_flash_attention_bwd`, with the backward of SDPA as the
-     library's time) against autograd through its plain
+     96), on a pair of ragged lengths, and at every width of the Hopper
+     kernels' instances (head dims 56-256, S 1000 against 1337, strided
+     views), against `plain_flash_attention_bwd`, with the backward of
+     SDPA as the library's time; their build reports each instance's
+     registers, spills and shared memory) against autograd through its plain
      version on the card at the training step's shapes at --batch_train /
      --batch_train960 (16), bf16 (K9 also on a case of exact ties; K9's
      max-pool routing may send a near-tie elsewhere than the plain
@@ -292,14 +295,18 @@ The backward-mode path bwdmodes (seeded random weights):
      trunk, the same way; launches per backward (K13b 7 on the 60x60 w14
      blocks, K13a 1 on the 30x30 w7 block, beside K5, K9, K11, K2, K3).
 The head-dim path headdims (seeded random weights; the kernels of
-csrc/attention_any*.cu, which take every head dim the JAX kernels take):
+csrc/attention_any*.cu, which take every head dim the JAX kernels take, and
+K11's bf16 passes on csrc/flash_attention_bwd_sm90.cu at d % 8 == 0 up to
+256):
   2. each window-family mode at the JAX kernel tests' head dim 12 (c 24
      over 2 heads, the transition 24 -> 48 over 4): K4 and K5 on 16x16
      w8, K12 and K13 on 30x30 w8, K6 with and without the pad key, K7,
      the masked K6 / K7 on 12x12 w8, K7's weight-gradient mode, K8 and K9;
      K10 (o and lse) and K11 under autograd (`flash_attention`: K10, then
      the delta, dq and dk/dv passes) at (2, 320, 2, d) for d 12, 128,
-     264, K11 at the video memory attention's (2, 4096, 1, 256); K14 over
+     264, K11 at the video memory attention's (2, 4096, 1, 256) and at
+     (2, 1000 against 1337 keys, 2, d) for d 56-256 (the Hopper kernels'
+     instances: d padded to 64, 96, 128, 256); K14 over
      49 -> 196 tokens at those d; each against its plain version in bf16
      and fp32, each call's launches the JAX route's. Timed (every bf16
      shape): K6 and K7 at 32 x 256 x 576 over 48, 4, 2 heads; K10 and the
@@ -343,6 +350,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import ctypes
 import json
 import math
 import os
@@ -965,35 +973,54 @@ def make_case(kind: str, dtype, gen, **g):
     if kind == "flash_grad":
         # `flash_attention` under autograd, as a user differentiates it: K10
         # (o and lse), then K11's delta, dq and dk/dv passes; q/k/v the
-        # channel blocks of one QKV buffer, the gradient its dqkv
+        # channel blocks of one QKV buffer, the gradient its dqkv; with Sk
+        # given, q a leaf of one length and k, v the channel blocks of a
+        # KV buffer of another
         b, sq, nh, d = g["batch"], g["S"], g["heads"], g["d"]
-        qkv = rnd(b, sq, 3, nh, d).requires_grad_(True)
+        sk = g.get("Sk", sq)
         dout = rnd(b, sq, nh, d)
+        if sk == sq:
+            leaves = (rnd(b, sq, 3, nh, d).requires_grad_(True),)
+            qkv = lambda ls: (ls[0][:, :, 0], ls[0][:, :, 1], ls[0][:, :, 2])
+        else:
+            leaves = (rnd(b, sq, nh, d).requires_grad_(True),
+                      rnd(b, sk, 2, nh, d).requires_grad_(True))
+            qkv = lambda ls: (ls[0], ls[1][:, :, 0], ls[1][:, :, 1])
 
         def call():
-            o = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
-            return (o.detach(), *torch.autograd.grad(o, qkv, dout))
+            o = flash_attention(*qkv(leaves))
+            return (o.detach(), *torch.autograd.grad(o, leaves, dout))
 
         def library():
-            # SDPA's forward and backward on the same buffer
-            leaves = qkv.detach().requires_grad_(True)
+            # SDPA's forward and backward on the same buffers
+            ls = [t.detach().requires_grad_(True) for t in leaves]
             out = F.scaled_dot_product_attention(
-                *(leaves[:, :, i].transpose(1, 2) for i in range(3)))
-            return torch.autograd.grad(out, leaves, dout.transpose(1, 2))
-        es, pairs, n = qkv.element_size(), b * nh * sq * sq, b * sq * nh * d
+                *(t.transpose(1, 2) for t in qkv(ls)))
+            return torch.autograd.grad(out, ls, dout.transpose(1, 2))
+        es, pairs = dout.element_size(), b * nh * sq * sk
+        nq, nk = b * sq * nh * d, b * sk * nh * d
         # K10 (4 pairs d) and K11 (14 pairs d); q, k, v, dO read, o, lse,
         # dq, dk, dv written
-        return (call, 18 * pairs * d, 9 * n * es + 4 * b * nh * sq * 2,
-                library)
+        return (call, 18 * pairs * d, (4 * nq + 5 * nk) * es
+                + 4 * b * nh * sq * 2, library)
 
     if kind.startswith("flash_bwd"):
         # K11 over K10's interface. With one length, q/k/v are the channel
         # blocks of a (B*S, 3c) QKV buffer and dq/dk/dv land in those of a
         # dqkv buffer, as the long block's backward passes them; with Sk
-        # given, separate tensors of two lengths. o and lse come from K10.
+        # given, separate tensors of two lengths, or with `strided` q the
+        # first block of a (B, Sq, 2, heads, d) buffer, k and v those of a
+        # (B, Sk, 2, heads, d) one and dq/dk/dv those of one dqkv buffer.
+        # o and lse come from K10.
         b, sq, nh, d = g["batch"], g["S"], g["heads"], g["d"]
         sk = g.get("Sk", sq)
-        if sk == sq:
+        if sk != sq and g.get("strided"):
+            q, kv = rnd(b, sq, 2, nh, d)[:, :, 0], rnd(b, sk, 2, nh, d)
+            k, v = kv[:, :, 0], kv[:, :, 1]
+            dqkv = torch.empty(b, max(sq, sk), 3, nh, d, dtype=dtype,
+                               device=DEV)
+            outs = (dqkv[:, :sq, 0], dqkv[:, :sk, 1], dqkv[:, :sk, 2])
+        elif sk == sq:
             qkv = rnd(b, sq, 3, nh, d)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
             dqkv = torch.empty_like(qkv)
@@ -1224,6 +1251,7 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
     if PATHS[path].get("train"):
         fa = "sam2unet_tpu/ops/pallas/flash_attention.py"
         src_k11 = "sam2unet_torch/csrc/flash_attention_bwd.cu"
+        src_k11_sm90 = "sam2unet_torch/csrc/flash_attention_bwd_sm90.cu"
         if path == "l352train":
             grids, cs = (88, 44, 22, 11), (144, 288, 576, 1152)
             windows = (16, 8)
@@ -1300,22 +1328,30 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
                 ("K6 fused_window_block (n_pad>0)", "window", f"{fab}:354",
                  src_ab, *k6_held(k6_pad), 0)]
             # ragged lengths first, so that the fp32 comparison takes the
-            # 3600-token shape
-            k11 = [dict(batch=2, S=1000, Sk=1337, heads=4, d=96),
-                   dict(batch=b, S=3600, heads=4, d=96)]
+            # 3600-token shape; then every width of the Hopper instances
+            # (d padded to 64, 96, 128, 256) at S 1000 against 1337 on
+            # strided views, in bf16 (the dq and dk/dv passes in fp32 run
+            # csrc/flash_attention_bwd.cu, the delta pass both)
+            k11 = ([dict(batch=2, S=1000, Sk=1337, heads=4, d=96)]
+                   + [dict(batch=2, S=1000, Sk=1337, heads=2, d=d, strided=True)
+                      for d in K11_SM90_HEAD_DIMS]
+                   + [dict(batch=b, S=3600, heads=4, d=96)])
+            timed = len(k11) - 1
             specs += [
                 ("K11 flash_attention_bwd (delta pass)", "flash_bwd_delta",
                  f"{fa}:306", src_k11,
-                 lambda w, v: w == "flash_attention_bwd_delta", k11, 1),
+                 lambda w, v: w == "flash_attention_bwd_delta", k11, timed),
                 ("K11a flash_attention_bwd_dq", "flash_bwd_dq", f"{fa}:314",
-                 src_k11, lambda w, v: w == "flash_attention_bwd_dq", k11, 1),
+                 src_k11_sm90, lambda w, v: w == "flash_attention_bwd_dq", k11,
+                 timed),
                 ("K11b flash_attention_bwd_dkv", "flash_bwd_dkv", f"{fa}:336",
-                 src_k11, lambda w, v: w == "flash_attention_bwd_dkv", k11, 1),
+                 src_k11_sm90, lambda w, v: w == "flash_attention_bwd_dkv",
+                 k11, timed),
                 # the three passes through `flash_attention_bwd`, which
                 # launches nothing itself: one dq pass per call
                 ("K11 flash_attention_bwd (delta, dq, dk/dv)", "flash_bwd",
-                 f"{fa}:297", src_k11,
-                 lambda w, v: w == "flash_attention_bwd_dq", k11, 1),
+                 f"{fa}:297", src_k11_sm90,
+                 lambda w, v: w == "flash_attention_bwd_dq", k11, timed),
             ]
         return specs
     if path == "t512video":
@@ -1692,6 +1728,9 @@ def bwdmodes_kernel_specs(b: int, fab: str) -> list[tuple]:
 # head dims of the flash family held at small lengths: the JAX kernel
 # tests' 12, and 128 and 264 (one and five 64-wide chunks past 96)
 HEADDIMS_SMALL = (12, 128, 264)
+# K11's bf16 dq and dk/dv passes on csrc/flash_attention_bwd_sm90.cu: each
+# padded instance (64, 96, 128, 256) and head dims between them
+K11_SM90_HEAD_DIMS = (56, 64, 72, 96, 112, 128, 200, 256)
 
 
 def headdims_kernel_specs(fab: str) -> list[tuple]:
@@ -1712,6 +1751,7 @@ def headdims_kernel_specs(fab: str) -> list[tuple]:
     src_any = "sam2unet_torch/csrc/attention_any.cu"
     src_bwd = "sam2unet_torch/csrc/attention_any_bwd.cu"
     src_pad = "sam2unet_torch/csrc/attention_any_bwd_pad.cu"
+    src_sm90 = "sam2unet_torch/csrc/flash_attention_bwd_sm90.cu"
     f32 = dict(f32={})
 
     def flash(b, s, nh, d, **more):
@@ -1722,17 +1762,26 @@ def headdims_kernel_specs(fab: str) -> list[tuple]:
                                                               (1, 384))]
     for g in k10:
         g["expect"] = ("flash_attention", f"S={g['S']},d={g['d']}")
-    k11 = [flash(2, 4096, 1, 256, f32=dict(batch=1))] + [
-        flash(2, 320, 2, d, **f32) for d in HEADDIMS_SMALL]
-    for g in k11:
-        s = f"S={g['S']}"
-        g["expect"] = {("flash_attention", f"{s},d={g['d']}"): 1,
-                       ("flash_attention_bwd_delta", s): 1,
-                       ("flash_attention_bwd_dq", s): 1,
-                       ("flash_attention_bwd_dkv", s): 1}
-    k11_timed = [flash(4, 3600, nh, d) for nh, d in ((32, 12), (3, 128), (1, 384))] + [
-        flash(2, 4096, 1, 256)]
-    for g in k11_timed:
+    # K11 under autograd: bf16 on the Hopper kernels at the video memory
+    # attention's (2, 4096, 1, 256), at 128, and at every width of their
+    # instances with S 1000 against 1337 (q a leaf, k and v channel blocks);
+    # on the chunked kernels at 12 and 264; fp32 (`f32`) on the kernels it
+    # ran before
+    k11_sm90 = [flash(2, 4096, 1, 256, f32=dict(batch=1)),
+                flash(2, 320, 2, 128, **f32)] + [
+        flash(2, 1000, 2, d, Sk=1337) for d in K11_SM90_HEAD_DIMS]
+    k11 = [flash(2, 320, 2, d, **f32) for d in (12, 264)]
+    for g in k11_sm90 + k11:
+        sq, sk = g["S"], g.get("Sk", g["S"])
+        g["expect"] = {("flash_attention", f"S={sk},d={g['d']}"): 1,
+                       ("flash_attention_bwd_delta", f"S={sq}"): 1,
+                       ("flash_attention_bwd_dq", f"S={sk}"): 1,
+                       ("flash_attention_bwd_dkv", f"S={sk}"): 1}
+    # timed: on the Hopper kernels (4, 3600, 3, 128) and (2, 4096, 1, 256),
+    # on the chunked ones 32 x 12 and 1 x 384
+    k11_timed_sm90 = [flash(4, 3600, 3, 128), flash(2, 4096, 1, 256)]
+    k11_timed = [flash(4, 3600, nh, d) for nh, d in ((32, 12), (1, 384))]
+    for g in k11_timed_sm90 + k11_timed:
         s = f"S={g['S']}"
         g["expect"] = {("flash_attention_bwd_delta", s): 1,
                        ("flash_attention_bwd_dq", s): 1,
@@ -1781,11 +1830,17 @@ def headdims_kernel_specs(fab: str) -> list[tuple]:
          sel("flash_attention", "d=256"),
          [flash(2, 4096, 1, 256, f32=dict(batch=1),
                 expect=("flash_attention", "S=4096,d=256"))], 0),
+        ("K11 flash_attention_bwd (wgmma, under autograd)", "flash_grad",
+         f"{fa}:314", src_sm90,
+         lambda w, v: w.startswith("flash_attention_bwd"), k11_sm90, 0),
         ("K11 flash_attention_bwd (any head dim, under autograd)", "flash_grad",
          f"{fa}:314", src_bwd,
          lambda w, v: w.startswith("flash_attention_bwd"), k11, 0),
+        ("K11 flash_attention_bwd (wgmma, head dims 128 and 256, timed)",
+         "flash_bwd", f"{fa}:314", src_sm90,
+         lambda w, v: w.startswith("flash_attention_bwd"), k11_timed_sm90, 0),
         ("K11 flash_attention_bwd (any head dim, timed)", "flash_bwd", f"{fa}:314",
-         src_bwd, lambda w, v: w.startswith("flash_attention_bwd"), k11_timed, 3),
+         src_bwd, lambda w, v: w.startswith("flash_attention_bwd"), k11_timed, 0),
         ("K14 full_attention (any head dim)", "full", f"{fa}:93", src_any,
          sel_d("full_attention"), k14, 3),
         ("K4 fused_window_block_strips (head dim 12)", "strips", f"{fab}:1021",
@@ -2015,7 +2070,10 @@ def compare(call, tol: float) -> tuple[float, float, float, int]:
     from sam2unet_torch.ops import dispatch
 
     def outs(r):
-        return [t.float() for t in (r if isinstance(r, tuple) else (r,))]
+        # fp32 copies, of fp32 outputs too: a call that writes into views it
+        # was given writes them again under force_plain()
+        return [t.clone() if t.dtype == torch.float32 else t.float()
+                for t in (r if isinstance(r, tuple) else (r,))]
 
     dispatch.reset_launches()
     got = outs(call())
@@ -3176,8 +3234,10 @@ def train_main_phase(path: str, tmp: Path, step_seeds: list[int],
 TRACE_KERNELS = {"K1": ("k1_fused_mlp",), "K2": ("k2_mlp_bwd_dx",),
                  "K3": ("k3_adapter_bwd",), "K10": ("k10_flash_attention",),
                  "K11": ("k11_flash_attention_bwd_delta",
-                         "k11_flash_attention_bwd_dq",
-                         "k11_flash_attention_bwd_dkv")}
+                         "k11_flash_attention_bwd_dq_sm90",
+                         "k11_flash_attention_bwd_dkv_sm90")}
+# K11's bf16 dq and dk/dv passes before the Hopper kernels took them
+K11_OLD_BF16 = ("k11_flash_attention_bwd_dq", "k11_flash_attention_bwd_dkv")
 
 
 def cli_main_phase(path: str, tmp: Path, card: str) -> dict:
@@ -3271,6 +3331,9 @@ def cli_main_phase(path: str, tmp: Path, card: str) -> dict:
               f"ms over {n} device kernels", flush=True)
         if not us:
             fail(f"{label}: the trace names no device time of {k}")
+    old = {e: by_name[e][1] for e in K11_OLD_BF16 if e in by_name}
+    if old:
+        fail(f"{label}: K11's bf16 passes ran off the Hopper kernels: {old}")
 
     # the device evaluation at the same weights, the test and eval CLIs
     model = _train_model(cfg, Path(stats["saved"][-1]))
@@ -4100,6 +4163,19 @@ def profile_phase(path: str, batch: int, card: str,
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
         print(f"[profile] {us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}% "
               f"{n:5d} calls  {name[:100]}", flush=True)
+    if path == "s960train":
+        # K11's dq and dk/dv passes on the Hopper kernels, none on the old
+        # bf16 instances (gone from csrc/flash_attention_bwd.cu)
+        k11 = {name: v for name, v in by_name.items()
+               if "k11_" in name or "flash_bwd_" in name}
+        for name, (us, n) in k11.items():
+            print(f"[profile] K11 {us / 1e3:9.3f} ms {n:5d} calls  {name[:100]}",
+                  flush=True)
+        if (not any("k11_dq_sm90_kernel" in n for n in k11)
+                or not any("k11_dkv_sm90_kernel" in n for n in k11)
+                or any("flash_bwd_dq_kernel" in n or "flash_bwd_dkv_kernel" in n
+                       for n in k11)):
+            fail(f"the s960train step's K11 ran off the Hopper kernels: {sorted(k11)}")
     # where the host's time goes: operators by their own CPU time
     host = sorted((e for e in prof.key_averages()
                    if e.device_type != DeviceType.CUDA),
@@ -5356,6 +5432,37 @@ def widths_main_phase(path: str, tmp: Path) -> dict:
     return got
 
 
+def k11_sm90_build(out_dir: Path) -> None:
+    """The Hopper K11 instances' registers and spills (`-Xptxas -v`) and
+    dynamic shared memory; a spill, or ptxas serializing their wgmma
+    (its "Potential Performance Loss" notes), fails the run."""
+    from sam2unet_torch.ops import build
+
+    serialized = [ln.strip() for ln in
+                  (out_dir / "flash_attention_bwd_sm90.log").read_text().splitlines()
+                  if "Performance Loss" in ln]
+    if serialized:
+        fail(f"ptxas serializes K11's Hopper wgmma: {serialized}")
+
+    lines = [ln for ln in build.ptxas_summary(out_dir)
+             if ln.startswith("flash_attention_bwd_sm90:")]
+    # a query, not an entry point that launches: read from the library itself
+    smem = ctypes.CDLL(str(out_dir / "libflash_attention_bwd_sm90.so")
+                       ).k11_flash_attention_bwd_sm90_smem
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    for d in (64, 96, 128, 256):
+        kernels = [ln.split(": ", 2)[2] for ln in lines
+                   if f"_sm90_kernelILi{d}E" in ln]
+        print(f"[ptxas] K11 Hopper instance d {d}: {smem(d)} bytes of dynamic "
+              f"shared memory a block (both passes); {kernels}", flush=True)
+        if len(kernels) != 2:
+            fail(f"the build reports {len(kernels)} K11 Hopper kernels at d {d}")
+    spilled = [ln for ln in lines if "0 bytes spill stores, 0 bytes spill loads"
+               not in ln]
+    if spilled:
+        fail(f"K11's Hopper kernels spill: {spilled}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="build,kernels,main,throughput")
@@ -5419,6 +5526,7 @@ def main() -> None:
           flush=True)
     for line in build.ptxas_summary(out_dir):
         print(f"[ptxas] {line}", flush=True)
+    k11_sm90_build(out_dir)
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)

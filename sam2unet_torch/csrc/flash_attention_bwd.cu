@@ -12,8 +12,16 @@
 // and dP in each pass, dQ, dV, dK: 14 * S_q * S_k * d FLOPs) against
 // ~8 * S * d elements moved, so at S = 3600 it is bound by operations.
 //
-// Design: the passes of attention_bwd.cuh (the same loops over the
-// register-tile products of attention_bwd_tiles.cuh) over K10's interface
+// Routes (the wrapper, ops/flash_attention.py, picks the library): bf16 at
+// d % 8 == 0 up to 256 on views a tensor map can address runs the dq and
+// dk/dv passes in flash_attention_bwd_sm90.cu (wgmma fed by TMA; its bound
+// and design note there). This file keeps the delta pass (both types,
+// 16-byte loads at any d % 8 == 0 on such views) and the fp32 dq and dk/dv
+// passes at d % 8 == 0 up to 96 on them, and sends every other call (any
+// head dim or view, bf16 included) to attention_any_bwd.cu.
+//
+// Design of the fp32 passes: those of attention_bwd.cuh (the same loops
+// over the register-tile products of attention_bwd_tiles.cuh) over K10's interface
 // instead of a packed qkv buffer: q, k, v, dO and o are (B, S, heads, d)
 // views with unit stride over d and element strides for batch, token and
 // head, S_q and S_k independent, lse and D (B*heads, S_q) fp32, and dq, dk,
@@ -29,16 +37,13 @@
 //   dk/dv:  one block per (batch, head, 64 keys); queries, dO, lse and D
 //           stream in 64-token tiles through the same kind of ring; P^T = exp(k q^T * scale - lse),
 //           dv += P^T dO, dP^T = v dO^T, dS^T = P^T (dP^T - D), dk += dS^T q.
-// P and dS are rounded to the working type as the operands of the next
-// product, as the Pallas kernels round them; every product accumulates in
-// fp32 (mma.sync for bf16, CUDA-core dot products in the same register
-// layout for fp32). No atomics: each output row belongs to one block. The
+// Every product accumulates in fp32 (CUDA-core dot products in mma.sync's
+// register layout). No atomics: each output row belongs to one block. The
 // TPU kernels need block sizes that divide S (_pick_stream_blocks); here the
 // ragged last tile of keys and of queries is zero-filled and masked, so any
 // S_q and S_k work. These kernels take d % 8 == 0 up to 96 at strides in
 // multiples of 8 elements and 16-byte aligned bases (`flash_bwd_vec`); every
-// other head dim or view (K11 at the video memory attention's 256 among
-// them) runs the same three passes in attention_any_bwd.cu
+// other head dim or view runs the same passes in attention_any_bwd.cu
 // (attention_any.cuh), one launch each.
 
 #include "attention_any.cuh"
@@ -59,28 +64,36 @@ struct FlashBwdParams {
   float scale;
 };
 
-// D[(b * nh + h) * Sq + t] = sum over d of dO * o; one thread per (b, t, h).
+// D[(b * nh + h) * Sq + t] = sum over d of dO * o; G lanes (a power of two
+// up to 32, at least d / 8 where it can) per (b, t, h) row, so that a row's
+// 16-byte loads are neighbouring, each lane's 8-element chunks summed, then
+// the G lanes' sums by shuffles.
 template <typename T>
 __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(FlashBwdParams p,
-                                                              long long n, int nh) {
-  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (i >= n) return;
+                                                              long long n, int nh,
+                                                              int G) {
+  const long long i = ((long long)blockIdx.x * 256 + threadIdx.x) / G;
+  const int sub = threadIdx.x & (G - 1);
+  float s = 0.f;
+  const bool live = i < n;   // every lane of the warp takes part in the sums
   const int h = (int)(i % nh);
   const long long bt = i / nh;
   const int t = (int)(bt % p.Sq);
   const long long b = bt / p.Sq;
-  const T* a = reinterpret_cast<const T*>(p.o) + b * p.o_sb + t * p.o_ss + h * p.o_sh;
-  const T* g = reinterpret_cast<const T*>(p.dout) + b * p.do_sb + t * p.do_ss
-               + h * p.do_sh;
-  float s = 0.f;
-  for (int ch = 0; ch < p.d; ch += 8) {
-    float fa[8], fb[8];
-    v8_to_floats(v8_load(a + ch), fa);
-    v8_to_floats(v8_load(g + ch), fb);
+  if (live) {
+    const T* a = reinterpret_cast<const T*>(p.o) + b * p.o_sb + t * p.o_ss + h * p.o_sh;
+    const T* g = reinterpret_cast<const T*>(p.dout) + b * p.do_sb + t * p.do_ss
+                 + h * p.do_sh;
+    for (int ch = 8 * sub; ch < p.d; ch += 8 * G) {
+      float fa[8], fb[8];
+      v8_to_floats(v8_load(a + ch), fa);
+      v8_to_floats(v8_load(g + ch), fb);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) s = fmaf(fa[e], fb[e], s);
+      for (int e = 0; e < 8; ++e) s = fmaf(fa[e], fb[e], s);
+    }
   }
-  p.D[(b * nh + h) * p.Sq + t] = s;
+  for (int o = G / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (live && sub == 0) p.D[(b * nh + h) * p.Sq + t] = s;
 }
 
 // rows x DP tile of token rows t0.. of a strided (S, d) head view (zero past
@@ -98,8 +111,9 @@ __device__ __forceinline__ void flash_load_rows(T* dst, int rows, int t0, int S,
   }
 }
 
-template <typename T, int NDF>
+template <int NDF>
 __global__ void __launch_bounds__(128) flash_bwd_dq_kernel(FlashBwdParams p) {
+  using T = float;
   constexpr int DP = 16 * NDF, LDS = DP + 8, NDT = 2 * NDF;
   constexpr int CH = 16 / sizeof(T);
   extern __shared__ __align__(128) unsigned char a_smem[];
@@ -190,8 +204,9 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_kernel(FlashBwdParams p) {
   }
 }
 
-template <typename T, int NDF>
+template <int NDF>
 __global__ void __launch_bounds__(128) flash_bwd_dkv_kernel(FlashBwdParams p) {
+  using T = float;
   constexpr int DP = 16 * NDF, LDS = DP + 8, NDT = 2 * NDF;
   constexpr int CH = 16 / sizeof(T);
   extern __shared__ __align__(128) unsigned char a_smem[];
@@ -298,8 +313,8 @@ static bool flash_bwd_valid(const FlashBwdParams& p, int B, int nh) {
          && p.Sk >= 1 && (p.Sq + 15) / 16 <= 65535 && (p.Sk + 15) / 16 <= 65535;
 }
 
-// Whether these kernels' 16-byte loads (and 4- or 8-byte stores) reach
-// every view.
+// Whether the dq and dk/dv kernels' 16-byte loads (and 8-byte stores)
+// reach every view.
 static bool flash_bwd_vec(const FlashBwdParams& p) {
   return attn_vec_head_dim(p.d)
          && views_vec16(p.d, {p.q_sb, p.q_ss, p.q_sh, p.kv_sb, p.kv_ss, p.kv_sh,
@@ -329,56 +344,57 @@ static AnyBwdParams flash_bwd_any(const FlashBwdParams& p, int nh) {
   return a;
 }
 
-template <typename T, int NDF>
+template <int NDF>
 static cudaError_t launch_flash_bwd_dq_t(const FlashBwdParams& p, int B, int nh,
                                          cudaStream_t stream) {
   const int warps = p.Sq >= 64 ? 4 : (p.Sq + 15) / 16;
   const size_t smem = attn_bwd_smem_bytes(warps * 16, 4 * BWD_TILE, warps, 16 * NDF,
-                                          sizeof(T));
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, NDF>,
+                                          sizeof(float));
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<NDF>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_kernel<T, NDF><<<dim3(B, nh, (p.Sq + warps * 16 - 1) / (warps * 16)),
+  flash_bwd_dq_kernel<NDF><<<dim3(B, nh, (p.Sq + warps * 16 - 1) / (warps * 16)),
                                 warps * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int NDF>
+template <int NDF>
 static cudaError_t launch_flash_bwd_dkv_t(const FlashBwdParams& p, int B, int nh,
                                           cudaStream_t stream) {
   const int warps = p.Sk >= 64 ? 4 : (p.Sk + 15) / 16;
   // K, V tiles and the ring of two (Q, dO, lse, D) tiles
   const size_t smem = attn_bwd_smem_bytes(warps * 16, 4 * BWD_TILE, warps, 16 * NDF,
-                                          sizeof(T))
+                                          sizeof(float))
                       + sizeof(float) * 2 * BWD_TILE;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, NDF>,
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<NDF>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_kernel<T, NDF><<<dim3(B, nh, (p.Sk + warps * 16 - 1) / (warps * 16)),
+  flash_bwd_dkv_kernel<NDF><<<dim3(B, nh, (p.Sk + warps * 16 - 1) / (warps * 16)),
                                  warps * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// head dims of the SAM2 trunks: 56 (b+), 72 (l), 96 (t, s)
-template <typename T>
-static cudaError_t launch_flash_bwd(bool dkv, const FlashBwdParams& p, int B,
-                                    int nh, cudaStream_t stream) {
+// fp32 at the head dims of the SAM2 trunks (56 (b+), 72 (l), 96 (t, s)) on
+// the instances above; bf16, and every other head dim or view, on
+// attention_any_bwd.cu (the wrapper sends bf16 that a tensor map can address
+// to flash_attention_bwd_sm90.cu instead)
+static cudaError_t launch_flash_bwd(int is_bf16, bool dkv, const FlashBwdParams& p,
+                                    int B, int nh, cudaStream_t stream) {
   if (!flash_bwd_valid(p, B, nh)) return cudaErrorInvalidValue;
-  if (!flash_bwd_vec(p)) {
+  if (is_bf16 || !flash_bwd_vec(p)) {
     const AnyBwdParams a = flash_bwd_any(p, nh);
-    return (cudaError_t)attn_any_bwd(std::is_same<T, bf16>::value, dkv, &a, B, nh,
-                                     stream);
+    return (cudaError_t)attn_any_bwd(is_bf16, dkv, &a, B, nh, stream);
   }
   if (p.d <= 64)
-    return dkv ? launch_flash_bwd_dkv_t<T, 4>(p, B, nh, stream)
-               : launch_flash_bwd_dq_t<T, 4>(p, B, nh, stream);
+    return dkv ? launch_flash_bwd_dkv_t<4>(p, B, nh, stream)
+               : launch_flash_bwd_dq_t<4>(p, B, nh, stream);
   if (p.d <= 80)
-    return dkv ? launch_flash_bwd_dkv_t<T, 5>(p, B, nh, stream)
-               : launch_flash_bwd_dq_t<T, 5>(p, B, nh, stream);
-  return dkv ? launch_flash_bwd_dkv_t<T, 6>(p, B, nh, stream)
-             : launch_flash_bwd_dq_t<T, 6>(p, B, nh, stream);
+    return dkv ? launch_flash_bwd_dkv_t<5>(p, B, nh, stream)
+               : launch_flash_bwd_dq_t<5>(p, B, nh, stream);
+  return dkv ? launch_flash_bwd_dkv_t<6>(p, B, nh, stream)
+             : launch_flash_bwd_dq_t<6>(p, B, nh, stream);
 }
 
 // D = rowsum(dO * o): o and dO (B, Sq, heads, d) strided views, D
@@ -394,16 +410,19 @@ extern "C" int k11_flash_attention_bwd_delta(
   p.Sq = Sq; p.Sk = 1; p.d = d;
   if (!flash_bwd_valid(p, B, nh)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (!flash_bwd_vec(p)) {
+  // 16-byte loads of o and dO at any d % 8 == 0
+  if (!views_vec16(d, {o_sb, o_ss, o_sh, do_sb, do_ss, do_sh}, {o, dout})) {
     const AnyBwdParams a = flash_bwd_any(p, nh);
     return attn_any_bwd_delta(is_bf16, &a, B, Sq, nh, s);
   }
   const long long n = (long long)B * Sq * nh;
-  const unsigned blocks = (unsigned)((n + 255) / 256);
+  int G = 1;
+  while (G < 32 && 8 * G < d) G *= 2;
+  const unsigned blocks = (unsigned)((n * G + 255) / 256);
   if (is_bf16)
-    flash_bwd_delta_kernel<bf16><<<blocks, 256, 0, s>>>(p, n, nh);
+    flash_bwd_delta_kernel<bf16><<<blocks, 256, 0, s>>>(p, n, nh, G);
   else
-    flash_bwd_delta_kernel<float><<<blocks, 256, 0, s>>>(p, n, nh);
+    flash_bwd_delta_kernel<float><<<blocks, 256, 0, s>>>(p, n, nh, G);
   return (int)cudaGetLastError();
 }
 
@@ -424,8 +443,7 @@ extern "C" int k11_flash_attention_bwd_dq(
   p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
   p.Sq = Sq; p.Sk = Sk; p.d = d; p.scale = scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch_flash_bwd<bf16>(false, p, B, nh, s)
-                       : launch_flash_bwd<float>(false, p, B, nh, s));
+  return (int)launch_flash_bwd(is_bf16, false, p, B, nh, s);
 }
 
 // dk and dv (B, Sk, heads, d), both written through the same strides.
@@ -445,6 +463,5 @@ extern "C" int k11_flash_attention_bwd_dkv(
   p.dkv_sb = dkv_sb; p.dkv_ss = dkv_ss; p.dkv_sh = dkv_sh;
   p.Sq = Sq; p.Sk = Sk; p.d = d; p.scale = scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch_flash_bwd<bf16>(true, p, B, nh, s)
-                       : launch_flash_bwd<float>(true, p, B, nh, s));
+  return (int)launch_flash_bwd(is_bf16, true, p, B, nh, s);
 }

@@ -52,7 +52,8 @@ SHARED_SOURCES = ("gemm_any", "attention_any", "attention_any_bwd",
 SOURCES = (*SHARED_SOURCES, "fused_mlp", "fused_attention_block",
            "fused_transition", "flash_attention", "fused_mlp_bwd",
            "fused_attention_block_bwd",
-           "fused_transition_bwd", "flash_attention_bwd", "full_attention",
+           "fused_transition_bwd", "flash_attention_bwd",
+           "flash_attention_bwd_sm90", "full_attention",
            "flash_attention_d256", "full_attention_d256",
            "fused_attention_block_masked", "fused_attention_block_wgrad",
            "fused_attention_block_rem_bwd")
@@ -63,6 +64,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _K10 = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
         ctypes.c_float, _P]
 _K14 = [_I, *[_P] * 4, *[_I] * 5, *[_L] * 6, ctypes.c_float, _P]
+_K11_DQ = [_I, *[_P] * 7, *[_I] * 5, *[_L] * 12, ctypes.c_float, _P]
+_K11_DKV = [_I, *[_P] * 8, *[_I] * 5, *[_L] * 12, ctypes.c_float, _P]
 SIGNATURES = {
     **{name: {} for name in SHARED_SOURCES},
     "fused_mlp": {
@@ -115,10 +118,14 @@ SIGNATURES = {
     "flash_attention_bwd": {
         "k11_flash_attention_bwd_delta": [_I, *[_P] * 3, *[_I] * 4, *[_L] * 6,
                                           _P],
-        "k11_flash_attention_bwd_dq": [_I, *[_P] * 7, *[_I] * 5, *[_L] * 12,
-                                       ctypes.c_float, _P],
-        "k11_flash_attention_bwd_dkv": [_I, *[_P] * 8, *[_I] * 5, *[_L] * 12,
-                                        ctypes.c_float, _P],
+        "k11_flash_attention_bwd_dq": _K11_DQ,
+        "k11_flash_attention_bwd_dkv": _K11_DKV,
+    },
+    # K11's dq and dk/dv passes in bf16 on wgmma fed by TMA (csrc/hopper.cuh),
+    # the same arguments
+    "flash_attention_bwd_sm90": {
+        "k11_flash_attention_bwd_dq_sm90": _K11_DQ,
+        "k11_flash_attention_bwd_dkv_sm90": _K11_DKV,
     },
     "full_attention": {"k14_full_attention": _K14},
     # K14 at head dim 256, a translation unit of its own

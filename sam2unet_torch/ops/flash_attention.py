@@ -5,15 +5,23 @@ sam2unet_tpu/ops/pallas/flash_attention.py (`_stream_fwd_impl`,
 `_stream_bwd_impl`, `_fused_full`, `_dispatch_fwd`, oracle
 `_xla_attention`); the kernels are csrc/flash_attention.cu (K10),
 csrc/flash_attention_d256.cu (K10 at head dim 256, the video memory
-attention's), csrc/flash_attention_bwd.cu (K11: the delta pass, the dq
-pass and the dk/dv pass), csrc/full_attention.cu (K14) and
-csrc/full_attention_d256.cu (K14 at head dim 256, the memory attention's
-over a 512-px frame under the "pallas" backend). They take any head dim,
-as the JAX kernels do: d % 8 == 0 up to 96, and the forwards at 256, at
-views that allow 16-byte vectors (`_vec16`) run the vector instances,
-every other head dim or view the chunked, element-loading kernels of
-csrc/attention_any*.cu (K11 at head dim 256 among them); on the CPU the
-plain versions take any.
+attention's), csrc/flash_attention_bwd.cu (K11: the delta pass, and the
+dq and dk/dv passes in fp32), csrc/flash_attention_bwd_sm90.cu (K11's dq
+and dk/dv passes in bf16 on wgmma fed by TMA), csrc/full_attention.cu (K14)
+and csrc/full_attention_d256.cu (K14 at head dim 256, the memory
+attention's over a 512-px frame under the "pallas" backend). They take any
+head dim, as the JAX kernels do. At views that allow 16-byte vectors
+(`_vec16`): K10 and K14 at d % 8 == 0 up to 96 and at 256 run the vector
+instances; K11's delta pass its vector kernel at any d % 8 == 0; its dq
+and dk/dv passes in bf16 at d % 8 == 0 up to 256 the Hopper kernels (d
+padded to 64, 96, 128 or 256: `_bwd_library`), in fp32 up to 96 the
+CUDA-core instances. Every other head dim, dtype or view runs the chunked,
+element-loading kernels of csrc/attention_any*.cu; on the CPU the plain
+versions take any. K11's dq and dk/dv passes are bound by operations (6
+and 8 S_q S_k d against ~5 and ~6 S d elements moved); the Hopper kernels
+keep every product on wgmma, the streamed tiles arriving by TMA through a
+two-stage ring while two consumer warpgroups of 64 rows compute (design
+note in csrc/flash_attention_bwd_sm90.cu).
 
 q, k and v may be strided views, as the long global-attention blocks pass
 them (channel slices of the QKV output, rows of 3c): the kernels read them
@@ -35,6 +43,8 @@ from sam2unet_torch.ops.attention import MAX_FULL_SEQ, einsum_attention
 
 WIDE_HEAD_DIM = 256   # flash_attention_d256.cu, full_attention_d256.cu:
                       # the forwards of K10 and K14 at aligned views
+SM90_BWD_HEAD_DIM = 256   # flash_attention_bwd_sm90.cu: K11's dq and dk/dv
+                          # passes in bf16 up to this head dim
 
 
 def plain_flash_attention(q, k, v, scale: float | None = None,
@@ -114,6 +124,28 @@ def _vec16(*views: torch.Tensor) -> bool:
     of 8 elements. The d256 forwards read only such views."""
     return all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
                for t in views)
+
+
+def _bwd_library(dtype: torch.dtype, d: int, *views: torch.Tensor) -> str:
+    """The library of K11's dq or dk/dv pass over these views (q, k, v, dO
+    and the outputs): bf16 at d % 8 == 0 up to 256 on views a TMA tensor
+    map can address (`_vec16`, no zero stride over an extent past 1) runs
+    csrc/flash_attention_bwd_sm90.cu; everything else (fp32, other head
+    dims, other views) csrc/flash_attention_bwd.cu, which sends what its
+    fp32 instances do not take to csrc/attention_any_bwd.cu."""
+    if (dtype == torch.bfloat16 and d % 8 == 0 and d <= SM90_BWD_HEAD_DIM
+            and _vec16(*views)
+            and all(st > 0 for t in views
+                    for st, n in zip(t.stride(), t.shape) if n > 1)):
+        return "flash_attention_bwd_sm90"
+    return "flash_attention_bwd"
+
+
+def _bwd_entry(lib: str, name: str):
+    """K11's C entry point `name` in library `lib` (the Hopper library's
+    carry the suffix `_sm90`; both take the same arguments)."""
+    suffix = "_sm90" if lib == "flash_attention_bwd_sm90" else ""
+    return getattr(build.library(lib), name + suffix)
 
 
 def _check_args(q, k, v, **more) -> tuple[int, int, int, int, int]:
@@ -238,10 +270,12 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale: float,
     _check_rows(lse, "lse", q)
     _check_rows(delta, "D", q)
     p = dispatch.ptr
-    err = build.library("flash_attention_bwd").k11_flash_attention_bwd_dq(
-        int(q.dtype == torch.bfloat16), p(q), p(k), p(v), p(dout), p(lse),
-        p(delta), p(out), b, sq, sk, nh, d, *q.stride()[:3], *k.stride()[:3],
-        *dout.stride()[:3], *out.stride()[:3], scale, dispatch.stream_of(q))
+    fn = _bwd_entry(_bwd_library(q.dtype, d, q, k, v, dout, out),
+                    "k11_flash_attention_bwd_dq")
+    err = fn(int(q.dtype == torch.bfloat16), p(q), p(k), p(v), p(dout),
+             p(lse), p(delta), p(out), b, sq, sk, nh, d, *q.stride()[:3],
+             *k.stride()[:3], *dout.stride()[:3], *out.stride()[:3], scale,
+             dispatch.stream_of(q))
     build.check(err, "flash_attention_bwd_dq")
     dispatch.count_launch("flash_attention_bwd_dq", f"S={sk}")
     return out
@@ -267,11 +301,12 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale: float,
     _check_rows(lse, "lse", q)
     _check_rows(delta, "D", q)
     p = dispatch.ptr
-    err = build.library("flash_attention_bwd").k11_flash_attention_bwd_dkv(
-        int(q.dtype == torch.bfloat16), p(q), p(k), p(v), p(dout), p(lse),
-        p(delta), p(dk), p(dv), b, sq, sk, nh, d, *q.stride()[:3],
-        *k.stride()[:3], *dout.stride()[:3], *dk.stride()[:3], scale,
-        dispatch.stream_of(q))
+    fn = _bwd_entry(_bwd_library(q.dtype, d, q, k, v, dout, dk, dv),
+                    "k11_flash_attention_bwd_dkv")
+    err = fn(int(q.dtype == torch.bfloat16), p(q), p(k), p(v), p(dout),
+             p(lse), p(delta), p(dk), p(dv), b, sq, sk, nh, d,
+             *q.stride()[:3], *k.stride()[:3], *dout.stride()[:3],
+             *dk.stride()[:3], scale, dispatch.stream_of(q))
     build.check(err, "flash_attention_bwd_dkv")
     dispatch.count_launch("flash_attention_bwd_dkv", f"S={sk}")
     return dk, dv

@@ -55,6 +55,8 @@ ENTRY_WRAPPER = {
     "k11_flash_attention_bwd_delta": "flash_attention_bwd_delta",
     "k11_flash_attention_bwd_dq": "flash_attention_bwd_dq",
     "k11_flash_attention_bwd_dkv": "flash_attention_bwd_dkv",
+    "k11_flash_attention_bwd_dq_sm90": "flash_attention_bwd_dq",
+    "k11_flash_attention_bwd_dkv_sm90": "flash_attention_bwd_dkv",
     "k12_window_block_strips_rem": "fused_window_block_strips_rem",
     "k13_window_block_strips_rem_bwd": "window_block_strips_rem_bwd",
     "k14_full_attention": "full_attention",

@@ -15,7 +15,10 @@ give it (strided views, key rows of 6 to 1024) and at head dim 256 (the
 memory attention's under the "pallas" backend); K11 against
 `plain_flash_attention_bwd` at S 3600 and 1089, head dims 72 and 96, cross
 lengths, strided views, and through autograd and the long block's
-backward; K15 and K16 (LN -> x@W, its q / k / v split), K2 without LN or
+backward, and its bf16 passes on the Hopper kernels
+(csrc/flash_attention_bwd_sm90.cu) at head dims 56-256 with S_q 1000
+against S_k 1337, under autograd, beside neighbouring channel blocks they
+must leave alone, and twice with the same bits; K15 and K16 (LN -> x@W, its q / k / v split), K2 without LN or
 the residual, the masked whole-grid K6 / K7 (also against the valid-group
 route), and the fp32 weight gate's plain route; K7's weight-gradient mode
 (dx and the six weight gradients) at S 16 to 256 and widths 144 to 576,
@@ -42,6 +45,7 @@ import torch
 
 from sam2unet_torch.ops import dispatch
 from sam2unet_torch.ops.flash_attention import (
+    _bwd_library,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_delta,
@@ -95,6 +99,9 @@ def _compare(call, dtype, near_ties=False, launches=1):
     dispatch.reset_launches()
     got = call()
     assert sum(dispatch.launches.values()) == launches
+    # a copy: a call that writes into views it was given writes them again
+    got = (tuple(t.clone() for t in got) if isinstance(got, tuple)
+           else got.clone())
     with dispatch.force_plain():
         want = call()
     torch.cuda.synchronize()
@@ -468,6 +475,102 @@ def test_flash_attention_backward_is_k11(gen, dtype):
     _compare(call, dtype, launches=4)
     assert dispatch.launches["flash_attention"] == 1
     assert dispatch.launches["flash_attention_bwd_dq"] == 1
+
+
+# K11's dq and dk/dv passes in bf16 on csrc/flash_attention_bwd_sm90.cu:
+# every padded instance (64, 96, 128, 256) and the head dims between them
+SM90_HEAD_DIMS = [56, 64, 72, 96, 112, 128, 200, 256]
+SM90 = "flash_attention_bwd_sm90"
+
+
+def _k11_sm90_inputs(gen, b, sq, sk, nh, d):
+    """bf16 q a channel block of a (b, sq, 2, nh, d) buffer, k and v those
+    of a (b, sk, 2, nh, d) one, dO, K10's o and lse."""
+    qb = _rnd(gen, torch.bfloat16, b, sq, 2, nh, d)
+    kv = _rnd(gen, torch.bfloat16, b, sk, 2, nh, d)
+    q, k, v = qb[:, :, 0], kv[:, :, 0], kv[:, :, 1]
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    return q, k, v, o, lse, _rnd(gen, torch.bfloat16, b, sq, nh, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", SM90_HEAD_DIMS)
+def test_k11_sm90_passes_match_plain_at_ragged_strided_shapes(gen, d):
+    """S_q 1000 against S_k 1337 (no multiple of the 64-row tiles), strided
+    q/k/v, the outputs into the channel blocks of one dqkv buffer: the dq
+    pass, the dk/dv pass and the three passes, each on the Hopper library."""
+    b, sq, sk, nh = 2, 1000, 1337, 2
+    q, k, v, o, lse, g = _k11_sm90_inputs(gen, b, sq, sk, nh, d)
+    dqkv = torch.empty(b, sk, 3, nh, d, dtype=torch.bfloat16, device="cuda")
+    outs = (dqkv[:, :sq, 0], dqkv[:, :, 1], dqkv[:, :, 2])
+    assert _bwd_library(q.dtype, d, q, k, v, g, outs[0]) == SM90
+    assert _bwd_library(q.dtype, d, q, k, v, g, *outs[1:]) == SM90
+    delta = flash_attention_bwd_delta(o, g)
+    scale = 1 / math.sqrt(d)
+    _compare(lambda: flash_attention_bwd_dq(q, k, v, g, lse, delta, scale,
+                                            out=outs[0]), torch.bfloat16)
+    _compare(lambda: flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale,
+                                             out=outs[1:]), torch.bfloat16)
+    _compare(lambda: flash_attention_bwd(q, k, v, o, lse, g, out=outs),
+             torch.bfloat16, launches=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_k11_sm90_under_autograd(gen, d):
+    """`flash_attention` differentiated on the card at the Hopper
+    instances' widths: K10, then the delta, dq and dk/dv passes."""
+    qkv = _rnd(gen, torch.bfloat16, 2, 1000, 3, 2, d).requires_grad_()
+    g = _rnd(gen, torch.bfloat16, 2, 1000, 2, d)
+
+    def call():
+        o = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        return torch.autograd.grad(o, qkv, g)[0]
+
+    _compare(call, torch.bfloat16, launches=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [72, 200])
+def test_k11_sm90_writes_only_its_channel_block(gen, d):
+    """dq, dk and dv as neighbouring blocks of each head of one (B, S,
+    heads, 3, d) buffer: d 72 and 200 run the 96- and 256-wide instances,
+    whose columns past d would land in the next block (dq's in dk's, dv's
+    in the next head's dq). Each pass leaves the other blocks as they were."""
+    b, s, nh = 2, 333, 2
+    q, k, v, o, lse, g = _k11_sm90_inputs(gen, b, s, s, nh, d)
+    buf = torch.full((b, s, nh, 3, d), 7.0, dtype=torch.bfloat16,
+                     device="cuda")
+    dq, dk, dv = buf[:, :, :, 0], buf[:, :, :, 1], buf[:, :, :, 2]
+    assert _bwd_library(q.dtype, d, q, k, v, g, dq, dk, dv) == SM90
+    delta = flash_attention_bwd_delta(o, g)
+    scale = 1 / math.sqrt(d)
+    flash_attention_bwd_dq(q, k, v, g, lse, delta, scale, out=dq)
+    torch.cuda.synchronize()
+    assert buf[:, :, :, 1:].eq(7.0).all()
+    first = dq.clone()
+    flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale, out=(dk, dv))
+    torch.cuda.synchronize()
+    assert torch.equal(dq, first)
+    got = (first, dk.clone(), dv.clone())
+    with dispatch.force_plain():
+        want = flash_attention_bwd(q, k, v, o, lse, g)
+    for a, w in zip(got, want):
+        w = w.float()
+        assert (a.float() - w).abs().max() <= 2e-2 * w.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [96, 128, 256])
+def test_k11_sm90_repeats_bit_for_bit(gen, d):
+    """No atomics: each output row belongs to one block, so two calls give
+    the same bits."""
+    q, k, v, o, lse, g = _k11_sm90_inputs(gen, 2, 1000, 1337, 2, d)
+    first = flash_attention_bwd(q, k, v, o, lse, g)
+    second = flash_attention_bwd(q, k, v, o, lse, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
