@@ -45,14 +45,18 @@ Phases, one line each, for each path of --paths (l352, s960, then the
 training paths l352train and s960train, listed after these):
   1. the card (nvidia-smi name and power limit); build the CUDA kernels
      from csrc/ with nvcc (one process per source, all at once) and print
-     the build time.
+     the build time; the Hopper kernels' registers, spills and shared
+     memory (K11's dq and dk/dv passes, K10 / K14's forward), failing on a
+     spill or on ptxas serializing their wgmma.
   2. every kernel of the path against its plain PyTorch version on the
      card at the path's main-path shapes: at 352 K1 tail, K1 adapter, K4,
      K6 n_pad=0, K6 n_pad>0, K6 global S=484, K8; at 960 K1 tail, K1
      adapter, K4, K8, K10 (o and lse) and K12. bf16 at every shape (timed
      at one representative shape each, with the bound from the call's
-     bytes and operations, and SDPA's time beside K10), and fp32 once at a
-     batch of at most 2. TF32 is off.
+     bytes and operations, and SDPA's time beside K10 and K14), and fp32
+     once at a batch of at most 2. TF32 is off. Each bf16 K10 / K14 call
+     runs the route its row names: csrc/flash_attention_fwd_sm90.cu (the
+     Hopper forward) or, past its head dims and views, csrc/attention_any.cu.
   3. the main path: the test CLI (sam2unet_torch.cli.test_cli.main) on a
      synthetic 4-image dataset with a seeded random SAM2UNet checkpoint of
      the path's trunk, --size 352 --model_cfg sam2_hiera_l, or the CLI's
@@ -296,8 +300,8 @@ The backward-mode path bwdmodes (seeded random weights):
      blocks, K13a 1 on the 30x30 w7 block, beside K5, K9, K11, K2, K3).
 The head-dim path headdims (seeded random weights; the kernels of
 csrc/attention_any*.cu, which take every head dim the JAX kernels take, and
-K11's bf16 passes on csrc/flash_attention_bwd_sm90.cu at d % 8 == 0 up to
-256):
+in bf16 at d % 8 == 0 up to 256 K10 / K14 on csrc/flash_attention_fwd_sm90.cu
+and K11's passes on csrc/flash_attention_bwd_sm90.cu):
   2. each window-family mode at the JAX kernel tests' head dim 12 (c 24
      over 2 heads, the transition 24 -> 48 over 4): K4 and K5 on 16x16
      w8, K12 and K13 on 30x30 w8, K6 with and without the pad key, K7,
@@ -337,7 +341,12 @@ The throughput phase of l352, l352train and s960train also times the step
 with the persistent window groups and per block (SAM2UNET_DISABLE_GROUPED),
 alternating, for the record.
 `--phases profile` gives the device time by kernel of one forward, train
-step, set_image, predict, tracked frame or generate, and its idle share.
+step, set_image, predict, tracked frame or generate, and its idle share
+(1 - the union of the device kernels' intervals over their span: the
+entry points' GPU user annotations are not kernels); the s960 and
+s1024video profiles fail unless K10 ran on the Hopper forward and none of
+its CUDA-core entry points ran, and t512video's K14 rows profile one call
+at each held shape and fail the same way for K14.
 Then a JSON line of per-kernel numbers, the card line, and last the result
 line. Any failed phase exits non-zero before the result line. Without a
 CUDA device, or without the sam2unet_torch package beside this script, it
@@ -533,7 +542,7 @@ PATHS = {
                                  "fused_window_block_strips": 2,
                                  "fused_transition_block": 2,
                                  "fused_window_block": 16},
-                      per_frame_d256=4,
+                      per_frame_d256=4, profile_k14=True,
                       pallas_image={"full_attention": 1},
                       pallas_decode={"full_attention": 7}),
     # the automatic mask generator at the JAX package's
@@ -1396,12 +1405,12 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
                        dict(windows=b, S=4, c=768, heads=8, n_pad=45)]), 0),
             ("K14 full_attention (head dim 256)", "full",
              "sam2unet_tpu/ops/pallas/flash_attention.py:93",
-             "sam2unet_torch/csrc/full_attention_d256.cu",
+             "sam2unet_torch/csrc/flash_attention_fwd_sm90.cu",
              lambda w, v: w == "full_attention" and v.endswith(",d=256"),
              [dict(batch=objects, S=1024, Sk=1024, heads=1, d=256)], 0),
             ("K14 full_attention", "full",
              "sam2unet_tpu/ops/pallas/flash_attention.py:93",
-             "sam2unet_torch/csrc/full_attention.cu",
+             "sam2unet_torch/csrc/flash_attention_fwd_sm90.cu",
              lambda w, v: w == "full_attention" and v in k14_held, k14, 3),
         ]
     if path == "t1024amg":
@@ -1426,7 +1435,7 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
         return trunk + [
             ("K10 flash_attention (head dim 256)", "flash",
              "sam2unet_tpu/ops/pallas/flash_attention.py:190",
-             "sam2unet_torch/csrc/flash_attention_d256.cu",
+             "sam2unet_torch/csrc/flash_attention_fwd_sm90.cu",
              lambda w, v: w == "flash_attention" and v.endswith(",d=256"),
              [dict(batch=PATHS[path]["objects"], S=4096, heads=1, d=256)], 0)]
     if path == "s1024sam2":
@@ -1458,7 +1467,7 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
               dict(batch=b, grid=128, cin=192, c=384, heads=4, window=4)], 0),
             ("K10 flash_attention", "flash",
              "sam2unet_tpu/ops/pallas/flash_attention.py:190",
-             "sam2unet_torch/csrc/flash_attention.cu",
+             "sam2unet_torch/csrc/flash_attention_fwd_sm90.cu",
              lambda w, v: w == "flash_attention",
              [dict(batch=b, S=4096, heads=4, d=96),
               dict(batch=b, S=16, Sk=4096, heads=8, d=16)], 0),
@@ -1468,7 +1477,7 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
               dict(batch=b, grid=32, c=768, heads=8, window=7)], 0),
             ("K14 full_attention", "full",
              "sam2unet_tpu/ops/pallas/flash_attention.py:93",
-             "sam2unet_torch/csrc/full_attention.cu",
+             "sam2unet_torch/csrc/flash_attention_fwd_sm90.cu",
              lambda w, v: w == "full_attention" and v in k14_held, k14, 3),
         ]
     if path == "s960deploy":
@@ -1493,7 +1502,10 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
             ("K6 fused_window_block (n_pad>0)", "window", f"{fab}:354", src_ab,
              *k6_held([dict(windows=4 * b, S=56, c=384, heads=4, n_pad=140),
                        dict(windows=b, S=16, c=384, heads=4, n_pad=180)]), 0),
-            s960["K10 flash_attention"],
+            # the deployed fp32 forward's K10 (bf16 is held at s960)
+            s960["K10 flash_attention"][:3] + (
+                "sam2unet_torch/csrc/flash_attention.cu",)
+            + s960["K10 flash_attention"][4:],
             s960["K12 fused_window_block_strips_rem"][:5]
             + ([dict(batch=b, grid=30, c=768, heads=8, window=7)], 0),
         ]
@@ -1547,7 +1559,7 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
           dict(batch=b, grid=120, cin=192, c=384, heads=4, window=4)], 0),
         ("K10 flash_attention", "flash",
          "sam2unet_tpu/ops/pallas/flash_attention.py:190",
-         "sam2unet_torch/csrc/flash_attention.cu",
+         "sam2unet_torch/csrc/flash_attention_fwd_sm90.cu",
          lambda w, v: w == "flash_attention",
          [dict(batch=b, S=3600, heads=4, d=96)], 0),
         ("K12 fused_window_block_strips_rem", "strips_rem", f"{fab}:1566",
@@ -1727,7 +1739,6 @@ def bwdmodes_kernel_specs(b: int, fab: str) -> list[tuple]:
 
 # head dims of the flash family held at small lengths: the JAX kernel
 # tests' 12, and 128 and 264 (one and five 64-wide chunks past 96)
-HEADDIMS_SMALL = (12, 128, 264)
 # K11's bf16 dq and dk/dv passes on csrc/flash_attention_bwd_sm90.cu: each
 # padded instance (64, 96, 128, 256) and head dims between them
 K11_SM90_HEAD_DIMS = (56, 64, 72, 96, 112, 128, 200, 256)
@@ -1757,10 +1768,13 @@ def headdims_kernel_specs(fab: str) -> list[tuple]:
     def flash(b, s, nh, d, **more):
         return dict(batch=b, S=s, heads=nh, d=d, **more)
 
-    k10 = [flash(2, 320, 2, d, **f32) for d in HEADDIMS_SMALL] + [
-        flash(4, 3600, nh, d, f32=dict(batch=1)) for nh, d in ((32, 12), (3, 128),
-                                                              (1, 384))]
-    for g in k10:
+    # K10 and K14 in bf16 at 128 on the Hopper forward, at 12, 264 and 384
+    # on the chunked kernels
+    k10_sm90 = [flash(2, 320, 2, 128, **f32),
+                flash(4, 3600, 3, 128, f32=dict(batch=1))]
+    k10 = [flash(2, 320, 2, d, **f32) for d in (12, 264)] + [
+        flash(4, 3600, nh, d, f32=dict(batch=1)) for nh, d in ((32, 12), (1, 384))]
+    for g in k10_sm90 + k10:
         g["expect"] = ("flash_attention", f"S={g['S']},d={g['d']}")
     # K11 under autograd: bf16 on the Hopper kernels at the video memory
     # attention's (2, 4096, 1, 256), at 128, and at every width of their
@@ -1786,10 +1800,12 @@ def headdims_kernel_specs(fab: str) -> list[tuple]:
         g["expect"] = {("flash_attention_bwd_delta", s): 1,
                        ("flash_attention_bwd_dq", s): 1,
                        ("flash_attention_bwd_dkv", s): 1}
-    k14 = [flash(2, 49, 2, d, Sk=196, **f32) for d in HEADDIMS_SMALL] + [
+    k14_sm90 = [flash(2, 49, 2, 128, Sk=196, **f32),
+                flash(400, 49, 6, 128, Sk=196, f32=dict(batch=8))]
+    k14 = [flash(2, 49, 2, d, Sk=196, **f32) for d in (12, 264)] + [
         flash(400, 49, nh, d, Sk=196, f32=dict(batch=8))
-        for nh, d in ((64, 12), (6, 128), (2, 384))]
-    for g in k14:
+        for nh, d in ((64, 12), (2, 384))]
+    for g in k14_sm90 + k14:
         g["expect"] = ("full_attention", f"Sq=49,Sk=196,d={g['d']}")
     c24 = dict(c=24, heads=2)
     k6 = [dict(windows=4, S=64, **c24, **f32),
@@ -1819,15 +1835,23 @@ def headdims_kernel_specs(fab: str) -> list[tuple]:
     def sel(wrapper, *tags):
         return lambda w, v: w == wrapper and all(t in v for t in tags)
 
-    def sel_d(wrapper):
-        # the head dims these kernels hold (K10 at 256 has its own entry)
-        return lambda w, v: w == wrapper and not v.endswith(",d=256")
+    def sel_d(wrapper, hopper):
+        # the head dims of a route: the Hopper forward's d % 8 == 0 below
+        # 256 (K10 at 256 has its own entry), or the chunked kernels' rest
+        def select(w, v):
+            if w != wrapper:
+                return False
+            d = int(v.rsplit("d=", 1)[1])
+            return d != 256 and (d % 8 == 0 and d < 256) == hopper
+        return select
+    src_fwd = "sam2unet_torch/csrc/flash_attention_fwd_sm90.cu"
     return [
+        ("K10 flash_attention (wgmma)", "flash", f"{fa}:190",
+         src_fwd, sel_d("flash_attention", True), k10_sm90, 1),
         ("K10 flash_attention (any head dim)", "flash", f"{fa}:190", src_any,
-         sel_d("flash_attention"), k10, 3),
+         sel_d("flash_attention", False), k10, 2),
         ("K10 flash_attention (head dim 256, under autograd)", "flash",
-         f"{fa}:190", "sam2unet_torch/csrc/flash_attention_d256.cu",
-         sel("flash_attention", "d=256"),
+         f"{fa}:190", src_fwd, sel("flash_attention", "d=256"),
          [flash(2, 4096, 1, 256, f32=dict(batch=1),
                 expect=("flash_attention", "S=4096,d=256"))], 0),
         ("K11 flash_attention_bwd (wgmma, under autograd)", "flash_grad",
@@ -1841,8 +1865,10 @@ def headdims_kernel_specs(fab: str) -> list[tuple]:
          lambda w, v: w.startswith("flash_attention_bwd"), k11_timed_sm90, 0),
         ("K11 flash_attention_bwd (any head dim, timed)", "flash_bwd", f"{fa}:314",
          src_bwd, lambda w, v: w.startswith("flash_attention_bwd"), k11_timed, 0),
+        ("K14 full_attention (wgmma)", "full", f"{fa}:93", src_fwd,
+         sel_d("full_attention", True), k14_sm90, 1),
         ("K14 full_attention (any head dim)", "full", f"{fa}:93", src_any,
-         sel_d("full_attention"), k14, 3),
+         sel_d("full_attention", False), k14, 2),
         ("K4 fused_window_block_strips (head dim 12)", "strips", f"{fab}:1021",
          src_any, sel("fused_window_block_strips"),
          [dict(g, expect=("fused_window_block_strips", "window=8")) for g in strips],
@@ -2095,6 +2121,93 @@ def compare(call, tol: float) -> tuple[float, float, float, int]:
     return worst_abs, worst_rel, worst_share, launched
 
 
+SM90_FWD_SOURCE = "sam2unet_torch/csrc/flash_attention_fwd_sm90.cu"
+# the CUDA-core entry points of K10 and K14, which bf16 left for the Hopper
+# forward (a bf16 call there would run attention_any.cu's mma.sync kernels)
+OLD_FWD_ENTRIES = {"K10": ("k10_flash_attention", "k10_flash_attention_d256"),
+                   "K14": ("k14_full_attention", "k14_full_attention_d256")}
+
+
+@contextlib.contextmanager
+def libraries_called():
+    """The kernel libraries (`build.library`) that the calls inside ask for,
+    in order: the route the wrappers took."""
+    from sam2unet_torch.ops import build
+
+    seen, library = [], build.library
+
+    def spy(name):
+        seen.append(name)
+        return library(name)
+
+    build.library = spy
+    try:
+        yield seen
+    finally:
+        build.library = library
+
+
+def profile_events(call) -> list:
+    """torch.profiler's events of one call on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return prof.events()
+
+
+def hopper_forward_check(events: list, kernel: str, what: str) -> tuple[str, bool]:
+    """Which kernels ran `kernel` (K10 or K14) in the profiled events, as a
+    line to print, and whether the Hopper forward's device kernel ran and
+    none of the kernel's CUDA-core entry points did."""
+    from sam2unet_torch.utils import profile_model
+
+    new = sorted({e.name for e in profile_model.device_kernels(events)
+                  if "fwd_sm90_kernel" in e.name})
+    old = dict(collections.Counter(e.name for e in events
+                                   if e.name in OLD_FWD_ENTRIES[kernel]))
+    return (f"{what}: {kernel} on {new}, its CUDA-core entry points {old}",
+            bool(new) and not old)
+
+
+def k14_profile_worker(spec: dict) -> dict:
+    """One bf16 call of each shape a path's K14 rows hold, each under
+    torch.profiler after a warm-up call, in a process of its own (in the
+    run's process a profile of one short call after the earlier paths
+    recorded no device kernel). Returns what failed."""
+    import torch
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(14)
+    lines, faults = [], []
+    for name, kind, _r, _s, _sel, shapes, _t in kernel_specs(spec["path"], 1):
+        if kind != "full":
+            continue
+        for g in shapes:
+            call = shape_case(kind, g, torch.bfloat16, gen)[0]
+            call()
+            line, ok = hopper_forward_check(
+                profile_events(call), "K14",
+                f"{name} {PATHS[spec['path']]['label']} bf16 {g}")
+            lines.append(line)
+            if not ok:
+                faults.append(line)
+    return dict(lines=lines, faults=faults)
+
+
+def k14_profile_phase(path: str, tmp: Path) -> None:
+    """`k14_profile_worker` on one rank: the K14 rows' shapes profiled."""
+    (result,), wall = _torchrun(1, "k14_profile", {"path": path}, tmp, timeout=300)
+    for line in result["lines"]:
+        print(f"[profile] {line}", flush=True)
+    print(f"[profile] {PATHS[path]['label']}: K14's rows profiled in a process "
+          f"of their own, {wall:.1f} s", flush=True)
+    if result["faults"]:
+        fail(f"K14 ran off the Hopper forward: {result['faults']}")
+
+
 def kernel_phase(path: str, batch: int, gen) -> list[dict]:
     """Phase 2 for one path. Returns the JSON entries (without launches)."""
     import torch
@@ -2121,10 +2234,17 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
         for i, g in enumerate(shapes):
             call, flops, nbytes, library = shape_case(kind, g, torch.bfloat16,
                                                       gen)
-            err, rel, share, launched = compare(call, BF16_REL_TOL)
+            with libraries_called() as libs:
+                err, rel, share, launched = compare(call, BF16_REL_TOL)
             if not launched:
                 fail(f"{name} launched nothing in bf16 at {g}")
             expected_launch(name, g, "bf16")
+            if kind in ("flash", "full") and not spec.get("fp32"):
+                # bf16 K10 / K14 on the route its row names
+                hopper = "flash_attention_fwd_sm90" in libs
+                if hopper != (source == SM90_FWD_SOURCE):
+                    fail(f"{name} bf16 at {g} ran {libs}, its row names {source}")
+
             near_ties = kind == "transition_bwd" and not g.get("ties")
             ok = (share <= K9_BF16_TOKEN_SHARE and rel <= K9_BF16_OUTLIER_REL
                   if near_ties else share == 0.0)
@@ -3232,12 +3352,14 @@ def train_main_phase(path: str, tmp: Path, step_seeds: list[int],
 # the hand-written kernels the train CLI's trace must name (by the C entry
 # points' profiler annotations, ops/build.py)
 TRACE_KERNELS = {"K1": ("k1_fused_mlp",), "K2": ("k2_mlp_bwd_dx",),
-                 "K3": ("k3_adapter_bwd",), "K10": ("k10_flash_attention",),
+                 "K3": ("k3_adapter_bwd",), "K10": ("k10_flash_attention_sm90",),
                  "K11": ("k11_flash_attention_bwd_delta",
                          "k11_flash_attention_bwd_dq_sm90",
                          "k11_flash_attention_bwd_dkv_sm90")}
-# K11's bf16 dq and dk/dv passes before the Hopper kernels took them
-K11_OLD_BF16 = ("k11_flash_attention_bwd_dq", "k11_flash_attention_bwd_dkv")
+# K10's forward and K11's dq and dk/dv passes in bf16 before the Hopper
+# kernels took them
+OLD_BF16 = ("k10_flash_attention", "k10_flash_attention_d256",
+            "k11_flash_attention_bwd_dq", "k11_flash_attention_bwd_dkv")
 
 
 def cli_main_phase(path: str, tmp: Path, card: str) -> dict:
@@ -3331,9 +3453,9 @@ def cli_main_phase(path: str, tmp: Path, card: str) -> dict:
               f"ms over {n} device kernels", flush=True)
         if not us:
             fail(f"{label}: the trace names no device time of {k}")
-    old = {e: by_name[e][1] for e in K11_OLD_BF16 if e in by_name}
+    old = {e: by_name[e][1] for e in OLD_BF16 if e in by_name}
     if old:
-        fail(f"{label}: K11's bf16 passes ran off the Hopper kernels: {old}")
+        fail(f"{label}: K10 or K11 in bf16 ran off the Hopper kernels: {old}")
 
     # the device evaluation at the same weights, the test and eval CLIs
     model = _train_model(cfg, Path(stats["saved"][-1]))
@@ -4133,6 +4255,8 @@ def profile_phase(path: str, batch: int, card: str,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from sam2unet_torch.utils import profile_model
+
     run, what = _runner(path, batch, predict=predict)
     for _ in range(2):
         run()
@@ -4144,17 +4268,17 @@ def profile_phase(path: str, batch: int, card: str,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    # device-side kernel events only (one stream: they do not overlap)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the device kernels only (not the entry points' GPU user annotations,
+    # which span the kernels they launch), busy the union of their intervals
+    kernels = profile_model.device_kernels(prof.events())
     if not kernels:
         fail("the profiler recorded no device time")
     by_name: dict[str, list] = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
-    busy_ms = sum(t for t, _ in by_name.values()) / 1e3
-    span_ms = (max(e.time_range.end for e in kernels)
-               - min(e.time_range.start for e in kernels)) / 1e3
+    busy_us, span_us = profile_model.busy_span_us(kernels)
+    busy_ms, span_ms = busy_us / 1e3, span_us / 1e3
     print(f"[profile] {PATHS[path]['label']} bf16 batch {batch}, one {what}, "
           f"on {card}: host wall {wall_ms:.2f} ms (profiler on), device span "
           f"{span_ms:.2f} ms, kernels busy {busy_ms:.2f} ms, idle share of "
@@ -4163,6 +4287,12 @@ def profile_phase(path: str, batch: int, card: str,
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
         print(f"[profile] {us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}% "
               f"{n:5d} calls  {name[:100]}", flush=True)
+    if path in ("s960", "s1024video"):
+        line, ok = hopper_forward_check(prof.events(), "K10",
+                                        f"{PATHS[path]['label']} {what}")
+        print(f"[profile] {line}", flush=True)
+        if not ok:
+            fail(f"K10 ran off the Hopper forward: {line}")
     if path == "s960train":
         # K11's dq and dk/dv passes on the Hopper kernels, none on the old
         # bf16 instances (gone from csrc/flash_attention_bwd.cu)
@@ -5320,17 +5450,11 @@ def headdims_main_phase(path: str) -> dict:
 
 def device_kernel_ms(call) -> dict[str, float]:
     """Device time (ms) by kernel name of one call (torch.profiler)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from sam2unet_torch.utils import profile_model
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
     ms: dict[str, float] = collections.defaultdict(float)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms[e.name] += e.time_range.elapsed_us() / 1e3
+    for e in profile_model.device_kernels(profile_events(call)):
+        ms[e.name] += e.time_range.elapsed_us() / 1e3
     if not ms:
         fail("the profiler recorded no device kernel")
     return dict(ms)
@@ -5382,6 +5506,7 @@ def widths_profile_worker(spec: dict) -> dict:
 
 
 DP_WORKERS["widths_profile"] = widths_profile_worker
+DP_WORKERS["k14_profile"] = k14_profile_worker
 
 
 def widths_main_phase(path: str, tmp: Path) -> dict:
@@ -5432,24 +5557,29 @@ def widths_main_phase(path: str, tmp: Path) -> dict:
     return got
 
 
-def k11_sm90_build(out_dir: Path) -> None:
-    """The Hopper K11 instances' registers and spills (`-Xptxas -v`) and
-    dynamic shared memory; a spill, or ptxas serializing their wgmma
-    (its "Potential Performance Loss" notes), fails the run."""
+def sm90_build(out_dir: Path) -> None:
+    """The Hopper kernels' registers and spills (`-Xptxas -v`) and dynamic
+    shared memory: K11's dq and dk/dv passes and K10 / K14's forward; a
+    spill, or ptxas serializing their wgmma (its "Potential Performance
+    Loss" notes), fails the run."""
     from sam2unet_torch.ops import build
 
-    serialized = [ln.strip() for ln in
-                  (out_dir / "flash_attention_bwd_sm90.log").read_text().splitlines()
-                  if "Performance Loss" in ln]
-    if serialized:
-        fail(f"ptxas serializes K11's Hopper wgmma: {serialized}")
-
-    lines = [ln for ln in build.ptxas_summary(out_dir)
-             if ln.startswith("flash_attention_bwd_sm90:")]
+    summary = build.ptxas_summary(out_dir)
+    for src in ("flash_attention_bwd_sm90", "flash_attention_fwd_sm90"):
+        serialized = [ln.strip() for ln in
+                      (out_dir / f"{src}.log").read_text().splitlines()
+                      if "Performance Loss" in ln]
+        if serialized:
+            fail(f"ptxas serializes the wgmma of {src}.cu: {serialized}")
+        spilled = [ln for ln in summary if ln.startswith(f"{src}:")
+                   and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        if spilled:
+            fail(f"the Hopper kernels of {src}.cu spill: {spilled}")
     # a query, not an entry point that launches: read from the library itself
-    smem = ctypes.CDLL(str(out_dir / "libflash_attention_bwd_sm90.so")
-                       ).k11_flash_attention_bwd_sm90_smem
+    lib = ctypes.CDLL(str(out_dir / "libflash_attention_bwd_sm90.so"))
+    smem = lib.k11_flash_attention_bwd_sm90_smem
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    lines = [ln for ln in summary if ln.startswith("flash_attention_bwd_sm90:")]
     for d in (64, 96, 128, 256):
         kernels = [ln.split(": ", 2)[2] for ln in lines
                    if f"_sm90_kernelILi{d}E" in ln]
@@ -5457,10 +5587,22 @@ def k11_sm90_build(out_dir: Path) -> None:
               f"shared memory a block (both passes); {kernels}", flush=True)
         if len(kernels) != 2:
             fail(f"the build reports {len(kernels)} K11 Hopper kernels at d {d}")
-    spilled = [ln for ln in lines if "0 bytes spill stores, 0 bytes spill loads"
-               not in ln]
-    if spilled:
-        fail(f"K11's Hopper kernels spill: {spilled}")
+    lib = ctypes.CDLL(str(out_dir / "libflash_attention_fwd_sm90.so"))
+    smem = lib.flash_attention_fwd_sm90_smem
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    lines = [ln for ln in summary if ln.startswith("flash_attention_fwd_sm90:")]
+    for d in (64, 96, 128, 256):
+        # K10 and K14 in the layouts of the head dim: rows and pairs, or
+        # at 256 cols (csrc/flash_attention_fwd_sm90.cu)
+        kernels = [ln.split(": ", 2)[2] for ln in lines
+                   if f"fwd_sm90_kernelILi{d}E" in ln]
+        sizes = (f"cols {smem(d, 1000)}" if d == 256 else
+                 f"rows {smem(d, 1000)}, pairs {smem(d, 64)}")
+        print(f"[ptxas] K10 / K14 Hopper instance d {d}: dynamic shared "
+              f"memory a block (bytes) {sizes}; {kernels}", flush=True)
+        if len(kernels) != (2 if d == 256 else 4):
+            fail(f"the build reports {len(kernels)} K10 / K14 Hopper kernels "
+                 f"at d {d}")
 
 
 def main() -> None:
@@ -5526,7 +5668,7 @@ def main() -> None:
           flush=True)
     for line in build.ptxas_summary(out_dir):
         print(f"[ptxas] {line}", flush=True)
-    k11_sm90_build(out_dir)
+    sm90_build(out_dir)
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
@@ -5538,6 +5680,8 @@ def main() -> None:
                 batch = PATHS[path].get("batch") or getattr(args, BATCH_FLAG[path])
                 if "kernels" in phases:
                     entries += kernel_phase(path, batch, gen)
+                    if PATHS[path].get("profile_k14"):
+                        k14_profile_phase(path, Path(tmp))
                 if "main" in phases:
                     if PATHS[path].get("video"):
                         variants[path] = video_main_phase(path)

@@ -16,7 +16,10 @@
 // made; the output is written contiguous (B, S_q, heads, d) and the lse
 // (B*heads, S_q) in fp32. The TPU kernel needs block sizes that divide S
 // (_pick_stream_blocks); here the ragged last key tile is zero-filled and
-// masked, so any S works.
+// masked, so any S works. This file holds the fp32 instances: bf16 runs
+// csrc/flash_attention_fwd_sm90.cu where its head dim and views allow
+// (`_fwd_library` in ops/flash_attention.py), and a bf16 call that reaches
+// this entry point goes to attention_any.cu's kernels.
 
 #include "attention.cuh"
 
@@ -32,6 +35,7 @@ extern "C" int k10_flash_attention(
   ap.out = o; ap.lse = lse; ap.pad_bias = nullptr;
   ap.c = nh * d; ap.d = d; ap.mode = 0; ap.S = Sk; ap.Sq = Sq;
   ap.scale = scale;
-  return (int)launch_attn_dt(is_bf16, ap, B, nh,
-                             reinterpret_cast<cudaStream_t>(stream));
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (is_bf16) return attn_any_fwd(1, 0, &ap, B, nh, s);
+  return (int)launch_attn<float, false>(ap, B, nh, s);
 }

@@ -69,7 +69,6 @@ constexpr int kDkvConsumerRegs = 240, kDkvProducerRegs = 24;
 // other two, and (dk/dv) each stage's 64 lse and D values.
 template <int D> struct Shape {
   static constexpr int A = (D + 63) / 64;         // 64-column atoms of a tile
-  static constexpr int KSTEPS = D / 16;           // 16-wide k-steps over d
   static constexpr bool SPLIT = D > 128;          // warpgroups split the columns
   static constexpr int ROWS = SPLIT ? 64 : 128;
   static constexpr int NO = SPLIT ? D / 2 : D;    // output columns a warpgroup holds
@@ -82,45 +81,6 @@ template <int D> struct Shape {
   static_assert(NO == 64 || NO == 96 || NO == 128, "wgmma width");
 };
 
-// d (64 x N) += a b over one k-step, a in registers, b MN-major in shared
-// memory whose 64-column regions lie `region` bytes apart.
-template <int N>
-__device__ __forceinline__ void mma_rs(float* d, const uint32_t* a, uint32_t b,
-                                       uint32_t region) {
-  if constexpr (N == 128) wgmma_rs_m64n128k16(d, a, desc_mn(b, region), 1);
-  else if constexpr (N == 96) wgmma_rs_m64n96k16(d, a, desc_mn(b, region), 1);
-  else wgmma_rs_m64n64k16(d, a, desc_mn(b, region), 1);
-}
-
-// S (64 x 64) = A B^T over head dim D: A's 64 rows at `a` (atoms `a_region`
-// apart), B's 64 at `b` (atoms `b_region` apart), both K-major; the first
-// k-step overwrites what s held.
-template <int D>
-__device__ __forceinline__ void scores(float* s, uint32_t a, uint32_t a_region, uint32_t b,
-                                       uint32_t b_region) {
-#pragma unroll
-  for (int kk = 0; kk < Shape<D>::KSTEPS; ++kk) {
-    const uint32_t atom = kk / 4, at = (kk % 4) * 32;
-    wgmma_ss_m64n64k16(s, desc_k(a + atom * a_region + at),
-                       desc_k(b + atom * b_region + at), kk > 0);
-  }
-}
-
-template <int N> __device__ __forceinline__ void zero(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = 0.f;
-}
-
-// The shared-memory base rounded up to 1024 bytes (SMEM holds the slack).
-__device__ __forceinline__ uint32_t smem_base(const void* raw) {
-  return (smem_addr(raw) + 1023u) & ~1023u;
-}
-
-// Rows r and r + 8 (hh 0, 1) of this thread's accumulator fragments.
-__device__ __forceinline__ int frag_row(int warp, int lane, int hh) {
-  return warp * 16 + lane / 4 + 8 * hh;
-}
-
 struct Params {
   CUtensorMap q, k, v, dout;
   const float* lse;   // (B * heads, Sq), natural log
@@ -130,21 +90,6 @@ struct Params {
   int Sq, Sk, nh, d;
   float scale, scale_log2;
 };
-
-// Columns c0 + 8 j .. + 7 of rows r (hh 0, 1) of a 64 x NO accumulator,
-// times `mul`, into a bf16 view at `out` (row stride ss), only the columns
-// below d (d % 8 == 0, so an 8-column group is all in or all out).
-template <int NO>
-__device__ __forceinline__ void store_rows(bf16* out, long long ss, const float* acc, int hh,
-                                           int row, int c0, int d, int t4, float mul) {
-  bf16* p = out + row * ss + c0 + 2 * t4;
-#pragma unroll
-  for (int j = 0; j < NO / 8; ++j) {
-    if (c0 + 8 * j >= d) break;
-    const int i = 4 * j + 2 * hh;
-    *reinterpret_cast<uint32_t*>(p + 8 * j) = pack_bf16(acc[i] * mul, acc[i + 1] * mul);
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(384, 1) k11_dq_sm90_kernel(const __grid_constant__ Params p) {
@@ -374,11 +319,6 @@ __global__ void __launch_bounds__(384, 1) k11_dkv_sm90_kernel(const __grid_const
 
 // ------------------------------------------------------------ launchers
 
-// The instance a head dim runs on: d padded to 64, 96, 128 or 256.
-int padded_head_dim(int d) {
-  return d <= 64 ? 64 : d <= 96 ? 96 : d <= 128 ? 128 : 256;
-}
-
 template <int D> int smem_bytes() { return Shape<D>::SMEM; }
 
 int smem_of(int d) {
@@ -396,15 +336,6 @@ cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, cons
   if (e != cudaSuccess) return e;
   kernel<<<grid, 384, smem, stream>>>(p);
   return cudaGetLastError();
-}
-
-// The strides (batch, token, head) a tensor map takes for a (B, S, heads,
-// d) view: the stride of an extent-1 dim is never used, so it gets a valid
-// one (positive, a multiple of 8 elements).
-void map_strides(long long* st, int B, int nh, int d, int S) {
-  if (nh == 1) st[2] = d;
-  if (S == 1) st[1] = st[2] * nh;
-  if (B == 1) st[0] = st[1] * S;
 }
 
 template <int D>

@@ -5,35 +5,27 @@
 // (launched by _stream_fwd_impl, :190) at the head dim of SAM2's memory
 // attention: its self-attention runs one head of 256 over the 64 x 64 =
 // 4096 tokens of a 1024-px frame (sam2unet_tpu/models/memory.py:167-170),
-// four times per tracked frame. The head dims of the trunks (up to 96) stay
-// in flash_attention.cu, which this file leaves as it was built.
+// four times per tracked frame, in fp32. The head dims of the trunks (up to
+// 96) stay in flash_attention.cu, which this file leaves as it was built.
 //
 // Bound on an H100: 4*S_q*S_k*256 operations per (batch, head) against
 // 4*S*256 elements moved, so at S = 4096 it is bound by operations.
 //
 // Design: one block per (batch, head, 64 queries), four warps of 16 query
-// rows; keys and values stream through a two-slot cp.async ring of tiles
-// of 64 keys (bf16) or 32 (fp32); the online softmax runs in registers, as
-// in attention.cuh. At d = 256 each warp's output accumulator is 16 x 256
-// fp32, 128 registers per lane, so q does not stay in registers too (64
-// more): its tile lives in shared memory and each 16-wide k-step re-reads
-// its fragment with ldmatrix. Shared memory: q 64 x 264, the ring 2 x (K, V)
-// x 64 x 264 (bf16: 165 KB; fp32 with 32-key tiles and the P tile: 206 KB).
-//   bf16: Q.K^T and P.V on mma.sync.m16n8k16 (fp32 accumulate); the score
-//         accumulators become the P operand in registers, rounded to bf16.
-//   fp32: CUDA-core dot products in the same register layout, P staged
-//         through shared memory (the comparison path).
-// q, k and v are strided views (unit stride over d); the output is
+// rows, CUDA-core dot products in fp32 (the comparison path; bf16 runs
+// csrc/flash_attention_fwd_sm90.cu); keys and values stream through a
+// two-slot cp.async ring of 32-key tiles; the online softmax runs in
+// registers, as in attention.cuh, and P is staged through shared memory.
+// Shared memory: q 64 x 264, the ring 2 x (K, V) x 32 x 264 and the P tile,
+// 206 KB. q, k and v are strided views (unit stride over d); the output is
 // contiguous (B, S_q, heads, 256), the lse (B*heads, S_q) fp32. Any S_k:
 // the ragged last key tile is zero-filled and masked.
-
-#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int D = 256, LDS = D + 8, NDF = D / 16, NDT = D / 8, BQ = 64;
+constexpr int D = 256, LDS = D + 8, NDT = D / 8, BQ = 64, BKV = 32;
 
 struct D256Params {
   const void *q, *k, *v;
@@ -44,34 +36,30 @@ struct D256Params {
   float scale;
 };
 
-template <typename T, int BKV>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * LDS * (BQ + 4 * BKV)
-         + (std::is_same<T, float>::value ? sizeof(float) * BQ * BKV : 0);
+  return sizeof(float) * (LDS * (BQ + 4 * BKV) + BQ * BKV);   // Q, 2 x (K, V), P
 }
 
-template <typename T, int BKV>
 __global__ void __launch_bounds__(128) k10_d256_kernel(D256Params p) {
-  constexpr bool kBF16 = std::is_same<T, bf16>::value;
-  constexpr int CH = 16 / sizeof(T), NCH = D / CH, NJ = BKV / 8;
+  constexpr int CH = 16 / sizeof(float), NCH = D / CH, NJ = BKV / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);          // BQ x LDS
-  T* Ks = Qs + BQ * LDS;                       // [2][BKV][LDS]
-  T* Vs = Ks + 2 * BKV * LDS;                  // [2][BKV][LDS]
-  float* Ps = reinterpret_cast<float*>(Vs + 2 * BKV * LDS);   // fp32: BQ x BKV
+  float* Qs = reinterpret_cast<float*>(smem);   // BQ x LDS
+  float* Ks = Qs + BQ * LDS;                    // [2][BKV][LDS]
+  float* Vs = Ks + 2 * BKV * LDS;               // [2][BKV][LDS]
+  float* Ps = Vs + 2 * BKV * LDS;               // BQ x BKV
 
   const int b = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * BQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q2 = (lane & 3) * 2;
   const int S = p.Sk, Sq = p.Sq;
-  const T* qb = reinterpret_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = reinterpret_cast<const T*>(p.k) + b * p.kv_sb + h * p.kv_sh;
-  const T* vb = reinterpret_cast<const T*>(p.v) + b * p.kv_sb + h * p.kv_sh;
+  const float* qb = reinterpret_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kb = reinterpret_cast<const float*>(p.k) + b * p.kv_sb + h * p.kv_sh;
+  const float* vb = reinterpret_cast<const float*>(p.v) + b * p.kv_sb + h * p.kv_sh;
 
   for (int idx = tid; idx < BQ * (D / 8); idx += blockDim.x) {
     const int r = idx / (D / 8), ch = (idx - r * (D / 8)) * 8, t = q0 + r;
     v8_store(Qs + r * LDS + ch,
-             t < Sq ? v8_load(qb + (long long)t * p.q_ss + ch) : v8_zero<T>());
+             t < Sq ? v8_load(qb + (long long)t * p.q_ss + ch) : v8_zero<float>());
   }
   auto load_kv = [&](int buf, int kt) {
     for (int idx = tid; idx < BKV * NCH; idx += blockDim.x) {
@@ -99,8 +87,8 @@ __global__ void __launch_bounds__(128) k10_d256_kernel(D256Params p) {
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();   // tile kt (and at kt = 0 the Q tile) in place
-    const T* ks = Ks + buf * BKV * LDS;
-    const T* vs = Vs + buf * BKV * LDS;
+    const float* ks = Ks + buf * BKV * LDS;
+    const float* vs = Vs + buf * BKV * LDS;
 
     // scores of 16 rows x BKV keys: s[j][e] is row g + 8*(e/2), key
     // j*8 + q2 + e%2
@@ -108,35 +96,13 @@ __global__ void __launch_bounds__(128) k10_d256_kernel(D256Params p) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    if constexpr (kBF16) {
-#pragma unroll
-      for (int kd = 0; kd < NDF; ++kd) {
-        unsigned qf[4];   // re-read per k-step: registers hold the output
-        ldmatrix_x4(qf, Qs + (warp * 16 + (lane & 15)) * LDS + kd * 16
-                            + (lane >> 4) * 8);
-#pragma unroll
-        for (int jj = 0; jj < NJ / 2; ++jj) {
-          unsigned r[4];
-          ldmatrix_x4(r, ks + (jj * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS
-                             + kd * 16 + ((lane >> 3) & 1) * 8);
-          const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-          mma_16816(s[2 * jj], qf, b0);
-          mma_16816(s[2 * jj + 1], qf, b1);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const float* qr = Qs + (warp * 16 + g + 8 * (e >> 1)) * LDS;
+        const float* kr = ks + (j * 8 + q2 + (e & 1)) * LDS;
+        float acc = 0.f;
+        for (int ch = 0; ch < D; ++ch) acc = fmaf(qr[ch], kr[ch], acc);
+        s[j][e] = acc;
       }
-    } else {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const T* qr = Qs + (warp * 16 + g + 8 * (e >> 1)) * LDS;
-          const T* kr = ks + (j * 8 + q2 + (e & 1)) * LDS;
-          float acc = 0.f;
-          for (int ch = 0; ch < D; ++ch) acc = fmaf(to_f(qr[ch]), to_f(kr[ch]), acc);
-          s[j][e] = acc;
-        }
-    }
 
     // online softmax: keys past S masked; the four lanes of a row agree
 #pragma unroll
@@ -173,48 +139,29 @@ __global__ void __launch_bounds__(128) k10_d256_kernel(D256Params p) {
     }
 
     // O += P V
-    if constexpr (kBF16) {
+    float* pw = Ps + warp * 16 * BKV;
 #pragma unroll
-      for (int kc = 0; kc < BKV / 16; ++kc) {
-        const unsigned a[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                               pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                               pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                               pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int fp = 0; fp < NDF; ++fp) {
-          unsigned r[4];
-          ldmatrix_x4_trans(r, vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS
-                                   + fp * 16 + (lane >> 4) * 8);
-          const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-          mma_16816(o[2 * fp], a, b0);
-          mma_16816(o[2 * fp + 1], a, b1);
-        }
+      for (int e = 0; e < 4; ++e)
+        pw[(g + 8 * (e >> 1)) * BKV + j * 8 + q2 + (e & 1)] = s[j][e];
+    __syncwarp();
+#pragma unroll
+    for (int f = 0; f < NDT; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* pr = pw + (g + 8 * (e >> 1)) * BKV;
+        const int col = f * 8 + q2 + (e & 1);
+        float acc = 0.f;
+        for (int k = 0; k < BKV; ++k) acc = fmaf(pr[k], vs[k * LDS + col], acc);
+        o[f][e] += acc;
       }
-    } else {
-      float* pw = Ps + warp * 16 * BKV;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          pw[(g + 8 * (e >> 1)) * BKV + j * 8 + q2 + (e & 1)] = s[j][e];
-      __syncwarp();
-#pragma unroll
-      for (int f = 0; f < NDT; ++f)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float* pr = pw + (g + 8 * (e >> 1)) * BKV;
-          const int col = f * 8 + q2 + (e & 1);
-          float acc = 0.f;
-          for (int k = 0; k < BKV; ++k) acc = fmaf(pr[k], to_f(vs[k * LDS + col]), acc);
-          o[f][e] += acc;
-        }
-      __syncwarp();
-    }
+    __syncwarp();
     __syncthreads();   // buffer kt consumed before iteration kt+1 refills it
   }
 
-  // normalise, round once, store; the lse in fp32
-  T* out = reinterpret_cast<T*>(p.out);
+  // normalise, store; the lse
+  float* out = reinterpret_cast<float*>(p.out);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     float den = l[hh];
@@ -222,7 +169,7 @@ __global__ void __launch_bounds__(128) k10_d256_kernel(D256Params p) {
     den += __shfl_xor_sync(0xffffffffu, den, 2);
     const int t = q0 + warp * 16 + g + 8 * hh;
     if (t >= Sq) continue;
-    T* orow = out + (((long long)b * Sq + t) * gridDim.y + h) * D;
+    float* orow = out + (((long long)b * Sq + t) * gridDim.y + h) * D;
     const float inv = 1.f / den;
 #pragma unroll
     for (int f = 0; f < NDT; ++f)
@@ -232,15 +179,14 @@ __global__ void __launch_bounds__(128) k10_d256_kernel(D256Params p) {
   }
 }
 
-template <typename T, int BKV>
 cudaError_t launch(const D256Params& p, int B, int nh, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, BKV>();
+  constexpr size_t smem = smem_bytes();
   cudaError_t e = cudaFuncSetAttribute(
-      k10_d256_kernel<T, BKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k10_d256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(B, nh, (p.Sq + BQ - 1) / BQ);
-  k10_d256_kernel<T, BKV><<<grid, 128, smem, stream>>>(p);
+  k10_d256_kernel<<<grid, 128, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -251,13 +197,12 @@ extern "C" int k10_flash_attention_d256(
     float* lse, int B, int Sq, int Sk, int nh, int d, long long q_sb,
     long long q_ss, long long q_sh, long long kv_sb, long long kv_ss,
     long long kv_sh, float scale, void* stream) {
-  if (d != D || B < 1 || Sq < 1 || Sk < 1 || nh > 65535
+  if (is_bf16 || d != D || B < 1 || Sq < 1 || Sk < 1 || nh > 65535
       || (Sq + BQ - 1) / BQ > 65535
       || !views_vec16(d, {q_sb, q_ss, q_sh, kv_sb, kv_ss, kv_sh}, {q, k, v, o}))
-    return (int)cudaErrorInvalidValue;   // 16-byte loads: aligned views only
+    return (int)cudaErrorInvalidValue;   // fp32, 16-byte loads: aligned views only
   const D256Params p = {q, k, v, o, lse, q_sb, q_ss, q_sh, kv_sb, kv_ss,
                         kv_sh, Sq, Sk, scale};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch<bf16, 64>(p, B, nh, s)
-                       : launch<float, 32>(p, B, nh, s));
+  return (int)launch(p, B, nh, s);
 }

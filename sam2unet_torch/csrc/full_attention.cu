@@ -22,22 +22,21 @@
 // takes them (channel slices of a QKV output), so no copy is made; the
 // output is contiguous (B, Sq, heads, d). Keys stream through a
 // double-buffered cp.async ring twice:
-//   pass 1: scores in registers (mma.sync.m16n8k16 in bf16, CUDA-core dot
-//           products in fp32), the running maximum and sum of exp of each
-//           row (rescaled when the maximum moves);
-//   pass 2: the same scores again, p = exp(s - m) / sum, rounded, and
-//           O += P V on the tensor cores with V from the ring.
-// Each p is normalised before it is rounded, as the TPU kernel rounds it,
-// so no division of the output is left at the end. The key tile is 64
-// tokens, or 16 when the row has at most 16 keys (the mask decoder's 6-16
-// prompt tokens), so a short key row does not pay for a 64-key tile of
-// padding; the ragged last tile is zero-filled and masked. These instances
-// take d % 8 == 0 up to 96 at strides in multiples of 8 elements and
-// 16-byte aligned bases; every other head dim or view runs the same two
-// passes in attention_any.cu's form 2 (`attn_any_fwd`: 64-wide head-dim
-// chunks, element loads).
-
-#include <type_traits>
+//   pass 1: scores in registers (CUDA-core dot products), the running
+//           maximum and sum of exp of each row (rescaled when the maximum
+//           moves);
+//   pass 2: the same scores again, p = exp(s - m) / sum, O += P V with P
+//           staged through shared memory and V from the ring.
+// The key tile is 64 tokens, or 16 when the row has at most 16 keys (the
+// mask decoder's 6-16 prompt tokens), so a short key row does not pay for a
+// 64-key tile of padding; the ragged last tile is zero-filled and masked.
+// This file holds the fp32 instances, at d % 8 == 0 up to 96 at strides in
+// multiples of 8 elements and 16-byte aligned bases; every other head dim
+// or view runs the same two passes in attention_any.cu's form 2
+// (`attn_any_fwd`: 64-wide head-dim chunks, element loads). bf16 runs
+// csrc/flash_attention_fwd_sm90.cu where its head dim and views allow
+// (`_fwd_library` in ops/flash_attention.py), and a bf16 call that reaches
+// this entry point goes to attention_any.cu too.
 
 #include "attention.cuh"
 
@@ -50,39 +49,37 @@ struct FullParams {
   float scale;
 };
 
-template <int DP, int BKV, typename T>
+template <int DP, int BKV>
 inline size_t full_smem_bytes(int bq) {
-  const size_t lds = DP + 8;                       // conflict-free ldmatrix rows
-  size_t b = sizeof(T) * lds * (bq + 4 * BKV);     // Q tile, 2 x (K, V) tiles
-  if (sizeof(T) == sizeof(float)) b += sizeof(float) * bq * BKV;   // P tiles
-  return b;
+  const size_t lds = DP + 8;
+  // Q tile, 2 x (K, V) tiles, P tiles
+  return sizeof(float) * (lds * (bq + 4 * BKV) + bq * BKV);
 }
 
-template <typename T, int NDF, int BKV>
+template <int NDF, int BKV>
 __global__ void __launch_bounds__(128) full_attn_kernel(FullParams p) {
-  constexpr bool kBF16 = std::is_same<T, bf16>::value;
   constexpr int DP = 16 * NDF, LDS = DP + 8, NDT = 2 * NDF, NJ = BKV / 8;
-  constexpr int CH = 16 / sizeof(T);               // elements per 16-byte copy
+  constexpr int CH = 4;                            // floats per 16-byte copy
   extern __shared__ __align__(128) unsigned char f_smem[];
   const int BQ = (blockDim.x >> 5) * 16;
-  T* Qs = reinterpret_cast<T*>(f_smem);                        // BQ x LDS
-  T* Ks = Qs + BQ * LDS;                                       // [2][BKV][LDS]
-  T* Vs = Ks + 2 * BKV * LDS;                                  // [2][BKV][LDS]
-  float* Ps = reinterpret_cast<float*>(Vs + 2 * BKV * LDS);    // fp32: BQ x BKV
+  float* Qs = reinterpret_cast<float*>(f_smem);                // BQ x LDS
+  float* Ks = Qs + BQ * LDS;                                   // [2][BKV][LDS]
+  float* Vs = Ks + 2 * BKV * LDS;                              // [2][BKV][LDS]
+  float* Ps = Vs + 2 * BKV * LDS;                              // BQ x BKV
 
   const int b = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * BQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q2 = (lane & 3) * 2;   // fragment row, column pair
   const int Sq = p.Sq, Sk = p.Sk, d = p.d;
-  const T* qb = reinterpret_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = reinterpret_cast<const T*>(p.k) + b * p.kv_sb + h * p.kv_sh;
-  const T* vb = reinterpret_cast<const T*>(p.v) + b * p.kv_sb + h * p.kv_sh;
+  const float* qb = reinterpret_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kb = reinterpret_cast<const float*>(p.k) + b * p.kv_sb + h * p.kv_sh;
+  const float* vb = reinterpret_cast<const float*>(p.v) + b * p.kv_sb + h * p.kv_sh;
 
   // ---- Q tile, head dim zero-padded to DP (d % 8 == 0: an 8-vector is all
   // real or all pad lanes), rows past Sq zero
   for (int idx = tid; idx < BQ * (DP / 8); idx += blockDim.x) {
     const int r = idx / (DP / 8), ch = (idx - r * (DP / 8)) * 8, t = q0 + r;
-    V8<T> val = v8_zero<T>();
+    V8<float> val = v8_zero<float>();
     if (t < Sq && ch < d) val = v8_load(qb + t * p.q_ss + ch);
     v8_store(Qs + r * LDS + ch, val);
   }
@@ -99,44 +96,19 @@ __global__ void __launch_bounds__(128) full_attn_kernel(FullParams p) {
   };
   const int nkt = (Sk + BKV - 1) / BKV;
 
-  unsigned qf[NDF][4];
   // scores of the warp's 16 rows x BKV keys of tile `ks`: s[j][e] is row
   // g + 8*(e/2), key j*8 + q2 + e%2, scaled; keys past Sk are -inf
-  auto scores = [&](float (&s)[NJ][4], const T* ks, int kt) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    if constexpr (kBF16) {
-#pragma unroll
-      for (int kd = 0; kd < NDF; ++kd)
-#pragma unroll
-        for (int jj = 0; jj < NJ / 2; ++jj) {
-          unsigned r[4];
-          ldmatrix_x4(r, ks + (jj * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS
-                             + kd * 16 + ((lane >> 3) & 1) * 8);
-          const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-          mma_16816(s[2 * jj], qf[kd], b0);
-          mma_16816(s[2 * jj + 1], qf[kd], b1);
-        }
-    } else {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const T* qr = Qs + (warp * 16 + g + 8 * (e >> 1)) * LDS;
-          const T* kr = ks + (j * 8 + q2 + (e & 1)) * LDS;
-          float acc = 0.f;
-          for (int ch = 0; ch < d; ++ch) acc = fmaf(to_f(qr[ch]), to_f(kr[ch]), acc);
-          s[j][e] = acc;
-        }
-    }
+  auto scores = [&](float (&s)[NJ][4], const float* ks, int kt) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        const float* qr = Qs + (warp * 16 + g + 8 * (e >> 1)) * LDS;
+        const float* kr = ks + (j * 8 + q2 + (e & 1)) * LDS;
+        float acc = 0.f;
+        for (int ch = 0; ch < d; ++ch) acc = fmaf(qr[ch], kr[ch], acc);
         const int key = kt * BKV + j * 8 + q2 + (e & 1);
-        s[j][e] = key < Sk ? s[j][e] * p.scale : -INFINITY;
+        s[j][e] = key < Sk ? acc * p.scale : -INFINITY;
       }
   };
 
@@ -145,11 +117,6 @@ __global__ void __launch_bounds__(128) full_attn_kernel(FullParams p) {
   load_tile(0, 0, false);
   cp_async_commit();
   __syncthreads();   // Q tile stored
-  if constexpr (kBF16) {
-#pragma unroll
-    for (int kd = 0; kd < NDF; ++kd)
-      ldmatrix_x4(qf[kd], Qs + (warp * 16 + (lane & 15)) * LDS + kd * 16 + (lane >> 4) * 8);
-  }
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   for (int kt = 0; kt < nkt; ++kt) {
     const int buf = kt & 1;
@@ -186,7 +153,7 @@ __global__ void __launch_bounds__(128) full_attn_kernel(FullParams p) {
     inv[hh] = 1.f / den;
   }
 
-  // ---- pass 2: p = exp(s - m) / sum, rounded to T, O += P V
+  // ---- pass 2: p = exp(s - m) / sum, O += P V
   float o[NDT][4];
 #pragma unroll
   for (int f = 0; f < NDT; ++f)
@@ -200,61 +167,38 @@ __global__ void __launch_bounds__(128) full_attn_kernel(FullParams p) {
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const T* vs = Vs + buf * BKV * LDS;
+    const float* vs = Vs + buf * BKV * LDS;
     float s[NJ][4];
     scores(s, Ks + buf * BKV * LDS, kt);
+    float* pw = Ps + warp * 16 * BKV;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        s[j][e] = round_to<T>(expf(s[j][e] - m[e >> 1]) * inv[e >> 1]);
-    if constexpr (kBF16) {
+        pw[(g + 8 * (e >> 1)) * BKV + j * 8 + q2 + (e & 1)] =
+            expf(s[j][e] - m[e >> 1]) * inv[e >> 1];
+    __syncwarp();
 #pragma unroll
-      for (int kc = 0; kc < BKV / 16; ++kc) {
-        const unsigned a[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                               pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                               pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                               pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+    for (int f = 0; f < NDT; ++f)
 #pragma unroll
-        for (int fp = 0; fp < NDF; ++fp) {
-          unsigned r[4];
-          ldmatrix_x4_trans(r, vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS
-                                   + fp * 16 + (lane >> 4) * 8);
-          const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-          mma_16816(o[2 * fp], a, b0);
-          mma_16816(o[2 * fp + 1], a, b1);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const float* pr = pw + (g + 8 * (e >> 1)) * BKV;
+        const int col = f * 8 + q2 + (e & 1);
+        float acc = 0.f;
+        for (int k = 0; k < BKV; ++k) acc = fmaf(pr[k], vs[k * LDS + col], acc);
+        o[f][e] += acc;
       }
-    } else {
-      float* pw = Ps + warp * 16 * BKV;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          pw[(g + 8 * (e >> 1)) * BKV + j * 8 + q2 + (e & 1)] = s[j][e];
-      __syncwarp();
-#pragma unroll
-      for (int f = 0; f < NDT; ++f)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float* pr = pw + (g + 8 * (e >> 1)) * BKV;
-          const int col = f * 8 + q2 + (e & 1);
-          float acc = 0.f;
-          for (int k = 0; k < BKV; ++k) acc = fmaf(pr[k], to_f(vs[k * LDS + col]), acc);
-          o[f][e] += acc;
-        }
-      __syncwarp();
-    }
+    __syncwarp();
     __syncthreads();
   }
 
-  // ---- round once, write the contiguous output
-  T* out = reinterpret_cast<T*>(p.out);
+  // ---- write the contiguous output
+  float* out = reinterpret_cast<float*>(p.out);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int t = q0 + warp * 16 + g + 8 * hh;
     if (t >= Sq) continue;
-    T* orow = out + (((long long)b * Sq + t) * p.nh + h) * d;
+    float* orow = out + (((long long)b * Sq + t) * p.nh + h) * d;
 #pragma unroll
     for (int f = 0; f < NDT; ++f) {
       const int col = f * 8 + q2;
@@ -263,40 +207,40 @@ __global__ void __launch_bounds__(128) full_attn_kernel(FullParams p) {
   }
 }
 
-template <typename T, int NDF, int BKV>
+template <int NDF, int BKV>
 static cudaError_t launch_full_t(const FullParams& p, int B,
                                  cudaStream_t stream) {
   const int nwarps = p.Sq >= 64 ? 4 : (p.Sq + 15) / 16;
   const int bq = nwarps * 16;
-  const size_t smem = full_smem_bytes<16 * NDF, BKV, T>(bq);
+  const size_t smem = full_smem_bytes<16 * NDF, BKV>(bq);
   cudaError_t e = cudaFuncSetAttribute(
-      full_attn_kernel<T, NDF, BKV>,
+      full_attn_kernel<NDF, BKV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(B, p.nh, (p.Sq + bq - 1) / bq);
-  full_attn_kernel<T, NDF, BKV><<<grid, nwarps * 32, smem, stream>>>(p);
+  full_attn_kernel<NDF, BKV><<<grid, nwarps * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int BKV>
+template <int BKV>
 static cudaError_t launch_full_bkv(const FullParams& p, int B,
                                    cudaStream_t stream) {
   switch ((p.d + 15) / 16) {
-    case 1: return launch_full_t<T, 1, BKV>(p, B, stream);
-    case 2: return launch_full_t<T, 2, BKV>(p, B, stream);
-    case 3: return launch_full_t<T, 3, BKV>(p, B, stream);
-    case 4: return launch_full_t<T, 4, BKV>(p, B, stream);
-    case 5: return launch_full_t<T, 5, BKV>(p, B, stream);
-    default: return launch_full_t<T, 6, BKV>(p, B, stream);
+    case 1: return launch_full_t<1, BKV>(p, B, stream);
+    case 2: return launch_full_t<2, BKV>(p, B, stream);
+    case 3: return launch_full_t<3, BKV>(p, B, stream);
+    case 4: return launch_full_t<4, BKV>(p, B, stream);
+    case 5: return launch_full_t<5, BKV>(p, B, stream);
+    default: return launch_full_t<6, BKV>(p, B, stream);
   }
 }
 
-template <typename T>
-static cudaError_t launch_full(const FullParams& p, int B, cudaStream_t stream) {
+static cudaError_t launch_full(int is_bf16, const FullParams& p, int B,
+                               cudaStream_t stream) {
   if (p.d < 1 || p.Sq < 1 || p.Sk < 1 || p.Sk > 1024
       || B < 1 || p.nh < 1 || p.nh > 65535 || (p.Sq + 63) / 64 > 65535)
     return cudaErrorInvalidValue;
-  if (!attn_vec_head_dim(p.d)
+  if (is_bf16 || !attn_vec_head_dim(p.d)
       || !views_vec16(p.d, {p.q_sb, p.q_ss, p.q_sh, p.kv_sb, p.kv_ss, p.kv_sh},
                       {p.q, p.k, p.v, p.out})) {   // rows mode, a window per entry
     AttnParams ap = {};
@@ -305,11 +249,10 @@ static cudaError_t launch_full(const FullParams& p, int B, cudaStream_t stream) 
     ap.kv_sb = p.kv_sb; ap.kv_ss = p.kv_ss; ap.kv_sh = p.kv_sh;
     ap.c = p.nh * p.d; ap.d = p.d; ap.mode = 0; ap.S = p.Sk; ap.Sq = p.Sq;
     ap.scale = p.scale;
-    return (cudaError_t)attn_any_fwd(std::is_same<T, bf16>::value, 2, &ap, B,
-                                     p.nh, stream);
+    return (cudaError_t)attn_any_fwd(is_bf16, 2, &ap, B, p.nh, stream);
   }
-  return p.Sk <= 16 ? launch_full_bkv<T, 16>(p, B, stream)
-                    : launch_full_bkv<T, 64>(p, B, stream);
+  return p.Sk <= 16 ? launch_full_bkv<16>(p, B, stream)
+                    : launch_full_bkv<64>(p, B, stream);
 }
 
 extern "C" int k14_full_attention(
@@ -323,5 +266,5 @@ extern "C" int k14_full_attention(
   p.kv_sb = kv_sb; p.kv_ss = kv_ss; p.kv_sh = kv_sh;
   p.Sq = Sq; p.Sk = Sk; p.nh = nh; p.d = d; p.scale = scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch_full<bf16>(p, B, s) : launch_full<float>(p, B, s));
+  return (int)launch_full(is_bf16, p, B, s);
 }

@@ -1,8 +1,10 @@
 // Hopper building blocks (sm_90a): mbarriers, TMA tensor maps and loads,
 // shared-memory matrix descriptors of 128-byte-swizzled tiles, register
 // rebalancing between warpgroups (setmaxnreg) and the warpgroup products
-// (wgmma) with their fence, commit and wait. Header-only, for the kernels
-// that run on Hopper's asynchronous path (first csrc/flash_attention_bwd_sm90.cu).
+// (wgmma) with their fence, commit and wait, and the tile helpers the
+// attention kernels share. Header-only, for the kernels that run on Hopper's
+// asynchronous path (csrc/flash_attention_bwd_sm90.cu,
+// csrc/flash_attention_fwd_sm90.cu).
 //
 // Tiles. A TMA load with the 128-byte swizzle copies a box of 64 bf16
 // columns (128 bytes a row) by up to 256 rows into shared memory, the
@@ -257,6 +259,77 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float* d, const uint32_t* a,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// ------------------------------------------- tiles of the attention kernels
+
+// d (64 x N) += a b over one k-step, a in registers, b MN-major in shared
+// memory whose 64-column regions lie `region` bytes apart.
+template <int N>
+__device__ __forceinline__ void mma_rs(float* d, const uint32_t* a, uint32_t b,
+                                       uint32_t region) {
+  if constexpr (N == 128) wgmma_rs_m64n128k16(d, a, desc_mn(b, region), 1);
+  else if constexpr (N == 96) wgmma_rs_m64n96k16(d, a, desc_mn(b, region), 1);
+  else wgmma_rs_m64n64k16(d, a, desc_mn(b, region), 1);
+}
+
+// S (64 x 64) = A B^T over head dim D: A's 64 rows at `a` (atoms `a_region`
+// apart), B's 64 at `b` (atoms `b_region` apart), both K-major; the first
+// k-step overwrites what s held.
+template <int D>
+__device__ __forceinline__ void scores(float* s, uint32_t a, uint32_t a_region, uint32_t b,
+                                       uint32_t b_region) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t atom = kk / 4, at = (kk % 4) * 32;
+    wgmma_ss_m64n64k16(s, desc_k(a + atom * a_region + at),
+                       desc_k(b + atom * b_region + at), kk > 0);
+  }
+}
+
+template <int N> __device__ __forceinline__ void zero(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// The shared-memory base rounded up to 1024 bytes, the swizzle's period (a
+// kernel's dynamic shared memory holds the slack).
+__device__ __forceinline__ uint32_t smem_base(const void* raw) {
+  return (smem_addr(raw) + 1023u) & ~1023u;
+}
+
+// Rows r and r + 8 (hh 0, 1) of this thread's accumulator fragments.
+__device__ __forceinline__ int frag_row(int warp, int lane, int hh) {
+  return warp * 16 + lane / 4 + 8 * hh;
+}
+
+// Columns c0 + 8 j .. + 7 of rows r (hh 0, 1) of a 64 x NO accumulator,
+// times `mul`, into a bf16 view at `out` (row stride ss), only the columns
+// below d (d % 8 == 0, so an 8-column group is all in or all out).
+template <int NO>
+__device__ __forceinline__ void store_rows(bf16* out, long long ss, const float* acc, int hh,
+                                           int row, int c0, int d, int t4, float mul) {
+  bf16* p = out + row * ss + c0 + 2 * t4;
+#pragma unroll
+  for (int j = 0; j < NO / 8; ++j) {
+    if (c0 + 8 * j >= d) break;
+    const int i = 4 * j + 2 * hh;
+    *reinterpret_cast<uint32_t*>(p + 8 * j) = pack_bf16(acc[i] * mul, acc[i + 1] * mul);
+  }
+}
+
+// The instance a head dim runs on: d padded to 64, 96, 128 or 256.
+inline int padded_head_dim(int d) {
+  return d <= 64 ? 64 : d <= 96 ? 96 : d <= 128 ? 128 : 256;
+}
+
+// The strides (batch, token, head) a tensor map takes for a (B, S, heads,
+// d) view: the stride of an extent-1 dim is never used, so it gets a valid
+// one (positive, a multiple of 8 elements).
+inline void map_strides(long long* st, int B, int nh, int d, int S) {
+  if (nh == 1) st[2] = d;
+  if (S == 1) st[1] = st[2] * nh;
+  if (B == 1) st[0] = st[1] * S;
 }
 
 // ------------------------------------------------------------ host side

@@ -53,7 +53,8 @@ SOURCES = (*SHARED_SOURCES, "fused_mlp", "fused_attention_block",
            "fused_transition", "flash_attention", "fused_mlp_bwd",
            "fused_attention_block_bwd",
            "fused_transition_bwd", "flash_attention_bwd",
-           "flash_attention_bwd_sm90", "full_attention",
+           "flash_attention_bwd_sm90", "flash_attention_fwd_sm90",
+           "full_attention",
            "flash_attention_d256", "full_attention_d256",
            "fused_attention_block_masked", "fused_attention_block_wgrad",
            "fused_attention_block_rem_bwd")
@@ -127,6 +128,10 @@ SIGNATURES = {
         "k11_flash_attention_bwd_dq_sm90": _K11_DQ,
         "k11_flash_attention_bwd_dkv_sm90": _K11_DKV,
     },
+    # K10 and K14 in bf16 on wgmma fed by TMA (csrc/hopper.cuh), the
+    # arguments of their CUDA-core entry points
+    "flash_attention_fwd_sm90": {"k10_flash_attention_sm90": _K10,
+                                 "k14_full_attention_sm90": _K14},
     "full_attention": {"k14_full_attention": _K14},
     # K14 at head dim 256, a translation unit of its own
     "full_attention_d256": {"k14_full_attention_d256": _K14},

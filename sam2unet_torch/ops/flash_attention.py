@@ -3,25 +3,29 @@ lse, and its backward; K14: attention over the whole key row (at most 1024
 keys); and `dispatch_attention`, which picks among them. Counterpart of
 sam2unet_tpu/ops/pallas/flash_attention.py (`_stream_fwd_impl`,
 `_stream_bwd_impl`, `_fused_full`, `_dispatch_fwd`, oracle
-`_xla_attention`); the kernels are csrc/flash_attention.cu (K10),
-csrc/flash_attention_d256.cu (K10 at head dim 256, the video memory
-attention's), csrc/flash_attention_bwd.cu (K11: the delta pass, and the
-dq and dk/dv passes in fp32), csrc/flash_attention_bwd_sm90.cu (K11's dq
-and dk/dv passes in bf16 on wgmma fed by TMA), csrc/full_attention.cu (K14)
-and csrc/full_attention_d256.cu (K14 at head dim 256, the memory
-attention's over a 512-px frame under the "pallas" backend). They take any
-head dim, as the JAX kernels do. At views that allow 16-byte vectors
-(`_vec16`): K10 and K14 at d % 8 == 0 up to 96 and at 256 run the vector
-instances; K11's delta pass its vector kernel at any d % 8 == 0; its dq
-and dk/dv passes in bf16 at d % 8 == 0 up to 256 the Hopper kernels (d
-padded to 64, 96, 128 or 256: `_bwd_library`), in fp32 up to 96 the
-CUDA-core instances. Every other head dim, dtype or view runs the chunked,
-element-loading kernels of csrc/attention_any*.cu; on the CPU the plain
-versions take any. K11's dq and dk/dv passes are bound by operations (6
-and 8 S_q S_k d against ~5 and ~6 S d elements moved); the Hopper kernels
-keep every product on wgmma, the streamed tiles arriving by TMA through a
-two-stage ring while two consumer warpgroups of 64 rows compute (design
-note in csrc/flash_attention_bwd_sm90.cu).
+`_xla_attention`); the kernels are csrc/flash_attention_fwd_sm90.cu (K10
+and K14 in bf16 on wgmma fed by TMA), csrc/flash_attention.cu and
+csrc/full_attention.cu (K10 and K14 in fp32), csrc/flash_attention_d256.cu
+and csrc/full_attention_d256.cu (the same at head dim 256),
+csrc/flash_attention_bwd.cu (K11: the delta pass, and the dq and dk/dv
+passes in fp32) and csrc/flash_attention_bwd_sm90.cu (K11's dq and dk/dv
+passes in bf16 on wgmma fed by TMA). They take any head dim, as the JAX
+kernels do. In bf16 at d % 8 == 0 up to 256, on views a TMA tensor map can
+address (`_sm90`: 16-byte bases, strides in multiples of 8 elements, no
+zero stride over an extent past 1), K10 and K14 run the Hopper forward
+(`_fwd_library`) and K11's dq and dk/dv passes the Hopper backward
+(`_bwd_library`), d padded to 64, 96, 128 or 256; in fp32 K10 and K14 at
+d % 8 == 0 up to 96 and at 256 and K11's passes up to 96 run the
+CUDA-core instances at views that allow 16-byte vectors (`_vec16`); K11's
+delta pass runs its vector kernel at any d % 8 == 0. Every other head dim,
+dtype or view runs the chunked, element-loading kernels of
+csrc/attention_any*.cu; on the CPU the plain versions take any. K10 at S
+3600 or 4096 and K11's passes are bound by operations (4, 6 and 8 S_q S_k
+d against ~4, ~5 and ~6 S d elements moved), K14 at the model's 49 queries
+over 196 keys by bytes: the Hopper kernels keep every product on wgmma,
+the streamed tiles arriving by TMA through two-stage rings while two
+consumer warpgroups of 64 rows compute (design notes in
+csrc/flash_attention_fwd_sm90.cu and csrc/flash_attention_bwd_sm90.cu).
 
 q, k and v may be strided views, as the long global-attention blocks pass
 them (channel slices of the QKV output, rows of 3c): the kernels read them
@@ -42,9 +46,10 @@ from sam2unet_torch.ops import build, dispatch
 from sam2unet_torch.ops.attention import MAX_FULL_SEQ, einsum_attention
 
 WIDE_HEAD_DIM = 256   # flash_attention_d256.cu, full_attention_d256.cu:
-                      # the forwards of K10 and K14 at aligned views
-SM90_BWD_HEAD_DIM = 256   # flash_attention_bwd_sm90.cu: K11's dq and dk/dv
-                          # passes in bf16 up to this head dim
+                      # the fp32 forwards of K10 and K14 at aligned views
+SM90_HEAD_DIM = 256   # flash_attention_fwd_sm90.cu, flash_attention_bwd_sm90.cu:
+                      # K10, K14 and K11's dq and dk/dv passes in bf16 up
+                      # to this head dim
 
 
 def plain_flash_attention(q, k, v, scale: float | None = None,
@@ -126,19 +131,33 @@ def _vec16(*views: torch.Tensor) -> bool:
                for t in views)
 
 
+def _sm90(dtype: torch.dtype, d: int, *views: torch.Tensor) -> bool:
+    """Whether the Hopper kernels take a call: bf16 at d % 8 == 0 up to 256
+    on views a TMA tensor map can address (`_vec16`, and no zero stride, an
+    expanded tensor, over an extent past 1)."""
+    return (dtype == torch.bfloat16 and d % 8 == 0 and d <= SM90_HEAD_DIM
+            and _vec16(*views)
+            and all(st > 0 for t in views
+                    for st, n in zip(t.stride(), t.shape) if n > 1))
+
+
+def _fwd_library(dtype: torch.dtype, d: int, *views: torch.Tensor) -> str | None:
+    """The library of K10's or K14's forward over these views (q, k, v)
+    where the Hopper kernels take it (`_sm90`):
+    csrc/flash_attention_fwd_sm90.cu; None leaves the call to the kernel's
+    own library (fp32 on its CUDA-core instances, the rest on
+    csrc/attention_any.cu, which the entry points call)."""
+    return "flash_attention_fwd_sm90" if _sm90(dtype, d, *views) else None
+
+
 def _bwd_library(dtype: torch.dtype, d: int, *views: torch.Tensor) -> str:
     """The library of K11's dq or dk/dv pass over these views (q, k, v, dO
-    and the outputs): bf16 at d % 8 == 0 up to 256 on views a TMA tensor
-    map can address (`_vec16`, no zero stride over an extent past 1) runs
+    and the outputs): where the Hopper kernels take it (`_sm90`)
     csrc/flash_attention_bwd_sm90.cu; everything else (fp32, other head
     dims, other views) csrc/flash_attention_bwd.cu, which sends what its
     fp32 instances do not take to csrc/attention_any_bwd.cu."""
-    if (dtype == torch.bfloat16 and d % 8 == 0 and d <= SM90_BWD_HEAD_DIM
-            and _vec16(*views)
-            and all(st > 0 for t in views
-                    for st, n in zip(t.stride(), t.shape) if n > 1)):
-        return "flash_attention_bwd_sm90"
-    return "flash_attention_bwd"
+    return ("flash_attention_bwd_sm90" if _sm90(dtype, d, *views)
+            else "flash_attention_bwd")
 
 
 def _bwd_entry(lib: str, name: str):
@@ -191,7 +210,10 @@ def _flash_attention_kernel(q, k, v, scale: float):
     o = torch.empty((b, sq, nh, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * nh, sq), dtype=torch.float32, device=q.device)
     p = dispatch.ptr
-    if d == WIDE_HEAD_DIM and _vec16(q, k, v):
+    lib = _fwd_library(q.dtype, d, q, k, v)
+    if lib:
+        fn = build.library(lib).k10_flash_attention_sm90
+    elif q.dtype == torch.float32 and d == WIDE_HEAD_DIM and _vec16(q, k, v):
         fn = build.library("flash_attention_d256").k10_flash_attention_d256
     else:
         fn = build.library("flash_attention").k10_flash_attention
@@ -367,7 +389,10 @@ def _full_attention_kernel(q, k, v, scale: float):
                          f"got {sk}")
     o = torch.empty((b, sq, nh, d), dtype=q.dtype, device=q.device)
     p = dispatch.ptr
-    if d == WIDE_HEAD_DIM and _vec16(q, k, v):
+    lib = _fwd_library(q.dtype, d, q, k, v)
+    if lib:
+        fn = build.library(lib).k14_full_attention_sm90
+    elif q.dtype == torch.float32 and d == WIDE_HEAD_DIM and _vec16(q, k, v):
         fn = build.library("full_attention_d256").k14_full_attention_d256
     else:
         fn = build.library("full_attention").k14_full_attention

@@ -52,6 +52,7 @@ ENTRY_WRAPPER = {
     "k9_transition_bwd": "transition_bwd",
     "k10_flash_attention": "flash_attention",
     "k10_flash_attention_d256": "flash_attention",
+    "k10_flash_attention_sm90": "flash_attention",
     "k11_flash_attention_bwd_delta": "flash_attention_bwd_delta",
     "k11_flash_attention_bwd_dq": "flash_attention_bwd_dq",
     "k11_flash_attention_bwd_dkv": "flash_attention_bwd_dkv",
@@ -61,9 +62,39 @@ ENTRY_WRAPPER = {
     "k13_window_block_strips_rem_bwd": "window_block_strips_rem_bwd",
     "k14_full_attention": "full_attention",
     "k14_full_attention_d256": "full_attention",
+    "k14_full_attention_sm90": "full_attention",
     "k15_ln_matmul": "fused_ln_matmul",
     "k16_ln_qkv": "fused_ln_qkv",
 }
+
+
+def device_kernels(events: list) -> list:
+    """The device kernels among a torch.profiler run's events
+    (`prof.events()`): device events that are neither a GPU user annotation
+    (a `record_function` range, as each C entry point's is: it spans the
+    kernels it launches, so counting it beside them counts their time
+    twice) nor a copy or fill."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in ENTRY_WRAPPER
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def busy_span_us(kernels: list) -> tuple[float, float]:
+    """(busy, span) in us of device kernels: the time at least one of them
+    ran (their intervals' union) and the time from the first start to the
+    last end, so that 1 - busy / span, the device's idle share, lies in
+    [0, 1]."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    if not spans:
+        return 0.0, 0.0
+    busy, end = 0.0, spans[0][0]
+    for t0, t1 in spans:
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    return busy, end - spans[0][0]
 
 
 def _entry_spans(events: list) -> dict[tuple, list]:

@@ -77,7 +77,8 @@ def test_port_package_has_the_expected_modules():
                 "attention_any_bwd_pad.cu", "attention_any.cuh",
                 "attention_any_fwd.cuh", "attention_any_bwd.cuh",
                 "gemm_any.cu", "gemm_any.cuh", "hopper.cuh",
-                "flash_attention_bwd_sm90.cu", "ccl.cc", "dataload.cc"):
+                "flash_attention_bwd_sm90.cu", "flash_attention_fwd_sm90.cu",
+                "ccl.cc", "dataload.cc"):
         assert (ROOT / "sam2unet_torch" / "csrc" / src).is_file()
     # the port's own ONNX schema and its committed protoc bindings
     assert (ROOT / "sam2unet_torch" / "interop" / "onnx_compat"

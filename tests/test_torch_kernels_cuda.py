@@ -18,7 +18,11 @@ lengths, strided views, and through autograd and the long block's
 backward, and its bf16 passes on the Hopper kernels
 (csrc/flash_attention_bwd_sm90.cu) at head dims 56-256 with S_q 1000
 against S_k 1337, under autograd, beside neighbouring channel blocks they
-must leave alone, and twice with the same bits; K15 and K16 (LN -> x@W, its q / k / v split), K2 without LN or
+must leave alone, and twice with the same bits; K10 and K14 in bf16 on the
+Hopper forward (csrc/flash_attention_fwd_sm90.cu) at head dims 16-256 over
+S_q 1000 against S_k 1337 (K14: 1024) and key rows of 7, 196 and 1024,
+with no row written past S_q, twice with the same bits and under autograd
+into K11; K15 and K16 (LN -> x@W, its q / k / v split), K2 without LN or
 the residual, the masked whole-grid K6 / K7 (also against the valid-group
 route), and the fp32 weight gate's plain route; K7's weight-gradient mode
 (dx and the six weight gradients) at S 16 to 256 and widths 144 to 576,
@@ -241,10 +245,11 @@ def test_k14_kernel_at_head_dim_256(gen, dtype, b, sq, sk):
 @pytest.mark.parametrize("case", ["head dim 128", "head dim 264", "K14 at 128",
                                   "K11 at 256"])
 def test_head_dims_past_the_vector_instances_match_plain(gen, case):
-    """Head dims past the 16-byte-vector instances (csrc/attention_any*.cu):
-    K10 at 128 and 264, K14 at 128, and K10 at 256 under autograd, whose
-    backward is K11 at 256 (its delta, dq and dk/dv passes), each against
-    its plain version; the variant names d."""
+    """Head dims past the 16-byte-vector instances: K10 at 128 and 264, K14
+    at 128, and K10 at 256 under autograd, whose backward is K11 at 256 (its
+    delta, dq and dk/dv passes), each against its plain version; the variant
+    names d. fp32 and d 264 run csrc/attention_any*.cu, bf16 at 128 and 256
+    the Hopper kernels."""
     from sam2unet_torch.ops.flash_attention import full_attention
 
     d = {"head dim 128": 128, "head dim 264": 264, "K14 at 128": 128}.get(
@@ -571,6 +576,109 @@ def test_k11_sm90_repeats_bit_for_bit(gen, d):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# K10 and K14 in bf16 on csrc/flash_attention_fwd_sm90.cu: every padded
+# instance (64, 96, 128, 256) and head dims between and below them
+FWD_SM90_HEAD_DIMS = [16, 56, 64, 72, 96, 112, 128, 200, 256]
+FWD_SM90 = "flash_attention_fwd_sm90"
+
+
+def _fwd_views(gen, b, sq, sk, nh, d):
+    """bf16 q the first channel block of a (b, sq, 2, nh, d) buffer, k and
+    v the two of a (b, sk, 2, nh, d) one: strided views, as the model's
+    QKV slices are."""
+    q = _rnd(gen, torch.bfloat16, b, sq, 2, nh, d)[:, :, 0]
+    kv = _rnd(gen, torch.bfloat16, b, sk, 2, nh, d)
+    return q, kv[:, :, 0], kv[:, :, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", FWD_SM90_HEAD_DIMS)
+@pytest.mark.parametrize("kernel,sq,sk", [
+    ("K10", 1000, 1337), ("K14", 1000, 1024),   # ragged, K14's two passes
+    ("K10", 7, 7), ("K14", 7, 7),               # the mask decoder's key rows
+    ("K10", 49, 196), ("K14", 49, 196),         # the q-pool transitions
+    ("K10", 1024, 1024), ("K14", 1024, 1024)])
+def test_fwd_sm90_matches_plain(gen, d, kernel, sq, sk):
+    """K10 (o and lse) and K14 on the Hopper forward against their plain
+    versions: key rows of one ragged tile (a zero key past S_k must score
+    -inf), up to four tiles (K14's one pass) and past them, queries no
+    multiple of the 64-row tiles, at every instance's head dim."""
+    from sam2unet_torch.ops.flash_attention import _fwd_library, full_attention
+
+    q, k, v = _fwd_views(gen, 2, sq, sk, 2, d)
+    assert _fwd_library(q.dtype, d, q, k, v) == FWD_SM90
+    if kernel == "K10":
+        _compare(lambda: flash_attention(q, k, v, return_lse=True), torch.bfloat16)
+    else:
+        _compare(lambda: full_attention(q, k, v), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [72, 200])
+def test_fwd_sm90_writes_no_row_past_sq(gen, d):
+    """The entry points write o rows and lse entries below S_q only: a
+    sentinel past the end of the last batch entry's rows stays."""
+    from sam2unet_torch.ops import build
+
+    lib = build.library(FWD_SM90)
+    b, sq, sk, nh = 2, 100, 333, 2
+    q, k, v = _fwd_views(gen, b, sq, sk, nh, d)
+    n = b * sq * nh * d
+    o = torch.full((n + 4096,), 7.0, dtype=torch.bfloat16, device="cuda")
+    lse = torch.full((b * nh * sq + 256,), 7.0, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    strides = (*q.stride()[:3], *k.stride()[:3])
+    assert lib.k10_flash_attention_sm90(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, sq, sk, nh, d, *strides, 1 / math.sqrt(d), stream) == 0
+    torch.cuda.synchronize()
+    assert o[n:].eq(7.0).all() and lse[b * nh * sq:].eq(7.0).all()
+    o.fill_(7.0)
+    assert lib.k14_full_attention_sm90(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, sk,
+        nh, d, *strides, 1 / math.sqrt(d), stream) == 0
+    torch.cuda.synchronize()
+    assert o[n:].eq(7.0).all()
+    with dispatch.force_plain():
+        from sam2unet_torch.ops.flash_attention import full_attention
+
+        want = full_attention(q, k, v).float()
+    got = o[:n].view(b, sq, nh, d).float()
+    assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [96, 128, 256])
+def test_fwd_sm90_repeats_bit_for_bit(gen, d):
+    """No atomics: each output row belongs to one item, so two calls give
+    the same bits (K10's o and lse, K14's o)."""
+    from sam2unet_torch.ops.flash_attention import full_attention
+
+    q, k, v = _fwd_views(gen, 2, 1000, 1024, 2, d)
+    for call in (lambda: flash_attention(q, k, v, return_lse=True),
+                 lambda: (full_attention(q, k, v),)):
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [56, 96, 128, 256])
+def test_fwd_sm90_under_autograd(gen, d):
+    """`flash_attention` differentiated on the card: the Hopper K10's o and
+    lse feed K11 (its delta, dq and dk/dv passes), the gradient against
+    autograd through the plain version."""
+    qkv = _rnd(gen, torch.bfloat16, 2, 1000, 3, 2, d).requires_grad_()
+    g = _rnd(gen, torch.bfloat16, 2, 1000, 2, d)
+
+    def call():
+        o = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        return (o.detach(), torch.autograd.grad(o, qkv, g)[0])
+
+    _compare(call, torch.bfloat16, launches=4)
 
 
 @pytest.mark.cuda

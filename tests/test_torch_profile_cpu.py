@@ -18,6 +18,7 @@ from __future__ import annotations
 import json
 import re
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -146,3 +147,40 @@ def test_dump_augmentations_writes_the_jax_scripts_pairs(tmp_path,
             # apart: within 2 levels
             assert np.abs(got - want).max() <= (2 if name.endswith("jpg")
                                                 else 0), name
+
+
+def _event(name, start, end, device=True, annotation=False):
+    from torch.autograd import DeviceType
+
+    return types.SimpleNamespace(
+        name=name, device_type=DeviceType.CUDA if device else DeviceType.CPU,
+        is_user_annotation=annotation,
+        time_range=types.SimpleNamespace(start=start, end=end))
+
+
+def test_idle_share_counts_device_kernels_only():
+    """A profile's device events hold, beside the kernels, each C entry
+    point's GPU user annotation (spanning the kernels it launched) and
+    copies. The busy time is the union of the kernels' intervals alone, so
+    the idle share 1 - busy / span lies in [0, 1]; summing every device
+    event, as the chip script's profile once did, read it negative."""
+    events = [
+        _event("k11_flash_attention_bwd_dq_sm90", 0, 100, annotation=True),
+        _event("k11_dq_sm90_kernel<96>", 10, 60),
+        _event("k11_dkv_sm90_kernel<96>", 50, 90),   # overlaps the one before
+        _event("k10_flash_attention_sm90", 150, 200),   # an annotation, older torch
+        _event("fwd_sm90_kernel<96, 0, false>", 160, 190),
+        _event("Memcpy HtoD (Pageable -> Device)", 190, 400),
+        _event("aten::add", 0, 500, device=False),
+    ]
+    kernels = profile_model.device_kernels(events)
+    assert [e.name for e in kernels] == ["k11_dq_sm90_kernel<96>",
+                                         "k11_dkv_sm90_kernel<96>",
+                                         "fwd_sm90_kernel<96, 0, false>"]
+    busy, span = profile_model.busy_span_us(kernels)
+    assert (busy, span) == (110.0, 180.0)
+    assert 0.0 <= 1 - busy / span <= 1.0
+    everything = [e for e in events if e.name != "aten::add"]
+    summed = sum(e.time_range.end - e.time_range.start for e in everything)
+    assert 1 - summed / span < 0
+    assert profile_model.busy_span_us([]) == (0.0, 0.0)
