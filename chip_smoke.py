@@ -46,8 +46,11 @@ training paths l352train and s960train, listed after these):
   1. the card (nvidia-smi name and power limit); build the CUDA kernels
      from csrc/ with nvcc (one process per source, all at once) and print
      the build time; the Hopper kernels' registers, spills and shared
-     memory (K11's dq and dk/dv passes, K10 / K14's forward), failing on a
-     spill or on ptxas serializing their wgmma.
+     memory (K11's dq and dk/dv passes, K10 / K14's forward, K1 / K2's GEMM
+     and adapter in csrc/mlp_sm90.cu), failing on a spill, on ptxas
+     serializing their wgmma, or on ptxas injecting a warpgroup.arrive
+     (C7519) into csrc/mlp_sm90.cu's kernels past the two of each adapter
+     instance, which it prints.
   2. every kernel of the path against its plain PyTorch version on the
      card at the path's main-path shapes: at 352 K1 tail, K1 adapter, K4,
      K6 n_pad=0, K6 n_pad>0, K6 global S=484, K8; at 960 K1 tail, K1
@@ -56,7 +59,16 @@ training paths l352train and s960train, listed after these):
      bytes and operations, and SDPA's time beside K10 and K14), and fp32
      once at a batch of at most 2. TF32 is off. Each bf16 K10 / K14 call
      runs the route its row names: csrc/flash_attention_fwd_sm90.cu (the
-     Hopper forward) or, past its head dims and views, csrc/attention_any.cu.
+     Hopper forward) or, past its head dims and views, csrc/attention_any.cu;
+     each bf16 K1 / K2 call at widths that are multiples of 8 runs
+     csrc/mlp_sm90.cu (every path; GELU on K1's output only in its adapter
+     kernel, hidden 32), its timed rows beside the mma.sync route
+     they replaced (csrc/fused_mlp.cu, csrc/fused_mlp_bwd.cu; the time in
+     parentheses) and, on a line before, their products in cuBLAS
+     (torch.nn.functional.linear / torch.matmul, called by this script
+     only). s960train's phase also calls csrc/mlp_sm90.cu's entry points at
+     200 rows and every main-path width into outputs longer than M that
+     hold a sentinel: no row past M may change.
   3. the main path: the test CLI (sam2unet_torch.cli.test_cli.main) on a
      synthetic 4-image dataset with a seeded random SAM2UNet checkpoint of
      the path's trunk, --size 352 --model_cfg sam2_hiera_l, or the CLI's
@@ -346,7 +358,14 @@ step, set_image, predict, tracked frame or generate, and its idle share
 entry points' GPU user annotations are not kernels); the s960 and
 s1024video profiles fail unless K10 ran on the Hopper forward and none of
 its CUDA-core entry points ran, and t512video's K14 rows profile one call
-at each held shape and fail the same way for K14.
+at each held shape and fail the same way for K14; the s960 and s960train
+profiles fail unless K1 (and at s960train K2) launched only
+csrc/mlp_sm90.cu's kernels (no `gemm_bf16_kernel` or
+`gemm_bf16_bwd_kernel` inside its entry point), and s960train's prints the
+step's device time by entry point.
+`--phases mlp_ab` times the path's train step (l352train) or tracked frame
+(t512video) with K1's and K2's bf16 calls on the mma.sync route they took
+before csrc/mlp_sm90.cu and on csrc/mlp_sm90.cu, old, new, new, old.
 Then a JSON line of per-kernel numbers, the card line, and last the result
 line. Any failed phase exits non-zero before the result line. Without a
 CUDA device, or without the sam2unet_torch package beside this script, it
@@ -1230,8 +1249,12 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
     src_ab = "sam2unet_torch/csrc/fused_attention_block.cu"
     src_ab_bwd = "sam2unet_torch/csrc/fused_attention_block_bwd.cu"
     src_mlp_bwd = "sam2unet_torch/csrc/fused_mlp_bwd.cu"
+    # K1 and K2 in bf16 at the main paths' widths run csrc/mlp_sm90.cu; a
+    # path whose main path runs in fp32 names their CUDA-core sources
+    fp32 = PATHS[path].get("fp32")
+    src_k2 = src_mlp_bwd if fp32 else SM90_MLP_SOURCE
     mlp = ("sam2unet_tpu/ops/pallas/fused_mlp.py:135",
-           "sam2unet_torch/csrc/fused_mlp.cu")
+           "sam2unet_torch/csrc/fused_mlp.cu" if fp32 else SM90_MLP_SOURCE)
     tra = ("sam2unet_tpu/ops/pallas/fused_transition.py:256",
            "sam2unet_torch/csrc/fused_transition.cu")
 
@@ -1248,9 +1271,9 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
 
     if PATHS[path].get("multichip"):
         return multichip_kernel_specs(k6_held, k7_held, mlp, tra, fab, src_ab,
-                                      src_ab_bwd, src_mlp_bwd)
+                                      src_ab_bwd, src_k2, src_mlp_bwd)
     if PATHS[path].get("opsapi"):
-        return opsapi_kernel_specs(b, mlp, fab, src_mlp_bwd)
+        return opsapi_kernel_specs(b, mlp, fab, src_k2)
     if PATHS[path].get("bwdmodes"):
         return bwdmodes_kernel_specs(b, fab)
     if PATHS[path].get("headdims"):
@@ -1302,7 +1325,7 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
                    for n in group_rows(b, hh, win)]
         specs = [
             ("K2 mlp_bwd_dx", "mlp_tail_bwd",
-             "sam2unet_tpu/ops/pallas/fused_mlp.py:432", src_mlp_bwd,
+             "sam2unet_tpu/ops/pallas/fused_mlp.py:432", src_k2,
              lambda w, v: w == "mlp_bwd_dx", tokens, 2),
             ("K3 adapter_bwd", "mlp_adapter_bwd",
              "sam2unet_tpu/ops/pallas/fused_mlp.py:551", src_mlp_bwd,
@@ -1570,7 +1593,7 @@ def kernel_specs(path: str, b: int) -> list[tuple]:
 
 
 def multichip_kernel_specs(k6_held, k7_held, mlp, tra, fab, src_ab, src_ab_bwd,
-                           src_mlp_bwd) -> list[tuple]:
+                           src_k2, src_mlp_bwd) -> list[tuple]:
     """The kernels of the dry run's routes at their shapes per rank (tiny
     at 2 rows; hiera_s@352, hiera_l@256 and the SP forward at 1 row) and
     of entry()'s forward (batch 1): the forward kernels of each, and the
@@ -1615,7 +1638,7 @@ def multichip_kernel_specs(k6_held, k7_held, mlp, tra, fab, src_ab, src_ab_bwd,
         ("K1 fused_mlp (adapter)", "mlp_adapter", *mlp,
          lambda w, v: w == "fused_mlp" and v == "no_ln", k1a, 4),
         ("K2 mlp_bwd_dx", "mlp_tail_bwd",
-         "sam2unet_tpu/ops/pallas/fused_mlp.py:432", src_mlp_bwd,
+         "sam2unet_tpu/ops/pallas/fused_mlp.py:432", src_k2,
          lambda w, v: w == "mlp_bwd_dx", k1t, 4),
         ("K3 adapter_bwd", "mlp_adapter_bwd",
          "sam2unet_tpu/ops/pallas/fused_mlp.py:551", src_mlp_bwd,
@@ -1643,7 +1666,7 @@ def multichip_kernel_specs(k6_held, k7_held, mlp, tra, fab, src_ab, src_ab_bwd,
     ]
 
 
-def opsapi_kernel_specs(b: int, mlp, fab, src_mlp_bwd) -> list[tuple]:
+def opsapi_kernel_specs(b: int, mlp, fab, src_k2) -> list[tuple]:
     """The kernel entry points no model calls, at the widths of hiera_l@352
     (batch b) and hiera_s@960 (batch b // 2): K15 and K16 on every block
     width's rows, both ways of add_bias; K1 and K2 in the frozen
@@ -1679,7 +1702,7 @@ def opsapi_kernel_specs(b: int, mlp, fab, src_mlp_bwd) -> list[tuple]:
     for mode, (ln, res, tag) in modes.items():
         specs.append(
             (f"K2 mlp_bwd_dx ({mode})", "mlp_tail_bwd",
-             "sam2unet_tpu/ops/pallas/fused_mlp.py:432", src_mlp_bwd,
+             "sam2unet_tpu/ops/pallas/fused_mlp.py:432", src_k2,
              lambda w, v, tag=tag: w == "mlp_bwd_dx" and v.endswith(tag)
              and (tag != ",no_residual" or ",no_ln" not in v),
              [dict(tokens=n, c=c, ln=ln, residual=res) for n, c in tails], 1))
@@ -2147,6 +2170,135 @@ def libraries_called():
         build.library = library
 
 
+SM90_MLP_SOURCE = "sam2unet_torch/csrc/mlp_sm90.cu"
+# the kinds of K1's and K2's calls (`make_case`), whose bf16 calls at widths
+# that are multiples of 8 run csrc/mlp_sm90.cu (`mlp_sm90_route`)
+MLP_SM90_KINDS = ("mlp_tail", "mlp_adapter", "mlp_tail_bwd", "mlp_grad")
+
+
+def mlp_widths(kind: str, g: dict) -> tuple[int, int]:
+    """(C, hidden) of a K1 or K2 shape of `make_case`."""
+    c = g["c"]
+    return c, g.get("hidden", 4 * c if kind in ("mlp_tail", "mlp_tail_bwd") else 32)
+
+
+def mlp_sm90_route(kind: str, g: dict) -> bool:
+    """Whether a bf16 K1 or K2 call at shape g runs csrc/mlp_sm90.cu: C and
+    hidden multiples of 8 (16-byte rows; the wrappers' tensors are
+    contiguous and 16-byte aligned), and GELU on the output (the adapter's
+    form) only where the adapter kernel takes it, hidden 32 and C up to
+    1152; `_mlp_library` in ops/fused_mlp.py."""
+    c, hd = mlp_widths(kind, g)
+    gelu_out = kind == "mlp_adapter" or g.get("mode") == "adapter"
+    return (c % 8 == 0 and hd % 8 == 0
+            and (not gelu_out or (hd == 32 and c <= 1152)))
+
+
+@contextlib.contextmanager
+def mlp_old_route():
+    """K1's and K2's bf16 calls on the mma.sync route they took before
+    csrc/mlp_sm90.cu (csrc/fused_mlp.cu, csrc/fused_mlp_bwd.cu): the A/B of
+    the timed rows."""
+    from sam2unet_torch.ops import fused_mlp
+
+    route = fused_mlp._mlp_library
+    fused_mlp._mlp_library = lambda *a, **k: None
+    try:
+        yield
+    finally:
+        fused_mlp._mlp_library = route
+
+
+def mlp_cublas_call(kind: str, g: dict, gen):
+    """The products of a K1 (two) or K2 (three) call at shape g in cuBLAS,
+    bf16: `torch.nn.functional.linear` and `torch.matmul`, which only this
+    script calls, as the informative yardstick of the timed rows."""
+    import torch
+    import torch.nn.functional as F
+
+    m, (c, hd) = g["tokens"], mlp_widths(kind, g)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV).to(torch.bfloat16)
+
+    x, w1, w2, h = rnd(m, c), rnd(hd, c), rnd(c, hd), rnd(m, hd)
+    if kind == "mlp_tail_bwd":
+        gy = rnd(m, c)
+        return lambda: (F.linear(x, w1), torch.matmul(gy, w2), torch.matmul(h, w1))
+    return lambda: (F.linear(x, w1), F.linear(h, w2))
+
+
+def mlp_sentinel_check(gen) -> None:
+    """csrc/mlp_sm90.cu's entry points called directly at 200 rows (no
+    multiple of the 128-row GEMM or 64-row adapter tiles) and every width of
+    the main paths, into outputs and scratch 77 rows longer that hold a
+    sentinel: K1's tail and adapter (its streaming kernel), K2 with LN and
+    the residual. No row past M may change; the rows below M against the
+    plain version in bf16."""
+    import torch
+
+    from sam2unet_torch.ops import build, dispatch
+    from sam2unet_torch.ops.fused_mlp import fused_mlp, mlp_bwd_dx
+
+    lib, p = build.library("mlp_sm90"), dispatch.ptr
+    stream = torch.cuda.current_stream().cuda_stream
+    m, pad, sentinel, bf16 = 200, 77, 7.0, torch.bfloat16
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        t = torch.randn(*shape, generator=gen, device=DEV) * scale + shift
+        return t.to(bf16)
+
+    def padded(n):
+        return torch.full((m + pad, n), sentinel, dtype=bf16, device=DEV)
+
+    def rel(got, want):
+        return ((got[:m].float() - want.float()).abs().max()
+                / want.float().abs().max()).item()
+
+    for c in (96, 144, 192, 288, 384, 576, 768, 1152):
+        for hd, ln in ((4 * c, True), (32, False)):
+            x = rnd(m, c)
+            w1, b1 = rnd(hd, c, scale=1 / math.sqrt(c)), rnd(hd, scale=0.1)
+            w2, b2 = rnd(c, hd, scale=1 / math.sqrt(hd)), rnd(c, scale=0.1)
+            lw, lb = ((rnd(c, scale=0.1, shift=1.0), rnd(c, scale=0.1)) if ln
+                      else (None, None))
+            xn, hidden, out = padded(c), padded(hd), padded(c)
+            build.check(lib.k1_fused_mlp_sm90(
+                1, p(x), p(w1), p(b1), p(w2), p(b2), p(lw), p(lb), p(xn),
+                p(hidden), p(out), m, c, hd, c, 1, int(not ln), stream),
+                "k1_fused_mlp_sm90")
+            with dispatch.force_plain():
+                want = fused_mlp(x, w1, b1, w2, b2, lw, lb, residual=True,
+                                 gelu_out=not ln)
+            errs = {"K1": rel(out, want)}
+            untouched = {"K1 out": out[m:], "K1 xn": xn[m:],
+                         "K1 hidden": hidden[m:]}
+            if ln:
+                gy = rnd(m, c)
+                dh, dz, dx = padded(hd), padded(c), padded(c)
+                build.check(lib.k2_mlp_bwd_dx_sm90(
+                    1, p(x), p(gy), p(w1), p(b1), p(w2), p(lw), p(lb), p(xn),
+                    p(dh), p(dz), p(dx), m, c, hd, c, 1, stream),
+                    "k2_mlp_bwd_dx_sm90")
+                with dispatch.force_plain():
+                    want = mlp_bwd_dx(x, gy, w1, b1, w2, b2, lw, lb)
+                errs["K2"] = rel(dx, want)
+                untouched.update({"K2 dh": dh[m:], "K2 dz": dz[m:],
+                                  "K2 dx": dx[m:]})
+            torch.cuda.synchronize()
+            moved = sorted(k for k, t in untouched.items()
+                           if not bool((t == sentinel).all()))
+            ok = not moved and all(e <= BF16_REL_TOL for e in errs.values())
+            print(f"[kernel] csrc/mlp_sm90.cu at {m} rows, C {c}, hidden {hd}"
+                  f" ({'tail' if ln else 'adapter'}): max_rel_err "
+                  f"{ {k: round(v, 5) for k, v in errs.items()} } (tol "
+                  f"{BF16_REL_TOL}), rows past M changed {moved}"
+                  + ("" if ok else "  <-- FAIL"), flush=True)
+            if not ok:
+                fail(f"csrc/mlp_sm90.cu at {m} rows, C {c}, hidden {hd}: "
+                     f"{errs}, rows past M changed {moved}")
+
+
 def profile_events(call) -> list:
     """torch.profiler's events of one call on the card."""
     import torch
@@ -2244,6 +2396,10 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
                 hopper = "flash_attention_fwd_sm90" in libs
                 if hopper != (source == SM90_FWD_SOURCE):
                     fail(f"{name} bf16 at {g} ran {libs}, its row names {source}")
+            sk = g.get("as_kind", kind)
+            if sk in MLP_SM90_KINDS and ("mlp_sm90" in libs) != mlp_sm90_route(sk, g):
+                # bf16 K1 / K2 on csrc/mlp_sm90.cu at every width it takes
+                fail(f"{name} bf16 at {g} ran {libs}")
 
             near_ties = kind == "transition_bwd" and not g.get("ties")
             ok = (share <= K9_BF16_TOKEN_SHARE and rel <= K9_BF16_OUTLIER_REL
@@ -2266,6 +2422,17 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
                          f"bound {bound_ms:.4f} ms ({bound_by})")
                 if library:
                     line += f", library {library_ms:.4f} ms"
+                if i == timed and sk in MLP_SM90_KINDS[:3] and mlp_sm90_route(sk, g):
+                    # at the timed shape the A/B against the mma.sync route,
+                    # and the products in cuBLAS on a line before
+                    with mlp_old_route():
+                        old_ms = time_ms(call)
+                    line += f" (mma.sync route {old_ms:.4f} ms)"
+                    print(f"[yardstick] {name} {label} bf16 {g}: its products "
+                          f"in cuBLAS (torch.nn.functional.linear, "
+                          f"torch.matmul) "
+                          f"{time_ms(mlp_cublas_call(sk, g, gen)):.4f} ms",
+                          flush=True)
             if i == timed:
                 entry = dict(name=f"{name} [{label}]", route="cuda",
                              source=source, select=select, path=path,
@@ -2314,6 +2481,8 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
         entry["max_abs_err"] = worst_abs
         entries.append(entry)
         torch.cuda.empty_cache()
+    if path == "s960train":
+        mlp_sentinel_check(gen)
     return entries
 
 
@@ -3351,15 +3520,16 @@ def train_main_phase(path: str, tmp: Path, step_seeds: list[int],
 
 # the hand-written kernels the train CLI's trace must name (by the C entry
 # points' profiler annotations, ops/build.py)
-TRACE_KERNELS = {"K1": ("k1_fused_mlp",), "K2": ("k2_mlp_bwd_dx",),
+TRACE_KERNELS = {"K1": ("k1_fused_mlp_sm90",), "K2": ("k2_mlp_bwd_dx_sm90",),
                  "K3": ("k3_adapter_bwd",), "K10": ("k10_flash_attention_sm90",),
                  "K11": ("k11_flash_attention_bwd_delta",
                          "k11_flash_attention_bwd_dq_sm90",
                          "k11_flash_attention_bwd_dkv_sm90")}
-# K10's forward and K11's dq and dk/dv passes in bf16 before the Hopper
-# kernels took them
-OLD_BF16 = ("k10_flash_attention", "k10_flash_attention_d256",
-            "k11_flash_attention_bwd_dq", "k11_flash_attention_bwd_dkv")
+# K1's and K2's entry points, K10's forward and K11's dq and dk/dv passes in
+# bf16 before the Hopper kernels took them
+OLD_BF16 = ("k1_fused_mlp", "k2_mlp_bwd_dx", "k10_flash_attention",
+            "k10_flash_attention_d256", "k11_flash_attention_bwd_dq",
+            "k11_flash_attention_bwd_dkv")
 
 
 def cli_main_phase(path: str, tmp: Path, card: str) -> dict:
@@ -3455,7 +3625,8 @@ def cli_main_phase(path: str, tmp: Path, card: str) -> dict:
             fail(f"{label}: the trace names no device time of {k}")
     old = {e: by_name[e][1] for e in OLD_BF16 if e in by_name}
     if old:
-        fail(f"{label}: K10 or K11 in bf16 ran off the Hopper kernels: {old}")
+        fail(f"{label}: K1, K2, K10 or K11 in bf16 ran off the Hopper kernels: "
+             f"{old}")
 
     # the device evaluation at the same weights, the test and eval CLIs
     model = _train_model(cfg, Path(stats["saved"][-1]))
@@ -3899,6 +4070,24 @@ def grouping_ab_phase(path: str, batch: int, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def mlp_route_ab_phase(path: str, batch: int, card: str) -> None:
+    """Optional (`--phases mlp_ab`): the path's end-to-end time with K1's and
+    K2's bf16 calls on the mma.sync route they took before csrc/mlp_sm90.cu
+    (`mlp_old_route`) and on csrc/mlp_sm90.cu, in one process in the order
+    old, new, new, old: a training path's step (`throughput_phase`), a video
+    path's tracked frame (`video_throughput_phase`)."""
+    for old in (True, False, False, True):
+        route = ("the mma.sync route (csrc/fused_mlp.cu, csrc/fused_mlp_bwd.cu)"
+                 if old else "csrc/mlp_sm90.cu")
+        print(f"[mlp_ab] {PATHS[path]['label']}: K1 and K2 in bf16 on {route}",
+              flush=True)
+        with mlp_old_route() if old else contextlib.nullcontext():
+            if PATHS[path].get("video"):
+                video_throughput_phase(path, card)
+            else:
+                throughput_phase(path, batch, card)
+
+
 def _train_model(cfg: str, ckpt: Path | None = None, bf16: bool = True):
     """A model for training on the card: with bf16, the frozen trunk in
     bf16 and the rest fp32; else all fp32."""
@@ -4246,6 +4435,54 @@ def throughput_phase(path: str, batch: int, card: str,
     return ips
 
 
+def mlp_profile_check(prof, path: str, what: str) -> None:
+    """K1's and K2's entry points in a profiled s960 forward or s960train
+    step (bf16): their device kernels must be csrc/mlp_sm90.cu's
+    (`mlp_gemm_sm90_kernel`, `mlp_adapter_sm90_kernel`, beside the LN
+    passes), none the mma.sync GEMM's (`gemm_bf16_kernel`,
+    `gemm_bf16_bwd_kernel`), and their CUDA-core entry points
+    (`k1_fused_mlp`, `k2_mlp_bwd_dx`) must not run. For the step, each
+    entry point's device time and calls (the kernels launched inside its
+    annotation)."""
+    from sam2unet_torch.utils import profile_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = str(Path(tmp) / "trace.json")
+        prof.export_chrome_trace(trace)
+        by_entry = profile_model.trace_entry_kernels(trace)
+        device = profile_model.trace_device_time(trace)
+    label, faults = PATHS[path]["label"], []
+    entries = ("k1_fused_mlp", "k2_mlp_bwd_dx") if path == "s960train" else (
+        "k1_fused_mlp",)
+    for entry in entries:
+        new = by_entry.get(f"{entry}_sm90", {})
+        old = by_entry.get(entry, {})
+        mma_sync = sorted(k for k in new if "gemm_bf16" in k)
+        print(f"[profile] {label} {what}: {entry}_sm90 device kernels "
+              f"{ {k[:60]: (round(v[0] / 1e3, 3), v[1]) for k, v in new.items()} } "
+              f"(ms, calls); the CUDA-core entry point {entry}: "
+              f"{sum(v[1] for v in old.values())} kernels", flush=True)
+        if not any("_sm90_kernel" in k for k in new) or mma_sync or old:
+            faults.append(entry)
+    if path == "s960train":
+        rows = sorted(((n, v) for n, v in device.items()
+                       if n in profile_model.ENTRY_WRAPPER),
+                      key=lambda kv: -kv[1][0])
+        total = sum(v[0] for v in device.values())
+        print(f"[profile] {label} {what}: device time by entry point (the "
+              f"kernels launched inside its annotation), of "
+              f"{total / 1e3:.2f} ms of device kernels:", flush=True)
+        for n, (us, calls) in rows:
+            print(f"[profile]   {n:36s} {us / 1e3:9.3f} ms {calls:5d} kernels",
+                  flush=True)
+        k12 = sum(v[0] for n, v in device.items() if n.startswith(
+            ("k1_fused_mlp", "k2_mlp_bwd_dx")))
+        print(f"[profile] {label} {what}: K1 + K2 {k12 / 1e3:.2f} ms a step",
+              flush=True)
+    if faults:
+        fail(f"{label}: {faults} ran off csrc/mlp_sm90.cu's kernels")
+
+
 def profile_phase(path: str, batch: int, card: str,
                   predict: bool = False) -> None:
     """Optional: device time by kernel over one forward, train step,
@@ -4293,6 +4530,8 @@ def profile_phase(path: str, batch: int, card: str,
         print(f"[profile] {line}", flush=True)
         if not ok:
             fail(f"K10 ran off the Hopper forward: {line}")
+    if path in ("s960", "s960train"):
+        mlp_profile_check(prof, path, what)
     if path == "s960train":
         # K11's dq and dk/dv passes on the Hopper kernels, none on the old
         # bf16 instances (gone from csrc/flash_attention_bwd.cu)
@@ -5559,13 +5798,15 @@ def widths_main_phase(path: str, tmp: Path) -> dict:
 
 def sm90_build(out_dir: Path) -> None:
     """The Hopper kernels' registers and spills (`-Xptxas -v`) and dynamic
-    shared memory: K11's dq and dk/dv passes and K10 / K14's forward; a
-    spill, or ptxas serializing their wgmma (its "Potential Performance
-    Loss" notes), fails the run."""
+    shared memory: K11's dq and dk/dv passes, K10 / K14's forward and K1 /
+    K2's GEMM and adapter (csrc/mlp_sm90.cu); a spill, ptxas serializing
+    their wgmma (its "Potential Performance Loss" notes), or ptxas injecting
+    a warpgroup.arrive (C7519) into csrc/mlp_sm90.cu's kernels past the
+    adapter's two an instance, fails the run."""
     from sam2unet_torch.ops import build
 
     summary = build.ptxas_summary(out_dir)
-    for src in ("flash_attention_bwd_sm90", "flash_attention_fwd_sm90"):
+    for src in ("flash_attention_bwd_sm90", "flash_attention_fwd_sm90", "mlp_sm90"):
         serialized = [ln.strip() for ln in
                       (out_dir / f"{src}.log").read_text().splitlines()
                       if "Performance Loss" in ln]
@@ -5603,6 +5844,36 @@ def sm90_build(out_dir: Path) -> None:
         if len(kernels) != (2 if d == 256 else 4):
             fail(f"the build reports {len(kernels)} K10 / K14 Hopper kernels "
                  f"at d {d}")
+    # K1 and K2: the GEMM's instances by column tile and kind, the adapter's
+    kinds = ("GELU (K1's first product)", "out (K1's second)",
+             "dual (K2's dh)", "dz (K2's dh W1)")
+    gemm, adapter = [], []
+    for ln in summary:
+        hit = re.search(r"mlp_gemm_sm90_kernelILi(\d+)ELi(\d)E.*?: (.*)", ln)
+        if ln.startswith("mlp_sm90:") and hit:
+            gemm.append(f"BN {hit[1]} {kinds[int(hit[2])]}: {hit[3]}")
+        hit = re.search(r"mlp_adapter_sm90_kernelILb(\d)E.*?: (.*)", ln)
+        if ln.startswith("mlp_sm90:") and hit:
+            adapter.append(f"W2 {'whole' if hit[1] == '1' else 'streamed'}: {hit[2]}")
+    for ln in gemm + adapter:
+        print(f"[ptxas] K1 / K2 Hopper instance (csrc/mlp_sm90.cu) {ln}", flush=True)
+    if len(gemm) != 10 or len(adapter) != 2:
+        fail(f"the build reports {len(gemm)} K1 / K2 GEMM and {len(adapter)} "
+             f"adapter instances of csrc/mlp_sm90.cu (10 and 2)")
+    # where ptxas injects a warpgroup.arrive (C7519: registers a wgmma
+    # reads may be written before it issues) the warpgroup waits there; the
+    # adapter kernel's second product, whose A fragments are registers,
+    # carries two in each instance (PERF.md §6), and any other fails
+    injected = [ln.strip() for ln in
+                (out_dir / "mlp_sm90.log").read_text().splitlines() if "C7519" in ln]
+    for ln in injected:
+        print(f"[ptxas] csrc/mlp_sm90.cu: {ln}", flush=True)
+    by_fn = collections.Counter(ln.rsplit("'", 2)[-2] for ln in injected)
+    extra = {fn: n for fn, n in by_fn.items()
+             if "mlp_adapter_sm90_kernel" not in fn or n > 2}
+    if extra:
+        fail(f"ptxas injected warpgroup.arrive (C7519) into csrc/mlp_sm90.cu "
+             f"past the adapter's two an instance: {extra}")
 
 
 def main() -> None:
@@ -5714,6 +5985,8 @@ def main() -> None:
                             args.step_report)
                     else:
                         variants[path] = main_path_phase(path, Path(tmp))
+                if "mlp_ab" in phases:
+                    mlp_route_ab_phase(path, batch, card)
                 if ("held_by" in PATHS[path] or PATHS[path].get("deploy")
                         or PATHS[path].get("multichip")
                         or PATHS[path].get("opsapi")

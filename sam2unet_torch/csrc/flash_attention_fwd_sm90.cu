@@ -420,17 +420,6 @@ int smem_of(int d, int Sq) {
   }
 }
 
-// The card's SMs, once per device: the persistent grid's size.
-int sm_count() {
-  static int count[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (!count[dev] && cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev)
-                         != cudaSuccess)
-    return 132;
-  return count[dev];
-}
-
 struct Call {
   const void *q, *k, *v;
   int B;

@@ -54,7 +54,7 @@ SOURCES = (*SHARED_SOURCES, "fused_mlp", "fused_attention_block",
            "fused_attention_block_bwd",
            "fused_transition_bwd", "flash_attention_bwd",
            "flash_attention_bwd_sm90", "flash_attention_fwd_sm90",
-           "full_attention",
+           "mlp_sm90", "full_attention",
            "flash_attention_d256", "full_attention_d256",
            "fused_attention_block_masked", "fused_attention_block_wgrad",
            "fused_attention_block_rem_bwd")
@@ -132,6 +132,13 @@ SIGNATURES = {
     # arguments of their CUDA-core entry points
     "flash_attention_fwd_sm90": {"k10_flash_attention_sm90": _K10,
                                  "k14_full_attention_sm90": _K14},
+    # K1 and K2 in bf16 on wgmma fed by TMA (csrc/hopper.cuh): K1's
+    # arguments, K2's without the fp32 pre-activation buffer
+    "mlp_sm90": {
+        "k1_fused_mlp_sm90": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _L, _I, _I, _I, _I, _I, _P],
+        "k2_mlp_bwd_dx_sm90": [_I, *[_P] * 11, _L, _I, _I, _I, _I, _P],
+    },
     "full_attention": {"k14_full_attention": _K14},
     # K14 at head dim 256, a translation unit of its own
     "full_attention_d256": {"k14_full_attention_d256": _K14},

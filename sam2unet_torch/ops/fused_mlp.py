@@ -7,7 +7,9 @@ and K16, the same split into q, k and v (`fused_ln_qkv`). Counterpart of
 sam2unet_tpu/ops/pallas/fused_mlp.py (`fused_mlp`, `_xla_mlp`,
 `_mlp_bwd_dx`, `_adapter_bwd`, `fused_ln_matmul`, `_xla_ln_matmul`,
 `fused_ln_qkv`, `_xla_ln_qkv`, `_f32_weights_overflow`); the kernels are
-csrc/fused_mlp.cu (K1, K15, K16) and csrc/fused_mlp_bwd.cu (K2, K3).
+csrc/fused_mlp.cu (K1, K15, K16) and csrc/fused_mlp_bwd.cu (K2, K3), and
+for K1 and K2 in bf16 at widths a TMA tensor map addresses csrc/mlp_sm90.cu
+(wgmma fed by TMA; `_mlp_library` decides).
 
 Weights are in torch Linear layout (out, in). GELU is exact erf. The
 kernels compute in x's dtype: fp32 master weights (the trainable adapters
@@ -31,6 +33,11 @@ from sam2unet_torch.ops import build, dispatch
 ADAPTER_MAX_HIDDEN = 128  # K3's hidden width limit (fused_mlp.py:611)
 WGRAD_ROWS = 256  # gemm.cuh WG_ROWS: tokens per weight-gradient partial
 F32_WEIGHT_BYTES = 12 * 1024 * 1024  # the fp32 weight gate (fused_mlp.py:90)
+SM90 = "mlp_sm90"   # K1's and K2's Hopper library (csrc/mlp_sm90.cu)
+# the widest C of csrc/mlp_sm90.cu's adapter kernel (hidden 32): its 64-row
+# x slot beside W1 and two W2 chunks fills shared memory at 18 64-column
+# atoms (`adapter_plan`)
+SM90_ADAPTER_MAX_C = 1152
 
 
 def f32_weights_overflow(x: torch.Tensor, *weights: torch.Tensor) -> bool:
@@ -72,6 +79,22 @@ def _check_mlp(x, w1, b1, w2, b2, ln_w, ln_b, residual):
     return c, hd, cout
 
 
+def _mlp_library(dtype: torch.dtype, c: int, hd: int, cout: int,
+                 gelu_out: bool = False, ln: bool = False) -> str | None:
+    """The library of a K1 or K2 call whose rows are C, hidden and Cout
+    wide: csrc/mlp_sm90.cu for bf16 with all three multiples of 8 elements,
+    at any number of rows (16-byte rows: with the contiguous, 16-byte aligned
+    tensors that `dispatch.check_kernel_args` demands of every call, what a
+    TMA tensor map addresses); None leaves the call to the kernel's own
+    library (fp32 on the CUDA-core GEMM, other widths on csrc/gemm_any.cu).
+    GELU on K1's output (gelu_out) runs there only in the adapter kernel (no
+    LN, hidden 32, Cout = C up to `SM90_ADAPTER_MAX_C`)."""
+    ok = dtype == torch.bfloat16 and c % 8 == 0 and hd % 8 == 0 and cout % 8 == 0
+    if gelu_out and (ln or hd != 32 or cout != c or c > SM90_ADAPTER_MAX_C):
+        ok = False
+    return SM90 if ok else None
+
+
 def _mlp_kernel(x, w1, b1, w2, b2, ln_w, ln_b, residual, gelu_out):
     w1, b1, w2, b2, ln_w, ln_b = dispatch.cast(x.dtype, w1, b1, w2, b2, ln_w,
                                                ln_b)
@@ -82,10 +105,12 @@ def _mlp_kernel(x, w1, b1, w2, b2, ln_w, ln_b, residual, gelu_out):
     hidden = torch.empty((m, hd), dtype=x.dtype, device=x.device)
     out = torch.empty((*x.shape[:-1], cout), dtype=x.dtype, device=x.device)
     p = dispatch.ptr
-    err = build.library("fused_mlp").k1_fused_mlp(
-        is_bf16, p(x), p(w1), p(b1), p(w2), p(b2), p(ln_w), p(ln_b), p(xn),
-        p(hidden), p(out), m, c, hd, cout, int(residual), int(gelu_out),
-        dispatch.stream_of(x))
+    fn = (build.library(SM90).k1_fused_mlp_sm90
+          if _mlp_library(x.dtype, c, hd, cout, gelu_out, ln_w is not None) else
+          build.library("fused_mlp").k1_fused_mlp)
+    err = fn(is_bf16, p(x), p(w1), p(b1), p(w2), p(b2), p(ln_w), p(ln_b),
+             p(xn), p(hidden), p(out), m, c, hd, cout, int(residual),
+             int(gelu_out), dispatch.stream_of(x))
     build.check(err, "fused_mlp")
     dispatch.count_launch("fused_mlp", "no_ln" if ln_w is None else "ln")
     return out
@@ -145,13 +170,20 @@ def mlp_bwd_dx(x, gy, w1, b1, w2, b2, ln_w=None, ln_b=None,
     xn, dz = ((torch.empty_like(x), torch.empty_like(x)) if ln_w is not None
               else (None, None))
     dx = torch.empty_like(x)
-    hpre = torch.empty((m, hd), dtype=torch.float32, device=x.device)
     dh = torch.empty((m, hd), dtype=x.dtype, device=x.device)
     p = dispatch.ptr
-    err = build.library("fused_mlp_bwd").k2_mlp_bwd_dx(
-        is_bf16, p(x), p(gy), p(w1), p(b1), p(w2), p(ln_w), p(ln_b), p(xn),
-        p(hpre), p(dh), p(dz), p(dx), m, c, hd, cout, int(residual),
-        dispatch.stream_of(x))
+    if _mlp_library(x.dtype, c, hd, cout):
+        # the pre-activation stays in the registers of the dual tile
+        err = build.library(SM90).k2_mlp_bwd_dx_sm90(
+            is_bf16, p(x), p(gy), p(w1), p(b1), p(w2), p(ln_w), p(ln_b),
+            p(xn), p(dh), p(dz), p(dx), m, c, hd, cout, int(residual),
+            dispatch.stream_of(x))
+    else:
+        hpre = torch.empty((m, hd), dtype=torch.float32, device=x.device)
+        err = build.library("fused_mlp_bwd").k2_mlp_bwd_dx(
+            is_bf16, p(x), p(gy), p(w1), p(b1), p(w2), p(ln_w), p(ln_b),
+            p(xn), p(hpre), p(dh), p(dz), p(dx), m, c, hd, cout,
+            int(residual), dispatch.stream_of(x))
     build.check(err, "mlp_bwd_dx")
     variant = (f"C={c}" + (",no_ln" if ln_w is None else "")
                + ("" if residual else ",no_residual"))

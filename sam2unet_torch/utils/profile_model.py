@@ -40,6 +40,7 @@ from sam2unet_torch.train.optim import make_optimizer
 # entry point: a wrapper call is one entry-point call
 ENTRY_WRAPPER = {
     "k1_fused_mlp": "fused_mlp", "k2_mlp_bwd_dx": "mlp_bwd_dx",
+    "k1_fused_mlp_sm90": "fused_mlp", "k2_mlp_bwd_dx_sm90": "mlp_bwd_dx",
     "k3_adapter_bwd": "adapter_bwd",
     "k4_window_block_strips": "fused_window_block_strips",
     "k5_window_block_strips_bwd": "window_block_strips_bwd",
@@ -111,12 +112,11 @@ def _entry_spans(events: list) -> dict[tuple, list]:
     return spans
 
 
-def trace_device_time(path: str) -> dict[str, list]:
-    """Device time (us) and count by kernel of a torch.profiler Chrome
-    trace: a device kernel launched inside a C entry point's annotation is
-    counted under the entry point's name (its launch is the runtime call of
-    the same correlation id, inside the annotation's span on its thread),
-    any other under its own name."""
+def _kernels_by_entry(path: str):
+    """(entry point or None, kernel name, duration in us) of each device
+    kernel of a torch.profiler Chrome trace: a kernel launched inside a C
+    entry point's annotation (its launch is the runtime call of the same
+    correlation id, inside the annotation's span on its thread) names it."""
     events = json.loads(Path(path).read_text())["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     launches = {e["args"]["correlation"]: e for e in events
@@ -124,17 +124,37 @@ def trace_device_time(path: str) -> dict[str, list]:
                 and "correlation" in e.get("args", {})}
     spans = _entry_spans(events)
     starts = {k: [t0 for t0, _, _ in v] for k, v in spans.items()}
-    out: dict[str, list] = collections.defaultdict(lambda: [0.0, 0])
     for k in kernels:
-        name = k["name"]
+        entry = None
         launch = launches.get(k.get("args", {}).get("correlation"))
         if launch is not None:
             key = (launch["pid"], launch["tid"])
             i = bisect.bisect_right(starts.get(key, []), launch["ts"]) - 1
             if i >= 0 and spans[key][i][1] >= launch["ts"]:
-                name = spans[key][i][2]
-        out[name][0] += k["dur"]
-        out[name][1] += 1
+                entry = spans[key][i][2]
+        yield entry, k["name"], k["dur"]
+
+
+def trace_device_time(path: str) -> dict[str, list]:
+    """Device time (us) and count by kernel of a torch.profiler Chrome
+    trace: a device kernel launched inside a C entry point's annotation is
+    counted under the entry point's name, any other under its own name."""
+    out: dict[str, list] = collections.defaultdict(lambda: [0.0, 0])
+    for entry, name, dur in _kernels_by_entry(path):
+        out[entry or name][0] += dur
+        out[entry or name][1] += 1
+    return out
+
+
+def trace_entry_kernels(path: str) -> dict[str, dict[str, list]]:
+    """Each C entry point's device kernels in a torch.profiler Chrome
+    trace: entry point -> kernel name -> [device time (us), count]."""
+    out: dict[str, dict[str, list]] = collections.defaultdict(
+        lambda: collections.defaultdict(lambda: [0.0, 0]))
+    for entry, name, dur in _kernels_by_entry(path):
+        if entry is not None:
+            out[entry][name][0] += dur
+            out[entry][name][1] += 1
     return out
 
 

@@ -35,7 +35,10 @@ views at any stride; the widths past the 16-byte-vector LN and GEMM
 instances (csrc/gemm_any.cu): K1 / K2 / K3 at C 12, 13, 20 and 2056, K15 /
 K16 at the JAX test's 12 -> 36, 13 -> 20, 2060 -> 24 and 572 -> 1716,
 K6 / K7 in every mode at c 26, 20 and 2064, the strips and remainder
-strips at c 26, K8 / K9 at 20 -> 40, 2056 -> 48 and an odd cout.
+strips at c 26, K8 / K9 at 20 -> 40, 2056 -> 48 and an odd cout; K1 and
+K2 in bf16 on the Hopper GEMM and adapter (csrc/mlp_sm90.cu) at every
+main-path width and the window groups' row counts, with no row written past
+M and twice with the same bits.
 Tolerances: max|kernel - plain| <= 2e-2 * max|plain| in bf16, 1e-4 in
 fp32 (TF32 off), for each output (K9 in bf16: see K9_NEAR_TIE_SHARE).
 """
@@ -1298,3 +1301,143 @@ def test_transition_at_any_width(gen, dtype, mode, geom):
             if mode == "K8" else
             (lambda: transition_bwd(x, gy, *wt, ws, bs, **kw)))
     _compare(call, dtype, near_ties=mode == "K9" and dtype == torch.bfloat16)
+
+
+# K1 and K2 in bf16 on csrc/mlp_sm90.cu: every width of the main paths
+# (hiera_s 96-768, hiera_l 144-1152; hidden 4C, and the adapter's 32) at row
+# counts of the window groups (s960 batch 16's stage-4 corner 64, stage 3's
+# corner 256, l352 batch 16's 576, stage 4's edge 896, stage 3's edge 3584)
+# and at 200 (no multiple of the 128-row GEMM or 64-row adapter tile).
+MLP_SM90 = "mlp_sm90"
+MAIN_WIDTHS = [96, 144, 192, 288, 384, 576, 768, 1152]
+MLP_ROWS = [64, 200, 256, 576, 896, 3584]
+
+
+def _mlp_sm90_case(gen, rows, c, hd, ln):
+    x, gy = _rnd(gen, torch.bfloat16, rows, c), _rnd(gen, torch.bfloat16, rows, c)
+    w1, b1 = _lin(gen, torch.bfloat16, hd, c)
+    w2, b2 = _lin(gen, torch.bfloat16, c, hd)
+    lns = ((_rnd(gen, torch.bfloat16, c, scale=0.1, shift=1.0),
+            _rnd(gen, torch.bfloat16, c, scale=0.1)) if ln else (None, None))
+    return x, gy, w1, b1, w2, b2, lns
+
+
+def _on_sm90(call, monkeypatch):
+    """The libraries `call` asks for (the route it took)."""
+    from sam2unet_torch.ops import build
+
+    seen, library = [], build.library
+
+    def spy(name):
+        seen.append(name)
+        return library(name)
+
+    monkeypatch.setattr(build, "library", spy)
+    call()
+    monkeypatch.setattr(build, "library", library)
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", MLP_ROWS)
+@pytest.mark.parametrize("c", MAIN_WIDTHS)
+def test_k1_sm90_matches_plain_at_main_path_widths(gen, monkeypatch, c, rows):
+    """K1's tail (LN, hidden 4C, the residual) and adapter (hidden 32, GELU
+    on the output, the residual: the streaming kernel) on csrc/mlp_sm90.cu."""
+    for hd, ln in ((4 * c, True), (32, False)):
+        x, _, w1, b1, w2, b2, (lw, lb) = _mlp_sm90_case(gen, rows, c, hd, ln)
+        call = lambda: fused_mlp(x, w1, b1, w2, b2, lw, lb, residual=True,
+                                 gelu_out=not ln)
+        assert _on_sm90(call, monkeypatch) == [MLP_SM90]
+        _compare(call, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", MLP_ROWS)
+@pytest.mark.parametrize("c", MAIN_WIDTHS)
+def test_k2_sm90_matches_plain_at_main_path_widths(gen, monkeypatch, c, rows):
+    """K2 in its four modes on csrc/mlp_sm90.cu (the dual tile, dh W1, the
+    LN passes), and under autograd through a frozen `fused_mlp`."""
+    for ln, residual in ((True, True), (True, False), (False, True),
+                         (False, False)):
+        x, gy, w1, b1, w2, b2, (lw, lb) = _mlp_sm90_case(gen, rows, c, 4 * c, ln)
+        call = lambda: mlp_bwd_dx(x, gy, w1, b1, w2, b2, lw, lb,
+                                  residual=residual)
+        assert _on_sm90(call, monkeypatch) == [MLP_SM90]
+        _compare(call, torch.bfloat16)
+
+    def grad():
+        xx = x.detach().requires_grad_()
+        y = fused_mlp(xx, w1, b1, w2, b2, lw, lb, residual=residual)
+        return torch.autograd.grad(y, xx, gy)[0]
+
+    _compare(grad, torch.bfloat16, launches=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", MAIN_WIDTHS)
+def test_mlp_sm90_writes_no_row_past_m(gen, c):
+    """The entry points called directly into outputs and scratch 77 rows
+    longer than the 200 rows given, filled with a sentinel: no row past M
+    changes (K1's tail and adapter, K2)."""
+    from sam2unet_torch.ops import build
+
+    lib, p = build.library(MLP_SM90), dispatch.ptr
+    stream = torch.cuda.current_stream().cuda_stream
+    m, pad = 200, 77
+    for hd, ln in ((4 * c, True), (32, False)):
+        x, gy, w1, b1, w2, b2, (lw, lb) = _mlp_sm90_case(gen, m, c, hd, ln)
+        bufs = {n: torch.full((m + pad, w), 7.0, dtype=torch.bfloat16,
+                              device="cuda")
+                for n, w in (("xn", c), ("hidden", hd), ("out", c), ("dh", hd),
+                             ("dz", c), ("dx", c))}
+        assert lib.k1_fused_mlp_sm90(
+            1, p(x), p(w1), p(b1), p(w2), p(b2), p(lw), p(lb), p(bufs["xn"]),
+            p(bufs["hidden"]), p(bufs["out"]), m, c, hd, c, 1, int(not ln),
+            stream) == 0
+        assert lib.k2_mlp_bwd_dx_sm90(
+            1, p(x), p(gy), p(w1), p(b1), p(w2), p(lw), p(lb), p(bufs["xn"]),
+            p(bufs["dh"]), p(bufs["dz"]), p(bufs["dx"]), m, c, hd, c, 1,
+            stream) == 0
+        torch.cuda.synchronize()
+        for n, t in bufs.items():
+            assert (t[m:] == 7.0).all(), n
+        with dispatch.force_plain():
+            want = fused_mlp(x, w1, b1, w2, b2, lw, lb, residual=True,
+                             gelu_out=not ln)
+        err = (bufs["out"][:m].float() - want.float()).abs().max()
+        assert err <= REL_TOL[torch.bfloat16] * want.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hd", [(384, 4 * 384), (2056, 32)])
+def test_mlp_sm90_leaves_gelu_out_past_its_adapter_kernel(gen, monkeypatch, c, hd):
+    """GELU on K1's output past the adapter kernel (hidden 4C, or C wider
+    than its shared memory holds) runs csrc/fused_mlp.cu, and
+    csrc/mlp_sm90.cu's entry point refuses such a call."""
+    from sam2unet_torch.ops import build
+
+    x, _, w1, b1, w2, b2, _ = _mlp_sm90_case(gen, 200, c, hd, False)
+    call = lambda: fused_mlp(x, w1, b1, w2, b2, residual=True, gelu_out=True)
+    seen = _on_sm90(call, monkeypatch)
+    assert "fused_mlp" in seen and MLP_SM90 not in seen
+    _compare(call, torch.bfloat16)
+    p = dispatch.ptr
+    hidden = torch.empty(200, hd, dtype=torch.bfloat16, device="cuda")
+    out = torch.empty_like(x)
+    assert build.library(MLP_SM90).k1_fused_mlp_sm90(
+        1, p(x), p(w1), p(b1), p(w2), p(b2), p(None), p(None), p(None),
+        p(hidden), p(out), 200, c, hd, c, 1, 1,
+        torch.cuda.current_stream().cuda_stream) != 0
+
+
+@pytest.mark.cuda
+def test_mlp_sm90_repeats_bit_for_bit(gen):
+    """No atomics: two calls give the same bits (K1's tail and adapter, K2)."""
+    c = 384
+    for hd, ln in ((4 * c, True), (32, False)):
+        x, gy, w1, b1, w2, b2, (lw, lb) = _mlp_sm90_case(gen, 3584, c, hd, ln)
+        for call in (lambda: fused_mlp(x, w1, b1, w2, b2, lw, lb, residual=True,
+                                       gelu_out=not ln),
+                     lambda: mlp_bwd_dx(x, gy, w1, b1, w2, b2, lw, lb)):
+            assert torch.equal(call(), call())

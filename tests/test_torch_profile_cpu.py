@@ -103,6 +103,17 @@ def test_trace_device_time_names_kernels_by_their_entry_point(tmp_path):
                                                "k10_flash_attention": 1}
 
 
+def test_trace_entry_kernels_lists_each_entry_points_kernels(tmp_path):
+    """The device kernels launched inside each entry point's annotation, by
+    name, with their time and count; kernels outside every entry point are
+    left out."""
+    got = {e: {k: list(v) for k, v in ks.items()} for e, ks in
+           profile_model.trace_entry_kernels(_trace(tmp_path)).items()}
+    assert got == {"k1_fused_mlp": {"gemm_bf16_kernel": [61.0, 2],
+                                    "ln_kernel": [11.0, 2]},
+                   "k10_flash_attention": {"flash_fwd_kernel": [40.0, 1]}}
+
+
 def test_every_entry_point_has_its_wrapper():
     entries = {fn for src in build.SIGNATURES.values() for fn in src}
     assert set(profile_model.ENTRY_WRAPPER) == entries
