@@ -49,8 +49,9 @@ training paths l352train and s960train, listed after these):
      memory (K11's dq and dk/dv passes, K10 / K14's forward, K1 / K2's GEMM
      and adapter in csrc/mlp_sm90.cu), failing on a spill, on ptxas
      serializing their wgmma, or on ptxas injecting a warpgroup.arrive
-     (C7519) into csrc/mlp_sm90.cu's kernels past the two of each adapter
-     instance, which it prints.
+     (C7519) into csrc/mlp_sm90.cu's or csrc/block_bwd_sm90.cu's kernels;
+     K3's shared-memory plan at each main-path width and K7's query-side
+     and dk/dv blocks (csrc/block_bwd_sm90.cu).
   2. every kernel of the path against its plain PyTorch version on the
      card at the path's main-path shapes: at 352 K1 tail, K1 adapter, K4,
      K6 n_pad=0, K6 n_pad>0, K6 global S=484, K8; at 960 K1 tail, K1
@@ -68,7 +69,12 @@ training paths l352train and s960train, listed after these):
      (torch.nn.functional.linear / torch.matmul, called by this script
      only). s960train's phase also calls csrc/mlp_sm90.cu's entry points at
      200 rows and every main-path width into outputs longer than M that
-     hold a sentinel: no row past M may change.
+     hold a sentinel: no row past M may change. Each bf16 K3 call (C % 8
+     == 0 up to 1408, hidden 32) and each bf16 dx-only unmasked K7 call (c
+     and head dim multiples of 8, head dim up to 128) runs
+     csrc/block_bwd_sm90.cu, its timed rows beside the route it replaced
+     (csrc/fused_mlp_bwd.cu, csrc/fused_attention_block_bwd.cu; the time
+     in parentheses).
   3. the main path: the test CLI (sam2unet_torch.cli.test_cli.main) on a
      synthetic 4-image dataset with a seeded random SAM2UNet checkpoint of
      the path's trunk, --size 352 --model_cfg sam2_hiera_l, or the CLI's
@@ -193,7 +199,9 @@ epoch is 15 steps, and 16 eval images):
      shapes are held by those paths' entries); the trace of steps 10-14:
      its five most expensive kernels by device time (a hand-written
      kernel's device kernels under its C entry point's name), and K1, K2,
-     K3, K10 and K11 must each show device time; the device evaluation of
+     K3, K7, K10 and K11 must each show device time on their Hopper entry
+     points, none on the bf16 entry points those replaced; the device
+     evaluation of
      the checkpoint; the test CLI on it and the eval CLI on its PNGs; the
      loader A/B: the run again, native, PIL, native, PIL, epoch img/s.
 The export and deploy path s960deploy (the export CLI's and the deploy
@@ -361,8 +369,11 @@ its CUDA-core entry points ran, and t512video's K14 rows profile one call
 at each held shape and fail the same way for K14; the s960 and s960train
 profiles fail unless K1 (and at s960train K2) launched only
 csrc/mlp_sm90.cu's kernels (no `gemm_bf16_kernel` or
-`gemm_bf16_bwd_kernel` inside its entry point), and s960train's prints the
-step's device time by entry point.
+`gemm_bf16_bwd_kernel` inside its entry point), the l352train and
+s960train profiles unless K3 and K7 launched only csrc/block_bwd_sm90.cu's
+(its own, the GEMM of csrc/gemm_sm90.cuh, K11's dk/dv pass, the LN passes;
+no mma.sync GEMM or attention pass, and no call of their CUDA-core entry
+points), and s960train's prints the step's device time by entry point.
 `--phases mlp_ab` times the path's train step (l352train) or tracked frame
 (t512video) with K1's and K2's bf16 calls on the mma.sync route they took
 before csrc/mlp_sm90.cu and on csrc/mlp_sm90.cu, old, new, new, old.
@@ -2209,6 +2220,40 @@ def mlp_old_route():
         fused_mlp._mlp_library = route
 
 
+SM90_BLOCK_BWD_SOURCE = "sam2unet_torch/csrc/block_bwd_sm90.cu"
+# the kinds of K3's and K7's dx-only unmasked calls (`make_case`), whose bf16
+# calls run csrc/block_bwd_sm90.cu where `block_bwd_sm90_route` holds
+BLOCK_BWD_KINDS = ("mlp_adapter_bwd", "window_bwd")
+
+
+def block_bwd_sm90_route(kind: str, g: dict) -> bool:
+    """Whether a bf16 K3 or K7 (dx-only, unmasked) call at shape g runs
+    csrc/block_bwd_sm90.cu: K3 at C % 8 == 0 up to 1408 with hidden 32, K7
+    at c and head dim multiples of 8, the head dim up to 128
+    (`_adapter_bwd_library`, `_window_bwd_library`)."""
+    c = g["c"]
+    if kind == "mlp_adapter_bwd":
+        return c % 8 == 0 and g.get("hidden", 32) == 32 and c <= 1408
+    d = c // g["heads"]
+    return c % 8 == 0 and c % g["heads"] == 0 and d % 8 == 0 and d <= 128
+
+
+@contextlib.contextmanager
+def block_bwd_old_route():
+    """K3's and K7's bf16 calls on the routes they took before
+    csrc/block_bwd_sm90.cu (csrc/fused_mlp_bwd.cu, csrc/fused_attention_block_bwd.cu,
+    on the mma.sync GEMM and attention passes): the A/B of the timed rows."""
+    from sam2unet_torch.ops import fused_attention_block, fused_mlp
+
+    routes = fused_mlp._adapter_bwd_library, fused_attention_block._window_bwd_library
+    fused_mlp._adapter_bwd_library = lambda *a, **k: None
+    fused_attention_block._window_bwd_library = lambda *a, **k: None
+    try:
+        yield
+    finally:
+        fused_mlp._adapter_bwd_library, fused_attention_block._window_bwd_library = routes
+
+
 def mlp_cublas_call(kind: str, g: dict, gen):
     """The products of a K1 (two) or K2 (three) call at shape g in cuBLAS,
     bf16: `torch.nn.functional.linear` and `torch.matmul`, which only this
@@ -2310,6 +2355,24 @@ def profile_events(call) -> list:
     return prof.events()
 
 
+def device_time_line(call, calls: int = 5) -> str:
+    """The device time a call of `call` takes in each of its kernels, and
+    their sum (the row's time without the wrapper's host work), from
+    `calls` calls under torch.profiler."""
+    from sam2unet_torch.utils import profile_model
+
+    events = profile_events(lambda: [call() for _ in range(calls)])
+    by_name = collections.Counter()
+    for e in profile_model.device_kernels(events):
+        by_name[e.name] += e.time_range.elapsed_us() / calls / 1e3
+    if not by_name:
+        return "no device kernel recorded"
+    short = lambda n: (n.replace("(anonymous namespace)::", "")  # noqa: E731
+                       .replace("void ", "").split("(")[0][:48])
+    parts = ", ".join(f"{short(n)} {ms:.4f}" for n, ms in by_name.most_common())
+    return f"{sum(by_name.values()):.4f} ms of device kernels a call ({parts})"
+
+
 def hopper_forward_check(events: list, kernel: str, what: str) -> tuple[str, bool]:
     """Which kernels ran `kernel` (K10 or K14) in the profiled events, as a
     line to print, and whether the Hopper forward's device kernel ran and
@@ -2333,13 +2396,19 @@ def k14_profile_worker(spec: dict) -> dict:
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(14)
-    lines, faults = [], []
+    lines, faults, warm = [], [], False
     for name, kind, _r, _s, _sel, shapes, _t in kernel_specs(spec["path"], 1):
         if kind != "full":
             continue
         for g in shapes:
             call = shape_case(kind, g, torch.bfloat16, gen)[0]
             call()
+            if not warm:
+                # the process's first profile can come back without the
+                # device's events (an acceptance call's d 256 row read
+                # "K14 on []" and no other kernel): one is taken and dropped
+                profile_events(call)
+                warm = True
             line, ok = hopper_forward_check(
                 profile_events(call), "K14",
                 f"{name} {PATHS[spec['path']]['label']} bf16 {g}")
@@ -2400,6 +2469,9 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
             if sk in MLP_SM90_KINDS and ("mlp_sm90" in libs) != mlp_sm90_route(sk, g):
                 # bf16 K1 / K2 on csrc/mlp_sm90.cu at every width it takes
                 fail(f"{name} bf16 at {g} ran {libs}")
+            if sk in BLOCK_BWD_KINDS and ("block_bwd_sm90" in libs) != block_bwd_sm90_route(sk, g):
+                # bf16 K3 / K7 (dx-only, unmasked) on csrc/block_bwd_sm90.cu
+                fail(f"{name} bf16 at {g} ran {libs}")
 
             near_ties = kind == "transition_bwd" and not g.get("ties")
             ok = (share <= K9_BF16_TOKEN_SHARE and rel <= K9_BF16_OUTLIER_REL
@@ -2433,7 +2505,18 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
                           f"torch.matmul) "
                           f"{time_ms(mlp_cublas_call(sk, g, gen)):.4f} ms",
                           flush=True)
+                if i == timed and sk in BLOCK_BWD_KINDS and block_bwd_sm90_route(sk, g):
+                    # at the timed shape the A/B against the route before,
+                    # and on a line before the device time of its kernels
+                    with block_bwd_old_route():
+                        old_ms = time_ms(call)
+                    line += f" (mma.sync route {old_ms:.4f} ms)"
+                    print(f"[device] {name} {label} bf16 {g}: "
+                          f"{device_time_line(call)}", flush=True)
             if i == timed:
+                if (sk in BLOCK_BWD_KINDS and not spec.get("fp32")
+                        and block_bwd_sm90_route(sk, g)):
+                    source = SM90_BLOCK_BWD_SOURCE
                 entry = dict(name=f"{name} [{label}]", route="cuda",
                              source=source, select=select, path=path,
                              replaces=replaces, ms=ms, plain_ms=plain_ms,
@@ -3521,15 +3604,16 @@ def train_main_phase(path: str, tmp: Path, step_seeds: list[int],
 # the hand-written kernels the train CLI's trace must name (by the C entry
 # points' profiler annotations, ops/build.py)
 TRACE_KERNELS = {"K1": ("k1_fused_mlp_sm90",), "K2": ("k2_mlp_bwd_dx_sm90",),
-                 "K3": ("k3_adapter_bwd",), "K10": ("k10_flash_attention_sm90",),
+                 "K3": ("k3_adapter_bwd_sm90",), "K7": ("k7_window_block_bwd_sm90",),
+                 "K10": ("k10_flash_attention_sm90",),
                  "K11": ("k11_flash_attention_bwd_delta",
                          "k11_flash_attention_bwd_dq_sm90",
                          "k11_flash_attention_bwd_dkv_sm90")}
-# K1's and K2's entry points, K10's forward and K11's dq and dk/dv passes in
-# bf16 before the Hopper kernels took them
-OLD_BF16 = ("k1_fused_mlp", "k2_mlp_bwd_dx", "k10_flash_attention",
-            "k10_flash_attention_d256", "k11_flash_attention_bwd_dq",
-            "k11_flash_attention_bwd_dkv")
+# K1's, K2's, K3's and K7's entry points, K10's forward and K11's dq and
+# dk/dv passes in bf16 before the Hopper kernels took them
+OLD_BF16 = ("k1_fused_mlp", "k2_mlp_bwd_dx", "k3_adapter_bwd", "k7_window_block_bwd",
+            "k10_flash_attention", "k10_flash_attention_d256",
+            "k11_flash_attention_bwd_dq", "k11_flash_attention_bwd_dkv")
 
 
 def cli_main_phase(path: str, tmp: Path, card: str) -> dict:
@@ -3625,8 +3709,8 @@ def cli_main_phase(path: str, tmp: Path, card: str) -> dict:
             fail(f"{label}: the trace names no device time of {k}")
     old = {e: by_name[e][1] for e in OLD_BF16 if e in by_name}
     if old:
-        fail(f"{label}: K1, K2, K10 or K11 in bf16 ran off the Hopper kernels: "
-             f"{old}")
+        fail(f"{label}: K1, K2, K3, K7, K10 or K11 in bf16 ran off the Hopper "
+             f"kernels: {old}")
 
     # the device evaluation at the same weights, the test and eval CLIs
     model = _train_model(cfg, Path(stats["saved"][-1]))
@@ -4435,7 +4519,7 @@ def throughput_phase(path: str, batch: int, card: str,
     return ips
 
 
-def mlp_profile_check(prof, path: str, what: str) -> None:
+def mlp_profile_check(by_entry: dict, device: dict, path: str, what: str) -> None:
     """K1's and K2's entry points in a profiled s960 forward or s960train
     step (bf16): their device kernels must be csrc/mlp_sm90.cu's
     (`mlp_gemm_sm90_kernel`, `mlp_adapter_sm90_kernel`, beside the LN
@@ -4443,14 +4527,10 @@ def mlp_profile_check(prof, path: str, what: str) -> None:
     `gemm_bf16_bwd_kernel`), and their CUDA-core entry points
     (`k1_fused_mlp`, `k2_mlp_bwd_dx`) must not run. For the step, each
     entry point's device time and calls (the kernels launched inside its
-    annotation)."""
+    annotation). `by_entry` and `device` are the step's trace read by
+    `profile_model.trace_entry_kernels` and `trace_device_time`."""
     from sam2unet_torch.utils import profile_model
 
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = str(Path(tmp) / "trace.json")
-        prof.export_chrome_trace(trace)
-        by_entry = profile_model.trace_entry_kernels(trace)
-        device = profile_model.trace_device_time(trace)
     label, faults = PATHS[path]["label"], []
     entries = ("k1_fused_mlp", "k2_mlp_bwd_dx") if path == "s960train" else (
         "k1_fused_mlp",)
@@ -4481,6 +4561,34 @@ def mlp_profile_check(prof, path: str, what: str) -> None:
               flush=True)
     if faults:
         fail(f"{label}: {faults} ran off csrc/mlp_sm90.cu's kernels")
+
+
+def block_bwd_profile_check(by_entry: dict, path: str, what: str) -> None:
+    """K3's and K7's entry points in a profiled l352train or s960train step
+    (bf16): every call must run csrc/block_bwd_sm90.cu's entry points
+    (`k3_adapter_bwd_sm90`, `k7_window_block_bwd_sm90`), whose device
+    kernels are its own, csrc/gemm_sm90.cuh's GEMM, K11's dk/dv pass and the
+    LN passes, none the mma.sync GEMM's (`gemm_bf16_kernel`,
+    `gemm_bf16_bwd_kernel`) or attention passes (`attn_kernel`,
+    `attn_bwd_*`), and their CUDA-core entry points (`k3_adapter_bwd`,
+    `k7_window_block_bwd`) must not run. `by_entry`: the step's trace read
+    by `profile_model.trace_entry_kernels`."""
+    label, faults = PATHS[path]["label"], []
+    own = ("k3_adapter_bwd_sm90_kernel", "k3_reduce_kernel", "mlp_gemm_sm90_kernel",
+           "k7_qside_sm90_kernel", "k11_dkv_sm90_kernel", "ln_rows_kernel",
+           "ln_bwd_rows_kernel")
+    for entry in ("k3_adapter_bwd", "k7_window_block_bwd"):
+        new = by_entry.get(f"{entry}_sm90", {})
+        old = by_entry.get(entry, {})
+        other = sorted(k for k in new if not any(o in k for o in own))
+        print(f"[profile] {label} {what}: {entry}_sm90 device kernels "
+              f"{ {k[:60]: (round(v[0] / 1e3, 3), v[1]) for k, v in new.items()} } "
+              f"(ms, calls); the CUDA-core entry point {entry}: "
+              f"{sum(v[1] for v in old.values())} kernels", flush=True)
+        if not new or other or old:
+            faults.append((entry, other, sorted(old)[:4]))
+    if faults:
+        fail(f"{label}: K3 / K7 ran off csrc/block_bwd_sm90.cu's kernels: {faults}")
 
 
 def profile_phase(path: str, batch: int, card: str,
@@ -4530,8 +4638,17 @@ def profile_phase(path: str, batch: int, card: str,
         print(f"[profile] {line}", flush=True)
         if not ok:
             fail(f"K10 ran off the Hopper forward: {line}")
-    if path in ("s960", "s960train"):
-        mlp_profile_check(prof, path, what)
+    if path in ("s960", "s960train", "l352train"):
+        # the trace once (a profile exports one), read by both checks
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = str(Path(tmp) / "trace.json")
+            prof.export_chrome_trace(trace)
+            by_entry = profile_model.trace_entry_kernels(trace)
+            device = profile_model.trace_device_time(trace)
+        if path in ("s960", "s960train"):
+            mlp_profile_check(by_entry, device, path, what)
+        if path in ("l352train", "s960train"):
+            block_bwd_profile_check(by_entry, path, what)
     if path == "s960train":
         # K11's dq and dk/dv passes on the Hopper kernels, none on the old
         # bf16 instances (gone from csrc/flash_attention_bwd.cu)
@@ -5801,12 +5918,13 @@ def sm90_build(out_dir: Path) -> None:
     shared memory: K11's dq and dk/dv passes, K10 / K14's forward and K1 /
     K2's GEMM and adapter (csrc/mlp_sm90.cu); a spill, ptxas serializing
     their wgmma (its "Potential Performance Loss" notes), or ptxas injecting
-    a warpgroup.arrive (C7519) into csrc/mlp_sm90.cu's kernels past the
-    adapter's two an instance, fails the run."""
+    a warpgroup.arrive (C7519) into csrc/mlp_sm90.cu's kernels, fails the
+    run (csrc/block_bwd_sm90.cu's too: `block_bwd_sm90_build`)."""
     from sam2unet_torch.ops import build
 
     summary = build.ptxas_summary(out_dir)
-    for src in ("flash_attention_bwd_sm90", "flash_attention_fwd_sm90", "mlp_sm90"):
+    for src in ("flash_attention_bwd_sm90", "flash_attention_fwd_sm90", "mlp_sm90",
+                "block_bwd_sm90"):
         serialized = [ln.strip() for ln in
                       (out_dir / f"{src}.log").read_text().splitlines()
                       if "Performance Loss" in ln]
@@ -5862,18 +5980,58 @@ def sm90_build(out_dir: Path) -> None:
              f"adapter instances of csrc/mlp_sm90.cu (10 and 2)")
     # where ptxas injects a warpgroup.arrive (C7519: registers a wgmma
     # reads may be written before it issues) the warpgroup waits there; the
-    # adapter kernel's second product, whose A fragments are registers,
-    # carries two in each instance (PERF.md §6), and any other fails
+    # adapter kernel carried two an instance, at the wgmma of its first
+    # product's runtime-count k-loop and the commit after it, until that
+    # loop fenced each k-step (PERF.md §6): none may come back
     injected = [ln.strip() for ln in
                 (out_dir / "mlp_sm90.log").read_text().splitlines() if "C7519" in ln]
-    for ln in injected:
-        print(f"[ptxas] csrc/mlp_sm90.cu: {ln}", flush=True)
-    by_fn = collections.Counter(ln.rsplit("'", 2)[-2] for ln in injected)
-    extra = {fn: n for fn, n in by_fn.items()
-             if "mlp_adapter_sm90_kernel" not in fn or n > 2}
-    if extra:
-        fail(f"ptxas injected warpgroup.arrive (C7519) into csrc/mlp_sm90.cu "
-             f"past the adapter's two an instance: {extra}")
+    if injected:
+        fail(f"ptxas injected warpgroup.arrive (C7519) into csrc/mlp_sm90.cu: "
+             f"{injected}")
+
+
+def block_bwd_sm90_build(out_dir: Path) -> None:
+    """K3's and K7's Hopper kernels (csrc/block_bwd_sm90.cu): registers,
+    spills and shared memory a block (K3's plan at each main-path width,
+    K7's query-side and dk/dv blocks at each head-dim instance); a spill,
+    a serialization note (checked with the other Hopper sources) or any
+    warpgroup.arrive ptxas injects (C7519) fails the run."""
+    from sam2unet_torch.ops import build
+
+    build.library("block_bwd_sm90")   # its undefined LN symbols: gemm_any first
+    summary = [ln for ln in build.ptxas_summary(out_dir)
+               if ln.startswith("block_bwd_sm90:")]
+    lib = ctypes.CDLL(str(out_dir / "libblock_bwd_sm90.so"))
+    plan = (ctypes.c_int * 3)()
+    for c in (96, 144, 192, 288, 384, 576, 768, 1152):
+        lib.k3_adapter_bwd_sm90_plan(c, plan)
+        print(f"[ptxas] K3 Hopper plan (csrc/block_bwd_sm90.cu) C {c}: {plan[0]} bytes "
+              f"of dynamic shared memory a block, a ring of {plan[1]} 64 x 64 slots, "
+              f"the weight-gradient partials in "
+              f"{'shared' if plan[2] else 'device'} memory", flush=True)
+        if not plan[0]:
+            fail(f"K3's Hopper kernel takes no plan at C {c}")
+    smem = lib.k7_window_block_bwd_sm90_smem
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    wanted = {"k3_adapter_bwd_sm90_kernel": 2, "k3_reduce_kernel": 1,
+              "k7_qside_sm90_kernel": 3, "k11_dkv_sm90_kernel": 3,
+              "mlp_gemm_sm90_kernel": 5}
+    for name, n in wanted.items():
+        lines = [ln.split(": ", 2)[1:] for ln in summary if name in ln]
+        for fn, regs in lines:
+            hit = re.search(r"ILi(\d+)E", fn) if "k7" in name or "k11" in name else None
+            extra = (f" ({smem(int(hit[1]), 'k11' in name)} bytes of dynamic shared "
+                     f"memory)" if hit else "")
+            print(f"[ptxas] K3 / K7 Hopper kernel {name} "
+                  f"{fn[fn.find(name) + len(name):][:24]}: {regs}{extra}", flush=True)
+        if len(lines) != n:
+            fail(f"the build reports {len(lines)} instances of {name} in "
+                 f"csrc/block_bwd_sm90.cu ({n})")
+    injected = [ln.strip() for ln in
+                (out_dir / "block_bwd_sm90.log").read_text().splitlines() if "C7519" in ln]
+    if injected:
+        fail(f"ptxas injected warpgroup.arrive (C7519) into csrc/block_bwd_sm90.cu: "
+             f"{injected}")
 
 
 def main() -> None:
@@ -5940,6 +6098,7 @@ def main() -> None:
     for line in build.ptxas_summary(out_dir):
         print(f"[ptxas] {line}", flush=True)
     sm90_build(out_dir)
+    block_bwd_sm90_build(out_dir)
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)

@@ -54,7 +54,7 @@ SOURCES = (*SHARED_SOURCES, "fused_mlp", "fused_attention_block",
            "fused_attention_block_bwd",
            "fused_transition_bwd", "flash_attention_bwd",
            "flash_attention_bwd_sm90", "flash_attention_fwd_sm90",
-           "mlp_sm90", "full_attention",
+           "mlp_sm90", "block_bwd_sm90", "full_attention",
            "flash_attention_d256", "full_attention_d256",
            "fused_attention_block_masked", "fused_attention_block_wgrad",
            "fused_attention_block_rem_bwd")
@@ -138,6 +138,14 @@ SIGNATURES = {
         "k1_fused_mlp_sm90": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _L, _I, _I, _I, _I, _I, _P],
         "k2_mlp_bwd_dx_sm90": [_I, *[_P] * 11, _L, _I, _I, _I, _I, _P],
+    },
+    # K3 and K7's dx-only unmasked mode in bf16 on wgmma fed by TMA
+    # (csrc/hopper.cuh, csrc/gemm_sm90.cuh): K3's arguments are the partial
+    # buffer's and the outputs' (no intermediate buffers) and its grid; K7's
+    # those of its CUDA-core entry point without O
+    "block_bwd_sm90": {
+        "k3_adapter_bwd_sm90": [_I, *[_P] * 12, _L, _I, _I, _I, _I, _P],
+        "k7_window_block_bwd_sm90": [_I, *[_P] * 15, *[_I] * 5, _P],
     },
     "full_attention": {"k14_full_attention": _K14},
     # K14 at head dim 256, a translation unit of its own

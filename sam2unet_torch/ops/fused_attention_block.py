@@ -10,7 +10,9 @@ sam2unet_tpu/ops/pallas/fused_attention_block.py (`fused_window_block` /
 `_fused_strips_rem_fwd_impl` / `_xla_strips_rem`, `_strips_bwd`, `_bwd`);
 the kernels are csrc/fused_attention_block.cu, csrc/flash_attention.cu,
 csrc/flash_attention_bwd.cu (K11), csrc/fused_attention_block_bwd.cu (K5,
-K7), csrc/fused_attention_block_wgrad.cu (K7's weight-gradient mode) and
+K7), csrc/block_bwd_sm90.cu (K7's dx-only unmasked mode in bf16 on wgmma
+fed by TMA; `_window_bwd_library` decides),
+csrc/fused_attention_block_wgrad.cu (K7's weight-gradient mode) and
 csrc/fused_attention_block_rem_bwd.cu (K13).
 
 Weights are in torch layout: w_qkv (3c, c) with output channels ordered
@@ -47,7 +49,7 @@ from sam2unet_torch.ops.flash_attention import (
     flash_attention_bwd,
     pick_stream_blocks,
 )
-from sam2unet_torch.ops.fused_mlp import WGRAD_ROWS
+from sam2unet_torch.ops.fused_mlp import SM90_BLOCK_BWD, WGRAD_ROWS
 from sam2unet_torch.ops.windowing import (
     window_merge_valid,
     window_partition,
@@ -62,6 +64,9 @@ LONG_SEQUENCE_BYTES = 12 * 1024 * 1024
 # its backward's live budget for one window, dx only; half of it with the
 # weight gradients (fused_attention_block.py:1956-1958, :1901-1905)
 BWD_LIVE_BYTES = 8 * 1024 * 1024
+# the widest head dim of K7's Hopper query-side and dk/dv blocks (d padded to
+# 64, 96 or 128: K11's block shapes, csrc/flash_attention_bwd_sm90.cuh)
+SM90_K7_MAX_HEAD_DIM = 128
 
 
 def plain_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
@@ -313,6 +318,23 @@ def strips_bwd_kernel(window: int, c: int) -> bool:
     s = window * window
     s16 = s + (-s) % 16
     return s % 16 == 0 and 12 * s16 * s16 + 18 * s16 * c <= BWD_LIVE_BYTES
+
+
+def _window_bwd_library(dtype: torch.dtype, c: int,
+                        num_heads: int) -> str | None:
+    """The library of K7's dx-only unmasked call on rows of width c over
+    `num_heads` heads: csrc/block_bwd_sm90.cu for bf16 with c and the head
+    dim multiples of 8 elements and the head dim up to
+    `SM90_K7_MAX_HEAD_DIM`, at any window length and number of windows
+    (contiguous, 16-byte aligned tensors, as `dispatch.check_kernel_args`
+    demands, whose (windows, S, heads, d) views TMA tensor maps address);
+    None leaves it to csrc/fused_attention_block_bwd.cu (fp32, other widths
+    and head dims). The masked and weight-gradient modes keep their own
+    sources."""
+    d = c // num_heads if num_heads > 0 and c % num_heads == 0 else 0
+    ok = (dtype == torch.bfloat16 and c % 8 == 0 and d > 0 and d % 8 == 0
+          and d <= SM90_K7_MAX_HEAD_DIM)
+    return SM90_BLOCK_BWD if ok else None
 
 
 def _check_block(x, c, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj, num_heads):
@@ -665,8 +687,9 @@ def window_block_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
                      pad_logmult=None, weight_grads: bool = False):
     """K7: dx of `fused_window_block` on (nW, S, c) without a pad key, or in
     its masked mode (`attn_mask`, `pad_logmult`), for a cotangent gy, the
-    weights frozen; recomputed from x. With `weight_grads` (unmasked only),
-    K7's weight-gradient mode: (dx, dW_qkv, db_qkv, dln_w, dln_b, dW_proj,
+    weights frozen; recomputed from x. The unmasked mode runs
+    csrc/block_bwd_sm90.cu where `_window_bwd_library` takes the call. With
+    `weight_grads` (unmasked only), K7's weight-gradient mode: (dx, dW_qkv, db_qkv, dln_w, dln_b, dW_proj,
     db_proj), the weight gradients fp32 in the torch layouts, as
     `_fused_window_block_bwd_impl(weight_grads=True)` returns them before
     its cast. Plain version: autograd through `plain_window_block`, with
@@ -686,8 +709,13 @@ def window_block_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
     nw, s, c = x.shape
     is_bf16, gy, weights = _block_bwd_args(x, gy, w_qkv, b_qkv, ln_w, ln_b,
                                            w_proj, b_proj, num_heads)
-    buf = _bwd_buffers(x, c, num_heads, nw * s, nw * s, nw, s)
     geometry = (nw, s, c, num_heads, int(residual))
+    if (not weight_grads and attn_mask is None
+            and _window_bwd_library(x.dtype, c, num_heads)):
+        dx = _launch_bwd_sm90(is_bf16, x, gy, weights, geometry)
+        dispatch.count_launch("window_block_bwd", f"S={s}")
+        return dx
+    buf = _bwd_buffers(x, c, num_heads, nw * s, nw * s, nw, s)
     if weight_grads:
         return _window_block_bwd_wgrad(is_bf16, x, gy, weights, buf, geometry)
     if attn_mask is None:
@@ -701,6 +729,31 @@ def window_block_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
                          lib="fused_attention_block_masked")
         variant = f"S={s},masked"
     dispatch.count_launch("window_block_bwd", variant)
+    return dx
+
+
+def _launch_bwd_sm90(is_bf16, x, gy, weights, geometry):
+    """K7's dx-only unmasked mode on csrc/block_bwd_sm90.cu. Its scratch,
+    LN(x), qkv, dO, dqkv and dLN(x) in x's dtype and lse and D in fp32 (no
+    O: the query side keeps it in registers), is one workspace the entry
+    point gets pointers into: one allocation, not seven, before the first
+    launch."""
+    nw, s, c, nh = geometry[:4]
+    m = nw * s
+    at, offs = 0, []
+    for nbytes in (m * c * x.element_size(), 3 * m * c * x.element_size(),
+                   m * c * x.element_size(), 3 * m * c * x.element_size(),
+                   m * c * x.element_size(), nw * nh * s * 4, nw * nh * s * 4):
+        offs.append(at)
+        at += -(-nbytes // 256) * 256
+    ws = torch.empty(at, dtype=torch.uint8, device=x.device)
+    dx = torch.empty_like(x)
+    xn, qkv, dout, dqkv, dxn, lse, d_rows = (ws.data_ptr() + o for o in offs)
+    p = dispatch.ptr
+    err = build.library(SM90_BLOCK_BWD).k7_window_block_bwd_sm90(
+        is_bf16, p(x), p(gy), *(p(w) for w in weights), xn, qkv, lse, dout,
+        d_rows, dqkv, dxn, p(dx), *geometry, dispatch.stream_of(x))
+    build.check(err, "k7_window_block_bwd_sm90")
     return dx
 
 

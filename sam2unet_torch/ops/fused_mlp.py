@@ -9,7 +9,8 @@ sam2unet_tpu/ops/pallas/fused_mlp.py (`fused_mlp`, `_xla_mlp`,
 `fused_ln_qkv`, `_xla_ln_qkv`, `_f32_weights_overflow`); the kernels are
 csrc/fused_mlp.cu (K1, K15, K16) and csrc/fused_mlp_bwd.cu (K2, K3), and
 for K1 and K2 in bf16 at widths a TMA tensor map addresses csrc/mlp_sm90.cu
-(wgmma fed by TMA; `_mlp_library` decides).
+(wgmma fed by TMA; `_mlp_library` decides), for K3 there
+csrc/block_bwd_sm90.cu (one streaming pass; `_adapter_bwd_library`).
 
 Weights are in torch Linear layout (out, in). GELU is exact erf. The
 kernels compute in x's dtype: fp32 master weights (the trainable adapters
@@ -38,6 +39,14 @@ SM90 = "mlp_sm90"   # K1's and K2's Hopper library (csrc/mlp_sm90.cu)
 # x slot beside W1 and two W2 chunks fills shared memory at 18 64-column
 # atoms (`adapter_plan`)
 SM90_ADAPTER_MAX_C = 1152
+SM90_BLOCK_BWD = "block_bwd_sm90"   # K3's and K7's Hopper library
+# the widest C of K3's streaming kernel (csrc/block_bwd_sm90.cu, hidden 32):
+# W1 and W2 beside two 64 x 64 slots of the ring fill shared memory at 22
+# 64-column atoms (`k3_plan`)
+SM90_ADAPTER_BWD_MAX_C = 1408
+# the fp32 partial sums of one 64-column chunk in one block of that kernel
+# (`kPartFloats`): dW2 | db2 and dW1^T in the accumulators' layout
+K3_SM90_PART_FLOATS = 36 * 128
 
 
 def f32_weights_overflow(x: torch.Tensor, *weights: torch.Tensor) -> bool:
@@ -93,6 +102,23 @@ def _mlp_library(dtype: torch.dtype, c: int, hd: int, cout: int,
     if gelu_out and (ln or hd != 32 or cout != c or c > SM90_ADAPTER_MAX_C):
         ok = False
     return SM90 if ok else None
+
+
+def _adapter_bwd_library(dtype: torch.dtype, c: int, hd: int) -> str | None:
+    """The library of a K3 call on rows of C: csrc/block_bwd_sm90.cu for
+    bf16 with C a multiple of 8 elements up to `SM90_ADAPTER_BWD_MAX_C` and
+    hidden 32, at any number of rows (contiguous, 16-byte aligned tensors,
+    as `dispatch.check_kernel_args` demands: what a TMA tensor map
+    addresses); None leaves it to csrc/fused_mlp_bwd.cu (fp32, other widths
+    and hiddens)."""
+    ok = (dtype == torch.bfloat16 and c % 8 == 0 and hd == 32
+          and c <= SM90_ADAPTER_BWD_MAX_C)
+    return SM90_BLOCK_BWD if ok else None
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _mlp_kernel(x, w1, b1, w2, b2, ln_w, ln_b, residual, gelu_out):
@@ -194,7 +220,9 @@ def mlp_bwd_dx(x, gy, w1, b1, w2, b2, ln_w=None, ln_b=None,
 def adapter_bwd(x, gy, w1, b1, w2, b2, residual: bool = True):
     """K3: (dx, dw1, db1, dw2, db2) of the adapter GELU(GELU(x W1^T + b1)
     W2^T + b2) [+ x] for a cotangent gy. The weight gradients are fp32 on
-    the card. Plain version: autograd through `plain_mlp`."""
+    the card, bit-identical from call to call (the blocks' partials are
+    summed in a fixed order). `_adapter_bwd_library` picks the kernel.
+    Plain version: autograd through `plain_mlp`."""
     if not dispatch.use_kernel(x):
         fn = functools.partial(plain_mlp, residual=residual, gelu_out=True)
         return dispatch.plain_vjp(fn, (x, w1, b1, w2, b2), gy, (True,) * 5)
@@ -205,16 +233,29 @@ def adapter_bwd(x, gy, w1, b1, w2, b2, residual: bool = True):
     if cout != c or gy.shape != x.shape:
         raise ValueError("adapter_bwd: needs Cout == C and gy shaped as x")
     m = x.numel() // c
-    chunks = -(-m // WGRAD_ROWS)
     f32 = dict(dtype=torch.float32, device=x.device)
+    dw1, db1 = torch.empty((hd, c), **f32), torch.empty(hd, **f32)
+    dw2, db2 = torch.empty((c, hd), **f32), torch.empty(c, **f32)
+    p = dispatch.ptr
+    if _adapter_bwd_library(x.dtype, c, hd):
+        # one block per SM and per 64-row tile, each with its own partials
+        blocks = min(-(-m // 64), _sm_count(x.device))
+        part = torch.empty(blocks * (-(-c // 64) * K3_SM90_PART_FLOATS + 32),
+                           **f32)
+        dx = torch.empty_like(x)
+        err = build.library(SM90_BLOCK_BWD).k3_adapter_bwd_sm90(
+            is_bf16, p(x), p(gy), p(w1), p(b1), p(w2), p(b2), p(part), p(dx),
+            p(dw1), p(db1), p(dw2), p(db2), m, c, hd, int(residual), blocks,
+            dispatch.stream_of(x))
+        build.check(err, "adapter_bwd")
+        dispatch.count_launch("adapter_bwd", f"C={c}")
+        return dx, dw1, db1, dw2, db2
+    chunks = -(-m // WGRAD_ROWS)
     y1pre = torch.empty((m, hd), **f32)
     h, dy1 = (torch.empty((m, hd), dtype=x.dtype, device=x.device)
               for _ in range(2))
     dy2, dx = torch.empty_like(x), torch.empty_like(x)
     ws = torch.empty(chunks * (c * hd + max(c, hd)), **f32)
-    dw1, db1 = torch.empty((hd, c), **f32), torch.empty(hd, **f32)
-    dw2, db2 = torch.empty((c, hd), **f32), torch.empty(c, **f32)
-    p = dispatch.ptr
     err = build.library("fused_mlp_bwd").k3_adapter_bwd(
         is_bf16, p(x), p(gy), p(w1), p(b1), p(w2), p(b2), p(y1pre), p(h),
         p(dy2), p(dy1), p(dx), p(ws), p(dw1), p(db1), p(dw2), p(db2), m, c,

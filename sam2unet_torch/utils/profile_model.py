@@ -41,12 +41,13 @@ from sam2unet_torch.train.optim import make_optimizer
 ENTRY_WRAPPER = {
     "k1_fused_mlp": "fused_mlp", "k2_mlp_bwd_dx": "mlp_bwd_dx",
     "k1_fused_mlp_sm90": "fused_mlp", "k2_mlp_bwd_dx_sm90": "mlp_bwd_dx",
-    "k3_adapter_bwd": "adapter_bwd",
+    "k3_adapter_bwd": "adapter_bwd", "k3_adapter_bwd_sm90": "adapter_bwd",
     "k4_window_block_strips": "fused_window_block_strips",
     "k5_window_block_strips_bwd": "window_block_strips_bwd",
     "k6_window_block": "fused_window_block",
     "k6_window_block_masked": "fused_window_block",
     "k7_window_block_bwd": "window_block_bwd",
+    "k7_window_block_bwd_sm90": "window_block_bwd",
     "k7_window_block_bwd_masked": "window_block_bwd",
     "k7_window_block_bwd_wgrad": "window_block_bwd",
     "k8_transition": "fused_transition_block",

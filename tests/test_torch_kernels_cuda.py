@@ -1441,3 +1441,191 @@ def test_mlp_sm90_repeats_bit_for_bit(gen):
                                        gelu_out=not ln),
                      lambda: mlp_bwd_dx(x, gy, w1, b1, w2, b2, lw, lb)):
             assert torch.equal(call(), call())
+
+
+# K3 and K7's dx-only unmasked mode in bf16 on csrc/block_bwd_sm90.cu: K3 at
+# every main-path width and the window groups' row counts (and 200 rows, no
+# multiple of the 64-row tile), K7 at every window shape of l352train and
+# s960train (S 49, 64, 196, 256, 484; head dims 72 and 96) at a few windows
+# and at a ragged S of 100, over head dims 64-128.
+BLOCK_BWD = "block_bwd_sm90"
+K7_SHAPES = [(4, 196, 384, 4), (4, 49, 768, 8), (3, 256, 576, 8),
+             (3, 64, 1152, 16), (2, 484, 576, 8), (3, 100, 256, 4),
+             (2, 100, 256, 2), (3, 100, 320, 5), (2, 100, 200, 5),
+             (2, 64, 64, 4)]
+
+
+def _k3_case(gen, rows, c):
+    x, gy = _rnd(gen, torch.bfloat16, rows, c), _rnd(gen, torch.bfloat16, rows, c)
+    w1, b1 = _lin(gen, torch.bfloat16, 32, c)
+    w2, b2 = _lin(gen, torch.bfloat16, c, 32)
+    return x, gy, w1, b1, w2, b2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", MLP_ROWS + [200])
+@pytest.mark.parametrize("c", MAIN_WIDTHS)
+def test_k3_sm90_matches_plain_at_main_path_widths(gen, monkeypatch, c, rows):
+    """dx and the four fp32 weight gradients of the adapter, with and
+    without the residual, on csrc/block_bwd_sm90.cu."""
+    x, gy, w1, b1, w2, b2 = _k3_case(gen, rows, c)
+    for residual in (True, False):
+        call = lambda: adapter_bwd(x, gy, w1, b1, w2, b2, residual=residual)
+        assert _on_sm90(call, monkeypatch) == [BLOCK_BWD]
+        _compare(call, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 64, 136, 1408])
+def test_k3_sm90_matches_plain_past_the_main_widths(gen, monkeypatch, c):
+    """The widths the route takes beside the main paths': one 64-column
+    chunk (C 32, 64: the second warpgroup owns none), a ragged last chunk
+    (136), the widest plan (1408: two ring slots)."""
+    x, gy, w1, b1, w2, b2 = _k3_case(gen, 200, c)
+    call = lambda: adapter_bwd(x, gy, w1, b1, w2, b2)
+    assert _on_sm90(call, monkeypatch) == [BLOCK_BWD]
+    _compare(call, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c", [(57600, 384), (3584, 384), (1936, 1152),
+                                    (14400, 768)])
+def test_k3_sm90_weight_gradients_repeat_bit_for_bit(gen, rows, c):
+    """The blocks' partials are summed in a fixed order: two calls give the
+    same bits (partials in shared memory at C 384, in device memory past
+    it)."""
+    args = _k3_case(gen, rows, c)
+    first = adapter_bwd(*args)
+    for a, b in zip(first, adapter_bwd(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [96, 384, 1152])
+def test_k3_sm90_writes_no_row_past_m(gen, c):
+    """The entry point called directly into a dx 77 rows longer than the 200
+    rows given, filled with a sentinel: no row past M changes."""
+    from sam2unet_torch.ops import build
+
+    m, pad = 200, 77
+    x, gy, w1, b1, w2, b2 = _k3_case(gen, m, c)
+    dx = torch.full((m + pad, c), 7.0, dtype=torch.bfloat16, device="cuda")
+    f32 = dict(dtype=torch.float32, device="cuda")
+    blocks = -(-m // 64)
+    part = torch.empty(blocks * (-(-c // 64) * 36 * 128 + 32), **f32)
+    grads = (torch.empty(32, c, **f32), torch.empty(32, **f32),
+             torch.empty(c, 32, **f32), torch.empty(c, **f32))
+    p = dispatch.ptr
+    assert build.library(BLOCK_BWD).k3_adapter_bwd_sm90(
+        1, p(x), p(gy), p(w1), p(b1), p(w2), p(b2), p(part), p(dx),
+        *(p(g) for g in grads), m, c, 32, 1, blocks,
+        torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert (dx[m:] == 7.0).all()
+    with dispatch.force_plain():
+        want = adapter_bwd(x, gy, w1, b1, w2, b2)[0]
+    err = (dx[:m].float() - want.float()).abs().max()
+    assert err <= REL_TOL[torch.bfloat16] * want.float().abs().max()
+
+
+def _k7_case(gen, nw, s, c):
+    x, gy = _rnd(gen, torch.bfloat16, nw, s, c), _rnd(gen, torch.bfloat16, nw, s, c)
+    lw = _rnd(gen, torch.bfloat16, c, scale=0.1, shift=1.0)
+    lb = _rnd(gen, torch.bfloat16, c, scale=0.1)
+    wq, bq = _lin(gen, torch.bfloat16, 3 * c, c)
+    wp, bp = _lin(gen, torch.bfloat16, c, c)
+    return x, gy, (wq, bq, lw, lb, wp, bp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw,s,c,nh", K7_SHAPES)
+def test_k7_sm90_matches_plain_at_main_path_shapes(gen, monkeypatch, nw, s, c, nh):
+    """K7's dx-only unmasked mode on csrc/block_bwd_sm90.cu, with and without
+    the residual, and twice with the same bits."""
+    x, gy, wt = _k7_case(gen, nw, s, c)
+    for residual in (True, False):
+        call = lambda: window_block_bwd(x, gy, *wt, num_heads=nh, residual=residual)
+        assert _on_sm90(call, monkeypatch) == [BLOCK_BWD]
+        _compare(call, torch.bfloat16)
+        assert torch.equal(call(), call())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw,s,c,nh", [(4, 196, 384, 4), (2, 484, 576, 8)])
+def test_k7_sm90_under_autograd(gen, nw, s, c, nh):
+    """A frozen window block under autograd: K6 forward, then K7 on
+    csrc/block_bwd_sm90.cu (two launches)."""
+    x, gy, wt = _k7_case(gen, nw, s, c)
+
+    def grad():
+        xx = x.detach().requires_grad_()
+        y = fused_window_block(xx, *wt, num_heads=nh)
+        return torch.autograd.grad(y, xx, gy)[0]
+
+    _compare(grad, torch.bfloat16, launches=2)
+
+
+@pytest.mark.cuda
+def test_k7_sm90_writes_no_row_past_m(gen):
+    """The entry point called directly into a dx and scratch 77 rows longer
+    than the windows' 2 x 196 rows, filled with a sentinel: no row past M
+    changes."""
+    from sam2unet_torch.ops import build
+
+    nw, s, c, nh, pad = 2, 196, 384, 4, 77
+    m = nw * s
+    x, gy, (wq, bq, lw, lb, wp, bp) = _k7_case(gen, nw, s, c)
+    rows = lambda w: torch.full((m + pad, w), 7.0, dtype=torch.bfloat16,  # noqa: E731
+                                device="cuda")
+    bufs = dict(xn=rows(c), qkv=rows(3 * c), dout=rows(c), dqkv=rows(3 * c),
+                dxn=rows(c), dx=rows(c))
+    lse = torch.full((nw * nh, s + pad), 7.0, device="cuda")
+    d_rows = torch.full((nw * nh, s + pad), 7.0, device="cuda")
+    p = dispatch.ptr
+    assert build.library(BLOCK_BWD).k7_window_block_bwd_sm90(
+        1, p(x), p(gy), p(wq), p(bq), p(lw), p(lb), p(wp), p(bufs["xn"]),
+        p(bufs["qkv"]), p(lse), p(bufs["dout"]), p(d_rows), p(bufs["dqkv"]),
+        p(bufs["dxn"]), p(bufs["dx"]), nw, s, c, nh, 1,
+        torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    for n, t in bufs.items():
+        assert (t[m:] == 7.0).all(), n
+    # lse and D are (windows x heads, S): the rows past S of the last row
+    assert (lse.reshape(-1)[nw * nh * s:] == 7.0).all()
+    assert (d_rows.reshape(-1)[nw * nh * s:] == 7.0).all()
+    with dispatch.force_plain():
+        want = window_block_bwd(x, gy, wq, bq, lw, lb, wp, bp, num_heads=nh)
+    err = (bufs["dx"][:m].float() - want.reshape(m, c).float()).abs().max()
+    assert err <= REL_TOL[torch.bfloat16] * want.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_k3_k7_old_sources_keep_fp32_and_other_widths(gen, monkeypatch):
+    """fp32 K3 and K7, a K7 head dim past 128 and a ragged K3 width keep
+    csrc/fused_mlp_bwd.cu and csrc/fused_attention_block_bwd.cu."""
+    x, gy, w1, b1, w2, b2 = _k3_case(gen, 200, 384)
+    f = lambda *t: tuple(a.float() for a in t)  # noqa: E731
+    call = lambda: adapter_bwd(*f(x, gy, w1, b1, w2, b2))
+    assert _on_sm90(call, monkeypatch) == ["fused_mlp_bwd"]
+    x, gy, w1, b1, w2, b2 = _k3_case(gen, 200, 572)
+    call = lambda: adapter_bwd(x, gy, w1, b1, w2, b2)
+    assert _on_sm90(call, monkeypatch) == ["fused_mlp_bwd"]
+    _compare(call, torch.bfloat16)
+    x, gy, wt = _k7_case(gen, 2, 64, 576)
+    call = lambda: window_block_bwd(x, gy, *wt, num_heads=4)   # head dim 144
+    assert _on_sm90(call, monkeypatch) == ["fused_attention_block_bwd"]
+    _compare(call, torch.bfloat16)
+    call = lambda: window_block_bwd(*f(x, gy, *wt), num_heads=8)
+    assert _on_sm90(call, monkeypatch) == ["fused_attention_block_bwd"]
+
+
+@pytest.mark.cuda
+def test_k7_sm90_after_the_mlp_gemm_of_another_library(gen):
+    """csrc/mlp_sm90.cu and csrc/block_bwd_sm90.cu each build the GEMM of
+    csrc/gemm_sm90.cuh: K2's kDz products in one library first must not
+    leave K7's copies in the other without their shared-memory limit (a
+    flag shared across libraries made K7's launch fail)."""
+    x, gy, w1, b1, w2, b2, _ = _mlp_sm90_case(gen, 200, 576, 4 * 576, False)
+    mlp_bwd_dx(x, gy, w1, b1, w2, b2, residual=True)
+    x, gy, wt = _k7_case(gen, 2, 256, 576)
+    _compare(lambda: window_block_bwd(x, gy, *wt, num_heads=8), torch.bfloat16)
