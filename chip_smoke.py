@@ -50,8 +50,9 @@ training paths l352train and s960train, listed after these):
      and adapter in csrc/mlp_sm90.cu), failing on a spill, on ptxas
      serializing their wgmma, or on ptxas injecting a warpgroup.arrive
      (C7519) into csrc/mlp_sm90.cu's or csrc/block_bwd_sm90.cu's kernels;
-     K3's shared-memory plan at each main-path width and K7's query-side
-     and dk/dv blocks (csrc/block_bwd_sm90.cu).
+     K3's shared-memory plan at each main-path width, K7's query-side
+     and dk/dv blocks and K5 / K9's small-window pass by window, mode and
+     head-dim instance (csrc/block_bwd_sm90.cu).
   2. every kernel of the path against its plain PyTorch version on the
      card at the path's main-path shapes: at 352 K1 tail, K1 adapter, K4,
      K6 n_pad=0, K6 n_pad>0, K6 global S=484, K8; at 960 K1 tail, K1
@@ -74,7 +75,13 @@ training paths l352train and s960train, listed after these):
      and head dim multiples of 8, head dim up to 128) runs
      csrc/block_bwd_sm90.cu, its timed rows beside the route it replaced
      (csrc/fused_mlp_bwd.cu, csrc/fused_attention_block_bwd.cu; the time
-     in parentheses).
+     in parentheses); so does each bf16 K5 and K9 call on windows of 4 or
+     8 at such widths and head dims, every l352train and s960train shape
+     of theirs timed beside the route before (csrc/fused_attention_block_bwd.cu,
+     csrc/fused_transition_bwd.cu). On l352train and s960train each of
+     these K3 / K5 / K7 / K9 rows prints a `[device]` line, its device time
+     by kernel and its launches a call; a row whose profile reads part of
+     its calls' kernels is profiled again, and fails after four.
   3. the main path: the test CLI (sam2unet_torch.cli.test_cli.main) on a
      synthetic 4-image dataset with a seeded random SAM2UNet checkpoint of
      the path's trunk, --size 352 --model_cfg sam2_hiera_l, or the CLI's
@@ -255,9 +262,8 @@ started by torch.distributed.run on the one card):
      every write under the save path from rank 0 (an audit hook), the
      JAX-layout train state restored with the moments bit-equal to the
      saved optimizer's, then --resume from it with --epoch 2: its first
-     rate the schedule's at the saved step; (c) world 1 over NCCL through
-     make_mesh: init, an all_reduce, one train step at batch 2, its
-     gradients all-reduced.
+     rate the schedule's at the saved step. (A step (c), world 1 over
+     NCCL, is cut for the script's time limit: ROADMAP.md, Card budget.)
 The multi-device path s352mc (the port's dryrun_multichip(4) with
 DRYRUN_FULL=1: four ranks on the one card over gloo, meshes (4, 1) and
 (2, 2), fp32; and entry()):
@@ -370,10 +376,11 @@ at each held shape and fail the same way for K14; the s960 and s960train
 profiles fail unless K1 (and at s960train K2) launched only
 csrc/mlp_sm90.cu's kernels (no `gemm_bf16_kernel` or
 `gemm_bf16_bwd_kernel` inside its entry point), the l352train and
-s960train profiles unless K3 and K7 launched only csrc/block_bwd_sm90.cu's
-(its own, the GEMM of csrc/gemm_sm90.cuh, K11's dk/dv pass, the LN passes;
-no mma.sync GEMM or attention pass, and no call of their CUDA-core entry
-points), and s960train's prints the step's device time by entry point.
+s960train profiles unless K3, K5, K7 and K9 launched only
+csrc/block_bwd_sm90.cu's (its own, the GEMM of csrc/gemm_sm90.cuh, K11's
+dk/dv pass, K9's unpool, the LN passes; no mma.sync GEMM or attention
+pass, and no call of their CUDA-core entry points); s960train's and the
+l352 forward's print the device time by entry point.
 `--phases mlp_ab` times the path's train step (l352train) or tracked frame
 (t512video) with K1's and K2's bf16 calls on the mma.sync route they took
 before csrc/mlp_sm90.cu and on csrc/mlp_sm90.cu, old, new, new, old.
@@ -643,8 +650,7 @@ PATHS = {
     # on one device), (b) the train CLI under torch.distributed.run on 2
     # ranks, --epoch 1 --save_train_state --shard_map over 32 images (2
     # steps) and 4 eval images, then --resume from its JAX-layout train
-    # state with --epoch 2, (c) world 1 over NCCL: init, all_reduce, one
-    # step at batch 2. Every rank launches s960train's per step (and s960's
+    # state with --epoch 2. Every rank launches s960train's per step (and s960's
     # per eval forward) at shapes that path's entries hold.
     "s960dp": dict(label="hiera_s@960 data parallel", cfg="sam2_hiera_s",
                    size=960, dp=True, batch=16, ranks=2, steps=2, seed=2,
@@ -2221,37 +2227,56 @@ def mlp_old_route():
 
 
 SM90_BLOCK_BWD_SOURCE = "sam2unet_torch/csrc/block_bwd_sm90.cu"
-# the kinds of K3's and K7's dx-only unmasked calls (`make_case`), whose bf16
-# calls run csrc/block_bwd_sm90.cu where `block_bwd_sm90_route` holds
-BLOCK_BWD_KINDS = ("mlp_adapter_bwd", "window_bwd")
+# the kinds of K3's, K5's, K7's dx-only unmasked and K9's calls (`make_case`),
+# whose bf16 calls run csrc/block_bwd_sm90.cu where `block_bwd_sm90_route`
+# holds
+BLOCK_BWD_KINDS = ("mlp_adapter_bwd", "window_bwd", "strips_bwd", "transition_bwd")
+# K5 and K9: on l352train and s960train every shape is timed beside the
+# route before, with its device time by kernel
+SMALL_WINDOW_KINDS = ("strips_bwd", "transition_bwd")
+# the paths whose K3 / K5 / K7 / K9 rows print their device time by kernel
+# (`device_time_line`): the train steps at full batch, whose numbers PERF.md
+# keeps (the multi-process dry run's rows at batch 1 read no device kernel)
+DEVICE_LINE_PATHS = ("l352train", "s960train")
 
 
 def block_bwd_sm90_route(kind: str, g: dict) -> bool:
-    """Whether a bf16 K3 or K7 (dx-only, unmasked) call at shape g runs
-    csrc/block_bwd_sm90.cu: K3 at C % 8 == 0 up to 1408 with hidden 32, K7
-    at c and head dim multiples of 8, the head dim up to 128
-    (`_adapter_bwd_library`, `_window_bwd_library`)."""
+    """Whether a bf16 K3, K5, K7 (dx-only, unmasked) or K9 call at shape g
+    runs csrc/block_bwd_sm90.cu: K3 at C % 8 == 0 up to 1408 with hidden 32,
+    K5, K7 and K9 at widths and head dims multiples of 8, the head dim up to
+    128, K5 and K9 on windows of 4 or 8 (`_adapter_bwd_library`,
+    `_window_bwd_library`, `_strips_bwd_library`, `_transition_bwd_library`)."""
     c = g["c"]
     if kind == "mlp_adapter_bwd":
         return c % 8 == 0 and g.get("hidden", 32) == 32 and c <= 1408
     d = c // g["heads"]
-    return c % 8 == 0 and c % g["heads"] == 0 and d % 8 == 0 and d <= 128
+    ok = c % 8 == 0 and c % g["heads"] == 0 and d % 8 == 0 and d <= 128
+    if kind == "window_bwd":
+        return ok
+    return ok and g["window"] in (4, 8) and g.get("cin", c) % 8 == 0
 
 
 @contextlib.contextmanager
 def block_bwd_old_route():
-    """K3's and K7's bf16 calls on the routes they took before
+    """K3's, K5's, K7's and K9's bf16 calls on the routes they took before
     csrc/block_bwd_sm90.cu (csrc/fused_mlp_bwd.cu, csrc/fused_attention_block_bwd.cu,
-    on the mma.sync GEMM and attention passes): the A/B of the timed rows."""
-    from sam2unet_torch.ops import fused_attention_block, fused_mlp
+    csrc/fused_transition_bwd.cu, on the mma.sync GEMM and attention
+    passes): the A/B of the timed rows."""
+    from sam2unet_torch.ops import fused_attention_block, fused_mlp, fused_transition
 
-    routes = fused_mlp._adapter_bwd_library, fused_attention_block._window_bwd_library
-    fused_mlp._adapter_bwd_library = lambda *a, **k: None
-    fused_attention_block._window_bwd_library = lambda *a, **k: None
+    routes = (fused_mlp._adapter_bwd_library, fused_attention_block._window_bwd_library,
+              fused_attention_block._strips_bwd_library,
+              fused_transition._transition_bwd_library)
+    none = lambda *a, **k: None  # noqa: E731
+    fused_mlp._adapter_bwd_library = fused_attention_block._window_bwd_library = none
+    fused_attention_block._strips_bwd_library = none
+    fused_transition._transition_bwd_library = none
     try:
         yield
     finally:
-        fused_mlp._adapter_bwd_library, fused_attention_block._window_bwd_library = routes
+        (fused_mlp._adapter_bwd_library, fused_attention_block._window_bwd_library,
+         fused_attention_block._strips_bwd_library,
+         fused_transition._transition_bwd_library) = routes
 
 
 def mlp_cublas_call(kind: str, g: dict, gen):
@@ -2355,22 +2380,57 @@ def profile_events(call) -> list:
     return prof.events()
 
 
-def device_time_line(call, calls: int = 5) -> str:
+def device_time_line(call, calls: int = 5, attempts: int = 4) -> str:
     """The device time a call of `call` takes in each of its kernels, and
     their sum (the row's time without the wrapper's host work), from
-    `calls` calls under torch.profiler."""
+    `calls` calls under torch.profiler. The profiler's first device records
+    have come back without their kernels (the first two to four launches of
+    a profile at 960, however long the pause before them; an acceptance
+    call read 3 of K5's 6 kernels at one shape without them; after two
+    calls of K3, two launches at 960): `calls` calls run first, and only
+    the launches inside the timed calls' annotation, and their kernels,
+    count. A profile whose trace still lacks one of their kernels, or whose entry-point calls launched unequal counts of
+    kernels (`profile_model.trace_call_kernels`), is taken again with a
+    longer pause on either side of the calls, `attempts` times in all, and
+    then the run fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
     from sam2unet_torch.utils import profile_model
 
-    events = profile_events(lambda: [call() for _ in range(calls)])
-    by_name = collections.Counter()
-    for e in profile_model.device_kernels(events):
-        by_name[e.name] += e.time_range.elapsed_us() / calls / 1e3
-    if not by_name:
-        return "no device kernel recorded"
+    torch.cuda.synchronize()
+    for attempt in range(1, attempts + 1):
+        pause = 0.05 * 4 ** (attempt - 1)   # s: 0.05, 0.2, 0.8, 3.2
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(pause)
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+            with record_function("device_time_line"):
+                for _ in range(calls):
+                    call()
+            torch.cuda.synchronize()
+            time.sleep(pause)
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = str(Path(tmp) / "trace.json")
+            prof.export_chrome_trace(trace)
+            by_name, faults = profile_model.trace_call_kernels(trace, calls,
+                                                              "device_time_line")
+        if not by_name:
+            faults.append("no device kernel recorded")
+        if not faults:
+            break
+        print(f"[device] profile {attempt} of {attempts} read part of the calls' "
+              f"kernels: {faults}", flush=True)
+    else:
+        fail(f"{attempts} profiles of the row each missed kernels of its calls: {faults}")
     short = lambda n: (n.replace("(anonymous namespace)::", "")  # noqa: E731
                        .replace("void ", "").split("(")[0][:48])
-    parts = ", ".join(f"{short(n)} {ms:.4f}" for n, ms in by_name.most_common())
-    return f"{sum(by_name.values()):.4f} ms of device kernels a call ({parts})"
+    ms = {n: us / calls / 1e3 for n, (us, _) in by_name.items()}
+    launches = sum(k for _, k in by_name.values()) // calls
+    parts = ", ".join(f"{short(n)} {v:.4f}" for n, v in sorted(ms.items(), key=lambda kv: -kv[1]))
+    return (f"{sum(ms.values()):.4f} ms of device kernels a call, {launches} launches "
+            f"({parts})")
 
 
 def hopper_forward_check(events: list, kernel: str, what: str) -> tuple[str, bool]:
@@ -2470,8 +2530,10 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
                 # bf16 K1 / K2 on csrc/mlp_sm90.cu at every width it takes
                 fail(f"{name} bf16 at {g} ran {libs}")
             if sk in BLOCK_BWD_KINDS and ("block_bwd_sm90" in libs) != block_bwd_sm90_route(sk, g):
-                # bf16 K3 / K7 (dx-only, unmasked) on csrc/block_bwd_sm90.cu
+                # bf16 K3 / K5 / K7 (dx-only, unmasked) / K9 on csrc/block_bwd_sm90.cu
                 fail(f"{name} bf16 at {g} ran {libs}")
+            small = (sk in SMALL_WINDOW_KINDS and path in DEVICE_LINE_PATHS
+                     and block_bwd_sm90_route(sk, g))
 
             near_ties = kind == "transition_bwd" and not g.get("ties")
             ok = (share <= K9_BF16_TOKEN_SHARE and rel <= K9_BF16_OUTLIER_REL
@@ -2482,7 +2544,7 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
                 line += (f", tokens past the tolerance {share:.3g} (at most "
                          f"{K9_BF16_TOKEN_SHARE}, each within "
                          f"{K9_BF16_OUTLIER_REL})")
-            if i == timed or spec.get("time_each"):
+            if i == timed or spec.get("time_each") or small:
                 ms = time_ms(call)
                 with dispatch.force_plain():
                     plain_ms = time_ms(call)
@@ -2505,14 +2567,16 @@ def kernel_phase(path: str, batch: int, gen) -> list[dict]:
                           f"torch.matmul) "
                           f"{time_ms(mlp_cublas_call(sk, g, gen)):.4f} ms",
                           flush=True)
-                if i == timed and sk in BLOCK_BWD_KINDS and block_bwd_sm90_route(sk, g):
-                    # at the timed shape the A/B against the route before,
-                    # and on a line before the device time of its kernels
+                if (i == timed or small) and sk in BLOCK_BWD_KINDS and block_bwd_sm90_route(sk, g):
+                    # at the timed shape (K5, K9: at each) the A/B against
+                    # the route before, and on the train paths, on a line
+                    # before, the device time of its kernels
                     with block_bwd_old_route():
                         old_ms = time_ms(call)
                     line += f" (mma.sync route {old_ms:.4f} ms)"
-                    print(f"[device] {name} {label} bf16 {g}: "
-                          f"{device_time_line(call)}", flush=True)
+                    if path in DEVICE_LINE_PATHS:
+                        print(f"[device] {name} {label} bf16 {g}: "
+                              f"{device_time_line(call)}", flush=True)
             if i == timed:
                 if (sk in BLOCK_BWD_KINDS and not spec.get("fp32")
                         and block_bwd_sm90_route(sk, g)):
@@ -3605,13 +3669,16 @@ def train_main_phase(path: str, tmp: Path, step_seeds: list[int],
 # points' profiler annotations, ops/build.py)
 TRACE_KERNELS = {"K1": ("k1_fused_mlp_sm90",), "K2": ("k2_mlp_bwd_dx_sm90",),
                  "K3": ("k3_adapter_bwd_sm90",), "K7": ("k7_window_block_bwd_sm90",),
+                 "K5": ("k5_window_block_strips_bwd_sm90",),
+                 "K9": ("k9_transition_bwd_sm90",),
                  "K10": ("k10_flash_attention_sm90",),
                  "K11": ("k11_flash_attention_bwd_delta",
                          "k11_flash_attention_bwd_dq_sm90",
                          "k11_flash_attention_bwd_dkv_sm90")}
-# K1's, K2's, K3's and K7's entry points, K10's forward and K11's dq and
-# dk/dv passes in bf16 before the Hopper kernels took them
+# K1's, K2's, K3's, K5's, K7's and K9's entry points, K10's forward and
+# K11's dq and dk/dv passes in bf16 before the Hopper kernels took them
 OLD_BF16 = ("k1_fused_mlp", "k2_mlp_bwd_dx", "k3_adapter_bwd", "k7_window_block_bwd",
+            "k5_window_block_strips_bwd", "k9_transition_bwd",
             "k10_flash_attention", "k10_flash_attention_d256",
             "k11_flash_attention_bwd_dq", "k11_flash_attention_bwd_dkv")
 
@@ -3709,7 +3776,7 @@ def cli_main_phase(path: str, tmp: Path, card: str) -> dict:
             fail(f"{label}: the trace names no device time of {k}")
     old = {e: by_name[e][1] for e in OLD_BF16 if e in by_name}
     if old:
-        fail(f"{label}: K1, K2, K3, K7, K10 or K11 in bf16 ran off the Hopper "
+        fail(f"{label}: K1, K2, K3, K5, K7, K9, K10 or K11 in bf16 ran off the Hopper "
              f"kernels: {old}")
 
     # the device evaluation at the same weights, the test and eval CLIs
@@ -4529,8 +4596,6 @@ def mlp_profile_check(by_entry: dict, device: dict, path: str, what: str) -> Non
     entry point's device time and calls (the kernels launched inside its
     annotation). `by_entry` and `device` are the step's trace read by
     `profile_model.trace_entry_kernels` and `trace_device_time`."""
-    from sam2unet_torch.utils import profile_model
-
     label, faults = PATHS[path]["label"], []
     entries = ("k1_fused_mlp", "k2_mlp_bwd_dx") if path == "s960train" else (
         "k1_fused_mlp",)
@@ -4545,16 +4610,7 @@ def mlp_profile_check(by_entry: dict, device: dict, path: str, what: str) -> Non
         if not any("_sm90_kernel" in k for k in new) or mma_sync or old:
             faults.append(entry)
     if path == "s960train":
-        rows = sorted(((n, v) for n, v in device.items()
-                       if n in profile_model.ENTRY_WRAPPER),
-                      key=lambda kv: -kv[1][0])
-        total = sum(v[0] for v in device.values())
-        print(f"[profile] {label} {what}: device time by entry point (the "
-              f"kernels launched inside its annotation), of "
-              f"{total / 1e3:.2f} ms of device kernels:", flush=True)
-        for n, (us, calls) in rows:
-            print(f"[profile]   {n:36s} {us / 1e3:9.3f} ms {calls:5d} kernels",
-                  flush=True)
+        entry_time_table(device, path, what)
         k12 = sum(v[0] for n, v in device.items() if n.startswith(
             ("k1_fused_mlp", "k2_mlp_bwd_dx")))
         print(f"[profile] {label} {what}: K1 + K2 {k12 / 1e3:.2f} ms a step",
@@ -4563,21 +4619,41 @@ def mlp_profile_check(by_entry: dict, device: dict, path: str, what: str) -> Non
         fail(f"{label}: {faults} ran off csrc/mlp_sm90.cu's kernels")
 
 
+def entry_time_table(device: dict, path: str, what: str) -> None:
+    """The device time of each hand-written entry point in a profiled
+    forward or step (the kernels launched inside its annotation), largest
+    first, of all device kernels' time. `device`: the trace read by
+    `profile_model.trace_device_time`."""
+    from sam2unet_torch.utils import profile_model
+
+    rows = sorted(((n, v) for n, v in device.items() if n in profile_model.ENTRY_WRAPPER),
+                  key=lambda kv: -kv[1][0])
+    total = sum(v[0] for v in device.values())
+    print(f"[profile] {PATHS[path]['label']} {what}: device time by entry point "
+          f"(the kernels launched inside its annotation), of {total / 1e3:.2f} ms "
+          f"of device kernels:", flush=True)
+    for n, (us, calls) in rows:
+        print(f"[profile]   {n:36s} {us / 1e3:9.3f} ms {calls:5d} kernels", flush=True)
+
+
 def block_bwd_profile_check(by_entry: dict, path: str, what: str) -> None:
-    """K3's and K7's entry points in a profiled l352train or s960train step
-    (bf16): every call must run csrc/block_bwd_sm90.cu's entry points
-    (`k3_adapter_bwd_sm90`, `k7_window_block_bwd_sm90`), whose device
-    kernels are its own, csrc/gemm_sm90.cuh's GEMM, K11's dk/dv pass and the
-    LN passes, none the mma.sync GEMM's (`gemm_bf16_kernel`,
+    """K3's, K5's, K7's and K9's entry points in a profiled l352train or
+    s960train step (bf16): every call must run csrc/block_bwd_sm90.cu's
+    entry points (`k3_adapter_bwd_sm90`, `k5_window_block_strips_bwd_sm90`,
+    `k7_window_block_bwd_sm90`, `k9_transition_bwd_sm90`), whose device
+    kernels are its own, csrc/gemm_sm90.cuh's GEMM, K11's dk/dv pass, K9's
+    unpool and the LN passes, none the mma.sync GEMM's (`gemm_bf16_kernel`,
     `gemm_bf16_bwd_kernel`) or attention passes (`attn_kernel`,
     `attn_bwd_*`), and their CUDA-core entry points (`k3_adapter_bwd`,
-    `k7_window_block_bwd`) must not run. `by_entry`: the step's trace read
-    by `profile_model.trace_entry_kernels`."""
+    `k5_window_block_strips_bwd`, `k7_window_block_bwd`,
+    `k9_transition_bwd`) must not run. `by_entry`: the step's trace read by
+    `profile_model.trace_entry_kernels`."""
     label, faults = PATHS[path]["label"], []
     own = ("k3_adapter_bwd_sm90_kernel", "k3_reduce_kernel", "mlp_gemm_sm90_kernel",
            "k7_qside_sm90_kernel", "k11_dkv_sm90_kernel", "ln_rows_kernel",
-           "ln_bwd_rows_kernel")
-    for entry in ("k3_adapter_bwd", "k7_window_block_bwd"):
+           "ln_bwd_rows_kernel", "k5_k9_window_attn_bwd_kernel", "unpool2x2_kernel")
+    for entry in ("k3_adapter_bwd", "k5_window_block_strips_bwd", "k7_window_block_bwd",
+                  "k9_transition_bwd"):
         new = by_entry.get(f"{entry}_sm90", {})
         old = by_entry.get(entry, {})
         other = sorted(k for k in new if not any(o in k for o in own))
@@ -4588,7 +4664,8 @@ def block_bwd_profile_check(by_entry: dict, path: str, what: str) -> None:
         if not new or other or old:
             faults.append((entry, other, sorted(old)[:4]))
     if faults:
-        fail(f"{label}: K3 / K7 ran off csrc/block_bwd_sm90.cu's kernels: {faults}")
+        fail(f"{label}: K3 / K5 / K7 / K9 ran off csrc/block_bwd_sm90.cu's kernels: "
+             f"{faults}")
 
 
 def profile_phase(path: str, batch: int, card: str,
@@ -4638,8 +4715,10 @@ def profile_phase(path: str, batch: int, card: str,
         print(f"[profile] {line}", flush=True)
         if not ok:
             fail(f"K10 ran off the Hopper forward: {line}")
-    if path in ("s960", "s960train", "l352train"):
-        # the trace once (a profile exports one), read by both checks
+    if path in ("s960", "s960train", "l352train", "l352"):
+        # the trace once (a profile exports one), read by the checks and,
+        # for the l352 forward, the device time by entry point (the ranking
+        # of the forward kernels K6, K4 and K8 on device time)
         with tempfile.TemporaryDirectory() as tmp:
             trace = str(Path(tmp) / "trace.json")
             prof.export_chrome_trace(trace)
@@ -4649,6 +4728,8 @@ def profile_phase(path: str, batch: int, card: str,
             mlp_profile_check(by_entry, device, path, what)
         if path in ("l352train", "s960train"):
             block_bwd_profile_check(by_entry, path, what)
+        if path == "l352":
+            entry_time_table(device, path, what)
     if path == "s960train":
         # K11's dq and dk/dv passes on the Hopper kernels, none on the old
         # bf16 instances (gone from csrc/flash_attention_bwd.cu)
@@ -4842,48 +4923,6 @@ def dp_cli_worker(spec: dict) -> dict:
             "variants": [[w, v, n] for (w, v), n in dispatch.variants.items()]}
 
 
-def dp_nccl_worker(spec: dict) -> dict:
-    """(c): world 1 through make_mesh, which picks NCCL for a rank with a
-    card of its own: the group's init, one all_reduce, one train step of
-    the SyncBN model, and its gradients all-reduced over NCCL."""
-    import torch
-    import torch.distributed as dist
-
-    from sam2unet_torch.ops import dispatch
-    from sam2unet_torch.parallel.mesh import make_mesh
-    from sam2unet_torch.train.engine import train_step
-    from sam2unet_torch.train.optim import make_optimizer, trainable_parameters
-
-    t0 = time.perf_counter()
-    mesh = make_mesh(DEV)
-    probe = torch.arange(4.0, device=mesh.device)
-    dist.all_reduce(probe)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    model = _train_model(spec["cfg"], Path(spec["ckpt"]), bf16=True).train()
-    opt = make_optimizer(model)
-    x, y = _train_batch(spec["batch"], spec["size"], seed=spec["seed"])
-    dispatch.reset_launches()
-    t0 = time.perf_counter()
-    loss = float(train_step(model, opt, x, y))
-    torch.cuda.synchronize()
-    step_ms = 1e3 * (time.perf_counter() - t0)
-    counts = dict(dispatch.launches)
-    variants = [[w, v, n] for (w, v), n in dispatch.variants.items()]
-    grads = torch.cat([p.grad.reshape(-1) for _, p in trainable_parameters(model)])
-    summed = grads.clone()
-    dist.all_reduce(summed)
-    torch.cuda.synchronize()
-    return {"backend": dist.get_backend(), "world": mesh.world,
-            "device": str(mesh.device), "probe": probe.tolist(),
-            "init_s": init_s, "loss": loss, "step_ms": step_ms,
-            "counts": counts, "variants": variants,
-            "grad_values": grads.numel(),
-            "grads_unchanged": bool(torch.equal(summed, grads))}
-
-
-
-
 def dp_worker_main(kind: str, spec_path: str) -> None:
     """A rank started by `_torchrun`: run the worker, write its result."""
     import torch
@@ -4907,8 +4946,8 @@ def _per_rank_launches(label: str, what: str, counts: dict, per: dict,
 
 def dp_main_phase(path: str, tmp: Path, card: str) -> dict:
     """(a) two ranks on the card over gloo against one process, (b) the
-    train CLI on two ranks and resumed from its JAX-layout train state,
-    (c) world 1 over NCCL. Returns the ranks' launch variants."""
+    train CLI on two ranks and resumed from its JAX-layout train state.
+    Returns the ranks' launch variants."""
     import torch
 
     from sam2unet_torch.ops import dispatch
@@ -5163,21 +5202,6 @@ def dp_main_phase(path: str, tmp: Path, card: str) -> dict:
                                r["counts"], per, 1)
             variants.update({(w, v): n for w, v, n in r["variants"]})
 
-    # (c) world 1 over NCCL
-    (nc,), wall3 = _torchrun(1, "nccl", {
-        "cfg": cfg, "ckpt": str(ckpt), "size": size, "batch": 2,
-        "seed": spec["seed"]}, tmp, timeout=200)
-    print(f"[main] {label} world 1 through make_mesh on {nc['device']}: "
-          f"backend {nc['backend']}, init + all_reduce {nc['init_s']:.2f} s "
-          f"(probe {nc['probe']}), one train step at batch 2 {nc['step_ms']:.1f}"
-          f" ms (loss {nc['loss']:.5f}), its {nc['grad_values']} gradient "
-          f"values all-reduced over {nc['backend']}, unchanged at world 1: "
-          f"{nc['grads_unchanged']}; the run {wall3:.1f} s", flush=True)
-    if (nc["backend"] != "nccl" or nc["probe"] != [0.0, 1.0, 2.0, 3.0]
-            or not nc["grads_unchanged"] or not math.isfinite(nc["loss"])):
-        fail(f"{label}: world 1 over NCCL failed: {nc}")
-    _per_rank_launches(label, "the NCCL step", nc["counts"], per_step, 1)
-    variants.update({(w, v): n for w, v, n in nc["variants"]})
     print(f"[main] {label} the path took {time.perf_counter() - t_path:.1f} s",
           flush=True)
     return dict(variants)
@@ -5227,8 +5251,7 @@ def mc_sp_worker(spec: dict) -> dict:
 
 
 # the ranks' work of s960dp and s352mc (`--dp_worker`)
-DP_WORKERS = {"step": dp_step_worker, "cli": dp_cli_worker,
-              "nccl": dp_nccl_worker, "mc_sp": mc_sp_worker}
+DP_WORKERS = {"step": dp_step_worker, "cli": dp_cli_worker, "mc_sp": mc_sp_worker}
 
 
 def _mc_faults(got: dict, want: dict) -> list[str]:
@@ -5991,11 +6014,12 @@ def sm90_build(out_dir: Path) -> None:
 
 
 def block_bwd_sm90_build(out_dir: Path) -> None:
-    """K3's and K7's Hopper kernels (csrc/block_bwd_sm90.cu): registers,
-    spills and shared memory a block (K3's plan at each main-path width,
-    K7's query-side and dk/dv blocks at each head-dim instance); a spill,
-    a serialization note (checked with the other Hopper sources) or any
-    warpgroup.arrive ptxas injects (C7519) fails the run."""
+    """K3's, K5's, K7's and K9's Hopper kernels (csrc/block_bwd_sm90.cu):
+    registers, spills and shared memory a block (K3's plan at each main-path
+    width, K7's query-side and dk/dv blocks at each head-dim instance, K5's
+    and K9's small-window pass at each window, mode and head-dim instance); a
+    spill, a serialization note (checked with the other Hopper sources) or
+    any warpgroup.arrive ptxas injects (C7519) fails the run."""
     from sam2unet_torch.ops import build
 
     build.library("block_bwd_sm90")   # its undefined LN symbols: gemm_any first
@@ -6013,16 +6037,24 @@ def block_bwd_sm90_build(out_dir: Path) -> None:
             fail(f"K3's Hopper kernel takes no plan at C {c}")
     smem = lib.k7_window_block_bwd_sm90_smem
     smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    sw = lib.k5_k9_window_attn_smem
+    sw.argtypes, sw.restype = [ctypes.c_int] * 3, ctypes.c_int
     wanted = {"k3_adapter_bwd_sm90_kernel": 2, "k3_reduce_kernel": 1,
               "k7_qside_sm90_kernel": 3, "k11_dkv_sm90_kernel": 3,
-              "mlp_gemm_sm90_kernel": 5}
+              "mlp_gemm_sm90_kernel": 5, "k5_k9_window_attn_bwd_kernel": 12}
     for name, n in wanted.items():
         lines = [ln.split(": ", 2)[1:] for ln in summary if name in ln]
         for fn, regs in lines:
             hit = re.search(r"ILi(\d+)E", fn) if "k7" in name or "k11" in name else None
             extra = (f" ({smem(int(hit[1]), 'k11' in name)} bytes of dynamic shared "
                      f"memory)" if hit else "")
-            print(f"[ptxas] K3 / K7 Hopper kernel {name} "
+            sw_hit = re.search(r"ILi(\d)ELb(\d)ELi(\d+)E", fn) if "k5_k9" in name else None
+            if sw_hit:   # <window, q-pool, padded head dim>
+                extra = (f" (window {sw_hit[1]}, {'K9' if sw_hit[2] == '1' else 'K5'}, "
+                         f"head dims up to {sw_hit[3]}: "
+                         f"{sw(int(sw_hit[1]), int(sw_hit[2]), int(sw_hit[3]))} bytes of "
+                         f"dynamic shared memory)")
+            print(f"[ptxas] K3 / K5 / K7 / K9 Hopper kernel {name} "
                   f"{fn[fn.find(name) + len(name):][:24]}: {regs}{extra}", flush=True)
         if len(lines) != n:
             fail(f"the build reports {len(lines)} instances of {name} in "

@@ -1,7 +1,9 @@
 // K3 and K7's dx-only unmasked mode in bf16 on Hopper's asynchronous path:
 // the trainable adapter's backward as one streaming pass whose products run
 // on warpgroup MMAs (wgmma) fed by TMA, and the window block's backward with
-// every product on wgmma and the query side of its attention in one pass.
+// every product on wgmma and the query side of its attention in one pass;
+// K5 and K9 in bf16 on windows of 4 or 8: their projections on the same
+// GEMM and one small-window attention pass over the grid's windows.
 //
 // Replaces sam2unet_tpu/ops/pallas/fused_mlp.py::_adapter_bwd_kernel (:461,
 // launched by _adapter_bwd at :551; K3) and
@@ -13,8 +15,29 @@
 // ops/fused_mlp.py, `_window_bwd_library` in ops/fused_attention_block.py).
 // fp32 and every other width stay on csrc/fused_mlp_bwd.cu,
 // csrc/fused_attention_block_bwd.cu and what they call (csrc/gemm_any.cu,
-// csrc/attention_any_bwd*.cu); K7's masked and weight-gradient modes, K5 and
-// K13 keep their sources.
+// csrc/attention_any_bwd*.cu); K7's masked and weight-gradient modes and K13
+// keep their sources.
+//
+// Also replaces fused_attention_block.py::_strip_bwd_kernel (:814, launched
+// by _fused_strips_bwd_impl at :1082; K5) and
+// sam2unet_tpu/ops/pallas/fused_transition.py::_transition_bwd_kernel
+// (:313, launched by _transition_bwd_impl at :483; K9) where the call is
+// bf16 on windows of 4 or 8 with widths and head dims multiples of 8, the
+// head dim up to 128 (`_strips_bwd_library`, and `_transition_bwd_library`
+// in ops/fused_transition.py); fp32 and the rest keep
+// csrc/fused_attention_block_bwd.cu and csrc/fused_transition_bwd.cu. Bound
+// on an H100: the bytes of the pipeline's launches (each a row pass or a
+// projection at c <= 576; the attention of a 64-key window is ~8 S c
+// operations a token), 23 c bytes x 2 a token for K5, (10 cin + 17 cout) x 2
+// a full-resolution token for K9. Launches: the LN pass (gemm.cuh's, four
+// lanes a row at c <= 192); QKV [and K9's shortcut] on the GEMM (kOut); dO
+// = gy W_proj (kDz); the small-window pass (design notes at
+// k5_k9_window_attn_bwd_kernel); [K9: the shortcut's unpool
+// (csrc/unpool2x2.cuh)]; dx_n = dqkv W_qkv (kDz) [K9: + dshort W_short, the
+// first product as the second's residual, each rounded]; the LN backward.
+// The grid's windows are addressed by the pass alone (a row's token from
+// its tile, window and position), so the row passes and the GEMMs take the
+// (B H W, c) rows in grid order.
 //
 // K3: dx, dW1, db1, dW2, db2 of x -> GELU(x W1^T + b1) -> GELU(h W2^T + b2)
 // [-> + x], hidden 32. Bound on an H100: the bytes of x, gy and dx (its
@@ -104,6 +127,7 @@
 #include "gemm_bwd.cuh"
 #include "gemm_sm90.cuh"
 #include "hopper.cuh"
+#include "unpool2x2.cuh"
 
 using namespace hopper;
 
@@ -836,6 +860,523 @@ __global__ void __launch_bounds__(384, 1) k7_qside_sm90_kernel(const __grid_cons
   }
 }
 
+// ---------------------------------------------------------------- K5, K9
+
+// The small-window attention pass of K5's and K9's bf16 route: windows of
+// WIN x WIN tokens (8 or 4) of a (B, H, W, c) grid, K9's with the 2x2
+// q-pool. A tile is 64 keys: one window at WIN 8, four windows of one strip
+// at WIN 4 (K9: their 16 or 4 x 4 pooled queries). Per tile, for one head:
+// S = Q K^T scale, P = softmax(S) exact over the window's keys, O = P V (only
+// for D = rowsum(dO o round(O)), O rounded as a stored O would be), dP = dO
+// V^T, dS = P (dP - D), dQ = dS K scale; then, from the tile's lse and D
+// through shared memory, S^T, P^T, dV = P^T dO, dP^T, dS^T and dK = dS^T Q
+// scale, each a 16-row product of one warp on mma.sync. No o, lse or D
+// buffer and no atomics: each output row belongs to one warp, and a
+// repeated call gives the same bits.
+template <int WIN, bool QPOOL, int DP> struct SwShape {
+  static constexpr int S = WIN * WIN;             // keys of a window
+  static constexpr int G = 64 / S;                // windows of a tile
+  static constexpr int SQ = QPOOL ? S / 4 : S;    // queries of a window
+  static constexpr int QROWS = G * SQ;            // query rows of a tile: 64 or 16
+  static constexpr int LDS = DP + 8;              // elements a shared-memory row (ldmatrix
+                                                  // rows 16 bytes apart mod 128: no conflict)
+  // a ring slot: K, V and Q (K9: the raw q) 64 rows each, then dO's rows
+  static constexpr int SLOT = (3 * 64 + QROWS) * LDS;
+  static constexpr int QP = 2 * SLOT;             // K9's pooled Q (16 rows)
+  static constexpr int STATS = QP + (QPOOL ? 16 * LDS : 0);   // lse (log2) and D, 64 each
+  static constexpr int SMEM = STATS * 2 + 2 * 64 * 4;
+  // phase Q: 16 queries of a warp against NK keys (a window's); phase K: 16
+  // keys against NQ queries. K9 at WIN 4 holds four windows' 16 pooled
+  // queries in one 16-row tile: warp w takes window w's keys against all
+  // 16 and keeps its window's four rows (MASK), and in phase K the same
+  // window's keys against the 16 queries, masked to its four
+  static constexpr int NK = WIN == 8 ? 64 : 16;
+  static constexpr int NQ = QPOOL ? 16 : (WIN == 8 ? 64 : 16);
+  static constexpr bool MASK = QPOOL && WIN == 4;
+  static constexpr int QITEMS = MASK ? G : QROWS / 16;
+  static_assert(S % 16 == 0 && 64 % S == 0, "windows of 16 or 64 tokens");
+};
+constexpr int kSwThreads = 128;
+
+struct SwParams {
+  const bf16* qkv;    // rows of `ld` elements: a token's q, k, v at 0, C, 2C
+  const bf16* dout;   // rows of C elements over (B, H, W), or (B, H/2, W/2) with the q-pool
+  bf16* dqkv;         // rows of `ldo` elements: dq, dk, dv at 0, C, 2C
+  long long ld, ldo;
+  int items;   // tiles x heads
+  int H, W, C, nh, d, wins_h, wins_w, tiles_w;
+  float scale, scale_log2;
+};
+
+// A tile: batch entry, window row, its first window along W, head.
+struct SwTile {
+  long long b;
+  int wy, gx0, h;
+};
+// (32-bit: a 64-bit division is a call, whose saved registers ptxas
+// counted as spills)
+__device__ __forceinline__ SwTile sw_tile(const SwParams& p, int item, int G) {
+  SwTile t;
+  t.h = item % p.nh;
+  int r = item / p.nh;
+  t.gx0 = (r % p.tiles_w) * G;
+  r /= p.tiles_w;
+  t.wy = r % p.wins_h;
+  t.b = r / p.wins_h;
+  return t;
+}
+
+// The token of key row r (window r / S of the tile, its token r % S in
+// row-major order), and whether that window lies inside the grid (a strip's
+// last tile at WIN 4 may hold fewer than four).
+template <int WIN>
+__device__ __forceinline__ long long sw_token(const SwParams& p, const SwTile& t, int r,
+                                              bool& valid) {
+  constexpr int S = WIN * WIN;
+  const int gi = r / S, tt = r % S;
+  valid = t.gx0 + gi < p.wins_w;
+  return (t.b * p.H + t.wy * WIN + tt / WIN) * p.W + (long long)(t.gx0 + gi) * WIN + tt % WIN;
+}
+// K9: the pooled token of pooled query row q over (B, H/2, W/2).
+template <int WIN>
+__device__ __forceinline__ long long sw_pooled(const SwParams& p, const SwTile& t, int q,
+                                               bool& valid) {
+  constexpr int HW = WIN / 2, SQ = HW * HW;
+  const int gi = q / SQ, pt = q % SQ;
+  valid = t.gx0 + gi < p.wins_w;
+  return (t.b * (p.H / 2) + t.wy * HW + pt / HW) * (p.W / 2) + (long long)(t.gx0 + gi) * HW
+         + pt % HW;
+}
+// K9: the key row of position k (row-major) of pooled query q's 2x2 cell.
+template <int WIN>
+__device__ __forceinline__ int sw_cell_row(int q, int k) {
+  constexpr int HW = WIN / 2, SQ = HW * HW;
+  const int gi = q / SQ, pt = q % SQ;
+  return gi * WIN * WIN + (2 * (pt / HW) + (k >> 1)) * WIN + 2 * (pt % HW) + (k & 1);
+}
+
+// One tile's K, V, Q (raw) and dO rows of head t.h into a ring slot, 16
+// bytes a copy (cp.async): eight lanes a row, each the chunks c8 and c8 + 8
+// of its d / 8 (d <= 128), a row's token computed once for its K, V and Q;
+// rows of windows past the grid read as zeros.
+template <int WIN, bool QPOOL, int DP>
+__device__ __forceinline__ void sw_load(const SwParams& p, int item, bf16* slot) {
+  using Sh = SwShape<WIN, QPOOL, DP>;
+  constexpr int LDS = Sh::LDS;
+  const SwTile t = sw_tile(p, item, Sh::G);
+  const int ch = p.d / 8, c8 = threadIdx.x & 7;
+  const long long hoff = (long long)t.h * p.d;
+  for (int r = threadIdx.x >> 3; r < 64; r += kSwThreads / 8) {
+    bool valid;
+    const long long tok = sw_token<WIN>(p, t, r, valid);
+    const bf16* src = valid ? p.qkv + tok * p.ld + hoff : p.qkv;
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int c = c8 + 8 * cc;
+      if (c < ch) {
+        cp_async16(slot + r * LDS + 8 * c, valid ? src + p.C + 8 * c : src, valid);   // K
+        cp_async16(slot + (64 + r) * LDS + 8 * c, valid ? src + 2 * p.C + 8 * c : src,
+                   valid);                                                             // V
+        cp_async16(slot + (128 + r) * LDS + 8 * c, valid ? src + 8 * c : src, valid);  // Q
+      }
+    }
+  }
+  for (int r = threadIdx.x >> 3; r < Sh::QROWS; r += kSwThreads / 8) {
+    bool valid;
+    const long long tok = QPOOL ? sw_pooled<WIN>(p, t, r, valid) : sw_token<WIN>(p, t, r, valid);
+    const bf16* src = valid ? p.dout + tok * p.C + hoff : p.dout;
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int c = c8 + 8 * cc;
+      if (c < ch) cp_async16(slot + (192 + r) * LDS + 8 * c, valid ? src + 8 * c : src, valid);
+    }
+  }
+}
+
+// s (16 x 8 NT, accumulator layout) = A (16 rows) B (8 NT rows)^T over DP
+// columns, rows LDS apart (csrc/attention_bwd_tiles.cuh's fragments).
+template <int NT, int DP>
+__device__ __forceinline__ void sw_dot(float (*s)[4], const bf16* A, const bf16* B, int lane) {
+  constexpr int LDS = DP + 8;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < DP / 16; ++kd) {
+    unsigned af[4];
+    ldmatrix_x4(af, A + (lane & 15) * LDS + kd * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int jj = 0; jj < NT / 2; ++jj) {
+      unsigned r[4];
+      ldmatrix_x4(r, B + (jj * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS + kd * 16
+                         + ((lane >> 3) & 1) * 8);
+      const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      mma_16816(s[2 * jj], af, b0);
+      mma_16816(s[2 * jj + 1], af, b1);
+    }
+  }
+}
+
+// acc (16 x DP) += p (16 x 8 NT, accumulator layout, rounded to bf16 as the
+// product's operand) B (8 NT rows of DP columns).
+template <int NT, int DP>
+__device__ __forceinline__ void sw_pv(float (*acc)[4], const float (*p)[4], const bf16* B,
+                                      int lane) {
+  constexpr int LDS = DP + 8;
+#pragma unroll
+  for (int kc = 0; kc < NT / 2; ++kc) {
+    const unsigned a[4] = {pack_bf16(p[2 * kc][0], p[2 * kc][1]),
+                           pack_bf16(p[2 * kc][2], p[2 * kc][3]),
+                           pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
+                           pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
+#pragma unroll
+    for (int fp = 0; fp < DP / 16; ++fp) {
+      unsigned r[4];
+      ldmatrix_x4_trans(r, B + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS + fp * 16
+                               + (lane >> 4) * 8);
+      const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      mma_16816(acc[2 * fp], a, b0);
+      mma_16816(acc[2 * fp + 1], a, b1);
+    }
+  }
+}
+
+template <int N> __device__ __forceinline__ void zero4(float (*a)[4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[j][e] = 0.f;
+}
+
+// Rows g and g + 8 (hh) of a 16 x DP accumulator times `mul` into the bf16
+// rows of tokens tok[hh] at column `col0` (the columns below d).
+template <int DP>
+__device__ __forceinline__ void sw_store(const SwParams& p, const float (*acc)[4],
+                                         const long long* tok, const bool* valid, long long col0,
+                                         float mul, int t4) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (!valid[hh]) continue;
+    bf16* out = p.dqkv + tok[hh] * p.ldo + col0 + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      if (8 * j >= p.d) break;
+      *reinterpret_cast<uint32_t*>(out + 8 * j) =
+          pack_bf16(acc[j][2 * hh] * mul, acc[j][2 * hh + 1] * mul);
+    }
+  }
+}
+
+// The larger of each bf16 of b and a, a's where they tie.
+__device__ __forceinline__ uint32_t max_bf16x2(uint32_t a, uint32_t b) {
+  const float2 x = unpack_bf16(a), y = unpack_bf16(b);
+  return (y.x > x.x ? b & 0xffffu : a & 0xffffu) | (y.y > x.y ? b & 0xffff0000u : a & 0xffff0000u);
+}
+
+// Phase Q, item `item` (this warp): 16 query rows against their window's
+// keys; writes dq, and the rows' lse (log2 units) and D for phase K.
+template <int WIN, bool QPOOL, int DP>
+__device__ __forceinline__ void sw_query_side(const SwParams& p, const SwTile& t,
+                                              const bf16* slot, const bf16* Q, int item,
+                                              float* lse2s, float* ds, int lane) {
+  using Sh = SwShape<WIN, QPOOL, DP>;
+  constexpr int LDS = Sh::LDS, NT = Sh::NK / 8, NF = DP / 8;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = QPOOL ? 0 : item * 16, k0 = Sh::NK == 64 ? 0 : item * 16;
+  // K9 at WIN 4: rows g and g + 8 are live where their window is the item's;
+  // a dead row's scores read as zeros and its P as zero, so it stays finite
+  bool rlive[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) rlive[hh] = !Sh::MASK || (g + 8 * hh) / Sh::SQ == item;
+  const bf16* K = slot + k0 * LDS;
+  const bf16* V = slot + (64 + k0) * LDS;
+  const bf16* dO = slot + (192 + q0) * LDS;
+  float s[NT][4];
+  sw_dot<NT, DP>(s, Q + q0 * LDS, K, lane);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, lse2[2], dd[2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v = s[j][e] * p.scale_log2;
+      if (!rlive[e >> 1]) v = 0.f;
+      s[j][e] = v;
+      m[e >> 1] = fmaxf(m[e >> 1], v);
+    }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) m[hh] = quad_max(m[hh]);   // finite: a query's own keys
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(s[j][e] - m[e >> 1]);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] = quad_sum(l[hh]);
+    lse2[hh] = m[hh] + log2f(l[hh]);
+  }
+  // P = exp2(s - lse2), as phase K forms it (no division: its slow path is
+  // a call)
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = rlive[e >> 1] ? exp2f(s[j][e] - lse2[e >> 1]) : 0.f;
+  {
+    // O = P V, for D = rowsum(dO o round(O)) only
+    float o[NF][4];
+    zero4<NF>(o);
+    sw_pv<NT, DP>(o, s, V, lane);
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float2 gv = unpack_bf16(
+            *reinterpret_cast<const uint32_t*>(dO + (g + 8 * hh) * LDS + 8 * j + 2 * t4));
+        sum[hh] += gv.x * round_to<bf16>(o[j][2 * hh]) + gv.y * round_to<bf16>(o[j][2 * hh + 1]);
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) dd[hh] = quad_sum(sum[hh]);
+  }
+  {
+    float dp[NT][4];
+    sw_dot<NT, DP>(dp, dO, V, lane);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= dp[j][e] - dd[e >> 1];   // dS
+  }
+  float dq[NF][4];
+  zero4<NF>(dq);
+  sw_pv<NT, DP>(dq, s, K, lane);
+  if (t4 == 0)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (!rlive[hh]) continue;
+      lse2s[q0 + g + 8 * hh] = lse2[hh];
+      ds[q0 + g + 8 * hh] = dd[hh];
+    }
+  const long long col0 = (long long)t.h * p.d;
+  if constexpr (!QPOOL) {
+    long long tok[2];
+    bool valid[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) tok[hh] = sw_token<WIN>(p, t, q0 + g + 8 * hh, valid[hh]);
+    sw_store<DP>(p, dq, tok, valid, col0, p.scale, t4);
+  } else {
+    // each pooled gradient to its cell's first maximum (row-major), zero at
+    // the other three positions, from the raw q still in the slot; a cell's
+    // rows and tokens from its first (arrays of the four went to the stack)
+    const bf16* raw = slot + 128 * LDS;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int q = q0 + g + 8 * hh;
+      bool valid;
+      sw_pooled<WIN>(p, t, q, valid);
+      if (!valid || !rlive[hh]) continue;
+      const int r0 = sw_cell_row<WIN>(q, 0);
+      const long long tok0 = sw_token<WIN>(p, t, r0, valid);
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+        if (8 * j >= p.d) break;
+        const int col = 8 * j + 2 * t4;
+        float2 mx = unpack_bf16(*reinterpret_cast<const uint32_t*>(raw + r0 * LDS + col));
+        int a0 = 0, a1 = 0;
+#pragma unroll
+        for (int k = 1; k < 4; ++k) {
+          const float2 c = unpack_bf16(*reinterpret_cast<const uint32_t*>(
+              raw + (r0 + (k >> 1) * WIN + (k & 1)) * LDS + col));
+          if (c.x > mx.x) {
+            mx.x = c.x;
+            a0 = k;
+          }
+          if (c.y > mx.y) {
+            mx.y = c.y;
+            a1 = k;
+          }
+        }
+        const float v0 = dq[j][2 * hh] * p.scale, v1 = dq[j][2 * hh + 1] * p.scale;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          *reinterpret_cast<uint32_t*>(
+              p.dqkv + (tok0 + (k >> 1) * p.W + (k & 1)) * p.ldo + col0 + col) =
+              pack_bf16(k == a0 ? v0 : 0.f, k == a1 ? v1 : 0.f);
+      }
+    }
+  }
+}
+
+// Phase K, item `item` (this warp): 16 key rows against their window's
+// queries, P^T from the queries' lse; writes dv and dk.
+template <int WIN, bool QPOOL, int DP>
+__device__ __forceinline__ void sw_key_side(const SwParams& p, const SwTile& t, const bf16* slot,
+                                            const bf16* Q, int item, const float* lse2s,
+                                            const float* ds, int lane) {
+  using Sh = SwShape<WIN, QPOOL, DP>;
+  constexpr int LDS = Sh::LDS, NT = Sh::NQ / 8, NF = DP / 8;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = item * 16, qb = (QPOOL || Sh::NQ == 64) ? 0 : item * 16;
+  const bf16* K = slot + k0 * LDS;
+  const bf16* V = slot + (64 + k0) * LDS;
+  const bf16* dO = slot + (192 + qb) * LDS;
+  const bf16* Qa = Q + qb * LDS;
+  float st[NT][4];   // S^T, then P^T, then dS^T: rows keys, columns queries
+  sw_dot<NT, DP>(st, K, Qa, lane);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = qb + 8 * j + 2 * t4 + (e & 1);
+      const bool live = !Sh::MASK || q / Sh::SQ == item;   // K9 at WIN 4: item = window
+      st[j][e] = live ? exp2f(fmaf(st[j][e], p.scale_log2, -lse2s[q])) : 0.f;
+    }
+  long long tok[2];
+  bool valid[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) tok[hh] = sw_token<WIN>(p, t, k0 + g + 8 * hh, valid[hh]);
+  const long long col0 = (long long)t.h * p.d;
+  {
+    float dv[NF][4];
+    zero4<NF>(dv);
+    sw_pv<NT, DP>(dv, st, dO, lane);
+    sw_store<DP>(p, dv, tok, valid, col0 + 2LL * p.C, 1.f, t4);
+  }
+  {
+    float dpt[NT][4];
+    sw_dot<NT, DP>(dpt, V, dO, lane);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] *= dpt[j][e] - ds[qb + 8 * j + 2 * t4 + (e & 1)];
+  }
+  float dk[NF][4];
+  zero4<NF>(dk);
+  sw_pv<NT, DP>(dk, st, Qa, lane);
+  sw_store<DP>(p, dk, tok, valid, col0 + p.C, p.scale, t4);
+}
+
+// A persistent block walks the (tile, head) items; each item's loads go
+// into one of two ring slots while the item before is computed. Four warps:
+// phase Q (four items, or K9's one at window 8), a barrier, phase K (four
+// items). Two blocks a SM (their slots fill shared memory up to head dim
+// 96): the bound lets ptxas give a thread up to 255 registers, where
+// __launch_bounds__(128) alone held the head-dim-128 instance to 168 and it
+// spilled.
+template <int WIN, bool QPOOL, int DP>
+__global__ void __launch_bounds__(kSwThreads, 2) k5_k9_window_attn_bwd_kernel(
+    const __grid_constant__ SwParams p) {
+  using Sh = SwShape<WIN, QPOOL, DP>;
+  constexpr int LDS = Sh::LDS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  float* lse2s = reinterpret_cast<float*>(sm + Sh::STATS);
+  float* ds = lse2s + 64;
+  bf16* qp = sm + Sh::QP;
+  // every column past d reads zero from here on: the loads write only the
+  // first d
+  for (int i = threadIdx.x; i < Sh::STATS / 8; i += kSwThreads)
+    reinterpret_cast<uint4*>(sm)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, ch = p.d / 8;
+  int item = blockIdx.x;
+  if (item < p.items) sw_load<WIN, QPOOL, DP>(p, item, sm);
+  cp_async_commit();
+  for (int n = 0; item < p.items; item += gridDim.x, ++n) {
+    const bf16* slot = sm + (n & 1) * Sh::SLOT;
+    if (item + gridDim.x < p.items)
+      sw_load<WIN, QPOOL, DP>(p, item + gridDim.x, sm + ((n + 1) & 1) * Sh::SLOT);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const SwTile t = sw_tile(p, item, Sh::G);
+    const bf16* Q = slot + 128 * LDS;
+    if constexpr (QPOOL) {
+      // the 2x2 max of each cell of the raw q, 16 bytes at a time
+      for (int i = threadIdx.x; i < Sh::QROWS * ch; i += kSwThreads) {
+        const int q = i / ch, c8 = i - q * ch;
+        uint4 v = *reinterpret_cast<const uint4*>(Q + sw_cell_row<WIN>(q, 0) * LDS + 8 * c8);
+#pragma unroll
+        for (int k = 1; k < 4; ++k) {
+          const uint4 u = *reinterpret_cast<const uint4*>(Q + sw_cell_row<WIN>(q, k) * LDS + 8 * c8);
+          v.x = max_bf16x2(v.x, u.x);
+          v.y = max_bf16x2(v.y, u.y);
+          v.z = max_bf16x2(v.z, u.z);
+          v.w = max_bf16x2(v.w, u.w);
+        }
+        *reinterpret_cast<uint4*>(qp + q * LDS + 8 * c8) = v;
+      }
+      __syncthreads();
+      Q = qp;
+    }
+    if (warp < Sh::QITEMS) sw_query_side<WIN, QPOOL, DP>(p, t, slot, Q, warp, lse2s, ds, lane);
+    __syncthreads();
+    sw_key_side<WIN, QPOOL, DP>(p, t, slot, Q, warp, lse2s, ds, lane);
+    __syncthreads();   // the slot is refilled by the next item's prefetch
+  }
+  cp_async_wait<0>();
+}
+
+// The padded head dim of an instance: d up to 80 (hiera_l's 72), 96
+// (hiera_s's) or 128. (An instance of 64 spilled at window 4 with the
+// q-pool; the smaller head dims take 80's.)
+inline int sw_head_dim(int d) { return d <= 80 ? 80 : d <= 96 ? 96 : 128; }
+
+template <int WIN, bool QPOOL, int DP>
+cudaError_t sw_launch(const SwParams& p, cudaStream_t s) {
+  using Sh = SwShape<WIN, QPOOL, DP>;
+  auto kernel = k5_k9_window_attn_bwd_kernel<WIN, QPOOL, DP>;
+  static bool raised[64] = {};
+  cudaError_t e = smem_limit_once(reinterpret_cast<const void*>(kernel), Sh::SMEM, raised);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSwThreads, Sh::SMEM);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int cap = per_sm * sm_count();
+  kernel<<<p.items < cap ? p.items : cap, kSwThreads, Sh::SMEM, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <int WIN, bool QPOOL>
+cudaError_t sw_dispatch(const SwParams& p, cudaStream_t s) {
+  switch (sw_head_dim(p.d)) {
+    case 80: return sw_launch<WIN, QPOOL, 80>(p, s);
+    case 96: return sw_launch<WIN, QPOOL, 96>(p, s);
+    default: return sw_launch<WIN, QPOOL, 128>(p, s);
+  }
+}
+
+// The small-window pass over the (B, H, W) grid's windows of `window` (4 or
+// 8) tokens a side: qkv rows `ld` apart, dO rows C apart (K9: over the
+// pooled grid), dqkv rows `ldo` apart.
+cudaError_t window_attention_bwd(const void* qkv, const void* dout, void* dqkv, long long ld,
+                                 long long ldo, int B, int H, int W, int C, int nh, int window,
+                                 bool qpool, cudaStream_t s) {
+  SwParams p = {};
+  p.qkv = static_cast<const bf16*>(qkv);
+  p.dout = static_cast<const bf16*>(dout);
+  p.dqkv = static_cast<bf16*>(dqkv);
+  p.ld = ld;
+  p.ldo = ldo;
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  p.nh = nh;
+  p.d = C / nh;
+  p.wins_h = H / window;
+  p.wins_w = W / window;
+  const int G = 64 / (window * window);
+  p.tiles_w = (p.wins_w + G - 1) / G;
+  const long long items = (long long)B * p.wins_h * p.tiles_w * nh;
+  if (items > INT_MAX) return cudaErrorInvalidValue;
+  p.items = (int)items;
+  p.scale = 1.f / sqrtf((float)p.d);
+  p.scale_log2 = p.scale * 1.4426950408889634f;
+  if (window == 8) return qpool ? sw_dispatch<8, true>(p, s) : sw_dispatch<8, false>(p, s);
+  return qpool ? sw_dispatch<4, true>(p, s) : sw_dispatch<4, false>(p, s);
+}
+
 // ------------------------------------------------------------ launchers
 
 cudaError_t k3_launch(const void* x, const void* gy, const void* w1, const void* b1,
@@ -1006,4 +1547,88 @@ extern "C" int k7_window_block_bwd_sm90_smem(int d, int dk_dv) {
     case 96: return dk_dv ? k11::Shape<96>::SMEM : QShape<96>::SMEM;
     default: return dk_dv ? k11::Shape<128>::SMEM : QShape<128>::SMEM;
   }
+}
+
+// K5: dx (B, H, W, c) of the strip block on a grid `window` (4 or 8)
+// divides; the arguments of k5_window_block_strips_bwd
+// (csrc/fused_attention_block_bwd.cu) without O, lse and D, bf16 only,
+// head dims multiples of 8 up to 128.
+extern "C" int k5_window_block_strips_bwd_sm90(int is_bf16, const void* x, const void* gy,
+                                               const void* w_qkv, const void* b_qkv,
+                                               const void* ln_w, const void* ln_b,
+                                               const void* w_proj, void* xn, void* qkv,
+                                               void* dout, void* dqkv, void* dxn, void* dx, int B,
+                                               int H, int W, int c, int nh, int window,
+                                               int residual, void* stream) {
+  if (!is_bf16 || B < 1 || H < 1 || W < 1 || nh < 1 || c % nh || (c / nh) > 128
+      || (window != 4 && window != 8) || H % window || W % window
+      || !views_vec16(c / nh, {c}, {x, gy, w_qkv, w_proj, xn, qkv, dout, dqkv, dxn, dx}))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const long long M = (long long)B * H * W;
+  cudaError_t e = launch_ln_dt(1, x, ln_w, ln_b, xn, M, c, s);
+  if (e != cudaSuccess) return (int)e;
+  e = sm90::gemm<sm90::kOut>(xn, w_qkv, b_qkv, nullptr, qkv, M, 3 * c, c, s);
+  if (e != cudaSuccess) return (int)e;
+  e = sm90::gemm<sm90::kDz>(gy, w_proj, nullptr, nullptr, dout, M, c, c, s);
+  if (e != cudaSuccess) return (int)e;
+  e = window_attention_bwd(qkv, dout, dqkv, 3LL * c, 3LL * c, B, H, W, c, nh, window, false, s);
+  if (e != cudaSuccess) return (int)e;
+  e = sm90::gemm<sm90::kDz>(dqkv, w_qkv, nullptr, nullptr, dxn, M, c, 3 * c, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_ln_bwd_dt(1, x, ln_w, dxn, residual ? gy : nullptr, dx, M, c, s);
+}
+
+// K9: dx (B, H, W, cin) of the q-pool transition on a grid an even
+// `window` (4 or 8) divides; the arguments of k9_transition_bwd
+// (csrc/fused_transition_bwd.cu) without O, lse and D, bf16 only, cin, cout
+// and the head dim multiples of 8, the head dim up to 128. dcat is (B H W,
+// 4 cout): dq, dk, dv, dshort; xn holds the second branch's sum at the end.
+extern "C" int k9_transition_bwd_sm90(int is_bf16, const void* x, const void* gy,
+                                      const void* w_qkv, const void* b_qkv, const void* ln_w,
+                                      const void* ln_b, const void* w_proj, const void* w_short,
+                                      const void* b_short, void* xn, void* qkv, void* shortcut,
+                                      void* dout, void* dcat, void* dxn, void* dx, int B, int H,
+                                      int W, int cin, int cout, int nh, int window,
+                                      void* stream) {
+  if (!is_bf16 || B < 1 || H < 1 || W < 1 || nh < 1 || cout % nh || (cout / nh) > 128
+      || (window != 4 && window != 8) || H % window || W % window
+      || !views_vec16(cout / nh, {cin, cout},
+                      {x, gy, w_qkv, w_proj, w_short, xn, qkv, shortcut, dout, dcat, dxn, dx}))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const long long M = (long long)B * H * W, M2 = M / 4;
+  cudaError_t e = launch_ln_dt(1, x, ln_w, ln_b, xn, M, cin, s);
+  if (e != cudaSuccess) return (int)e;
+  e = sm90::gemm<sm90::kOut>(xn, w_qkv, b_qkv, nullptr, qkv, M, 3 * cout, cin, s);
+  if (e != cudaSuccess) return (int)e;
+  e = sm90::gemm<sm90::kOut>(xn, w_short, b_short, nullptr, shortcut, M, cout, cin, s);
+  if (e != cudaSuccess) return (int)e;
+  e = sm90::gemm<sm90::kDz>(gy, w_proj, nullptr, nullptr, dout, M2, cout, cout, s);
+  if (e != cudaSuccess) return (int)e;
+  e = window_attention_bwd(qkv, dout, dcat, 3LL * cout, 4LL * cout, B, H, W, cout, nh, window,
+                           true, s);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_unpool2x2<bf16>(shortcut, gy, dcat, B, H, W, cout, s);
+  if (e != cudaSuccess) return (int)e;
+  // dLN(x) = round(dqkv W_qkv) + round(dshort W_short): the second product's
+  // epilogue adds the first after rounding its own
+  e = sm90::gemm<sm90::kDz>(dcat, w_qkv, nullptr, nullptr, dxn, M, cin, 3 * cout, s, 4LL * cout);
+  if (e != cudaSuccess) return (int)e;
+  e = sm90::gemm<sm90::kDz>(static_cast<const bf16*>(dcat) + 3LL * cout, w_short, nullptr, dxn,
+                            xn, M, cin, cout, s, 4LL * cout);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_ln_bwd_dt(1, x, ln_w, xn, nullptr, dx, M, cin, s);
+}
+
+// The dynamic shared memory, in bytes, of K5's (qpool 0) or K9's small-window
+// pass at window 4 or 8 and head dim d.
+extern "C" int k5_k9_window_attn_smem(int window, int qpool, int d) {
+  const int dp = sw_head_dim(d);
+#define SW_SMEM(WIN, QP)                                            \
+  (dp == 80 ? SwShape<WIN, QP, 80>::SMEM : dp == 96 ? SwShape<WIN, QP, 96>::SMEM \
+            : SwShape<WIN, QP, 128>::SMEM)
+  if (window == 8) return qpool ? SW_SMEM(8, true) : SW_SMEM(8, false);
+  return qpool ? SW_SMEM(4, true) : SW_SMEM(4, false);
+#undef SW_SMEM
 }

@@ -40,33 +40,51 @@
 
 // ------------------------------------------------------------------ LN
 
+// One warp a row (256 threads, 8 rows a block) takes K up to 2048: each
+// lane up to LN_MAXV 8-element vectors. At K up to LN_NARROW_MAX_K the
+// launchers give a row four lanes instead (64 rows a block, each lane up to
+// LN_NARROW_MAXV vectors): with a warp a row, the lanes past K / 8 idle,
+// and at c 96 the LN backward ran at a tenth of its bytes' rate. Both
+// forms sum a row over its lanes by xor shuffles (`lane_group_sum`), the
+// warp form exactly as `warp_sum` does.
 constexpr int LN_MAXV = 8;   // K <= 32 lanes * 8 vectors * 8 = 2048
+constexpr int LN_NARROW_LANES = 4, LN_NARROW_MAXV = 6;
+constexpr int LN_NARROW_MAX_K = LN_NARROW_LANES * LN_NARROW_MAXV * 8;   // 192
 
-template <typename T>
+template <int LANES>
+__device__ __forceinline__ float lane_group_sum(float v) {
+#pragma unroll
+  for (int o = LANES / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// LANES lanes a row, each up to MAXV vectors of it; every lane of a warp
+// takes part in the shuffles, its row past M or not.
+template <typename T, int LANES, int MAXV>
 __global__ void __launch_bounds__(256) ln_rows_kernel(
     const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
     T* __restrict__ y, long long M, int K) {
-  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;
+  const long long row = ((long long)blockIdx.x * 256 + threadIdx.x) / LANES;
+  const int lane = threadIdx.x % LANES;
+  const bool live = row < M;
   const int nv = K / 8;
   const T* xr = x + row * K;
-  float f[LN_MAXV][8];
+  float f[MAXV][8];
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
-    const int v = lane + 32 * i;
-    if (v < nv) {
+  for (int i = 0; i < MAXV; ++i) {
+    const int v = lane + LANES * i;
+    if (live && v < nv) {
       v8_to_floats(v8_load(xr + v * 8), f[i]);
 #pragma unroll
       for (int e = 0; e < 8; ++e) s += f[i][e];
     }
   }
-  const float mu = warp_sum(s) / K;
+  const float mu = lane_group_sum<LANES>(s) / K;
   float var = 0.f;
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
-    if (lane + 32 * i < nv) {
+  for (int i = 0; i < MAXV; ++i) {
+    if (live && lane + LANES * i < nv) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const float d = f[i][e] - mu;
@@ -74,11 +92,11 @@ __global__ void __launch_bounds__(256) ln_rows_kernel(
       }
     }
   }
-  const float rs = rsqrtf(warp_sum(var) / K + 1e-6f);
+  const float rs = rsqrtf(lane_group_sum<LANES>(var) / K + 1e-6f);
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
-    const int v = lane + 32 * i;
-    if (v < nv) {
+  for (int i = 0; i < MAXV; ++i) {
+    const int v = lane + LANES * i;
+    if (live && v < nv) {
       float g[8], bb[8], o[8];
       v8_to_floats(v8_load(w + v * 8), g);
       v8_to_floats(v8_load(b + v * 8), bb);
@@ -89,14 +107,25 @@ __global__ void __launch_bounds__(256) ln_rows_kernel(
   }
 }
 
+// Blocks of 256 threads for M rows of K in the launchers' form for K.
+inline long long ln_blocks(long long M, int K) {
+  const int rows = K <= LN_NARROW_MAX_K ? 256 / LN_NARROW_LANES : 8;
+  return (M + rows - 1) / rows;
+}
+
 template <typename T>
 static cudaError_t launch_ln(const void* x, const void* w, const void* b,
                              void* y, long long M, int K, cudaStream_t stream) {
-  const long long blocks = (M + 7) / 8;
+  const long long blocks = ln_blocks(M, K);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  ln_rows_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
-      reinterpret_cast<const T*>(x), reinterpret_cast<const T*>(w),
-      reinterpret_cast<const T*>(b), reinterpret_cast<T*>(y), M, K);
+  const T *xt = reinterpret_cast<const T*>(x), *wt = reinterpret_cast<const T*>(w),
+          *bt = reinterpret_cast<const T*>(b);
+  T* yt = reinterpret_cast<T*>(y);
+  if (K <= LN_NARROW_MAX_K)
+    ln_rows_kernel<T, LN_NARROW_LANES, LN_NARROW_MAXV><<<(unsigned)blocks, 256, 0, stream>>>(
+        xt, wt, bt, yt, M, K);
+  else
+    ln_rows_kernel<T, 32, LN_MAXV><<<(unsigned)blocks, 256, 0, stream>>>(xt, wt, bt, yt, M, K);
   return cudaGetLastError();
 }
 

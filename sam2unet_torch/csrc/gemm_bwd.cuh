@@ -272,34 +272,35 @@ static cudaError_t launch_gemm_bwd_dt(int is_bf16, const GemmParams& p,
 // ------------------------------------------------------------ LN backward
 
 // dx = r (dxh - mean(dxh) - xh mean(dxh xh)) [+ gy], dxh = dy * w, with the
-// row statistics recomputed from x as ln_rows computes them; one warp per
-// row, everything in fp32, dx rounded once.
-template <typename T>
+// row statistics recomputed from x as ln_rows computes them; LANES lanes a
+// row as there (gemm.cuh: a warp, or four at K up to LN_NARROW_MAX_K),
+// everything in fp32, dx rounded once.
+template <typename T, int LANES, int MAXV>
 __global__ void __launch_bounds__(256) ln_bwd_rows_kernel(
     const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ dy,
     const T* __restrict__ gy, T* __restrict__ dx, long long M, int K) {
-  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;
+  const long long row = ((long long)blockIdx.x * 256 + threadIdx.x) / LANES;
+  const int lane = threadIdx.x % LANES;
+  const bool live = row < M;   // every lane takes part in the shuffles
   const int nv = K / 8;
   const T* xr = x + row * K;
   const T* dr = dy + row * K;
-  float f[LN_MAXV][8], dh[LN_MAXV][8];
+  float f[MAXV][8], dh[MAXV][8];
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
-    const int v = lane + 32 * i;
-    if (v < nv) {
+  for (int i = 0; i < MAXV; ++i) {
+    const int v = lane + LANES * i;
+    if (live && v < nv) {
       v8_to_floats(v8_load(xr + v * 8), f[i]);
 #pragma unroll
       for (int e = 0; e < 8; ++e) s += f[i][e];
     }
   }
-  const float mu = warp_sum(s) / K;
+  const float mu = lane_group_sum<LANES>(s) / K;
   float var = 0.f;
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
-    if (lane + 32 * i < nv) {
+  for (int i = 0; i < MAXV; ++i) {
+    if (live && lane + LANES * i < nv) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const float d = f[i][e] - mu;
@@ -307,12 +308,12 @@ __global__ void __launch_bounds__(256) ln_bwd_rows_kernel(
       }
     }
   }
-  const float rs = rsqrtf(warp_sum(var) / K + 1e-6f);
+  const float rs = rsqrtf(lane_group_sum<LANES>(var) / K + 1e-6f);
   float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
-    const int v = lane + 32 * i;
-    if (v < nv) {
+  for (int i = 0; i < MAXV; ++i) {
+    const int v = lane + LANES * i;
+    if (live && v < nv) {
       float g[8];
       v8_to_floats(v8_load(dr + v * 8), dh[i]);
       v8_to_floats(v8_load(w + v * 8), g);
@@ -325,11 +326,11 @@ __global__ void __launch_bounds__(256) ln_bwd_rows_kernel(
       }
     }
   }
-  const float m1 = warp_sum(s1) / K, m2 = warp_sum(s2) / K;
+  const float m1 = lane_group_sum<LANES>(s1) / K, m2 = lane_group_sum<LANES>(s2) / K;
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
-    const int v = lane + 32 * i;
-    if (v < nv) {
+  for (int i = 0; i < MAXV; ++i) {
+    const int v = lane + LANES * i;
+    if (live && v < nv) {
       float o[8], r[8];
       if (gy) v8_to_floats(v8_load(gy + row * K + v * 8), r);
 #pragma unroll
@@ -342,24 +343,31 @@ __global__ void __launch_bounds__(256) ln_bwd_rows_kernel(
   }
 }
 
+template <typename T>
+static cudaError_t launch_ln_bwd(const void* x, const void* w, const void* dy,
+                                 const void* gy, void* dx, long long M, int K,
+                                 cudaStream_t stream) {
+  const long long blocks = ln_blocks(M, K);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const T *xt = reinterpret_cast<const T*>(x), *wt = reinterpret_cast<const T*>(w),
+          *dyt = reinterpret_cast<const T*>(dy), *gyt = reinterpret_cast<const T*>(gy);
+  T* dxt = reinterpret_cast<T*>(dx);
+  if (K <= LN_NARROW_MAX_K)
+    ln_bwd_rows_kernel<T, LN_NARROW_LANES, LN_NARROW_MAXV><<<(unsigned)blocks, 256, 0, stream>>>(
+        xt, wt, dyt, gyt, dxt, M, K);
+  else
+    ln_bwd_rows_kernel<T, 32, LN_MAXV><<<(unsigned)blocks, 256, 0, stream>>>(
+        xt, wt, dyt, gyt, dxt, M, K);
+  return cudaGetLastError();
+}
+
 static cudaError_t launch_ln_bwd_dt(int is_bf16, const void* x, const void* w,
                                     const void* dy, const void* gy, void* dx,
                                     long long M, int K, cudaStream_t stream) {
   if (!ln_vec16(K, {x, w, dy, gy, dx}))
     return (cudaError_t)gany_ln_bwd(is_bf16, x, w, dy, gy, dx, M, K, stream);
-  const long long blocks = (M + 7) / 8;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  if (is_bf16)
-    ln_bwd_rows_kernel<bf16><<<(unsigned)blocks, 256, 0, stream>>>(
-        reinterpret_cast<const bf16*>(x), reinterpret_cast<const bf16*>(w),
-        reinterpret_cast<const bf16*>(dy), reinterpret_cast<const bf16*>(gy),
-        reinterpret_cast<bf16*>(dx), M, K);
-  else
-    ln_bwd_rows_kernel<float><<<(unsigned)blocks, 256, 0, stream>>>(
-        reinterpret_cast<const float*>(x), reinterpret_cast<const float*>(w),
-        reinterpret_cast<const float*>(dy), reinterpret_cast<const float*>(gy),
-        reinterpret_cast<float*>(dx), M, K);
-  return cudaGetLastError();
+  return is_bf16 ? launch_ln_bwd<bf16>(x, w, dy, gy, dx, M, K, stream)
+                 : launch_ln_bwd<float>(x, w, dy, gy, dx, M, K, stream);
 }
 
 // ----------------------------------------------------- weight gradients

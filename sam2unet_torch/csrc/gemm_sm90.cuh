@@ -2,11 +2,12 @@
 // asynchronous path: products on warpgroup MMAs (wgmma) fed by TMA, the
 // output staged and stored by TMA, in four epilogue kinds. Header-only, so
 // that each library instantiates only the kinds and column tiles it calls:
-// csrc/mlp_sm90.cu (K1 and K2, every kind) and csrc/block_bwd_sm90.cu (K7's
-// projections: kOut for QKV plus its bias, kDz for dO = gy W_proj and dx_n =
-// dqkv W_qkv). The design notes are csrc/mlp_sm90.cu's; also here the GELU
-// and its derivative from one exponential and the swizzled shared-memory
-// words the epilogues read and write.
+// csrc/mlp_sm90.cu (K1 and K2, every kind) and csrc/block_bwd_sm90.cu (K5's,
+// K7's and K9's projections: kOut for QKV [and K9's shortcut] plus its bias,
+// kDz for dO = gy W_proj and dx_n = dqkv W_qkv [+ dshort W_short]). The
+// design notes are csrc/mlp_sm90.cu's; also here the GELU and its
+// derivative from one exponential and the swizzled shared-memory words the
+// epilogues read and write.
 #pragma once
 
 #include <limits.h>
@@ -354,15 +355,16 @@ cudaError_t launch_gemm(GemmArgs& p, cudaStream_t stream) {
 }
 
 // out (M x N) = epi(A (M x K) W^T), W (N x K) K-major (kGelu, kOut), or
-// epi(A W) with W (K x N) MN-major (kDz). The residual's epilogue leaves
-// K1's second product (kOut) no room for a 192-wide accumulator (it
-// spilled).
+// epi(A W) with W (K x N) MN-major (kDz); A's rows `lda` elements apart (0:
+// K; K9's two products read column blocks of one gradient buffer). The
+// residual's epilogue leaves K1's second product (kOut) no room for a
+// 192-wide accumulator (it spilled).
 template <int KIND>
 cudaError_t gemm(const void* A, const void* W, const void* bias, const void* res, void* out,
-                 long long M, int N, int K, cudaStream_t stream) {
+                 long long M, int N, int K, cudaStream_t stream, long long lda = 0) {
   const int bn = KIND == kOut ? pick_bn(M, N, {144, 96}) : pick_bn(M, N, {192, 144, 96});
   GemmArgs p = {};
-  const bool ok = tensor_map_2d(&p.a, A, K, M, K, 64, kBM)
+  const bool ok = tensor_map_2d(&p.a, A, K, M, lda ? lda : K, 64, kBM)
                   && (KIND == kDz ? tensor_map_2d(&p.b, W, N, K, N, 64, 64)
                                   : tensor_map_2d(&p.b, W, K, N, K, 64, bn))
                   && tensor_map_2d(&p.o, out, N, M, N, 64, 64);

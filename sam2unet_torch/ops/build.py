@@ -142,10 +142,13 @@ SIGNATURES = {
     # K3 and K7's dx-only unmasked mode in bf16 on wgmma fed by TMA
     # (csrc/hopper.cuh, csrc/gemm_sm90.cuh): K3's arguments are the partial
     # buffer's and the outputs' (no intermediate buffers) and its grid; K7's
-    # those of its CUDA-core entry point without O
+    # those of its CUDA-core entry point without O; K5's and K9's without O,
+    # lse and D (their small-window pass keeps them on the SM)
     "block_bwd_sm90": {
         "k3_adapter_bwd_sm90": [_I, *[_P] * 12, _L, _I, _I, _I, _I, _P],
         "k7_window_block_bwd_sm90": [_I, *[_P] * 15, *[_I] * 5, _P],
+        "k5_window_block_strips_bwd_sm90": [_I, *[_P] * 13, *[_I] * 7, _P],
+        "k9_transition_bwd_sm90": [_I, *[_P] * 16, *[_I] * 7, _P],
     },
     "full_attention": {"k14_full_attention": _K14},
     # K14 at head dim 256, a translation unit of its own

@@ -89,6 +89,18 @@ def stream_of(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def workspace(device: torch.device, *nbytes: int) -> list[int]:
+    """Pointers to buffers of these sizes in bytes, each 256-byte aligned,
+    in one allocation: an entry point's scratch (one allocation, not one a
+    buffer, before its first launch)."""
+    at, offs = 0, []
+    for n in nbytes:
+        offs.append(at)
+        at += -(-n // 256) * 256
+    ws = torch.empty(at, dtype=torch.uint8, device=device)
+    return [ws.data_ptr() + o for o in offs]
+
+
 def cast(dtype: torch.dtype, *tensors: torch.Tensor | None) -> tuple:
     """Each tensor in `dtype` (itself where it already is; None stays)."""
     return tuple(t if t is None or t.dtype == dtype else t.to(dtype)

@@ -11,7 +11,9 @@ sam2unet_tpu/ops/pallas/fused_attention_block.py (`fused_window_block` /
 the kernels are csrc/fused_attention_block.cu, csrc/flash_attention.cu,
 csrc/flash_attention_bwd.cu (K11), csrc/fused_attention_block_bwd.cu (K5,
 K7), csrc/block_bwd_sm90.cu (K7's dx-only unmasked mode in bf16 on wgmma
-fed by TMA; `_window_bwd_library` decides),
+fed by TMA; `_window_bwd_library` decides; K5's bf16 calls on windows of 4
+or 8, its projections on the same GEMM and one small-window attention
+pass; `_strips_bwd_library` decides),
 csrc/fused_attention_block_wgrad.cu (K7's weight-gradient mode) and
 csrc/fused_attention_block_rem_bwd.cu (K13).
 
@@ -67,6 +69,9 @@ BWD_LIVE_BYTES = 8 * 1024 * 1024
 # the widest head dim of K7's Hopper query-side and dk/dv blocks (d padded to
 # 64, 96 or 128: K11's block shapes, csrc/flash_attention_bwd_sm90.cuh)
 SM90_K7_MAX_HEAD_DIM = 128
+# the windows (a side) of K5's and K9's small-window Hopper pass: a tile of
+# 64 keys holds one window of 8 x 8 or four of 4 x 4
+SM90_SMALL_WINDOWS = (4, 8)
 
 
 def plain_window_block(x, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
@@ -335,6 +340,29 @@ def _window_bwd_library(dtype: torch.dtype, c: int,
     ok = (dtype == torch.bfloat16 and c % 8 == 0 and d > 0 and d % 8 == 0
           and d <= SM90_K7_MAX_HEAD_DIM)
     return SM90_BLOCK_BWD if ok else None
+
+
+def small_window_sm90(dtype: torch.dtype, c: int, num_heads: int,
+                      window: int) -> bool:
+    """Whether K5's or K9's call, its attention of width c over `num_heads`
+    heads on `window`-wide windows, takes csrc/block_bwd_sm90.cu's
+    small-window route: K7's terms (`_window_bwd_library`: bf16, c and the
+    head dim multiples of 8 elements, the head dim up to
+    `SM90_K7_MAX_HEAD_DIM`) and windows of 16 or 64 tokens (window 4 or 8:
+    window**2 at most 64, and the 16-aligned windows the JAX package's K5
+    and K9 take), whose pass holds a window's whole score tile."""
+    return (_window_bwd_library(dtype, c, num_heads) is not None
+            and window in SM90_SMALL_WINDOWS)
+
+
+def _strips_bwd_library(dtype: torch.dtype, c: int, num_heads: int,
+                        window: int) -> str | None:
+    """The library of K5's call on a (B, H, W, c) grid of `window`-wide
+    windows over `num_heads` heads: csrc/block_bwd_sm90.cu where
+    `small_window_sm90` holds; None leaves it to
+    csrc/fused_attention_block_bwd.cu (fp32, other widths, head dims and
+    windows)."""
+    return SM90_BLOCK_BWD if small_window_sm90(dtype, c, num_heads, window) else None
 
 
 def _check_block(x, c, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj, num_heads):
@@ -735,20 +763,13 @@ def window_block_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
 def _launch_bwd_sm90(is_bf16, x, gy, weights, geometry):
     """K7's dx-only unmasked mode on csrc/block_bwd_sm90.cu. Its scratch,
     LN(x), qkv, dO, dqkv and dLN(x) in x's dtype and lse and D in fp32 (no
-    O: the query side keeps it in registers), is one workspace the entry
-    point gets pointers into: one allocation, not seven, before the first
-    launch."""
+    O: the query side keeps it in registers), is one workspace."""
     nw, s, c, nh = geometry[:4]
-    m = nw * s
-    at, offs = 0, []
-    for nbytes in (m * c * x.element_size(), 3 * m * c * x.element_size(),
-                   m * c * x.element_size(), 3 * m * c * x.element_size(),
-                   m * c * x.element_size(), nw * nh * s * 4, nw * nh * s * 4):
-        offs.append(at)
-        at += -(-nbytes // 256) * 256
-    ws = torch.empty(at, dtype=torch.uint8, device=x.device)
+    m, es = nw * s, x.element_size()
+    xn, qkv, dout, dqkv, dxn, lse, d_rows = dispatch.workspace(
+        x.device, *(w * m * c * es for w in (1, 3, 1, 3, 1)), nw * nh * s * 4,
+        nw * nh * s * 4)
     dx = torch.empty_like(x)
-    xn, qkv, dout, dqkv, dxn, lse, d_rows = (ws.data_ptr() + o for o in offs)
     p = dispatch.ptr
     err = build.library(SM90_BLOCK_BWD).k7_window_block_bwd_sm90(
         is_bf16, p(x), p(gy), *(p(w) for w in weights), xn, qkv, lse, dout,
@@ -785,7 +806,10 @@ def window_block_strips_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
                             residual: bool = True) -> torch.Tensor:
     """K5: dx of `fused_window_block_strips` on (B, H, W, c), a
     window-divisible grid, for a cotangent gy, the weights frozen;
-    recomputed from x. Plain version: autograd through `plain_strips`."""
+    recomputed from x. bf16 calls that `_strips_bwd_library` takes run
+    csrc/block_bwd_sm90.cu: the LN pass and the three projections as K7's
+    there, and one small-window attention pass over the grid's windows (no
+    o, lse or D buffer). Plain version: autograd through `plain_strips`."""
     if not dispatch.use_kernel(x):
         fn = functools.partial(plain_strips, w_qkv=w_qkv, b_qkv=b_qkv,
                                ln_w=ln_w, ln_b=ln_b, w_proj=w_proj,
@@ -799,6 +823,17 @@ def window_block_strips_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
     is_bf16, gy, weights = _block_bwd_args(x, gy, w_qkv, b_qkv, ln_w, ln_b,
                                            w_proj, b_proj, num_heads)
     m, windows = b * hh * wd, b * (hh // window) * (wd // window)
+    if _strips_bwd_library(x.dtype, c, num_heads, window):
+        dx = torch.empty_like(x)
+        ws = dispatch.workspace(
+            x.device, *(w * m * c * x.element_size() for w in (1, 3, 1, 3, 1)))
+        p = dispatch.ptr
+        err = build.library(SM90_BLOCK_BWD).k5_window_block_strips_bwd_sm90(
+            is_bf16, p(x), p(gy), *(p(w) for w in weights), *ws, p(dx), b, hh,
+            wd, c, num_heads, window, int(residual), dispatch.stream_of(x))
+        build.check(err, "k5_window_block_strips_bwd_sm90")
+        dispatch.count_launch("window_block_strips_bwd", f"window={window}")
+        return dx
     buf = _bwd_buffers(x, c, num_heads, m, m, windows, window * window)
     dx = _launch_bwd("k5_window_block_strips_bwd", is_bf16, x, gy, weights,
                      buf, b, hh, wd, c, num_heads, window, int(residual))

@@ -4,7 +4,8 @@ q-pool -> attention -> proj -> + shortcut; K9, its dx-only backward.
 Counterpart of sam2unet_tpu/ops/pallas/fused_transition.py
 (`fused_transition_block`, `_xla_transition`, `_tr_bwd`,
 `transition_bwd_supported`); the kernels are csrc/fused_transition.cu (K8)
-and csrc/fused_transition_bwd.cu (K9).
+and csrc/fused_transition_bwd.cu (K9), whose bf16 calls on windows of 4 or 8
+run csrc/block_bwd_sm90.cu (`_transition_bwd_library` decides).
 
 Weights in torch layout: w_qkv (3*cout, cin), w_proj (cout, cout),
 w_short (cout, cin). The wrapper is differentiable: K9 where the weights
@@ -21,6 +22,8 @@ import torch
 from sam2unet_torch.nn.layers import layer_norm_plain, linear_f32
 from sam2unet_torch.ops import build, dispatch
 from sam2unet_torch.ops.attention import einsum_attention
+from sam2unet_torch.ops.fused_attention_block import small_window_sm90
+from sam2unet_torch.ops.fused_mlp import SM90_BLOCK_BWD
 from sam2unet_torch.ops.pooling import max_pool2d
 from sam2unet_torch.ops.windowing import window_partition, window_unpartition
 
@@ -61,6 +64,19 @@ def transition_bwd_supported(window: int, cout: int, wd: int,
     n_w = wd // window
     strip_live = n_w * (8 * s * s + 22 * s * cout) + 4 * window * wd * cin
     return strip_live <= 8 * 1024 * 1024
+
+
+def _transition_bwd_library(dtype: torch.dtype, cin: int, cout: int,
+                            num_heads: int, window: int) -> str | None:
+    """The library of K9's call: csrc/block_bwd_sm90.cu where cin is a
+    multiple of 8 elements and `small_window_sm90` holds for its attention
+    (cout over `num_heads` heads; windows of 4 or 8, at most 8 and the
+    16-aligned windows `transition_bwd_supported` passes: the pass holds a
+    window's keys and pooled queries in one tile); None leaves it to
+    csrc/fused_transition_bwd.cu (fp32, other widths, head dims and
+    windows)."""
+    ok = cin % 8 == 0 and small_window_sm90(dtype, cout, num_heads, window)
+    return SM90_BLOCK_BWD if ok else None
 
 
 def _check_transition(x, window, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj,
@@ -147,8 +163,11 @@ def transition_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj, w_short,
     """K9: dx of `fused_transition_block` for a cotangent gy (B, H/2, W/2,
     cout), the weights frozen; recomputed from x. Both 2x2 max-pools (the
     in-window q-pool and the shortcut's) route each pooled gradient to the
-    first maximum of its cell, as max_pool2d's backward does. Plain version:
-    autograd through `plain_transition`."""
+    first maximum of its cell, as max_pool2d's backward does. bf16 calls
+    that `_transition_bwd_library` takes run csrc/block_bwd_sm90.cu: the LN
+    pass, the projections on its GEMM and one small-window attention pass
+    in q-pool mode (no o, lse or D buffer). Plain version: autograd through
+    `plain_transition`."""
     _check_grid(x, window)
     if not dispatch.use_kernel(x):
         fn = functools.partial(plain_transition, w_qkv=w_qkv, b_qkv=b_qkv,
@@ -167,6 +186,19 @@ def transition_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj, w_short,
         raise ValueError("transition_bwd: gy must be (B, H/2, W/2, cout)")
     dispatch.check_kernel_args(x, gy)
     m, m2 = b * hh * wd, b * (hh // 2) * (wd // 2)
+    p = dispatch.ptr
+    if _transition_bwd_library(x.dtype, cin, cout, num_heads, window):
+        # LN(x), qkv, the shortcut, dO, [dq | dk | dv | dshort], dLN(x)
+        dx = torch.empty_like(x)
+        ws = dispatch.workspace(x.device, *(n * x.element_size() for n in (
+            m * cin, 3 * m * cout, m * cout, m2 * cout, 4 * m * cout, m * cin)))
+        err = build.library(SM90_BLOCK_BWD).k9_transition_bwd_sm90(
+            is_bf16, p(x), p(gy), p(w_qkv), p(b_qkv), p(ln_w), p(ln_b),
+            p(w_proj), p(w_short), p(b_short), *ws, p(dx), b, hh, wd, cin,
+            cout, num_heads, window, dispatch.stream_of(x))
+        build.check(err, "k9_transition_bwd_sm90")
+        dispatch.count_launch("transition_bwd", f"window={window}")
+        return dx
     dt, dev = x.dtype, x.device
     rows = lambda n, w: torch.empty((n, w), dtype=dt, device=dev)  # noqa: E731
     windows = b * (hh // window) * (wd // window)
@@ -177,7 +209,6 @@ def transition_bwd(x, gy, w_qkv, b_qkv, ln_w, ln_b, w_proj, b_proj, w_short,
     lse = torch.empty((windows * num_heads, sq), dtype=torch.float32, device=dev)
     D = torch.empty(m2 * num_heads, dtype=torch.float32, device=dev)
     dcat = rows(m, 4 * cout)
-    p = dispatch.ptr
     err = build.library("fused_transition_bwd").k9_transition_bwd(
         is_bf16, p(x), p(gy), p(w_qkv), p(b_qkv), p(ln_w), p(ln_b), p(w_proj),
         p(w_short), p(b_short), p(xn), p(qkv), p(short), p(o), p(lse),

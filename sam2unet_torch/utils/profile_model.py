@@ -44,6 +44,7 @@ ENTRY_WRAPPER = {
     "k3_adapter_bwd": "adapter_bwd", "k3_adapter_bwd_sm90": "adapter_bwd",
     "k4_window_block_strips": "fused_window_block_strips",
     "k5_window_block_strips_bwd": "window_block_strips_bwd",
+    "k5_window_block_strips_bwd_sm90": "window_block_strips_bwd",
     "k6_window_block": "fused_window_block",
     "k6_window_block_masked": "fused_window_block",
     "k7_window_block_bwd": "window_block_bwd",
@@ -52,6 +53,7 @@ ENTRY_WRAPPER = {
     "k7_window_block_bwd_wgrad": "window_block_bwd",
     "k8_transition": "fused_transition_block",
     "k9_transition_bwd": "transition_bwd",
+    "k9_transition_bwd_sm90": "transition_bwd",
     "k10_flash_attention": "flash_attention",
     "k10_flash_attention_d256": "flash_attention",
     "k10_flash_attention_sm90": "flash_attention",
@@ -157,6 +159,65 @@ def trace_entry_kernels(path: str) -> dict[str, dict[str, list]]:
             out[entry][name][0] += dur
             out[entry][name][1] += 1
     return out
+
+
+def _is_launch(e: dict) -> bool:
+    """A host-side kernel launch (cudaLaunchKernel, cudaLaunchKernelExC,
+    cuLaunchKernel, ...) in a Chrome trace."""
+    name = e.get("name", "")
+    return (e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and ("LaunchKernel" in name or "LaunchCooperativeKernel" in name))
+
+
+def trace_call_kernels(path: str, calls: int, within: str | None = None
+                       ) -> tuple[dict[str, list], list[str]]:
+    """The device kernels of `calls` repeats of one call in a torch.profiler
+    Chrome trace, kernel name -> [device time (us), count], and what the
+    trace misses of them: a launch whose kernel it lacks, a kernel whose
+    launch it lacks, an entry point whose annotations are not a multiple of
+    `calls`, or whose calls launched unequal counts of kernels (the
+    profiler's device records of a short call can come back in part). With
+    `within`, only the launches inside that annotation on its thread count,
+    with their kernels and entry-point calls: calls made before it in the
+    same profile take the profiler's first records, which can come back
+    without their kernels."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launches = [e for e in events if _is_launch(e)]
+    corr = lambda e: e.get("args", {}).get("correlation")  # noqa: E731
+    inside = lambda key, t: True  # noqa: E731
+    if within is not None:
+        window = [((e["pid"], e["tid"]), e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") == "user_annotation" and e.get("name") == within]
+        inside = lambda key, t: any(k == key and t0 <= t <= t1  # noqa: E731
+                                    for k, t0, t1 in window)
+        launches = [e for e in launches if inside((e["pid"], e["tid"]), e["ts"])]
+        ours = {corr(e) for e in launches}
+        kernels = [e for e in kernels if corr(e) in ours]
+    by_corr = {corr(e) for e in kernels}
+    launched = {corr(e) for e in launches}
+    faults = []
+    launches.sort(key=lambda e: e["ts"])
+    lost = [i for i, e in enumerate(launches, 1) if corr(e) not in by_corr]
+    if lost:
+        faults.append(f"launches {lost} of {len(launches)} without their kernel")
+    orphans = sum(corr(e) not in launched for e in kernels)
+    if orphans:
+        faults.append(f"{orphans} of {len(kernels)} kernels without their launch")
+    per_call = collections.defaultdict(list)
+    for key, spans in _entry_spans(events).items():
+        at = sorted(e["ts"] for e in launches if (e["pid"], e["tid"]) == key)
+        for t0, t1, name in spans:
+            if inside(key, t0):
+                per_call[name].append(bisect.bisect_right(at, t1) - bisect.bisect_left(at, t0))
+    for name, counts in sorted(per_call.items()):
+        if len(counts) % calls or len(set(counts)) != 1 or counts[0] == 0:
+            faults.append(f"{name}: {len(counts)} calls launching {counts} kernels")
+    out: dict[str, list] = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        out[e["name"]][0] += e["dur"]
+        out[e["name"]][1] += 1
+    return dict(out), faults
 
 
 def entry_calls(path: str) -> collections.Counter:

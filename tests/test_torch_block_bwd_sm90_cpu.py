@@ -212,13 +212,15 @@ def test_adapter_bwd_takes_the_hopper_entry_with_its_partial_buffer(monkeypatch,
 
 def test_the_library_is_registered_and_profiled():
     """csrc/block_bwd_sm90.cu is a library of its own, built beside the
-    others after the shared ones; its entry points are counted under the
+    others after the shared ones; its entry points (K3's, K7's, and K5's and
+    K9's, tests/test_torch_strips_bwd_sm90_cpu.py) are counted under the
     wrappers of their CUDA-core counterparts in a profile."""
     assert SM90_BLOCK_BWD in build.SOURCES and SRC.is_file()
     assert build.SOURCES.index(SM90_BLOCK_BWD) > max(
         build.SOURCES.index(s) for s in build.SHARED_SOURCES)
-    assert set(build.SIGNATURES[SM90_BLOCK_BWD]) == {"k3_adapter_bwd_sm90",
-                                                     "k7_window_block_bwd_sm90"}
+    assert set(build.SIGNATURES[SM90_BLOCK_BWD]) == {
+        "k3_adapter_bwd_sm90", "k7_window_block_bwd_sm90",
+        "k5_window_block_strips_bwd_sm90", "k9_transition_bwd_sm90"}
     k7 = build.SIGNATURES["fused_attention_block_bwd"]["k7_window_block_bwd"]
     # K7's arguments without O
     assert build.SIGNATURES[SM90_BLOCK_BWD]["k7_window_block_bwd_sm90"] == k7[:10] + k7[11:]

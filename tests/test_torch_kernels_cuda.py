@@ -38,7 +38,10 @@ K6 / K7 in every mode at c 26, 20 and 2064, the strips and remainder
 strips at c 26, K8 / K9 at 20 -> 40, 2056 -> 48 and an odd cout; K1 and
 K2 in bf16 on the Hopper GEMM and adapter (csrc/mlp_sm90.cu) at every
 main-path width and the window groups' row counts, with no row written past
-M and twice with the same bits.
+M and twice with the same bits; K5 and K9 in bf16 on csrc/block_bwd_sm90.cu
+at the main paths' window shapes, an odd count of w4 windows along W and
+exactly tied cells, twice with the same bits, fp32 and head dim 144 on the
+old sources.
 Tolerances: max|kernel - plain| <= 2e-2 * max|plain| in bf16, 1e-4 in
 fp32 (TF32 off), for each output (K9 in bf16: see K9_NEAR_TIE_SHARE).
 """
@@ -1629,3 +1632,74 @@ def test_k7_sm90_after_the_mlp_gemm_of_another_library(gen):
     mlp_bwd_dx(x, gy, w1, b1, w2, b2, residual=True)
     x, gy, wt = _k7_case(gen, 2, 256, 576)
     _compare(lambda: window_block_bwd(x, gy, *wt, num_heads=8), torch.bfloat16)
+
+
+# K5 and K9 in bf16 on csrc/block_bwd_sm90.cu (windows of 4 or 8, head dims
+# multiples of 8 up to 128): the LN pass and the projections on the wgmma
+# GEMM and one small-window attention pass over the (B, H, W, c) grid's
+# windows. K5 at hiera_l@352's and hiera_s@960's window shapes at a small
+# batch, and at an odd count of w4 windows along W (a strip's last tile
+# holds one window of four); K9 at test_k9_kernel_matches_plain's three
+# geometries, an odd count of w4 windows along W and head dim 96 at w4.
+K5_SM90_SHAPES = [(2, 16, 16, 144, 2, 8), (2, 8, 8, 288, 4, 4), (2, 16, 16, 192, 2, 8),
+                  (2, 8, 20, 288, 4, 4), (1, 16, 24, 96, 1, 8), (2, 12, 20, 192, 2, 4)]
+K9_SM90_SHAPES = [(2, 16, 16, 72, 144, 2, 8), (2, 8, 8, 144, 288, 4, 4),
+                  (2, 16, 16, 96, 192, 2, 8), (2, 8, 20, 144, 288, 4, 4),
+                  (2, 12, 20, 192, 384, 4, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hh,wd,c,nh,win", K5_SM90_SHAPES)
+def test_k5_sm90_matches_plain_at_main_path_shapes(gen, monkeypatch, b, hh, wd, c, nh, win):
+    """K5 on csrc/block_bwd_sm90.cu, with and without the residual, and
+    twice with the same bits."""
+    x, gy = _rnd(gen, torch.bfloat16, b, hh, wd, c), _rnd(gen, torch.bfloat16, b, hh, wd, c)
+    w = _attn_weights(gen, torch.bfloat16, c, c)
+    for residual in (True, False):
+        call = lambda: window_block_strips_bwd(x, gy, *w, num_heads=nh, window=win,
+                                               residual=residual)
+        assert _on_sm90(call, monkeypatch) == [BLOCK_BWD]
+        _compare(call, torch.bfloat16)
+        assert torch.equal(call(), call())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hh,wd,cin,cout,nh,win", K9_SM90_SHAPES)
+def test_k9_sm90_matches_plain_at_main_path_shapes(gen, monkeypatch, b, hh, wd, cin, cout,
+                                                   nh, win):
+    """K9 on csrc/block_bwd_sm90.cu (K9_NEAR_TIE_SHARE's rule), and twice
+    with the same bits; a grid of exactly tied cells routes every pooled
+    gradient to the cell's first token, as the plain version does."""
+    x = _rnd(gen, torch.bfloat16, b, hh, wd, cin)
+    gy = _rnd(gen, torch.bfloat16, b, hh // 2, wd // 2, cout)
+    w = _attn_weights(gen, torch.bfloat16, cin, cout)
+    ws, bs = _lin(gen, torch.bfloat16, cout, cin)
+    call = lambda: transition_bwd(x, gy, *w, ws, bs, num_heads=nh, window=win)
+    assert _on_sm90(call, monkeypatch) == [BLOCK_BWD]
+    _compare(call, torch.bfloat16, near_ties=True)
+    assert torch.equal(call(), call())
+    tied = x[:, ::2, ::2].repeat_interleave(2, 1).repeat_interleave(2, 2).contiguous()
+    _compare(lambda: transition_bwd(tied, gy, *w, ws, bs, num_heads=nh, window=win),
+             torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_k5_k9_old_sources_keep_fp32_and_other_head_dims(gen, monkeypatch):
+    """fp32 K5 and K9 and a head dim past 128 keep
+    csrc/fused_attention_block_bwd.cu and csrc/fused_transition_bwd.cu."""
+    f = lambda *t: tuple(a.float() for a in t)  # noqa: E731
+    x, gy = _rnd(gen, torch.bfloat16, 2, 8, 8, 288), _rnd(gen, torch.bfloat16, 2, 8, 8, 288)
+    w = _attn_weights(gen, torch.bfloat16, 288, 288)
+    call = lambda: window_block_strips_bwd(*f(x, gy, *w), num_heads=4, window=4)
+    assert _on_sm90(call, monkeypatch) == ["fused_attention_block_bwd"]
+    call = lambda: window_block_strips_bwd(x, gy, *w, num_heads=2, window=4)  # d 144
+    assert _on_sm90(call, monkeypatch) == ["fused_attention_block_bwd"]
+    _compare(call, torch.bfloat16)
+    x = _rnd(gen, torch.bfloat16, 2, 8, 8, 144)
+    gy = _rnd(gen, torch.bfloat16, 2, 4, 4, 288)
+    w = _attn_weights(gen, torch.bfloat16, 144, 288)
+    ws, bs = _lin(gen, torch.bfloat16, 288, 144)
+    call = lambda: transition_bwd(*f(x, gy, *w, ws, bs), num_heads=4, window=4)
+    assert _on_sm90(call, monkeypatch) == ["fused_transition_bwd"]
+    call = lambda: transition_bwd(x, gy, *w, ws, bs, num_heads=2, window=4)  # d 144
+    assert _on_sm90(call, monkeypatch) == ["fused_transition_bwd"]

@@ -6,7 +6,9 @@
     runs the plain versions).
   - `trace_device_time` and `entry_calls` on a small saved Chrome trace in
     torch.profiler's layout: device kernels launched inside a C entry
-    point's annotation count under its name, others under their own.
+    point's annotation count under its name, others under their own;
+    `trace_call_kernels` on a trace of repeated calls, whole or missing a
+    kernel, a launch or a call's launches.
   - every C entry point of `ops/build.py` has its dispatch wrapper, a name
     the wrappers count launches under.
   - the augmentation dump writes its pairs, and equals the JAX script's
@@ -112,6 +114,69 @@ def test_trace_entry_kernels_lists_each_entry_points_kernels(tmp_path):
     assert got == {"k1_fused_mlp": {"gemm_bf16_kernel": [61.0, 2],
                                     "ln_kernel": [11.0, 2]},
                    "k10_flash_attention": {"flash_fwd_kernel": [40.0, 1]}}
+
+
+def _repeat_trace(tmp_path: Path, drop=None, k1_kernels=(2, 2)) -> Path:
+    """Two calls of K1 (k1_kernels[i] launches each) and a PyTorch kernel
+    outside them, on one thread; `drop` = "kernel" or "launch" leaves out
+    the device or the host record of the first call's first launch."""
+    ev, corr, ts = [], 0, 100
+    for n in k1_kernels:
+        ev.append({"ph": "X", "cat": "user_annotation", "name": "k1_fused_mlp",
+                   "pid": 1, "tid": 7, "ts": ts, "dur": 20})
+        for j in range(n):
+            corr += 1
+            if not (drop == "launch" and corr == 1):
+                ev.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+                           "pid": 1, "tid": 7, "ts": ts + 2 + j, "dur": 1,
+                           "args": {"correlation": corr}})
+            if not (drop == "kernel" and corr == 1):
+                ev.append({"ph": "X", "cat": "kernel", "name": f"kern{j}", "pid": 0,
+                           "tid": 3, "ts": ts + 50 + j, "dur": 10 + j,
+                           "args": {"correlation": corr}})
+        ts += 100
+    corr += 1
+    ev.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernelExC", "pid": 1,
+               "tid": 7, "ts": ts, "dur": 1, "args": {"correlation": corr}})
+    ev.append({"ph": "X", "cat": "kernel", "name": "elementwise", "pid": 0, "tid": 3,
+               "ts": ts + 50, "dur": 4, "args": {"correlation": corr}})
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    return path
+
+
+@pytest.mark.parametrize("drop,k1_kernels,calls,faults", [
+    (None, (2, 2), 2, []),
+    ("kernel", (2, 2), 2, ["launches [1] of 5 without their kernel"]),
+    ("launch", (2, 2), 2, ["1 of 5 kernels without their launch",
+                           "k1_fused_mlp: 2 calls launching [1, 2] kernels"]),
+    (None, (2, 1), 2, ["k1_fused_mlp: 2 calls launching [2, 1] kernels"]),
+    (None, (2, 2), 3, ["k1_fused_mlp: 2 calls launching [2, 2] kernels"])])
+def test_trace_call_kernels_reads_repeated_calls_and_what_they_miss(tmp_path, drop,
+                                                                    k1_kernels, calls, faults):
+    """Every kernel of the repeated calls by name, with its time and count;
+    a launch without its kernel, a kernel without its launch, an entry
+    point whose calls launched unequal counts or whose calls are not a
+    multiple of the repeats are each named."""
+    got, missed = profile_model.trace_call_kernels(
+        _repeat_trace(tmp_path, drop, k1_kernels), calls)
+    assert missed == faults
+    if not faults:
+        assert got == {"kern0": [20.0, 2], "kern1": [22.0, 2], "elementwise": [4.0, 1]}
+
+
+def test_trace_call_kernels_within_an_annotation_counts_only_its_calls(tmp_path):
+    """With `within`, a call before the annotation (whose first launch lost
+    its kernel) counts neither its launches nor its kernels."""
+    path = _repeat_trace(tmp_path, "kernel")
+    trace = json.loads(path.read_text())
+    trace["traceEvents"].append({"ph": "X", "cat": "user_annotation", "name": "timed",
+                                 "pid": 1, "tid": 7, "ts": 195, "dur": 30})
+    path.write_text(json.dumps(trace))
+    got, missed = profile_model.trace_call_kernels(path, 1, "timed")
+    assert missed == [] and got == {"kern0": [10.0, 1], "kern1": [11.0, 1]}
+    assert profile_model.trace_call_kernels(path, 2)[1] == [
+        "launches [1] of 5 without their kernel"]
 
 
 def test_every_entry_point_has_its_wrapper():

@@ -38,10 +38,11 @@ def test_every_port_source_matches_a_package_data_glob():
     globs = _package_data()
     files = sorted(p.relative_to(REPO / "sam2unet_torch").as_posix()
                    for p in CSRC.iterdir() if p.is_file())
-    assert len(files) == 39, files
+    assert len(files) == 40, files
     assert {"csrc/hopper.cuh", "csrc/flash_attention_bwd_sm90.cu",
             "csrc/flash_attention_bwd_sm90.cuh", "csrc/flash_attention_fwd_sm90.cu",
-            "csrc/mlp_sm90.cu", "csrc/gemm_sm90.cuh", "csrc/block_bwd_sm90.cu"} <= set(files)
+            "csrc/mlp_sm90.cu", "csrc/gemm_sm90.cuh", "csrc/block_bwd_sm90.cu",
+            "csrc/unpool2x2.cuh"} <= set(files)
     loose = [f for f in files if not any(fnmatch.fnmatch(f, g) for g in globs)]
     assert not loose, f"not shipped in the wheel: {loose}"
 
